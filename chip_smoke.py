@@ -5,30 +5,45 @@
 
 Run from the root of a checkout on a machine with an sm_90 card.  Phases:
 
-1. device: the card's name and power limit; TF32 off for fp32 products;
+1. device: the card's name and power limit; TF32 off for fp32 products
+   and convolutions;
 2. build: compile the CUDA kernels from ``src/repro_torch/csrc``;
 3. kernels vs plain: every kernel against its plain PyTorch version on the
-   card, fp32 and bf16, at the slice's shapes and at edge shapes; paged
-   decode against dense decode on the same rows (bit for bit);
-4. slice: llama3.2-1b at full width and depth (bf16, seeded random
+   card, fp32 and bf16, at the slices' shapes and at edge shapes — prefill
+   attention at head dims 16-128 (80: zamba2-2.7b's, causal, GQA G=1 and
+   G=4), the Mamba-1 scan (ragged L and C, N = 4..128, large dt*A) and the
+   Mamba-2 SSD (ragged L, G in {1, 2, 4}, N in {16, 64}, large dt*A);
+   paged decode against dense decode on the same rows (bit for bit); and
+   the gradient of each autograd-wrapped op (kernel forward, recompute
+   backward) against autograd through its plain version;
+4. serving slice: llama3.2-1b at full width and depth (bf16, seeded random
    weights) through the fixed-batch serve path and through the continuous
    batcher (dense, paged, paged with chunked prefill), with every launch
    counter set to 0 before and read after; prefill and decode logits
    against a plain-version run with the same weights;
+4b. training slice: falcon-mamba-7b (8 of 64 layers) and zamba2-2.7b (12
+   of 54) at full width, bf16 compute with fp32 AdamW master weights,
+   batch 2 x 1024 tokens, 4 steps each through
+   ``repro_torch.launch.train``, the counters read after every step (each
+   step must launch the scan resp. the SSD, attention and RMSNorm
+   kernels); one step with the kernels against the same step under
+   ``dispatch.use_mode("ref")`` (2 layers resp. 1 super-block);
 5. timings: each kernel, its plain version and the one-call PyTorch
-   yardstick, timed with CUDA events at the slice's shapes, beside the
-   card's bound for the same work;
-6. profile: device time by kernel over a few decode steps of the fixed
-   batch, and the device's busy share.
+   yardstick where one exists, timed with CUDA events at the slices'
+   shapes, beside the card's bound for the same work;
+6. profiles: device time by kernel over a few decode steps of the fixed
+   batch, and over one train step of each training model (with the share
+   of the recompute backwards), and the device's busy share.
 
-Prints the kernel table and the slice summary as JSON lines, and, as the
-last line, ``{"ok": true, "device": {...}}``.  Any failed check exits
-non-zero without that line.  Without a CUDA card, or outside a checkout,
-it exits non-zero before doing anything.
+Prints the kernel table, the serving and the training summaries as JSON
+lines, and, as the last line, ``{"ok": true, "device": {...}}``.  Any
+failed check exits non-zero without that line.  Without a CUDA card, or
+outside a checkout, it exits non-zero before doing anything.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -45,6 +60,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
 
 ARCH = "llama3.2-1b"
+SERVE_KERNELS = ("rmsnorm", "flash_attention", "decode_attention",
+                 "paged_decode_attention")
 FIXED = dict(batch=4, prompt_len=64, gen=32)
 LOGIT_STEPS = 5  # prefill + the first 4 decode steps
 
@@ -71,8 +88,8 @@ def _rand(torch, gen, shape, dtype, device):
                        dtype=torch.float32).to(dtype)
 
 
-def _compare(torch, name, out, ref, dtype_name, errs, main):
-    atol, rtol = TOL[dtype_name]
+def _compare(torch, name, out, ref, dtype_name, errs, main, tol=None):
+    atol, rtol = tol or TOL[dtype_name]
     o, r = out.float(), ref.float()
     check(bool(torch.isfinite(o).all()), f"{name}: non-finite kernel output")
     err = (o - r).abs()
@@ -131,7 +148,12 @@ def phase_kernels(torch, dev):
                 (2, 48, 48, 4, 2, 16,
                  {"sliding_window": 9, "logit_softcap": 30.0}, False),
                 (1, 16, 48, 4, 2, 64, {"q_offset": 32}, False),
-                (1, 70, 70, 4, 4, 128, {}, False)):
+                (1, 70, 70, 4, 4, 128, {}, False),
+                # head dim 80: zamba2-2.7b's shared attention at its
+                # training shape (32 q / 32 kv heads), GQA G=4, ragged
+                (2, 1024, 1024, 32, 32, 80, {}, True),
+                (1, 200, 200, 32, 8, 80, {}, False),
+                (1, 77, 77, 8, 8, 80, {}, False)):
             q = _rand(torch, gen, (b, sq, hq, d), dt, dev)
             k = _rand(torch, gen, (b, skv, hkv, d), dt, dev)
             v = _rand(torch, gen, (b, skv, hkv, d), dt, dev)
@@ -201,6 +223,169 @@ def phase_kernels(torch, dev):
             n_cases += 2
     torch.cuda.synchronize()
     return {k: max(v) for k, v in errs.items()}, n_cases
+
+
+# --------------------------------------------------------------------------
+# phase 3 (continued): the SSM kernels against their plain versions, and
+# each autograd-wrapped op's gradient on the card
+# --------------------------------------------------------------------------
+
+# (b, l, c, n, chunk, c_block, dt_scale, main): the slice's falcon-mamba-7b
+# shape (the config's TPU-sized chunk 256 and c_block 512 snap down), L not
+# a multiple of chunk, C not a multiple of c_block, N = 4, 8, 64, 128, and
+# dt * A down to -80 (decays that underflow)
+SCAN_CASES = (
+    (2, 1024, 8192, 16, 256, 512, 0.1, True),
+    (2, 1024, 8192, 16, 64, 32, 0.1, True),
+    (1, 50, 24, 16, 32, 8, 0.1, False),
+    (2, 100, 200, 64, 32, 64, 0.1, False),
+    (1, 77, 130, 16, 16, 128, 5.0, False),
+    (2, 33, 40, 4, 16, 16, 0.1, False),
+    (1, 64, 96, 8, 64, 64, 0.1, False),
+    (1, 40, 70, 128, 16, 32, 0.1, False),
+)
+# (b, l, h, p, g, n, chunk, dt_scale, main): zamba2-2.7b's shape (chunk 256
+# snaps to 64), ragged L, G in {1, 2, 4}, N in {16, 64}, large dt * A
+SSD_CASES = (
+    (2, 1024, 80, 64, 1, 64, 256, 0.1, True),
+    (1, 100, 8, 64, 2, 64, 64, 0.1, False),
+    (2, 70, 8, 32, 4, 16, 32, 0.1, False),
+    (1, 45, 4, 80, 1, 16, 16, 0.1, False),
+    (1, 64, 4, 64, 1, 64, 64, 5.0, False),
+    (2, 129, 6, 16, 2, 16, 32, 0.1, False),
+)
+
+
+# The SSD's decays are exp(cum_t - cum_s) of running sums cum of dt * A,
+# in the plain version as in the kernel.  With dt * A near -20 per step the
+# sums reach ~1e3 within a 64-step chunk, so each carries ~1e3 * 2^-24 =
+# 6e-5 of rounding, and the two sum in different orders: decayed terms
+# differ by ~1e-4 relative, and a sum of them that nearly cancels by more.
+# The fp32 tolerance of those cases is set by that, not by the kernel.
+LARGE_DECAY_TOL = (2e-3, 2e-3)
+
+
+def scan_inputs(torch, gen, b, l, c, n, dt_scale, dtype, dev):
+    x = _rand(torch, gen, (b, l, c), dtype, dev)
+    dt = (torch.rand((b, l, c), generator=gen, device=dev) * dt_scale
+          ).to(dtype)
+    A = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(
+        c, n).contiguous()
+    Bm = _rand(torch, gen, (b, l, n), dtype, dev)
+    Cm = _rand(torch, gen, (b, l, n), dtype, dev)
+    D = _rand(torch, gen, (c,), torch.float32, dev)
+    return x, dt, A, Bm, Cm, D
+
+
+def ssd_inputs(torch, gen, b, l, h, p, g, n, dt_scale, dtype, dev):
+    x = _rand(torch, gen, (b, l, h, p), dtype, dev)
+    dt = (torch.rand((b, l, h), generator=gen, device=dev) * dt_scale
+          ).to(dtype)
+    A = -torch.arange(1, h + 1, dtype=torch.float32, device=dev)
+    Bm = _rand(torch, gen, (b, l, g, n), dtype, dev)
+    Cm = _rand(torch, gen, (b, l, g, n), dtype, dev)
+    D = _rand(torch, gen, (h,), torch.float32, dev)
+    return x, dt, A, Bm, Cm, D
+
+
+def phase_ssm_kernels(torch, dev):
+    from repro_torch.kernels.mamba_scan.kernel import selective_scan_cuda
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_chunked_ref
+    from repro_torch.kernels.ssd.kernel import ssd_cuda
+    from repro_torch.kernels.ssd.ref import ssd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    errs = {"selective_scan": [], "ssd": []}
+    n_cases = 0
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).split(".")[1]
+        for (b, l, c, n, chunk, cb, scale, main) in SCAN_CASES:
+            a = scan_inputs(torch, gen, b, l, c, n, scale, dt, dev)
+            ref = selective_scan_chunked_ref(*a, chunk=64)
+            out = selective_scan_cuda(*a, chunk=chunk, c_block=cb)
+            _compare(torch, f"selective_scan {(b, l, c, n)} chunk {chunk} "
+                     f"c_block {cb} dt*{scale} {dn}", out, ref, dn,
+                     errs["selective_scan"], main)
+            n_cases += 1
+        for (b, l, h, p, g, n, chunk, scale, main) in SSD_CASES:
+            a = ssd_inputs(torch, gen, b, l, h, p, g, n, scale, dt, dev)
+            ref = ssd_ref(*a, chunk=64)
+            out = ssd_cuda(*a, chunk=chunk)
+            tol = LARGE_DECAY_TOL if scale > 1 and dn == "float32" else None
+            _compare(torch, f"ssd {(b, l, h, p, g, n)} chunk {chunk} "
+                     f"dt*{scale} {dn}", out, ref, dn, errs["ssd"], main,
+                     tol)
+            n_cases += 1
+    torch.cuda.synchronize()
+    return {k: max(v) for k, v in errs.items()}, n_cases
+
+
+GRAD_TOL = (2e-2, 2e-2)  # bf16 forward outputs feed the loss's gradient
+
+
+def phase_grads(torch, dev):
+    """Each autograd-wrapped op on CUDA tensors (kernel forward, recompute
+    backward) against autograd through its plain version, bf16 inputs, on
+    the loss sum(y^2): the gradients may differ only as far as the kernel's
+    bf16 output differs from the plain one."""
+    from repro_torch.kernels import cuda_lib, ops
+    from repro_torch.kernels.flash_attention.ref import attention_blockwise_ref
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_chunked_ref
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.ssd.ref import ssd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bf = torch.bfloat16
+    cases = {
+        "rmsnorm": ((_rand(torch, gen, (2, 64, 2560), bf, dev),
+                     _rand(torch, gen, (2560,), bf, dev)),
+                    lambda x, w: ops.rmsnorm(x, w),
+                    lambda x, w: rmsnorm_ref(x, w)),
+        "flash_attention": (
+            tuple(_rand(torch, gen, (1, 128, 8, 80), bf, dev)
+                  for _ in range(3)),
+            lambda q, k, v: ops.flash_attention(q, k, v),
+            lambda q, k, v: attention_blockwise_ref(q, k, v)),
+        "selective_scan": (
+            scan_inputs(torch, gen, 1, 100, 256, 16, 0.1, bf, dev),
+            lambda *a: ops.selective_scan(*a, chunk=256),
+            lambda *a: selective_scan_chunked_ref(*a, chunk=256)),
+        "ssd": (ssd_inputs(torch, gen, 1, 100, 8, 64, 1, 64, 0.1, bf, dev),
+                lambda *a: ops.ssd(*a, chunk=256),
+                lambda *a: ssd_ref(*a, chunk=256)),
+    }
+    out = {}
+    for name, (inputs, op, plain) in cases.items():
+        grads = []
+        for fn in (op, plain):
+            xs = [t.detach().clone().requires_grad_() for t in inputs]
+            cuda_lib.reset_launches()
+            ops.reset_recomputes()
+            (fn(*xs).float() ** 2).sum().backward()
+            grads.append([t.grad.float() for t in xs])
+            if fn is op:
+                check(cuda_lib.LAUNCHES[name] == 1 and
+                      ops.RECOMPUTES[name] == 1,
+                      f"{name}: the wrapped op launched "
+                      f"{cuda_lib.LAUNCHES[name]} kernels and ran "
+                      f"{ops.RECOMPUTES[name]} recomputes (want 1 and 1)")
+        worst = 0.0
+        for i, (gk, gp) in enumerate(zip(*grads)):
+            check(bool(torch.isfinite(gk).all()),
+                  f"{name}: non-finite gradient of input {i}")
+            err = (gk - gp).abs()
+            scale = float(gp.abs().max())
+            # a relative bound on the whole tensor: reductions (w, A, D)
+            # sum many rounded products
+            bad = err > GRAD_TOL[0] * scale + GRAD_TOL[1] * gp.abs()
+            check(not bool(bad.any()),
+                  f"{name}: gradient of input {i} off in {int(bad.sum())} "
+                  f"elements, max |err| {float(err.max()):.3e} (max |g| "
+                  f"{scale:.3e})")
+            worst = max(worst, float(err.max()) / max(scale, 1e-30))
+        out[name] = worst
+    torch.cuda.synchronize()
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -282,8 +467,9 @@ def phase_slice(torch, np, dev):
     summary = prof.summary()
     log(f"main-path launches: {launches}")
     log(f"dispatch resolutions: { {k: v['resolutions'] for k, v in summary.items()} }")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the serving path")
     plain = [k for k in summary if k.endswith(f"[{dispatch.REF}]")]
     check(not plain, f"CUDA tensors resolved to plain versions: {plain}")
 
@@ -377,6 +563,165 @@ LOGIT_RTOL = 2.0 ** -7
 
 
 # --------------------------------------------------------------------------
+# phase 4b: the training slice — falcon-mamba-7b and zamba2-2.7b trained at
+# full width through repro_torch.launch.train
+# --------------------------------------------------------------------------
+
+# full width, depth cut to fit one 80 GB card with fp32 master weights and
+# AdamW moments (falcon-mamba-7b's 64 layers are 6.7 B parameters, ~107 GB
+# of optimizer state): 8 of 64 layers, and 12 of 54 (two super-blocks)
+TRAIN = {"falcon-mamba-7b": 8, "zamba2-2.7b": 12}
+TRAIN_SHAPE = dict(batch=2, seq=1024, steps=4)
+# the kernel-vs-plain step comparison: 2 layers, 1 super-block
+COMPARE_LAYERS = {"falcon-mamba-7b": 2, "zamba2-2.7b": 6}
+TRAIN_KERNELS = {"falcon-mamba-7b": ("selective_scan", "rmsnorm"),
+                 "zamba2-2.7b": ("ssd", "flash_attention", "rmsnorm")}
+# one AdamW step with the kernels against the same step with the plain
+# versions, bf16 compute: both round their outputs to bf16 but sum in
+# other orders, so the loss agrees to 1e-2 relative and the gradient norm
+# to 5e-2; the first Adam update is lr * g / (|g| + eps), about lr *
+# sign(g), so a parameter may move the other way only where its gradient
+# is near 0: at most 2% of the parameters may differ by more than lr / 2
+STEP_TOL = {"loss_rtol": 1e-2, "grad_norm_rtol": 5e-2, "flipped_share": 0.02}
+
+
+def phase_train(torch, np, dev):
+    from repro_torch.configs.registry import get_model_config
+    from repro_torch.kernels import cuda_lib, dispatch, ops
+    from repro_torch.launch.train import train
+
+    out = {}
+    for arch, layers in TRAIN.items():
+        cfg = get_model_config(arch).replace(num_layers=layers)
+        n_params = cfg.param_count()
+        per_step = []
+
+        def log_step(i, metrics, step_s):
+            per_step.append({"launches": dict(cuda_lib.LAUNCHES),
+                             "recomputes": dict(ops.RECOMPUTES)})
+            cuda_lib.reset_launches()
+            ops.reset_recomputes()
+            log(f"{arch} step {i}: loss {float(metrics['loss']):.4f}, grad "
+                f"norm {float(metrics['grad_norm']):.3f}, "
+                f"{step_s * 1000:.1f} ms")
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # ---- the main path, counted per step ---------------------------
+        cuda_lib.reset_launches()
+        ops.reset_recomputes()
+        with dispatch.profile_dispatches() as prof:
+            res = train(cfg, steps=TRAIN_SHAPE["steps"],
+                        seq=TRAIN_SHAPE["seq"], batch=TRAIN_SHAPE["batch"],
+                        device=dev, seed=0, log=log_step)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        plain = [k for k in prof.summary() if k.endswith(f"[{dispatch.REF}]")]
+        check(not plain, f"{arch}: CUDA tensors resolved to plain versions "
+              f"in the forward: {plain}")
+        check(all(np.isfinite(res.losses)), f"{arch}: losses {res.losses}")
+        for i, counts in enumerate(per_step):
+            for name in TRAIN_KERNELS[arch]:
+                check(counts["launches"][name] > 0,
+                      f"{arch} step {i}: kernel {name} not launched")
+        total = {k: sum(c["launches"][k] for c in per_step)
+                 for k in cuda_lib.LAUNCHES}
+        recomputes = {k: sum(c["recomputes"][k] for c in per_step)
+                      for k in ops.RECOMPUTES}
+        steady = res.step_s[1:]
+        p50 = float(np.percentile(steady, 50))
+        tokens = TRAIN_SHAPE["batch"] * TRAIN_SHAPE["seq"]
+        out[arch] = {
+            "layers": layers, "of_layers": get_model_config(arch).num_layers,
+            "params": n_params, **TRAIN_SHAPE,
+            "losses": res.losses, "grad_norms": res.grad_norms,
+            "step_ms": [t * 1000 for t in res.step_s],
+            "step_p50_ms": p50 * 1000, "tokens_per_s": tokens / p50,
+            "peak_mem_gb": peak / 1e9,
+            "launches": total,
+            "launches_per_step": per_step[-1]["launches"],
+            "recomputes_per_step": per_step[-1]["recomputes"],
+            "recomputes": recomputes}
+        log(f"{arch} ({layers} of {out[arch]['of_layers']} layers, "
+            f"{n_params / 1e9:.3f} B params): step p50 {p50 * 1000:.1f} ms "
+            f"(steps 2-{TRAIN_SHAPE['steps']}), {tokens / p50:.0f} tok/s, "
+            f"peak {peak / 1e9:.1f} GB; launches per step "
+            f"{per_step[-1]['launches']}, recomputes per step "
+            f"{per_step[-1]['recomputes']}")
+        del res
+        torch.cuda.empty_cache()
+        out[arch]["vs_plain"] = _compare_step(torch, np, dev, arch)
+    return out
+
+
+def _compare_step(torch, np, dev, arch):
+    """One step with the kernels and the same step under
+    ``dispatch.use_mode("ref")``, from the same weights on the same
+    batch."""
+    from repro_torch.configs.registry import get_model_config
+    from repro_torch.data.pipeline import make_data
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.train import make_run
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+
+    cfg = get_model_config(arch).replace(num_layers=COMPARE_LAYERS[arch])
+    run = make_run(cfg, seq=TRAIN_SHAPE["seq"], batch=TRAIN_SHAPE["batch"],
+                   steps=TRAIN_SHAPE["steps"])
+    model = build_model(cfg, run.parallel, device=dev)
+    opt = make_optimizer(run.train)
+    step = make_train_step(model, run, opt)
+    batch = make_data(cfg, run.shape, seed=0).batch_at(0)
+    results = {}
+    init = None
+    for mode in ("cuda", "ref"):
+        state = init_train_state(model, run, opt, seed=0)
+        if init is None:
+            init = {k: v.detach().clone() for k, v in _flat(state.params)}
+        with (dispatch.use_mode(dispatch.REF) if mode == "ref"
+              else contextlib.nullcontext()):
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        results[mode] = (float(m["loss"]), float(m["grad_norm"]),
+                         {k: (v - init[k]).float()
+                          for k, v in _flat(state.params)})
+        del state
+        torch.cuda.empty_cache()
+    (lk, gk, dk), (lr_, gr, dr) = results["cuda"], results["ref"]
+    lr_step = float(m["lr"])
+    flipped = sum(int(((dk[k] - dr[k]).abs() > lr_step / 2).sum())
+                  for k in dk)
+    n = sum(v.numel() for v in dk.values())
+    rel_l2 = float(torch.sqrt(sum(((dk[k] - dr[k]) ** 2).sum() for k in dk))
+                   / torch.sqrt(sum((dr[k] ** 2).sum() for k in dr)))
+    out = {"layers": cfg.num_layers, "loss": lk, "loss_plain": lr_,
+           "grad_norm": gk, "grad_norm_plain": gr,
+           "flipped_share": flipped / n, "update_rel_l2": rel_l2,
+           "lr": lr_step, "tolerance": STEP_TOL}
+    log(f"{arch} step vs plain ({cfg.num_layers} layers): loss {lk:.5f} vs "
+        f"{lr_:.5f}, grad norm {gk:.4f} vs {gr:.4f}, updates differing by "
+        f"> lr/2: {flipped} of {n} ({flipped / n:.2e}), update rel. L2 "
+        f"{rel_l2:.3e}")
+    check(abs(lk - lr_) <= STEP_TOL["loss_rtol"] * abs(lr_),
+          f"{arch}: loss {lk} vs plain {lr_}")
+    check(abs(gk - gr) <= STEP_TOL["grad_norm_rtol"] * abs(gr),
+          f"{arch}: grad norm {gk} vs plain {gr}")
+    check(flipped / n <= STEP_TOL["flipped_share"],
+          f"{arch}: {flipped} of {n} parameter updates differ by > lr/2")
+    return out
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+# --------------------------------------------------------------------------
 # phase 5: timings
 # --------------------------------------------------------------------------
 
@@ -431,8 +776,12 @@ def phase_timings(torch, dev, errs, launches):
         paged_decode_attention_cuda)
     from repro_torch.kernels.paged_attention.ref import (
         paged_decode_attention_ref)
+    from repro_torch.kernels.mamba_scan.kernel import selective_scan_cuda
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_chunked_ref
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.ssd.kernel import ssd_cuda
+    from repro_torch.kernels.ssd.ref import ssd_ref
 
     gen = torch.Generator(device=dev).manual_seed(1)
     bf = torch.bfloat16
@@ -445,7 +794,7 @@ def phase_timings(torch, dev, errs, launches):
         l2.zero_()
 
     def row(name, source, replaces, shape, kernel, plain, library, nbytes,
-            flops, elementwise=False):
+            flops, elementwise=False, note=None):
         ms = _time_ms(torch, kernel, flush)
         plain_ms = _time_ms(torch, plain, flush)
         lib_ms = (_time_ms(torch, library, flush) if library is not None
@@ -454,11 +803,13 @@ def phase_timings(torch, dev, errs, launches):
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "shape": shape, "dtype": "bfloat16",
-            "launches": launches[name], "max_abs_err": errs[name],
+            "launches": sum(launches[name].values()),
+            "launches_by_path": launches[name], "max_abs_err": errs[name],
             "tolerance": {"float32": TOL["float32"],
                           "bfloat16": TOL["bfloat16"]},
             "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            **({"note": note} if note else {})})
         log(f"{name} {shape}: kernel {ms * 1e3:.1f} us, plain "
             f"{plain_ms * 1e3:.1f} us, library "
             f"{'-' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}, bound "
@@ -489,6 +840,27 @@ def phase_timings(torch, dev, errs, launches):
                                                enable_gqa=True),
         nbytes=(2 * q.numel() + k.numel() + v.numel()) * es,
         flops=4 * d * pairs)
+
+    # the same kernel at zamba2-2.7b's training shape: head dim 80, 32 / 32
+    # heads, 2 x 1024 tokens, causal (extra fields of the row above)
+    shape = [2, 1024, 32, 32, 80]  # b, s, hq, hkv, d
+    tq, tk, tv = (_rand(torch, gen, (2, 1024, 32, 80), bf, dev)
+                  for _ in range(3))
+    tqt, tkt, tvt = (t.transpose(1, 2) for t in (tq, tk, tv))
+    t_ms = _time_ms(torch, lambda: flash_attention_cuda(
+        tq, tk, tv, q_block=512, kv_block=1024), flush)
+    t_plain = _time_ms(torch, lambda: attention_blockwise_ref(
+        tq, tk, tv, kv_block=1024), flush)
+    t_lib = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+        tqt, tkt, tvt, is_causal=True), flush)
+    t_bound, t_by = _bound(4 * tq.numel() * es,
+                           4 * 80 * 2 * 32 * 1024 * 1025 // 2, "bfloat16")
+    rows[-1]["train_shape"] = {
+        "shape": shape, "ms": t_ms, "plain_ms": t_plain,
+        "library_ms": t_lib, "bound_ms": t_bound, "bound_by": t_by}
+    log(f"flash_attention {shape}: kernel {t_ms * 1e3:.1f} us, plain "
+        f"{t_plain * 1e3:.1f} us, library {t_lib * 1e3:.1f} us, bound "
+        f"{t_bound * 1e3:.2f} us ({t_by})")
 
     # dense and paged decode at the batcher's deployment: 4 slots, 512-row
     # caches (8 pages of 64), ragged lengths
@@ -527,6 +899,32 @@ def phase_timings(torch, dev, errs, launches):
         lambda: paged_decode_attention_cuda(q, kp, vp, table, ln),
         lambda: paged_decode_attention_ref(q, kp, vp, table, ln),
         None, nbytes=dec_bytes + 4 * used_pages, flops=dec_flops)
+
+    # the Mamba-1 scan at falcon-mamba-7b's training shape, with the
+    # config's chunk / c_block (snapped down by the wrapper); the plain
+    # version at the same chunk, as the recompute backward runs it
+    b, l, c, n = 2, 1024, 8192, 16
+    a = scan_inputs(torch, gen, b, l, c, n, 0.1, bf, dev)
+    row("selective_scan", "src/repro_torch/csrc/selective_scan.cu",
+        "src/repro/kernels/mamba_scan/kernel.py:87", [b, l, c, n],
+        lambda: selective_scan_cuda(*a, chunk=256, c_block=512),
+        lambda: selective_scan_chunked_ref(*a, chunk=256), None,
+        nbytes=3 * b * l * c * es + 2 * b * l * n * es + 4 * c * n + 4 * c,
+        flops=7 * b * l * c * n, elementwise=True,
+        note="operations: 7 per (b, t, c, n) (dt*A, exp, two products, two "
+             "FMAs' worth) at the fp32 rate")
+
+    # the Mamba-2 SSD at zamba2-2.7b's training shape (chunk 256 -> 64)
+    b, l, h, p, g, n = 2, 1024, 80, 64, 1, 64
+    a = ssd_inputs(torch, gen, b, l, h, p, g, n, 0.1, bf, dev)
+    row("ssd", "src/repro_torch/csrc/ssd.cu",
+        "src/repro/kernels/ssd/kernel.py:108", [b, l, h, p, g, n],
+        lambda: ssd_cuda(*a, chunk=256), lambda: ssd_ref(*a, chunk=256),
+        None, nbytes=(2 * b * l * h * p + b * l * h + 2 * b * l * g * n) * es
+        + 8 * h, flops=5 * b * l * h * n * p, elementwise=True,
+        note="operations: the recurrence's 5 N P per (b, t, h) (decay, "
+             "input FMA, read-out FMA) at the fp32 rate; the chunked "
+             "algorithm does more")
     return rows
 
 
@@ -587,6 +985,86 @@ def phase_profile(torch, np, dev, ctx):
     return out
 
 
+def phase_profile_train(torch, np, dev, arch):
+    """Trace one steady train step (after one warm-up step) of the
+    training slice's ``arch`` with torch.profiler: device busy share, time
+    by kernel, and the share of the device time spent in the recompute
+    backwards (the plain versions run under ``recompute_bwd.*`` ranges)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_model_config
+    from repro_torch.data.pipeline import make_data
+    from repro_torch.launch.train import make_run
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+
+    cfg = get_model_config(arch).replace(num_layers=TRAIN[arch])
+    run = make_run(cfg, seq=TRAIN_SHAPE["seq"], batch=TRAIN_SHAPE["batch"],
+                   steps=TRAIN_SHAPE["steps"])
+    model = build_model(cfg, run.parallel, device=dev)
+    opt = make_optimizer(run.train)
+    step = make_train_step(model, run, opt)
+    state = init_train_state(model, run, opt, seed=0)
+    data = make_data(cfg, run.shape, seed=0)
+    state, _ = step(state, data.batch_at(0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, data.batch_at(1))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA
+                 and e.self_device_time_total > 0]
+    # a record_function range also appears on the device timeline, as the
+    # span of its kernels: it is not a kernel, and counting it would count
+    # its kernels twice
+    ranges = [e for e in on_device
+              if getattr(e, "is_user_annotation", False)
+              or e.key.startswith("recompute_bwd.")]
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in on_device if e not in ranges]
+    busy_ms = sum(t for _, t, _ in kernels)
+    kernels.sort(key=lambda k: -k[1])
+    # the device span of each recompute range (kernels and the gaps
+    # between them): an upper bound on their busy time
+    recompute = {e.key: e.self_device_time_total / 1e3 for e in ranges
+                 if e.key.startswith("recompute_bwd.")}
+    ours = {"selective_scan_kernel", "ssd_kernel", "flash_attention_kernel",
+            "rmsnorm"}
+    port_ms = sum(t for k, t, _ in kernels if any(o in k for o in ours))
+    out = {"arch": arch, "layers": cfg.num_layers, "window_ms": wall_ms,
+           "device_busy_ms": busy_ms,
+           "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
+           "kernels_launched": sum(c for _, _, c in kernels),
+           "port_kernels_ms": port_ms,
+           "recompute_bwd_ms": recompute,
+           "recompute_share": (sum(recompute.values()) / busy_ms
+                               if busy_ms and recompute else None),
+           "top": [{"kernel": k[:80], "ms": t, "share": t / busy_ms,
+                    "calls": c} for k, t, c in kernels[:12]]}
+    if busy_ms:
+        log(f"{arch} train step profile: {wall_ms:.1f} ms under the "
+            f"profiler, device busy {busy_ms:.1f} ms (idle share "
+            f"{out['idle_share']:.2f}), {out['kernels_launched']} kernels; "
+            f"the port's kernels {port_ms:.1f} ms; recompute backwards "
+            f"{ {k: round(v, 1) for k, v in recompute.items()} } ms "
+            f"(share {out['recompute_share']})")
+        for t in out["top"][:8]:
+            log(f"  {t['ms']:8.2f} ms {t['share'] * 100:5.1f}%  "
+                f"x{t['calls']}  {t['kernel']}")
+    else:
+        log(f"{arch} train step profile: the profiler recorded no device "
+            f"time (not measured)")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
 # --------------------------------------------------------------------------
 
 def main() -> int:
@@ -630,26 +1108,47 @@ def main() -> int:
         if "registers" in line or "spill" in line.lower():
             log(f"ptxas: {line.strip()}")
 
-    # 3. kernels vs plain
+    # 3. kernels vs plain, and the wrapped ops' gradients
     t0 = time.perf_counter()
     errs, n_cases = phase_kernels(torch, dev)
-    log(f"kernels vs plain: {n_cases} cases agree; max |err| at the slice's "
-        f"shapes {errs} ({time.perf_counter() - t0:.1f} s)")
+    ssm_errs, n_ssm = phase_ssm_kernels(torch, dev)
+    errs.update(ssm_errs)
+    grad_errs = phase_grads(torch, dev)
+    log(f"kernels vs plain: {n_cases + n_ssm} cases agree; max |err| at the "
+        f"slices' shapes {errs}; gradients through the recompute wrapper "
+        f"agree (max |err| / max |g|: {grad_errs}) "
+        f"({time.perf_counter() - t0:.1f} s)")
 
-    # 4. the slice
+    # 4. the serving slice
     t0 = time.perf_counter()
     slice_out, launches, ctx = phase_slice(torch, np, dev)
-    log(f"slice done in {time.perf_counter() - t0:.1f} s")
+    log(f"serving slice done in {time.perf_counter() - t0:.1f} s")
+
+    # 4b. the training slice
+    t0 = time.perf_counter()
+    train_out = phase_train(torch, np, dev)
+    log(f"training slice done in {time.perf_counter() - t0:.1f} s")
+    by_path = {name: {"serve": launches.get(name, 0),
+                      "train": sum(t["launches"][name]
+                                   for t in train_out.values())}
+               for name in cuda_lib.LAUNCHES}
 
     # 5. timings
-    rows = phase_timings(torch, dev, errs, launches)
+    rows = phase_timings(torch, dev, errs, by_path)
     torch.cuda.synchronize()
 
-    # 6. where a decode step's time goes
+    # 6. where a decode step's and a train step's time goes
     slice_out["decode_profile"] = phase_profile(torch, np, dev, ctx)
+    del ctx
+    torch.cuda.empty_cache()
+    for arch in TRAIN:
+        train_out[arch]["step_profile"] = phase_profile_train(torch, np, dev,
+                                                              arch)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"slice": slice_out}), flush=True)
+    print(json.dumps({"train": train_out, "grad_check": grad_errs,
+                      "grad_tolerance": GRAD_TOL}), flush=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

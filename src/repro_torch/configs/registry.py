@@ -1,6 +1,7 @@
 """Architecture registry — the slice of :mod:`repro.configs.registry` the
-port serves so far: ``llama3.2-1b``.  The other nine configs, the shape
-cells and the dry-run input specs come in later slices.
+port runs so far: ``llama3.2-1b`` (served), ``falcon-mamba-7b`` and
+``zamba2-2.7b`` (trained).  The other seven configs, the shape cells and
+the dry-run input specs come in later slices.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from typing import Dict, List
 from repro_torch.utils.config import ModelConfig, ParallelConfig
 
 _ARCH_MODULES: Dict[str, str] = {
+    "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
     "llama3.2-1b": "repro_torch.configs.llama3p2_1b",
 }
 

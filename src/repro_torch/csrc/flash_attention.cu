@@ -162,6 +162,7 @@ static cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     REPRO_FA_CASE(16)
     REPRO_FA_CASE(32)
     REPRO_FA_CASE(64)
+    REPRO_FA_CASE(80)
     REPRO_FA_CASE(128)
     default:
       return cudaErrorInvalidValue;

@@ -43,9 +43,14 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention": 0,
     "decode_attention": 0,
     "paged_decode_attention": 0,
+    "selective_scan": 0,
+    "ssd": 0,
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: dynamic shared memory one block may use on sm_90 (227 KB)
+SMEM_LIMIT = 227 * 1024
 
 _c_int, _c_float, _ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _SIGNATURES = {
@@ -64,6 +69,12 @@ _SIGNATURES = {
     # Hq, Hkv, D, softcap, scale, kv_block, dtype, stream
     "repro_paged_decode_attention": [_ptr] * 6 + [_c_int] * 6
                                     + [_c_float] * 2 + [_c_int] * 2 + [_ptr],
+    # x, dt, A, B, C, D, y, B, L, C, N, lpc, c_block, chunk, in_dtype,
+    # out_dtype, stream
+    "repro_selective_scan": [_ptr] * 7 + [_c_int] * 9 + [_ptr],
+    # x, dt, A, B, C, D, y, B, L, H, P, G, N, chunk, in_dtype, out_dtype,
+    # stream
+    "repro_ssd": [_ptr] * 7 + [_c_int] * 9 + [_ptr],
 }
 
 _lock = threading.Lock()
@@ -190,6 +201,16 @@ def require(kernel: str, *tensors: torch.Tensor,
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def one_storage(*tensors: torch.Tensor) -> List[torch.Tensor]:
+    """Contiguous copies (or the tensors) in one storage type for a kernel
+    that reads them all as one type: theirs if they agree, else fp32 — a
+    widening, so no input is rounded."""
+    dt = tensors[0].dtype
+    if not (all(t.dtype == dt for t in tensors) and dt in DTYPE_CODES):
+        dt = torch.float32
+    return [t.to(dt).contiguous() for t in tensors]
 
 
 def as_int32(t: torch.Tensor) -> torch.Tensor:

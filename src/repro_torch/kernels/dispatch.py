@@ -371,8 +371,12 @@ def snap_down(value: int, domain: Tuple[int, ...]) -> int:
 # - flash_attention.q_block: query rows per CUDA block, one thread per row;
 # - flash_attention.kv_block: K/V rows staged in shared memory per step
 #   (prefill and dense decode);
-# - rmsnorm.row_block: rows per CUDA block, one warp per row.
-# The mamba_scan / ssd families are not ported yet and are not registered.
+# - rmsnorm.row_block: rows per CUDA block, one warp per row;
+# - mamba_scan.chunk: time steps of x, dt, B, C staged in shared memory per
+#   pass; mamba_scan.c_block: channels per CUDA block (lanes per channel
+#   follow from the state size, clamped to 1024 threads);
+# - ssd.chunk: the SSD chunk Q, at most 64 so the Q x Q score tile fits
+#   beside the (N, P) state in shared memory.
 
 register_family(KernelFamily(
     name="flash_attention",
@@ -399,6 +403,25 @@ register_family(KernelFamily(
         Option("page_size", (32, 64, 128, 256), default=64),
         Option("pages_per_slot_max", (4, 8, 16, 32), default=8),
         Option("prefill_chunk", (0, 64, 128, 256), default=0),
+    ),
+))
+
+register_family(KernelFamily(
+    name="mamba_scan",
+    kernel="repro_torch.kernels.mamba_scan.kernel:selective_scan_cuda",
+    ref="repro_torch.kernels.mamba_scan.ref:selective_scan_chunked_ref",
+    launch_options=(
+        Option("chunk", (16, 32, 64), default=64),
+        Option("c_block", (16, 32, 64, 128), default=64),
+    ),
+))
+
+register_family(KernelFamily(
+    name="ssd",
+    kernel="repro_torch.kernels.ssd.kernel:ssd_cuda",
+    ref="repro_torch.kernels.ssd.ref:ssd_ref",
+    launch_options=(
+        Option("chunk", (16, 32, 64), default=64),
     ),
 ))
 

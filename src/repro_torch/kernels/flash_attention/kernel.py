@@ -31,8 +31,9 @@ from repro_torch.kernels import cuda_lib, dispatch
 from repro_torch.kernels.flash_attention.ref import (
     attention_blockwise_ref, decode_attention_ref)
 
-#: head dims the prefill kernel is instantiated for
-PREFILL_HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the prefill kernel is instantiated for (80: zamba2-2.7b's and
+#: h2o-danube-1.8b's attention)
+PREFILL_HEAD_DIMS = (16, 32, 64, 80, 128)
 
 
 def _block(name: str, value: int) -> int:

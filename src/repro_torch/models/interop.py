@@ -2,10 +2,15 @@
 nested dicts of numpy arrays, becomes the port's parameter tree.
 
 The port keeps the reference's layout (``(in, out)`` weights, super-block
-leaves stacked on a leading ``nsb`` axis), so the conversion is
-leaf-for-leaf; the tree structure and every shape are checked against the
-port's own parameters (built on the ``meta`` device).  Callers hand over
-``np.array(x)`` copies, not ``np.asarray`` views, which are read-only.
+leaves stacked on a leading ``nsb`` axis, whatever the pattern's length —
+one sub-layer for dense and ssm, six for zamba2 — and the hybrid family's
+unstacked ``shared_attn`` block), so the conversion is leaf-for-leaf; the
+tree structure and every shape are checked against the port's own
+parameters (built on the ``meta`` device).  Each leaf takes its template
+leaf's dtype: the model dtype for weights, fp32 for the SSM parameters
+``A_log``, ``dt_bias`` and ``D``, which the reference keeps in fp32 in a
+bf16 model.  Callers hand over ``np.array(x)`` copies, not ``np.asarray``
+views, which are read-only.
 """
 
 from __future__ import annotations
@@ -32,7 +37,9 @@ def _to_tensor(a: np.ndarray, dtype: torch.dtype,
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device: DeviceLike = None,
                     dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
-    """The reference's ``init_lm_params`` tree -> the port's parameters."""
+    """The reference's ``init_lm_params`` tree -> the port's parameters.
+    ``dtype`` (default: the config's) is the model dtype of the template;
+    leaves the reference keeps in fp32 stay fp32."""
     dev = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
     template = transformer.init_lm_params(cfg, None, dtype,
@@ -49,6 +56,6 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
         if tuple(np.shape(src)) != tuple(tmpl.shape):
             raise ValueError(f"{path}: reference shape {np.shape(src)} != "
                              f"port shape {tuple(tmpl.shape)}")
-        return _to_tensor(src, dtype, dev)
+        return _to_tensor(src, tmpl.dtype, dev)
 
     return convert(tree, template, "")

@@ -1,5 +1,5 @@
-"""Model factory for the dense family, plus parameter counting — the port
-of :mod:`repro.models.model`.
+"""Model factory for the dense, ssm and hybrid families, plus parameter
+counting — the port of :mod:`repro.models.model`.
 
 ``build_model(cfg, par, device=...)`` binds the functions of one
 architecture to one device (``cuda`` unless the caller passes ``cpu``).

@@ -191,7 +191,7 @@ def test_paged_prefill_and_sliding_window_are_rejected_like_reference():
 def test_unported_families_raise():
     from repro_torch.models.transformer import block_pattern
     with pytest.raises(NotImplementedError, match="dense GQA"):
-        block_pattern(ModelConfig(family="ssm"))
+        block_pattern(ModelConfig(family="vlm"))
     with pytest.raises(NotImplementedError, match="dense GQA"):
         block_pattern(ModelConfig(moe_num_experts=4, moe_top_k=2))
 

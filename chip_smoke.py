@@ -13,9 +13,14 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    attention at head dims 16-128 (80: zamba2-2.7b's, causal, GQA G=1 and
    G=4), the Mamba-1 scan (ragged L and C, N = 4..128, large dt*A) and the
    Mamba-2 SSD (ragged L, G in {1, 2, 4}, N in {16, 64}, large dt*A);
-   paged decode against dense decode on the same rows (bit for bit); and
-   the gradient of each autograd-wrapped op (kernel forward, recompute
-   backward) against autograd through its plain version;
+   paged decode against dense decode on the same rows (bit for bit); the
+   bf16 tensor-core prefill at every head dim and block shape (causal,
+   cross, q_offset of either sign, window, softcap, ragged lengths); the
+   split decode at 16 slots over 4096-row caches (lengths 0, 1, on a
+   split boundary, past the capacity), paged equal to dense bit for bit
+   there too; the tensor-core instructions (HMMA) in the prefill kernel's
+   SASS; and the gradient of each autograd-wrapped op (kernel forward,
+   recompute backward) against autograd through its plain version;
 4. serving slice: llama3.2-1b at full width and depth (bf16, seeded random
    weights) through the fixed-batch serve path and through the continuous
    batcher (dense, paged, paged with chunked prefill), with every launch
@@ -30,10 +35,12 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    ``dispatch.use_mode("ref")`` (2 layers resp. 1 super-block);
 5. timings: each kernel, its plain version and the one-call PyTorch
    yardstick where one exists, timed with CUDA events at the slices'
-   shapes, beside the card's bound for the same work;
+   shapes, beside the card's bound for the same work; prefill also at a
+   long prompt (1 x 2048) and decode at 32 slots over 2048-row caches;
 6. profiles: device time by kernel over a few decode steps of the fixed
-   batch, and over one train step of each training model (with the share
-   of the recompute backwards), and the device's busy share.
+   batch (no more launches per step than before the split decode), and
+   over one train step of each training model (with the share of the
+   recompute backwards), and the device's busy share.
 
 Prints the kernel table, the serving and the training summaries as JSON
 lines, and, as the last line, ``{"ok": true, "device": {...}}``.  Any
@@ -223,6 +230,128 @@ def phase_kernels(torch, dev):
             n_cases += 2
     torch.cuda.synchronize()
     return {k: max(v) for k, v in errs.items()}, n_cases
+
+
+# --------------------------------------------------------------------------
+# phase 3 (continued): the redesigned attention kernels at their edges — the
+# bf16 tensor-core prefill at every instantiated head dim and block shape,
+# and the split decode where the split matters
+# --------------------------------------------------------------------------
+
+# (b, sq, skv, hq, hkv, kwargs): causal and ragged; non-causal Skv != Sq;
+# q_offset positive (a chunk of a longer prompt) and negative (its first
+# rows see nothing and give 0); window with softcap
+PREFILL_EDGE_CASES = (
+    (2, 77, 77, 8, 2, {}),
+    (1, 77, 200, 8, 2, {"causal": False}),
+    (1, 37, 77, 8, 2, {"q_offset": 40}),
+    (2, 50, 50, 8, 8, {"q_offset": -20}),
+    (1, 200, 200, 8, 2, {"sliding_window": 13, "logit_softcap": 20.0}),
+)
+PREFILL_BLOCKS = tuple((qb, kb) for qb in (32, 64) for kb in (32, 64))
+# 16 slots over 4096-row caches (64 pages of 64): lengths 0, 1, on and just
+# past the first split boundary, the capacity, past it, and ragged others
+DECODE_SPLIT_SHAPE = dict(b=16, skv=4096, hq=32, hkv=8, d=64, ps=64)
+
+
+def phase_attention_edges(torch, dev):
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.flash_attention.kernel import (
+        PREFILL_HEAD_DIMS, decode_attention_cuda, flash_attention_cuda,
+        plan_decode_splits)
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_blockwise_ref, decode_attention_ref,
+        decode_attention_split_ref)
+    from repro_torch.kernels.paged_attention.kernel import (
+        KV_TILE, paged_decode_attention_cuda)
+    from repro_torch.kernels.paged_attention.ref import gather_pages
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bf = torch.bfloat16
+    worst = []  # edge cases: checked, not reported as the slices' errors
+    n_cases = 0
+    for d in PREFILL_HEAD_DIMS:
+        for (b, sq, skv, hq, hkv, kw) in PREFILL_EDGE_CASES:
+            q = _rand(torch, gen, (b, sq, hq, d), bf, dev)
+            k = _rand(torch, gen, (b, skv, hkv, d), bf, dev)
+            v = _rand(torch, gen, (b, skv, hkv, d), bf, dev)
+            ref = attention_blockwise_ref(q, k, v, kv_block=64, **kw)
+            for qb, kb in PREFILL_BLOCKS:
+                out = flash_attention_cuda(q, k, v, q_block=qb, kv_block=kb,
+                                           **kw)
+                _compare(torch, f"flash_attention (tensor cores) d{d} "
+                         f"{(b, sq, skv, hq, hkv)} {kw} q{qb}/kv{kb}", out,
+                         ref, "bfloat16", worst, False)
+                if kw.get("q_offset", 0) < 0:
+                    dead = -kw["q_offset"]
+                    check(bool((out[:, :dead] == 0).all()),
+                          f"flash_attention d{d} q{qb}/kv{kb}: fully masked "
+                          f"rows are not 0")
+                n_cases += 1
+
+    sh = DECODE_SPLIT_SHAPE
+    b, skv, hq, hkv, d, ps = (sh[k] for k in ("b", "skv", "hq", "hkv", "d",
+                                              "ps"))
+    n_split, rows = plan_decode_splits(skv, KV_TILE, b, hkv,
+                                       cuda_lib.sm_count(dev))
+    check(n_split > 1, f"decode at {sh}: the plan does not split "
+          f"({n_split} x {rows})")
+    lens = [0, 1, rows, rows + 1, skv, skv + 904, 17, 3001, 2048, 640, 95,
+            4000, 1500, 2222, 64, 3333]
+    n_pages = skv // ps
+    for dt in (torch.float32, bf):
+        dn = str(dt).split(".")[1]
+        q = _rand(torch, gen, (b, 1, hq, d), dt, dev)
+        kc = _rand(torch, gen, (b, skv, hkv, d), dt, dev)
+        vc = _rand(torch, gen, (b, skv, hkv, d), dt, dev)
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for kw in ({}, {"sliding_window": 1000}, {"logit_softcap": 30.0}):
+            out = decode_attention_cuda(q, kc, vc, ln, kv_block=KV_TILE,
+                                        **kw)
+            # the split oracle covers every slot (an empty one gives 0);
+            # the one-pass oracle every slot with a visible row
+            split = decode_attention_split_ref(q, kc, vc, ln,
+                                               split_rows=rows, **kw)
+            _compare(torch, f"decode_attention {sh} split {n_split} x {rows} "
+                     f"{kw} {dn}", out, split, dn, worst, False)
+            ref = decode_attention_ref(q, kc, vc, ln, **kw)
+            _compare(torch, f"decode_attention {sh} {kw} {dn} (slots with "
+                     f"rows)", out[1:], ref[1:], dn, worst, False)
+            check(bool((out[0] == 0).all()),
+                  f"decode_attention: the empty slot is not 0 ({dn})")
+            n_cases += 2
+        # paged: a permuted pool plus a scratch page; the parked slot (past
+        # its capacity) points at the scratch page only
+        pool = b * n_pages
+        kp = torch.cat([kc.reshape(pool, ps, hkv, d),
+                        torch.zeros((1, ps, hkv, d), dtype=dt, device=dev)])
+        vp = torch.cat([vc.reshape(pool, ps, hkv, d),
+                        torch.zeros((1, ps, hkv, d), dtype=dt, device=dev)])
+        perm = torch.randperm(pool, generator=gen, device=dev)
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(pool, device=dev)
+        kp[:pool], vp[:pool] = kp[perm].clone(), vp[perm].clone()
+        table = inv.to(torch.int32).reshape(b, n_pages)
+        for i, n in enumerate(lens):
+            if n > skv:
+                table[i] = pool
+        for cap in (0.0, 30.0):
+            out = paged_decode_attention_cuda(q, kp, vp, table, ln,
+                                              logit_softcap=cap)
+            gk, gv = gather_pages(kp, table), gather_pages(vp, table)
+            split = decode_attention_split_ref(q, gk, gv, ln, split_rows=rows,
+                                               logit_softcap=cap)
+            _compare(torch, f"paged_decode_attention {sh} cap{cap} {dn}", out,
+                     split, dn, worst, False)
+            dense = decode_attention_cuda(q, gk.contiguous(), gv.contiguous(),
+                                          ln, logit_softcap=cap,
+                                          kv_block=KV_TILE)
+            check(torch.equal(out, dense),
+                  f"paged vs dense decode differ at {sh} cap{cap} {dn}: max "
+                  f"{float((out.float() - dense.float()).abs().max()):.3e}")
+            n_cases += 2
+    torch.cuda.synchronize()
+    return n_cases
 
 
 # --------------------------------------------------------------------------
@@ -793,6 +922,21 @@ def phase_timings(torch, dev, errs, launches):
     def flush():
         l2.zero_()
 
+    def extra(entry, key, shape, kernel, plain, library, nbytes, flops):
+        """Time the same kernel at another shape, as ``entry[key]``."""
+        ms = _time_ms(torch, kernel, flush)
+        plain_ms = _time_ms(torch, plain, flush)
+        lib_ms = (_time_ms(torch, library, flush) if library is not None
+                  else None)
+        bound_ms, bound_by = _bound(nbytes, flops, "bfloat16")
+        entry[key] = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+        log(f"{entry['name']} {key} {shape}: kernel {ms * 1e3:.1f} us, "
+            f"plain {plain_ms * 1e3:.1f} us, library "
+            f"{'-' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}, bound "
+            f"{bound_ms * 1e3:.2f} us ({bound_by})")
+
     def row(name, source, replaces, shape, kernel, plain, library, nbytes,
             flops, elementwise=False, note=None):
         ms = _time_ms(torch, kernel, flush)
@@ -862,6 +1006,34 @@ def phase_timings(torch, dev, errs, launches):
         f"{t_plain * 1e3:.1f} us, library {t_lib * 1e3:.1f} us, bound "
         f"{t_bound * 1e3:.2f} us ({t_by})")
 
+    # a long serving prompt: llama3.2-1b, 1 x 2048 tokens, causal, with the
+    # block sizes the serving path resolves (512 / 1024, snapped down)
+    b, s, hq, hkv, d = 1, 2048, 32, 8, 64
+    lq = _rand(torch, gen, (b, s, hq, d), bf, dev)
+    lk, lv = (_rand(torch, gen, (b, s, hkv, d), bf, dev) for _ in range(2))
+    lqt, lkt, lvt = (t.transpose(1, 2) for t in (lq, lk, lv))
+    extra(rows[-1], "long_prompt", [b, s, hq, hkv, d],
+          lambda: flash_attention_cuda(lq, lk, lv, q_block=512,
+                                       kv_block=1024),
+          lambda: attention_blockwise_ref(lq, lk, lv, kv_block=1024),
+          lambda: F.scaled_dot_product_attention(
+              lqt, lkt, lvt, is_causal=True, enable_gqa=True),
+          nbytes=(2 * lq.numel() + lk.numel() + lv.numel()) * es,
+          flops=4 * d * hq * s * (s + 1) // 2)
+    # the tensor-core kernel's block shapes (q_block x kv_block) at the
+    # training shape and the long prompt
+    sweep = {}
+    for qb in (32, 64):
+        for kb in (32, 64):
+            sweep[f"q{qb}/kv{kb}"] = [_time_ms(torch, lambda: (
+                flash_attention_cuda(x, y, z, q_block=qb, kv_block=kb)),
+                flush) for x, y, z in ((tq, tk, tv), (lq, lk, lv))]
+    rows[-1]["block_sweep_ms"] = {"shapes": ["train_shape", "long_prompt"],
+                                  **sweep}
+    log(f"flash_attention by block shape (train, long prompt): "
+        f"{ {k: [round(t * 1e3, 1) for t in v] for k, v in sweep.items()} }"
+        f" us")
+
     # dense and paged decode at the batcher's deployment: 4 slots, 512-row
     # caches (8 pages of 64), ragged lengths
     lens = [217, 100, 50, 181]
@@ -900,6 +1072,55 @@ def phase_timings(torch, dev, errs, launches):
         lambda: paged_decode_attention_ref(q, kp, vp, table, ln),
         None, nbytes=dec_bytes + 4 * used_pages, flops=dec_flops)
 
+    # dense and paged decode at a larger batch: 32 slots over 2048-row
+    # caches (32 pages of 64), half full on average (seeded ragged lengths
+    # in [512, 1536])
+    b, skv, n_pages = 32, 2048, 32
+    lens = torch.randint(512, 1537, (b,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    q = _rand(torch, gen, (b, 1, hq, d), bf, dev)
+    kc = _rand(torch, gen, (b, skv, hkv, d), bf, dev)
+    vc = _rand(torch, gen, (b, skv, hkv, d), bf, dev)
+    mask = (torch.arange(skv, device=dev)[None, :] < lens[:, None])[:, None,
+                                                                    None]
+    kvt, vvt = kc.transpose(1, 2), vc.transpose(1, 2)
+    valid = int(lens.sum())
+    dec_bytes = 2 * q.numel() * es + 2 * valid * hkv * d * es + 4 * b
+    dec_flops = 4 * d * hq * valid
+    extra(rows[-2], "batch32", [b, skv, hq, hkv, d],
+          lambda: decode_attention_cuda(q, kc, vc, lens),
+          lambda: decode_attention_ref(q, kc, vc, lens),
+          lambda: F.scaled_dot_product_attention(
+              q.transpose(1, 2), kvt, vvt, attn_mask=mask, enable_gqa=True),
+          nbytes=dec_bytes, flops=dec_flops)
+    # the split planner's target at this shape: blocks per SM 8 / 16 / 32
+    # (one of them is the planner's constant)
+    import repro_torch.kernels.flash_attention.kernel as fa_kernel
+    target, sweep = fa_kernel.DECODE_BLOCKS_PER_SM, {}
+    try:
+        for per_sm in (8, 16, 32):
+            fa_kernel.DECODE_BLOCKS_PER_SM = per_sm
+            fa_kernel.plan_decode_splits.cache_clear()
+            sweep[per_sm] = _time_ms(
+                torch, lambda: decode_attention_cuda(q, kc, vc, lens), flush)
+    finally:
+        fa_kernel.DECODE_BLOCKS_PER_SM = target
+        fa_kernel.plan_decode_splits.cache_clear()
+    rows[-2]["batch32"]["blocks_per_sm_ms"] = sweep
+    log(f"decode_attention batch32 by the planner's blocks per SM: "
+        f"{ {k: round(v * 1e3, 1) for k, v in sweep.items()} } us")
+    kp = torch.cat([kc.reshape(b * n_pages, ps, hkv, d),
+                    torch.zeros((1, ps, hkv, d), dtype=bf, device=dev)])
+    vp = torch.cat([vc.reshape(b * n_pages, ps, hkv, d),
+                    torch.zeros((1, ps, hkv, d), dtype=bf, device=dev)])
+    table = torch.arange(b * n_pages, dtype=torch.int32,
+                         device=dev).reshape(b, n_pages)
+    used_pages = int(((lens + ps - 1) // ps).sum())
+    extra(rows[-1], "batch32", [b, n_pages, ps, hq, hkv, d],
+          lambda: paged_decode_attention_cuda(q, kp, vp, table, lens),
+          lambda: paged_decode_attention_ref(q, kp, vp, table, lens), None,
+          nbytes=dec_bytes + 4 * used_pages, flops=dec_flops)
+
     # the Mamba-1 scan at falcon-mamba-7b's training shape, with the
     # config's chunk / c_block (snapped down by the wrapper); the plain
     # version at the same chunk, as the recompute backward runs it
@@ -933,6 +1154,9 @@ def phase_timings(torch, dev, errs, launches):
 # --------------------------------------------------------------------------
 
 PROFILE_STEPS = 8
+# kernels per decode step of the fixed batch with the unsplit decode
+# kernel: splitting the KV axis must not add launches
+MAX_DECODE_LAUNCHES = 1099
 
 
 def phase_profile(torch, np, dev, ctx):
@@ -967,6 +1191,9 @@ def phase_profile(torch, np, dev, ctx):
            "device_busy_ms": busy_ms,
            "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
            "launches_per_step": sum(c for _, _, c in kernels) / PROFILE_STEPS,
+           "decode_attention_us_per_step": sum(
+               t for k, t, _ in kernels if "decode_attention_kernel" in k)
+           * 1e3 / PROFILE_STEPS,
            "top": [{"kernel": k[:80], "ms_per_step": t / PROFILE_STEPS,
                     "share": t / busy_ms, "calls_per_step": c / PROFILE_STEPS}
                    for k, t, c in kernels[:12]]}
@@ -975,6 +1202,12 @@ def phase_profile(torch, np, dev, ctx):
             f"under the profiler, device busy {busy_ms / PROFILE_STEPS:.2f} "
             f"ms/step (idle share {out['idle_share']:.2f}), "
             f"{out['launches_per_step']:.0f} kernels/step")
+        dec_us = out["decode_attention_us_per_step"]
+        log(f"  decode attention {dec_us:.1f} us/step ("
+            f"{dec_us * 1e-1 * PROFILE_STEPS / busy_ms:.1f}% of device busy)")
+        check(out["launches_per_step"] <= MAX_DECODE_LAUNCHES,
+              f"{out['launches_per_step']} kernels per decode step, more "
+              f"than {MAX_DECODE_LAUNCHES}")
         for t in out["top"][:8]:
             log(f"  {t['ms_per_step'] * 1e3:8.1f} us/step "
                 f"{t['share'] * 100:5.1f}%  x{t['calls_per_step']:.0f}  "
@@ -1067,6 +1300,28 @@ def phase_profile_train(torch, np, dev, arch):
 
 # --------------------------------------------------------------------------
 
+def tensor_core_instructions(lib_path, kernel_substring):
+    """HMMA instructions per kernel whose mangled name holds
+    ``kernel_substring``, read from the library's SASS with the toolkit's
+    ``cuobjdump``."""
+    from repro_torch.kernels import cuda_lib
+
+    cuobjdump = Path(cuda_lib.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            current = name if kernel_substring in name else None
+            if current:
+                counts[current] = 0
+        elif current and "HMMA" in line:
+            counts[current] += 1
+    return counts
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found next to this script; "
@@ -1107,10 +1362,16 @@ def main() -> int:
     for line in (lib_path.parent / "ptxas.log").read_text().splitlines():
         if "registers" in line or "spill" in line.lower():
             log(f"ptxas: {line.strip()}")
+    hmma = tensor_core_instructions(lib_path, "flash_attention_mma_kernel")
+    log(f"tensor-core instructions (HMMA) in the bf16 prefill kernels' "
+        f"SASS: {hmma}")
+    check(bool(hmma) and all(n > 0 for n in hmma.values()),
+          "the bf16 prefill kernels have no HMMA instruction in their SASS")
 
     # 3. kernels vs plain, and the wrapped ops' gradients
     t0 = time.perf_counter()
     errs, n_cases = phase_kernels(torch, dev)
+    n_cases += phase_attention_edges(torch, dev)
     ssm_errs, n_ssm = phase_ssm_kernels(torch, dev)
     errs.update(ssm_errs)
     grad_errs = phase_grads(torch, dev)

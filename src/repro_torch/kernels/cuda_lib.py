@@ -23,7 +23,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -62,13 +62,15 @@ _SIGNATURES = {
     "repro_flash_attention": [_ptr] * 4 + [_c_int] * 8 + [_c_float] * 2
                              + [_c_int] * 4 + [_ptr],
     # q, k, v, cache_len, o, B, Skv, Hq, Hkv, D, window, softcap, scale,
-    # kv_block, dtype, stream
+    # kv_block, n_split, split_rows, partial, counters, dtype, stream
     "repro_decode_attention": [_ptr] * 5 + [_c_int] * 6 + [_c_float] * 2
-                              + [_c_int] * 2 + [_ptr],
+                              + [_c_int] * 3 + [_ptr] * 2 + [_c_int, _ptr],
     # q, k_pages, v_pages, page_table, cache_len, o, B, page_size, n_pages,
-    # Hq, Hkv, D, softcap, scale, kv_block, dtype, stream
+    # Hq, Hkv, D, softcap, scale, kv_block, n_split, split_rows, partial,
+    # counters, dtype, stream
     "repro_paged_decode_attention": [_ptr] * 6 + [_c_int] * 6
-                                    + [_c_float] * 2 + [_c_int] * 2 + [_ptr],
+                                    + [_c_float] * 2 + [_c_int] * 3
+                                    + [_ptr] * 2 + [_c_int, _ptr],
     # x, dt, A, B, C, D, y, B, L, C, N, lpc, c_block, chunk, in_dtype,
     # out_dtype, stream
     "repro_selective_scan": [_ptr] * 7 + [_c_int] * 9 + [_ptr],
@@ -79,6 +81,10 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+#: per device: the split decode's fp32 partials and its int32 ticket
+#: counters (zero between launches; the kernel's last block resets them)
+_decode_scratch: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+_sm_counts: Dict[torch.device, int] = {}
 
 
 def reset_launches() -> None:
@@ -199,6 +205,17 @@ def require(kernel: str, *tensors: torch.Tensor,
             raise TypeError(f"{kernel}: expected {dtype}, got {t.dtype}")
 
 
+def require_aligned(kernel: str, *tensors: torch.Tensor) -> None:
+    """The kernels copy rows 16 bytes at a time: every base address must be
+    16-byte aligned (a fresh allocation is; a view at an odd offset may
+    not be)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: tensor data must be 16-byte aligned "
+                             f"(shape {tuple(t.shape)}, address "
+                             f"{t.data_ptr():#x})")
+
+
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -216,3 +233,30 @@ def one_storage(*tensors: torch.Tensor) -> List[torch.Tensor]:
 def as_int32(t: torch.Tensor) -> torch.Tensor:
     """Index tensors go to the kernels as contiguous int32."""
     return t.to(torch.int32).contiguous()
+
+
+def sm_count(device: torch.device) -> int:
+    """The device's number of SMs, read once per device."""
+    n = _sm_counts.get(device)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _sm_counts[device] = n
+    return n
+
+
+def decode_scratch(device: torch.device, partial_floats: int,
+                   counters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split decode's scratch on ``device``, at least the sizes asked
+    for: allocated once and grown only when a larger call comes, so a decode
+    step allocates nothing.  Kernels on one stream share it in stream
+    order; the decode kernels are not launched on two streams at once."""
+    with _lock:
+        part, cnt = _decode_scratch.get(device, (None, None))
+        if part is None or part.numel() < partial_floats:
+            part = torch.empty(max(partial_floats, 1), dtype=torch.float32,
+                               device=device)
+        if cnt is None or cnt.numel() < counters:
+            cnt = torch.zeros(max(counters, 1), dtype=torch.int32,
+                              device=device)
+        _decode_scratch[device] = (part, cnt)
+        return part, cnt

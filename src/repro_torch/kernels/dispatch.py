@@ -367,10 +367,13 @@ def snap_down(value: int, domain: Tuple[int, ...]) -> int:
 # --------------------------------------------------------------------------
 # built-in families
 # --------------------------------------------------------------------------
-# Domains are what the simple sm_90 kernels take:
-# - flash_attention.q_block: query rows per CUDA block, one thread per row;
-# - flash_attention.kv_block: K/V rows staged in shared memory per step
-#   (prefill and dense decode);
+# Domains are what the sm_90 kernels take:
+# - flash_attention.q_block: query rows per CUDA block (bf16 prefill: 16 per
+#   warp on the tensor cores; fp32 prefill: one thread per row).  No 128:
+#   eight warps of ~150 registers a thread fill an SM alone (the kernel
+#   note has why that is slow), so the reference's 512 snaps to 64;
+# - flash_attention.kv_block: K/V rows per shared-memory stage (prefill and
+#   dense decode; the split decode's ranges are whole numbers of them);
 # - rmsnorm.row_block: rows per CUDA block, one warp per row;
 # - mamba_scan.chunk: time steps of x, dt, B, C staged in shared memory per
 #   pass; mamba_scan.c_block: channels per CUDA block (lanes per channel
@@ -383,7 +386,7 @@ register_family(KernelFamily(
     kernel="repro_torch.kernels.flash_attention.kernel:flash_attention_cuda",
     ref="repro_torch.kernels.flash_attention.ref:attention_blockwise_ref",
     launch_options=(
-        Option("q_block", (32, 64, 128), default=64),
+        Option("q_block", (32, 64), default=64),
         Option("kv_block", (32, 64), default=64),
     ),
     variants=(

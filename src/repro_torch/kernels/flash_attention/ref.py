@@ -154,3 +154,60 @@ def decode_attention_ref(
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs,
                        v_cache.to(torch.float32))
     return out.reshape(b, sq, hq, dv).to(q.dtype)
+
+
+def decode_attention_split_ref(
+    q: torch.Tensor,          # (B, 1, Hq, D)
+    k_cache: torch.Tensor,    # (B, Skv, Hkv, D)
+    v_cache: torch.Tensor,    # (B, Skv, Hkv, Dv)
+    cache_len: torch.Tensor,  # (B,) int
+    *,
+    split_rows: int,
+    sliding_window: int = 0,
+    logit_softcap: float = 0.0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The split decode kernel's algorithm in plain PyTorch — a test
+    oracle, used by nothing on the main path.  Slot b attends to
+    ``[max(0, len - window), min(len, Skv))``; the KV axis is cut into
+    ranges of ``split_rows`` rows; each range with a visible row gives a
+    partial (its max m, its sum l, its unnormalised accumulator), and the
+    partials are combined in split order.  A slot with no visible row
+    gives 0, as the kernels do (:func:`decode_attention_ref` gives a
+    uniform average there instead)."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, dv = v_cache.shape
+    g = hq // hkv
+    if scale is None:
+        scale = d ** -0.5
+    qg = (q.to(torch.float32) * scale).reshape(b, hkv, g, d)
+    lens = cache_len.to(torch.int64)
+    hi = torch.clamp(lens, max=skv)[:, None]
+    lo = (torch.clamp(lens - sliding_window, min=0) if sliding_window > 0
+          else torch.zeros_like(lens))[:, None]
+    parts = []
+    for start in range(0, skv, split_rows):
+        kb = k_cache[:, start:start + split_rows].to(torch.float32)
+        vb = v_cache[:, start:start + split_rows].to(torch.float32)
+        s = torch.einsum("bhgd,bkhd->bhgk", qg, kb)
+        if logit_softcap > 0.0:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
+        pos = start + torch.arange(kb.shape[1], device=q.device)[None, :]
+        vis = ((pos >= lo) & (pos < hi))[:, None, None, :]  # (B, 1, 1, K)
+        s = torch.where(vis, s, NEG_INF)
+        m = s.amax(dim=-1)
+        p = torch.where(vis, torch.exp(s - m[..., None]), 0.0)
+        parts.append((vis.any(dim=-1), m, p.sum(dim=-1),
+                      torch.einsum("bhgk,bkhd->bhgd", p, vb)))
+    m_all = torch.full((b, hkv, g), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+    for active, m, _, _ in parts:
+        m_all = torch.where(active, torch.maximum(m_all, m), m_all)
+    l_all = torch.zeros_like(m_all)
+    acc = torch.zeros((b, hkv, g, dv), dtype=torch.float32, device=q.device)
+    for active, m, l, a in parts:  # split order
+        w = torch.where(active, torch.exp(m - m_all), 0.0)
+        l_all = l_all + w * l
+        acc = acc + w[..., None] * a
+    out = acc / torch.where(l_all == 0.0, 1.0, l_all)[..., None]
+    return out.reshape(b, sq, hq, dv).to(q.dtype)

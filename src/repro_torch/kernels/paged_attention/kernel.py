@@ -8,8 +8,12 @@ is the dense decode kernel's body with each K/V row fetched through the
 slot's page table, which the block reads itself (the TPU kernel took it by
 scalar prefetch); pages at or past a slot's length are never dereferenced.
 It streams :data:`KV_TILE` rows per step — the dense kernel's default
-``flash_attention.kv_block`` — so paged and dense decode run the same
-arithmetic in the same order and agree bit for bit on the same rows.
+``flash_attention.kv_block`` — and splits the KV axis by the same plan as
+dense decode (``plan_decode_splits`` in
+:mod:`repro_torch.kernels.flash_attention.kernel`, from the capacity
+``n_pages * page_size``), so paged and dense decode of equal capacity run
+the same arithmetic in the same order and agree bit for bit on the same
+rows.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.flash_attention.kernel import launch_split_decode
 from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
 
 #: K/V rows staged in shared memory per step
@@ -45,20 +50,22 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     b, sq, hq, d = q.shape
     _, page_size, hkv, dv = v_pages.shape
     if sq != 1 or k_pages.shape != v_pages.shape or dv != d or hq % hkv \
-            or table.shape[0] != b or lens.shape != (b,):
+            or table.shape[0] != b or lens.shape != (b,) or d % 8:
         raise ValueError(f"paged_decode_attention: q {tuple(q.shape)}, pool "
                          f"{tuple(k_pages.shape)}, table {tuple(table.shape)},"
-                         f" lens {tuple(lens.shape)}")
+                         f" lens {tuple(lens.shape)} (head dim a multiple of "
+                         f"8)")
+    cuda_lib.require_aligned("paged_decode_attention", q, k_pages, v_pages)
     if scale is None:
         scale = d ** -0.5
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    err = cuda_lib.library().repro_paged_decode_attention(
+    n_pages = table.shape[1]
+    launch_split_decode(
+        "repro_paged_decode_attention", q, n_pages * page_size, hkv, KV_TILE,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
-        lens.data_ptr(), o.data_ptr(), b, page_size, table.shape[1], hq, hkv,
-        d, float(logit_softcap), float(scale), KV_TILE,
-        cuda_lib.dtype_code(q), cuda_lib.stream_of(q))
-    cuda_lib.check(err, "paged_decode_attention")
+        lens.data_ptr(), o.data_ptr(), b, page_size, n_pages, hq, hkv, d,
+        float(logit_softcap), float(scale))
     cuda_lib.LAUNCHES["paged_decode_attention"] += 1
     return o

@@ -111,3 +111,54 @@ def test_recompute_wrapper_gradients_on_the_card(sm90):
         grads.append([t.grad for t in xs])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_tensor_core_prefill_matches_plain_version(sm90, d):
+    g = torch.Generator(device=sm90).manual_seed(3)
+
+    def rnd(*s):
+        return torch.randn(s, generator=g, device=sm90).to(torch.bfloat16)
+
+    for (sq, skv, kw) in ((77, 77, {}), (77, 200, {"causal": False}),
+                          (50, 50, {"q_offset": -20}),
+                          (120, 120, {"sliding_window": 13,
+                                      "logit_softcap": 20.0})):
+        q, k, v = rnd(2, sq, 8, d), rnd(2, skv, 2, d), rnd(2, skv, 2, d)
+        ref = tfr.attention_blockwise_ref(q, k, v, **kw)
+        for qb, kb in ((32, 32), (64, 64)):
+            out = tfk.flash_attention_cuda(q, k, v, q_block=qb, kv_block=kb,
+                                           **kw)
+            _cmp(out, ref, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_decode_matches_split_oracle_and_paged_equals_dense(sm90,
+                                                                  dtype):
+    g = torch.Generator(device=sm90).manual_seed(4)
+
+    def rnd(*s):
+        return torch.randn(s, generator=g, device=sm90).to(dtype)
+
+    b, ps, n_pages = 8, 64, 16
+    cap = ps * n_pages
+    n_split, rows = tfk.plan_decode_splits(
+        cap, tpk.KV_TILE, b, 2, torch.cuda.get_device_properties(
+            sm90).multi_processor_count)
+    assert n_split > 1
+    lens = torch.tensor([0, 1, rows, rows + 1, cap, cap + 50, 300, 777],
+                        dtype=torch.int32, device=sm90)
+    q, kc, vc = rnd(b, 1, 8, 64), rnd(b, cap, 2, 64), rnd(b, cap, 2, 64)
+    out = tfk.decode_attention_cuda(q, kc, vc, lens, kv_block=tpk.KV_TILE)
+    _cmp(out, tfr.decode_attention_split_ref(q, kc, vc, lens,
+                                             split_rows=rows), dtype)
+    kp = torch.cat([kc.reshape(b * n_pages, ps, 2, 64),
+                    torch.zeros((1, ps, 2, 64), dtype=dtype, device=sm90)])
+    vp = torch.cat([vc.reshape(b * n_pages, ps, 2, 64),
+                    torch.zeros((1, ps, 2, 64), dtype=dtype, device=sm90)])
+    table = torch.arange(b * n_pages, dtype=torch.int32,
+                         device=sm90).reshape(b, n_pages)
+    paged = tpk.paged_decode_attention_cuda(q, kp, vp, table, lens)
+    assert torch.equal(paged, out)

@@ -9,17 +9,23 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    and convolutions;
 2. build: compile the CUDA kernels from ``src/repro_torch/csrc``;
 3. kernels vs plain: every kernel against its plain PyTorch version on the
-   card, fp32 and bf16, at the slices' shapes and at edge shapes — prefill
-   attention at head dims 16-128 (80: zamba2-2.7b's, causal, GQA G=1 and
-   G=4), the Mamba-1 scan (ragged L and C, N = 4..128, large dt*A) and the
-   Mamba-2 SSD (ragged L, G in {1, 2, 4}, N in {16, 64}, large dt*A);
+   card, fp32 and bf16, at the slices' shapes and at edge shapes — RMSNorm
+   at widths 64-8192 (the training rows of zamba2-2.7b and falcon-mamba-7b,
+   a 4-row decode case at each width, an odd width and an unaligned view;
+   every warps-per-row plan must be reached), prefill attention at head
+   dims 16-128 (80: zamba2-2.7b's, causal, GQA G=1 and G=4), the Mamba-1
+   scan (ragged L and C, N = 4..128, large dt*A) and the Mamba-2 SSD
+   (ragged L, G in {1, 2, 4}, N in {8, 16, 64}, large dt*A, a 128-chunk
+   chain, 512 (b, h) pairs of 2 chunks, bf16 x/B/C with fp32 dt), the
+   tensor-core SSD also against its rounding-faithful plain version and
+   bit for bit across two launches;
    paged decode against dense decode on the same rows (bit for bit); the
    bf16 tensor-core prefill at every head dim and block shape (causal,
    cross, q_offset of either sign, window, softcap, ragged lengths); the
    split decode at 16 slots over 4096-row caches (lengths 0, 1, on a
    split boundary, past the capacity), paged equal to dense bit for bit
-   there too; the tensor-core instructions (HMMA) in the prefill kernel's
-   SASS; and the gradient of each autograd-wrapped op (kernel forward,
+   there too; the tensor-core instructions (HMMA) in the prefill and SSD
+   kernels' SASS; and the gradient of each autograd-wrapped op (kernel forward,
    recompute backward) against autograd through its plain version;
 4. serving slice: llama3.2-1b at full width and depth (bf16, seeded random
    weights) through the fixed-batch serve path and through the continuous
@@ -35,12 +41,14 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    ``dispatch.use_mode("ref")`` (2 layers resp. 1 super-block);
 5. timings: each kernel, its plain version and the one-call PyTorch
    yardstick where one exists, timed with CUDA events at the slices'
-   shapes, beside the card's bound for the same work; prefill also at a
-   long prompt (1 x 2048) and decode at 32 slots over 2048-row caches;
+   shapes, beside the card's bound for the same work; RMSNorm also at the
+   decode rows and both training shapes, prefill at a long prompt
+   (1 x 2048) and decode at 32 slots over 2048-row caches;
 6. profiles: device time by kernel over a few decode steps of the fixed
-   batch (no more launches per step than before the split decode), and
-   over one train step of each training model (with the share of the
-   recompute backwards), and the device's busy share.
+   batch (no more launches per step than before the split decode; RMSNorm's
+   time per step), and over one train step of each training model (with
+   the share of the recompute backwards and the SSD's and RMSNorm's kernel
+   time), and the device's busy share.
 
 Prints the kernel table, the serving and the training summaries as JSON
 lines, and, as the last line, ``{"ok": true, "device": {...}}``.  Any
@@ -118,26 +126,48 @@ def phase_kernels(torch, dev):
         paged_decode_attention_cuda)
     from repro_torch.kernels.paged_attention.ref import (
         paged_decode_attention_ref)
-    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.kernels.rmsnorm.kernel import (WARPS_PER_ROW,
+                                                    plan_rmsnorm,
+                                                    rmsnorm_cuda)
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {k: [] for k in ("rmsnorm", "flash_attention", "decode_attention",
                             "paged_decode_attention")}
     n_cases = 0
+    plans = set()
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[1]
-        # -- rmsnorm: prefill rows, decode rows, batcher prompt, edges
+        # -- rmsnorm: prefill rows, decode rows, batcher prompt, the
+        #    training rows of zamba2-2.7b (2560) and falcon-mamba-7b (4096)
+        #    and a 4-row decode case at each width, 8192, edges (an odd
+        #    width, and an unaligned view: element by element)
         for shape, res, main in (((4, 64, 2048), False, True),
                                  ((4, 1, 2048), False, True),
                                  ((1, 200, 2048), False, True),
+                                 ((2, 1024, 2560), False, True),
+                                 ((4, 1, 2560), False, False),
+                                 ((2, 1024, 4096), False, True),
+                                 ((4, 1, 4096), True, False),
+                                 ((16, 8192), False, False),
+                                 ((4, 1, 8192), True, False),
                                  ((4, 64, 2048), True, False),
                                  ((3, 17, 64), True, False),
-                                 ((5, 100), False, False)):
-            x = _rand(torch, gen, shape, dt, dev)
+                                 ((5, 100), False, False),
+                                 ((4, 2048, "unaligned"), False, False)):
+            if shape[-1] == "unaligned":
+                shape = shape[:-1]
+                n = shape[0] * shape[1]
+                x = _rand(torch, gen, (n + 1,), dt, dev)[1:].view(shape)
+            else:
+                x = _rand(torch, gen, shape, dt, dev)
             w = _rand(torch, gen, shape[-1:], dt, dev)
             r = _rand(torch, gen, shape, dt, dev) if res else None
+            vec = 16 // x.element_size()
+            aligned = shape[-1] % vec == 0 and x.data_ptr() % 16 == 0
             for rb in ((1, 4, 8) if main else (4,)):
+                plans.add(plan_rmsnorm(x.numel() // shape[-1], shape[-1],
+                                       x.element_size(), aligned, rb))
                 out = rmsnorm_cuda(x, w, eps=1e-5, residual=r, row_block=rb)
                 ref = rmsnorm_ref(x, w, eps=1e-5, residual=r)
                 _compare(torch, f"rmsnorm {shape} res={res} {dn}", out, ref,
@@ -229,6 +259,14 @@ def phase_kernels(torch, dev):
                   f"{float((out.float() - dense.float()).abs().max()):.3e}")
             n_cases += 2
     torch.cuda.synchronize()
+    reached = {p.warps_per_row for p in plans}
+    check(reached == set(WARPS_PER_ROW) and
+          {p.vectorized for p in plans} == {True, False},
+          f"rmsnorm: the cases reached warps per row {sorted(reached)} and "
+          f"vectorized {sorted({p.vectorized for p in plans})}; every plan "
+          f"the planner can choose must be reached")
+    log(f"rmsnorm plans reached: {sorted(set(p[:3] for p in plans))} "
+        f"(warps per row, rows per block, slots)")
     return {k: max(v) for k, v in errs.items()}, n_cases
 
 
@@ -374,7 +412,10 @@ SCAN_CASES = (
     (1, 40, 70, 128, 16, 32, 0.1, False),
 )
 # (b, l, h, p, g, n, chunk, dt_scale, main): zamba2-2.7b's shape (chunk 256
-# snaps to 64), ragged L, G in {1, 2, 4}, N in {16, 64}, large dt * A
+# snaps to 64), ragged L, G in {1, 2, 4}, N in {16, 64}, large dt * A (in
+# one chunk and across 19 chunks of 16), a long chain (128 chunks on one
+# (b, h) pair), many pairs with few chunks (512 pairs x 2), and N 8 / P 24,
+# which bf16 takes through the SIMT kernel
 SSD_CASES = (
     (2, 1024, 80, 64, 1, 64, 256, 0.1, True),
     (1, 100, 8, 64, 2, 64, 64, 0.1, False),
@@ -382,6 +423,10 @@ SSD_CASES = (
     (1, 45, 4, 80, 1, 16, 16, 0.1, False),
     (1, 64, 4, 64, 1, 64, 64, 5.0, False),
     (2, 129, 6, 16, 2, 16, 32, 0.1, False),
+    (1, 300, 4, 64, 1, 64, 16, 5.0, False),
+    (1, 8192, 1, 64, 1, 64, 64, 0.1, False),
+    (8, 128, 64, 64, 1, 64, 64, 0.1, False),
+    (1, 40, 4, 24, 1, 8, 16, 0.1, False),
 )
 
 
@@ -392,6 +437,13 @@ SSD_CASES = (
 # differ by ~1e-4 relative, and a sum of them that nearly cancels by more.
 # The fp32 tolerance of those cases is set by that, not by the kernel.
 LARGE_DECAY_TOL = (2e-3, 2e-3)
+
+# The tensor-core SSD against its rounding-faithful plain version
+# (ssd_tensor_core_ref), which rounds where the kernel rounds: the two
+# differ by the order of fp32 sums and by the exponentials, which can move
+# a bf16 output by one step (2^-8 relative, up to 2^-7 of the value), and
+# by fp32 noise near zero.
+FAITHFUL_TOL = (1e-3, 1e-2)
 
 
 def scan_inputs(torch, gen, b, l, c, n, dt_scale, dtype, dev):
@@ -420,11 +472,12 @@ def ssd_inputs(torch, gen, b, l, h, p, g, n, dt_scale, dtype, dev):
 def phase_ssm_kernels(torch, dev):
     from repro_torch.kernels.mamba_scan.kernel import selective_scan_cuda
     from repro_torch.kernels.mamba_scan.ref import selective_scan_chunked_ref
-    from repro_torch.kernels.ssd.kernel import ssd_cuda
+    from repro_torch.kernels.ssd.kernel import ssd_cuda, ssd_route
     from repro_torch.kernels.ssd.ref import ssd_ref
 
     gen = torch.Generator(device=dev).manual_seed(2)
     errs = {"selective_scan": [], "ssd": []}
+    faithful = []
     n_cases = 0
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[1]
@@ -441,12 +494,48 @@ def phase_ssm_kernels(torch, dev):
             ref = ssd_ref(*a, chunk=64)
             out = ssd_cuda(*a, chunk=chunk)
             tol = LARGE_DECAY_TOL if scale > 1 and dn == "float32" else None
-            _compare(torch, f"ssd {(b, l, h, p, g, n)} chunk {chunk} "
-                     f"dt*{scale} {dn}", out, ref, dn, errs["ssd"], main,
-                     tol)
+            name = f"ssd {(b, l, h, p, g, n)} chunk {chunk} dt*{scale} {dn}"
+            _compare(torch, name, out, ref, dn, errs["ssd"], main, tol)
             n_cases += 1
+            q = min(chunk, 64)
+            if ssd_route(a[0], a[3], a[4], q) == "mma":
+                n_cases += _check_tensor_core_ssd(torch, name, a, q, out,
+                                                  faithful)
+    # bf16 x, B, C with fp32 dt (a bf16 model's fp32 dt_bias): the
+    # tensor-core route, no widening
+    a = list(ssd_inputs(torch, gen, 2, 1024, 80, 64, 1, 64, 0.1,
+                        torch.bfloat16, dev))
+    a[1] = torch.rand((2, 1024, 80), generator=gen, device=dev) * 0.1
+    check(ssd_route(a[0], a[3], a[4], 64) == "mma",
+          "ssd: bf16 x/B/C with fp32 dt left the tensor-core route")
+    out = ssd_cuda(*a, chunk=256)
+    name = "ssd bf16 x/B/C, fp32 dt"
+    _compare(torch, name, out, ssd_ref(*a, chunk=64), "bfloat16",
+             errs["ssd"], False)
+    n_cases += 1 + _check_tensor_core_ssd(torch, name, a, 64, out, faithful)
     torch.cuda.synchronize()
-    return {k: max(v) for k, v in errs.items()}, n_cases
+    log(f"tensor-core SSD against its rounding-faithful plain version: max "
+        f"|err| {max(faithful):.3e} (atol {FAITHFUL_TOL[0]}, rtol "
+        f"{FAITHFUL_TOL[1]}); bit for bit across repeated launches")
+    out = {k: max(v) for k, v in errs.items()}
+    out["ssd_faithful"] = max(faithful)
+    return out, n_cases
+
+
+def _check_tensor_core_ssd(torch, name, a, q, out, faithful):
+    """The tensor-core SSD's output ``out`` against the rounding-faithful
+    plain version, and a second launch on the same inputs bit for bit
+    (which also shows the ticket and the flags ready for it)."""
+    from repro_torch.kernels.ssd.kernel import ssd_cuda
+    from repro_torch.kernels.ssd.ref import ssd_tensor_core_ref
+
+    ref = ssd_tensor_core_ref(*a, chunk=q)
+    _compare(torch, f"{name} vs the rounding-faithful version", out, ref,
+             "bfloat16", faithful, True, FAITHFUL_TOL)
+    again = ssd_cuda(*a, chunk=q)
+    check(torch.equal(out, again), f"{name}: two launches differ, max "
+          f"{float((out.float() - again.float()).abs().max()):.3e}")
+    return 2
 
 
 GRAD_TOL = (2e-2, 2e-2)  # bf16 forward outputs feed the loss's gradient
@@ -922,13 +1011,14 @@ def phase_timings(torch, dev, errs, launches):
     def flush():
         l2.zero_()
 
-    def extra(entry, key, shape, kernel, plain, library, nbytes, flops):
+    def extra(entry, key, shape, kernel, plain, library, nbytes, flops,
+              elementwise=False):
         """Time the same kernel at another shape, as ``entry[key]``."""
         ms = _time_ms(torch, kernel, flush)
         plain_ms = _time_ms(torch, plain, flush)
         lib_ms = (_time_ms(torch, library, flush) if library is not None
                   else None)
-        bound_ms, bound_by = _bound(nbytes, flops, "bfloat16")
+        bound_ms, bound_by = _bound(nbytes, flops, "bfloat16", elementwise)
         entry[key] = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
                       "library_ms": lib_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by}
@@ -968,6 +1058,19 @@ def phase_timings(torch, dev, errs, launches):
         lambda: rmsnorm_cuda(x, w), lambda: rmsnorm_ref(x, w),
         lambda: F.rms_norm(x, (2048,), w, 1e-5),
         nbytes=2 * n * es + 2048 * es, flops=4 * n, elementwise=True)
+    # the decode step's rows (4 slots x 1 token) and the training rows
+    # (2 x 1024 tokens) of falcon-mamba-7b (4096) and zamba2-2.7b (2560)
+    for key, shape in (("decode", (4, 1, 2048)),
+                       ("train_falcon_mamba", (2048, 4096)),
+                       ("train_zamba2", (2048, 2560))):
+        xe = _rand(torch, gen, shape, bf, dev)
+        we = _rand(torch, gen, shape[-1:], bf, dev)
+        ne = xe.numel()
+        extra(rows[-1], key, list(shape),
+              lambda: rmsnorm_cuda(xe, we), lambda: rmsnorm_ref(xe, we),
+              lambda: F.rms_norm(xe, shape[-1:], we, 1e-5),
+              nbytes=2 * ne * es + shape[-1] * es, flops=4 * ne,
+              elementwise=True)
 
     # prefill attention at the fixed-batch prompt (causal, 4 x 64 tokens)
     b, s, hq, hkv, d = 4, 64, 32, 8, 64
@@ -1135,17 +1238,37 @@ def phase_timings(torch, dev, errs, launches):
         note="operations: 7 per (b, t, c, n) (dt*A, exp, two products, two "
              "FMAs' worth) at the fp32 rate")
 
-    # the Mamba-2 SSD at zamba2-2.7b's training shape (chunk 256 -> 64)
-    b, l, h, p, g, n = 2, 1024, 80, 64, 1, 64
+    # the Mamba-2 SSD at zamba2-2.7b's training shape (chunk 256 -> 64).
+    # Its bound: the bytes (x, dt, B, C read, y written once) against the
+    # chunked form's products at the bf16 tensor-core rate, per (b, h,
+    # chunk of q steps): C B^T (q q n), M x (q q p), the chunk state
+    # (n q p) and C S_in (q n p), two operations per multiply-add
+    b, l, h, p, g, n, q = 2, 1024, 80, 64, 1, 64, 64
     a = ssd_inputs(torch, gen, b, l, h, p, g, n, 0.1, bf, dev)
+    ssd_bytes = (2 * b * l * h * p + b * l * h + 2 * b * l * g * n) * es \
+        + 8 * h
+    ssd_flops = b * h * (l // q) * 2 * q * (q * n + q * p + 2 * n * p)
+    old_bound_ms, _ = _bound(ssd_bytes, 5 * b * l * h * n * p, "float32",
+                             elementwise=True)
     row("ssd", "src/repro_torch/csrc/ssd.cu",
         "src/repro/kernels/ssd/kernel.py:108", [b, l, h, p, g, n],
         lambda: ssd_cuda(*a, chunk=256), lambda: ssd_ref(*a, chunk=256),
-        None, nbytes=(2 * b * l * h * p + b * l * h + 2 * b * l * g * n) * es
-        + 8 * h, flops=5 * b * l * h * n * p, elementwise=True,
-        note="operations: the recurrence's 5 N P per (b, t, h) (decay, "
-             "input FMA, read-out FMA) at the fp32 rate; the chunked "
-             "algorithm does more")
+        None, nbytes=ssd_bytes, flops=ssd_flops,
+        note=f"bound: bytes against the chunked form's {ssd_flops / 1e9:.2f}"
+             f" GFLOP at the bf16 tensor-core rate; the recurrence's 5 N P "
+             f"fp32 operations per (b, t, h) at the fp32 SIMT rate, the "
+             f"bound stated before, give {old_bound_ms * 1e3:.1f} us")
+    rows[-1]["faithful_max_abs_err"] = errs["ssd_faithful"]
+    rows[-1]["faithful_tolerance"] = FAITHFUL_TOL
+    # a long chain: 128 chunks of 64 on one (b, h) pair, where the state's
+    # hand-over from chunk to chunk is all the kernel waits for
+    b, l, h = 1, 8192, 1
+    a = ssd_inputs(torch, gen, b, l, h, p, g, n, 0.1, bf, dev)
+    extra(rows[-1], "chain128", [b, l, h, p, g, n],
+          lambda: ssd_cuda(*a, chunk=64), lambda: ssd_ref(*a, chunk=64),
+          None, nbytes=(2 * b * l * h * p + b * l * h + 2 * b * l * g * n)
+          * es + 8 * h,
+          flops=b * h * (l // q) * 2 * q * (q * n + q * p + 2 * n * p))
     return rows
 
 
@@ -1194,6 +1317,12 @@ def phase_profile(torch, np, dev, ctx):
            "decode_attention_us_per_step": sum(
                t for k, t, _ in kernels if "decode_attention_kernel" in k)
            * 1e3 / PROFILE_STEPS,
+           "rmsnorm_us_per_step": sum(
+               t for k, t, _ in kernels if "rmsnorm_kernel" in k)
+           * 1e3 / PROFILE_STEPS,
+           "rmsnorm_calls_per_step": sum(
+               c for k, _, c in kernels if "rmsnorm_kernel" in k)
+           / PROFILE_STEPS,
            "top": [{"kernel": k[:80], "ms_per_step": t / PROFILE_STEPS,
                     "share": t / busy_ms, "calls_per_step": c / PROFILE_STEPS}
                    for k, t, c in kernels[:12]]}
@@ -1205,6 +1334,8 @@ def phase_profile(torch, np, dev, ctx):
         dec_us = out["decode_attention_us_per_step"]
         log(f"  decode attention {dec_us:.1f} us/step ("
             f"{dec_us * 1e-1 * PROFILE_STEPS / busy_ms:.1f}% of device busy)")
+        log(f"  rmsnorm {out['rmsnorm_us_per_step']:.1f} us/step over "
+            f"{out['rmsnorm_calls_per_step']:.0f} calls")
         check(out["launches_per_step"] <= MAX_DECODE_LAUNCHES,
               f"{out['launches_per_step']} kernels per decode step, more "
               f"than {MAX_DECODE_LAUNCHES}")
@@ -1267,14 +1398,22 @@ def phase_profile_train(torch, np, dev, arch):
     # between them): an upper bound on their busy time
     recompute = {e.key: e.self_device_time_total / 1e3 for e in ranges
                  if e.key.startswith("recompute_bwd.")}
-    ours = {"selective_scan_kernel", "ssd_kernel", "flash_attention_kernel",
-            "rmsnorm"}
+    ours = {"selective_scan_kernel", "ssd_kernel", "ssd_mma_kernel",
+            "flash_attention", "rmsnorm_kernel"}
     port_ms = sum(t for k, t, _ in kernels if any(o in k for o in ours))
+
+    def by_name(sub):
+        return (sum(t for k, t, _ in kernels if sub in k),
+                sum(c for k, _, c in kernels if sub in k))
     out = {"arch": arch, "layers": cfg.num_layers, "window_ms": wall_ms,
            "device_busy_ms": busy_ms,
            "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
            "kernels_launched": sum(c for _, _, c in kernels),
            "port_kernels_ms": port_ms,
+           "ssd_kernel_ms": by_name("ssd_")[0],
+           "ssd_calls": by_name("ssd_")[1],
+           "rmsnorm_kernel_ms": by_name("rmsnorm_kernel")[0],
+           "rmsnorm_calls": by_name("rmsnorm_kernel")[1],
            "recompute_bwd_ms": recompute,
            "recompute_share": (sum(recompute.values()) / busy_ms
                                if busy_ms and recompute else None),
@@ -1287,6 +1426,9 @@ def phase_profile_train(torch, np, dev, arch):
             f"the port's kernels {port_ms:.1f} ms; recompute backwards "
             f"{ {k: round(v, 1) for k, v in recompute.items()} } ms "
             f"(share {out['recompute_share']})")
+        log(f"  SSD kernel {out['ssd_kernel_ms']:.2f} ms over "
+            f"{out['ssd_calls']} calls; RMSNorm kernel "
+            f"{out['rmsnorm_kernel_ms']:.2f} ms over {out['rmsnorm_calls']}")
         for t in out["top"][:8]:
             log(f"  {t['ms']:8.2f} ms {t['share'] * 100:5.1f}%  "
                 f"x{t['calls']}  {t['kernel']}")
@@ -1367,6 +1509,11 @@ def main() -> int:
         f"SASS: {hmma}")
     check(bool(hmma) and all(n > 0 for n in hmma.values()),
           "the bf16 prefill kernels have no HMMA instruction in their SASS")
+    hmma_ssd = tensor_core_instructions(lib_path, "ssd_mma_kernel")
+    log(f"tensor-core instructions (HMMA) in the bf16 SSD kernels' SASS: "
+        f"{hmma_ssd}")
+    check(bool(hmma_ssd) and all(n > 0 for n in hmma_ssd.values()),
+          "the bf16 SSD kernels have no HMMA instruction in their SASS")
 
     # 3. kernels vs plain, and the wrapped ops' gradients
     t0 = time.perf_counter()

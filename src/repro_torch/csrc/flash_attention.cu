@@ -170,7 +170,6 @@ __global__ void flash_attention_kernel(const T* __restrict__ q, const T* __restr
 // barrier and softmax hide behind another's products; eight warps fit one
 constexpr int kMaxWarps = 4;
 constexpr int kStages = 2;  // K/V ring depth
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD, int BN>
 struct MmaTile {

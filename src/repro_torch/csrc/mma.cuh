@@ -63,6 +63,8 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+
 // 2^x on the special-function unit (flush-to-zero; 2^-huge is exactly 0)
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;

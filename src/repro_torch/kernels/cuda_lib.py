@@ -54,9 +54,10 @@ SMEM_LIMIT = 227 * 1024
 
 _c_int, _c_float, _ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _SIGNATURES = {
-    # x, residual, w, y, rows, dim, eps, dtype, row_block, vectorized, stream
-    "repro_rmsnorm": [_ptr, _ptr, _ptr, _ptr, _c_int, _c_int, _c_float,
-                      _c_int, _c_int, _c_int, _ptr],
+    # x, residual, w, y, rows, dim, eps, dtype, rows_per_block,
+    # warps_per_row, slots, vectorized, stream
+    "repro_rmsnorm": [_ptr] * 4 + [_c_int, _c_int, _c_float] + [_c_int] * 5
+                     + [_ptr],
     # q, k, v, o, B, Sq, Skv, Hq, Hkv, D, causal, window, softcap, scale,
     # q_offset, q_block, kv_block, dtype, stream
     "repro_flash_attention": [_ptr] * 4 + [_c_int] * 8 + [_c_float] * 2
@@ -74,9 +75,9 @@ _SIGNATURES = {
     # x, dt, A, B, C, D, y, B, L, C, N, lpc, c_block, chunk, in_dtype,
     # out_dtype, stream
     "repro_selective_scan": [_ptr] * 7 + [_c_int] * 9 + [_ptr],
-    # x, dt, A, B, C, D, y, B, L, H, P, G, N, chunk, in_dtype, out_dtype,
-    # stream
-    "repro_ssd": [_ptr] * 7 + [_c_int] * 9 + [_ptr],
+    # x, dt, A, B, C, D, y, B, L, H, P, G, N, chunk, in_dtype, dt_dtype,
+    # out_dtype, route, states, flags, ticket, epoch, stream
+    "repro_ssd": [_ptr] * 7 + [_c_int] * 11 + [_ptr] * 3 + [_c_int, _ptr],
 }
 
 _lock = threading.Lock()
@@ -84,6 +85,11 @@ _lib: Optional[ctypes.CDLL] = None
 #: per device: the split decode's fp32 partials and its int32 ticket
 #: counters (zero between launches; the kernel's last block resets them)
 _decode_scratch: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+#: per device: the tensor-core SSD's chain scratch (fp32 state slots, int32
+#: flags, one int32 ticket counter) and the last launch's epoch
+_ssd_scratch: Dict[torch.device,
+                   Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
+_epochs: Dict[torch.device, int] = {}
 _sm_counts: Dict[torch.device, int] = {}
 
 
@@ -260,3 +266,34 @@ def decode_scratch(device: torch.device, partial_floats: int,
                               device=device)
         _decode_scratch[device] = (part, cnt)
         return part, cnt
+
+
+def ssd_scratch(device: torch.device, state_floats: int, flags: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The tensor-core SSD's chain scratch on ``device``, at least the sizes
+    asked for: fp32 state slots, int32 flags (zeroed when allocated; a
+    launch writes its epoch into them, so they need no reset) and one
+    int32 ticket counter (zero between launches; the block that draws the
+    last ticket resets it).  Allocated once and grown only when a larger
+    call comes; kernels on one stream share it in stream order."""
+    with _lock:
+        st, fl, tk = _ssd_scratch.get(device, (None, None, None))
+        if st is None or st.numel() < state_floats:
+            st = torch.empty(max(state_floats, 1), dtype=torch.float32,
+                             device=device)
+        if fl is None or fl.numel() < flags:
+            fl = torch.zeros(max(flags, 1), dtype=torch.int32, device=device)
+        if tk is None:
+            tk = torch.zeros(1, dtype=torch.int32, device=device)
+        _ssd_scratch[device] = (st, fl, tk)
+        return st, fl, tk
+
+
+def next_epoch(device: torch.device) -> int:
+    """A flag value no earlier launch on ``device`` used (1, 2, ...; it
+    wraps past 2**31 - 1 back to 1, never to 0, the value of a fresh
+    flag)."""
+    with _lock:
+        e = _epochs.get(device, 0) % (2 ** 31 - 1) + 1
+        _epochs[device] = e
+        return e

@@ -374,12 +374,15 @@ def snap_down(value: int, domain: Tuple[int, ...]) -> int:
 #   note has why that is slow), so the reference's 512 snaps to 64;
 # - flash_attention.kv_block: K/V rows per shared-memory stage (prefill and
 #   dense decode; the split decode's ranges are whole numbers of them);
-# - rmsnorm.row_block: rows per CUDA block, one warp per row;
+# - rmsnorm.row_block: rows per CUDA block when a row has one warp; the
+#   planner (rmsnorm/kernel.py::plan_rmsnorm) gives a row 2, 4 or 8 warps,
+#   one row a block, when the row is wide or the rows are few;
 # - mamba_scan.chunk: time steps of x, dt, B, C staged in shared memory per
 #   pass; mamba_scan.c_block: channels per CUDA block (lanes per channel
 #   follow from the state size, clamped to 1024 threads);
-# - ssd.chunk: the SSD chunk Q, at most 64 so the Q x Q score tile fits
-#   beside the (N, P) state in shared memory.
+# - ssd.chunk: the SSD chunk Q, at most 64: one 16-step slab per warp of
+#   the tensor-core kernel's block, and the SIMT kernel's Q x Q score tile
+#   fits beside the (N, P) state in shared memory.
 
 register_family(KernelFamily(
     name="flash_attention",

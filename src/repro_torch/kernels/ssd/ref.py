@@ -102,6 +102,81 @@ def ssd_ref(
     return y
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _split(t: torch.Tensor) -> torch.Tensor:
+    """An fp32 operand as the kernel feeds it to the tensor cores: a bf16
+    high part plus the bf16 rounding of the rest."""
+    hi = _bf16(t)
+    return hi + _bf16(t - hi)
+
+
+def ssd_tensor_core_ref(x, dt, A, Bmat, Cmat, D, chunk: int = 64):
+    """The tensor-core SSD kernel's arithmetic in plain PyTorch: the same
+    chunked decomposition as :func:`ssd_ref`, rounded to bf16 exactly where
+    the kernel (``ssd_mma_kernel`` in ``csrc/ssd.cu``) feeds an MMA, with
+    the chunk states chained in order.  An operand the kernel computes in
+    fp32 enters as split(v) = hi + lo, hi = bf16(v), lo = bf16(v - hi).
+    Per chunk, fp32 unless said:
+
+    - M = split(<C_t, B_s> exp(cum_t - cum_s) dt_s) for s <= t, else 0;
+      y = M x;
+    - S_z = split(B_s exp(cum_end - cum_s) dt_s)^T x;
+    - S_out = exp(cum_end) S_in + S_z, in order over the chunks;
+    - y += exp(cum_t) C_t split(S_in);
+    - y += D x, stored in x's dtype.
+
+    x, B and C are taken as the kernel takes them (bf16 values); it
+    differs from the kernel only by the order of its fp32 sums and its
+    exponentials.  Holds the kernel's precision budget against
+    :func:`ssd_ref` on the CPU, and the kernel to it on the card."""
+    b, l, h, p = x.shape
+    g, n = Bmat.shape[2], Bmat.shape[3]
+    rep = h // g
+    orig_l = l
+    pad = (-l) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bmat = F.pad(Bmat, (0, 0, 0, 0, 0, pad))
+        Cmat = F.pad(Cmat, (0, 0, 0, 0, 0, pad))
+        l = x.shape[1]
+    nc = l // chunk
+    f32 = torch.float32
+    # (b, h, nc, c, .) per head
+    xf = x.to(f32).reshape(b, nc, chunk, h, p).permute(0, 3, 1, 2, 4)
+    dtf = dt.to(f32).reshape(b, nc, chunk, h).permute(0, 3, 1, 2)
+    Bh = torch.repeat_interleave(Bmat.to(f32).reshape(b, nc, chunk, g, n),
+                                 rep, dim=3).permute(0, 3, 1, 2, 4)
+    Ch = torch.repeat_interleave(Cmat.to(f32).reshape(b, nc, chunk, g, n),
+                                 rep, dim=3).permute(0, 3, 1, 2, 4)
+    cum = torch.cumsum(dtf * A.to(f32)[None, :, None, None], dim=-1)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    seg = torch.where(tri, cum[..., :, None] - cum[..., None, :],
+                      torch.zeros((), dtype=f32, device=x.device))
+    scores = Ch @ Bh.transpose(-1, -2)
+    M = torch.where(tri, _split(scores * torch.exp(seg) * dtf[..., None, :]),
+                    torch.zeros((), dtype=f32, device=x.device))
+    y = M @ xf
+    cum_end = cum[..., -1:]
+    w = torch.exp(cum_end - cum) * dtf
+    states = _split(Bh * w[..., None]).transpose(-1, -2) @ xf  # (b, h, nc, n, p)
+    decay = torch.exp(cum_end[..., 0])  # (b, h, nc)
+    s = torch.zeros((b, h, n, p), dtype=f32, device=x.device)
+    prev = []
+    for z in range(nc):
+        prev.append(s)
+        s = decay[:, :, z, None, None] * s + states[:, :, z]
+    s_in = torch.stack(prev, dim=2)  # (b, h, nc, n, p)
+    y = y + torch.exp(cum)[..., None] * (Ch @ _split(s_in))
+    y = y + xf * D.to(f32)[None, :, None, None, None]
+    y = y.permute(0, 2, 3, 1, 4).reshape(b, l, h, p)[:, :orig_l]
+    return y.to(x.dtype)
+
+
 def ssd_step_ref(state, x_t, dt_t, A, B_t, C_t, D):
     """Single decode step.  state: (B, H, N, P); x_t: (B, H, P); dt_t:
     (B, H); B_t/C_t: (B, G, N).  Returns (state_new fp32, y_t: (B, H, P))."""

@@ -162,3 +162,44 @@ def test_split_decode_matches_split_oracle_and_paged_equals_dense(sm90,
                          device=sm90).reshape(b, n_pages)
     paged = tpk.paged_decode_attention_cuda(q, kp, vp, table, lens)
     assert torch.equal(paged, out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 1, 2048), (4, 64, 2048),
+                                   (2048, 2560), (2048, 4096), (4, 1, 8192),
+                                   (5, 100)])
+def test_rmsnorm_plans_match_plain_version(sm90, dtype, shape):
+    """Decode rows (several warps a row), prefill and training rows (one or
+    two warps a row), and an odd width (element by element)."""
+    g = torch.Generator(device=sm90).manual_seed(5)
+    x = torch.randn(shape, generator=g, device=sm90).to(dtype)
+    w = torch.randn(shape[-1:], generator=g, device=sm90).to(dtype)
+    r = torch.randn(shape, generator=g, device=sm90).to(dtype)
+    for res in (None, r):
+        _cmp(trk.rmsnorm_cuda(x, w, residual=res),
+             trr.rmsnorm_ref(x, w, residual=res), dtype)
+
+
+@pytest.mark.gpu
+def test_tensor_core_ssd_long_chain_and_repeat(sm90):
+    """128 chunks chained on one (batch, head) pair, against the plain
+    version and the rounding-faithful one; two launches give the same
+    bits (the ticket and the epoch flags are ready for the second)."""
+    g = torch.Generator(device=sm90).manual_seed(6)
+    bf = torch.bfloat16
+    b, l, h, p, n = 1, 8192, 1, 64, 64
+    x = torch.randn((b, l, h, p), generator=g, device=sm90).to(bf)
+    dt = (torch.rand((b, l, h), generator=g, device=sm90) * 0.1).to(bf)
+    A = -torch.ones((h,), device=sm90)
+    Bm = torch.randn((b, l, 1, n), generator=g, device=sm90).to(bf)
+    Cm = torch.randn((b, l, 1, n), generator=g, device=sm90).to(bf)
+    D = torch.randn((h,), generator=g, device=sm90)
+    assert tdk.ssd_route(x, Bm, Cm, 64) == "mma"
+    out = tdk.ssd_cuda(x, dt, A, Bm, Cm, D, chunk=64)
+    _cmp(out, tdr.ssd_ref(x, dt, A, Bm, Cm, D, chunk=64), bf)
+    torch.testing.assert_close(
+        out.float(), tdr.ssd_tensor_core_ref(x, dt, A, Bm, Cm, D,
+                                             chunk=64).float(),
+        atol=1e-3, rtol=1e-2)
+    assert torch.equal(out, tdk.ssd_cuda(x, dt, A, Bm, Cm, D, chunk=64))

@@ -7,16 +7,19 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
 
 1. device: the card's name and power limit; TF32 off for fp32 products
    and convolutions;
-2. build: compile the CUDA kernels from ``src/repro_torch/csrc``;
+2. build: compile the CUDA kernels from ``src/repro_torch/csrc``; print
+   each kernel's registers and spills (``-Xptxas -v``);
 3. kernels vs plain: every kernel against its plain PyTorch version on the
    card, fp32 and bf16, at the slices' shapes and at edge shapes — RMSNorm
    at widths 64-8192 (the training rows of zamba2-2.7b and falcon-mamba-7b,
    a 4-row decode case at each width, an odd width and an unaligned view;
    every warps-per-row plan must be reached), prefill attention at head
    dims 16-128 (80: zamba2-2.7b's, causal, GQA G=1 and G=4), the Mamba-1
-   scan (ragged L and C, N = 4..128, large dt*A) and the Mamba-2 SSD
-   (ragged L, G in {1, 2, 4}, N in {8, 16, 64}, large dt*A, a 128-chunk
-   chain, 512 (b, h) pairs of 2 chunks, bf16 x/B/C with fp32 dt), the
+   scan (ragged and unaligned L and C, L = 1, N = 4..128, large dt*A,
+   every lanes-per-channel plan, bit for bit across two launches) and the
+   Mamba-2 SSD (ragged L, G in {1, 2, 4}, N in {8, 16, 64}, large dt*A, a
+   128-chunk chain, 512 (b, h) pairs of 2 chunks, bf16 x/B/C with fp32
+   dt), the
    tensor-core SSD also against its rounding-faithful plain version and
    bit for bit across two launches;
    paged decode against dense decode on the same rows (bit for bit); the
@@ -43,12 +46,16 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    yardstick where one exists, timed with CUDA events at the slices'
    shapes, beside the card's bound for the same work; RMSNorm also at the
    decode rows and both training shapes, prefill at a long prompt
-   (1 x 2048) and decode at 32 slots over 2048-row caches;
+   (1 x 2048), decode at 32 slots over 2048-row caches, the scan at the
+   plan the falcon-mamba train step launched (its launch options recorded
+   in phase 4b), with a sweep of channels a block and chunk and the SM
+   clock sampled under load;
 6. profiles: device time by kernel over a few decode steps of the fixed
    batch (no more launches per step than before the split decode; RMSNorm's
    time per step), and over one train step of each training model (with
-   the share of the recompute backwards and the SSD's and RMSNorm's kernel
-   time), and the device's busy share.
+   the share of the recompute backwards and the scan's, SSD's and
+   RMSNorm's kernel time; each kernel of the step must show device time
+   under its symbol), and the device's busy share.
 
 Prints the kernel table, the serving and the training summaries as JSON
 lines, and, as the last line, ``{"ok": true, "device": {...}}``.  Any
@@ -60,6 +67,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -398,17 +406,27 @@ def phase_attention_edges(torch, dev):
 # --------------------------------------------------------------------------
 
 # (b, l, c, n, chunk, c_block, dt_scale, main): the slice's falcon-mamba-7b
-# shape (the config's TPU-sized chunk 256 and c_block 512 snap down), L not
-# a multiple of chunk, C not a multiple of c_block, N = 4, 8, 64, 128, and
-# dt * A down to -80 (decays that underflow)
+# shape with the train step's options (the config's TPU-sized chunk 256,
+# the family's c_block 64) and with others, L not a multiple of chunk, L =
+# 1, C not a multiple of the block nor of 8 (element-by-element staging of
+# x and y), N = 4 (element-by-element B and C in bf16), 8, 24 (masked
+# state slots), 64, 128, and dt * A down to -80 (decays that underflow)
+# within a chunk and across 16 chunks at the slice's width.  Between them
+# they reach every lanes-per-channel choice of the planner (1 to 32).
 SCAN_CASES = (
+    (2, 1024, 8192, 16, 256, 64, 0.1, True),
     (2, 1024, 8192, 16, 256, 512, 0.1, True),
     (2, 1024, 8192, 16, 64, 32, 0.1, True),
+    (2, 1000, 8192, 16, 256, 64, 5.0, False),
+    (4, 130, 8190, 16, 64, 64, 0.1, False),
+    (1, 300, 12004, 16, 64, 64, 0.1, False),
+    (3, 1, 72, 16, 64, 64, 0.1, False),
     (1, 50, 24, 16, 32, 8, 0.1, False),
     (2, 100, 200, 64, 32, 64, 0.1, False),
     (1, 77, 130, 16, 16, 128, 5.0, False),
     (2, 33, 40, 4, 16, 16, 0.1, False),
     (1, 64, 96, 8, 64, 64, 0.1, False),
+    (2, 90, 500, 24, 64, 64, 0.1, False),
     (1, 40, 70, 128, 16, 32, 0.1, False),
 )
 # (b, l, h, p, g, n, chunk, dt_scale, main): zamba2-2.7b's shape (chunk 256
@@ -470,25 +488,18 @@ def ssd_inputs(torch, gen, b, l, h, p, g, n, dt_scale, dtype, dev):
 
 
 def phase_ssm_kernels(torch, dev):
-    from repro_torch.kernels.mamba_scan.kernel import selective_scan_cuda
-    from repro_torch.kernels.mamba_scan.ref import selective_scan_chunked_ref
     from repro_torch.kernels.ssd.kernel import ssd_cuda, ssd_route
     from repro_torch.kernels.ssd.ref import ssd_ref
 
     gen = torch.Generator(device=dev).manual_seed(2)
     errs = {"selective_scan": [], "ssd": []}
     faithful = []
+    plans = set()
     n_cases = 0
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[1]
-        for (b, l, c, n, chunk, cb, scale, main) in SCAN_CASES:
-            a = scan_inputs(torch, gen, b, l, c, n, scale, dt, dev)
-            ref = selective_scan_chunked_ref(*a, chunk=64)
-            out = selective_scan_cuda(*a, chunk=chunk, c_block=cb)
-            _compare(torch, f"selective_scan {(b, l, c, n)} chunk {chunk} "
-                     f"c_block {cb} dt*{scale} {dn}", out, ref, dn,
-                     errs["selective_scan"], main)
-            n_cases += 1
+        n_cases += _scan_cases(torch, gen, dt, dev, errs["selective_scan"],
+                               plans)
         for (b, l, h, p, g, n, chunk, scale, main) in SSD_CASES:
             a = ssd_inputs(torch, gen, b, l, h, p, g, n, scale, dt, dev)
             ref = ssd_ref(*a, chunk=64)
@@ -513,6 +524,9 @@ def phase_ssm_kernels(torch, dev):
     _compare(torch, name, out, ssd_ref(*a, chunk=64), "bfloat16",
              errs["ssd"], False)
     n_cases += 1 + _check_tensor_core_ssd(torch, name, a, 64, out, faithful)
+    n_cases += _scan_mixed_and_unaligned(torch, gen, dev,
+                                         errs["selective_scan"], plans)
+    _check_scan_plans(plans)
     torch.cuda.synchronize()
     log(f"tensor-core SSD against its rounding-faithful plain version: max "
         f"|err| {max(faithful):.3e} (atol {FAITHFUL_TOL[0]}, rtol "
@@ -520,6 +534,70 @@ def phase_ssm_kernels(torch, dev):
     out = {k: max(v) for k, v in errs.items()}
     out["ssd_faithful"] = max(faithful)
     return out, n_cases
+
+
+def _scan_check(torch, name, a, chunk, cb, dn, errs, main, plans):
+    """One scan case: the kernel against the plain version, and a second
+    launch on the same inputs bit for bit; records the plan launched."""
+    from repro_torch.kernels.mamba_scan.kernel import (
+        plan_scan, selective_scan_cuda, storage_size)
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_chunked_ref
+
+    b, l, c = a[0].shape
+    plan = plan_scan(b, l, c, a[2].shape[1], storage_size(*a[:2], *a[3:5]),
+                     chunk, cb)
+    plans.add(plan)
+    ref = selective_scan_chunked_ref(*a, chunk=64)
+    out = selective_scan_cuda(*a, chunk=chunk, c_block=cb)
+    name = (f"{name} (lanes {plan.lanes}, channels {plan.channels}, chunk "
+            f"{plan.chunk})")
+    _compare(torch, name, out, ref, dn, errs, main)
+    again = selective_scan_cuda(*a, chunk=chunk, c_block=cb)
+    check(torch.equal(out, again), f"{name}: two launches differ, max "
+          f"{float((out.float() - again.float()).abs().max()):.3e}")
+    return 2
+
+
+def _scan_cases(torch, gen, dtype, dev, errs, plans):
+    dn = str(dtype).split(".")[1]
+    n_cases = 0
+    for (b, l, c, n, chunk, cb, scale, main) in SCAN_CASES:
+        a = scan_inputs(torch, gen, b, l, c, n, scale, dtype, dev)
+        n_cases += _scan_check(
+            torch, f"selective_scan {(b, l, c, n)} chunk {chunk} c_block "
+            f"{cb} dt*{scale} {dn}", a, chunk, cb, dn, errs, main, plans)
+    return n_cases
+
+
+def _scan_mixed_and_unaligned(torch, gen, dev, errs, plans):
+    """bf16 x, B, C with fp32 dt (widened to fp32 storage, bf16 y), and
+    bf16 inputs at an address that is not 16-byte aligned (staged element
+    by element)."""
+    b, l, c, n = 2, 200, 1024, 16
+    a = list(scan_inputs(torch, gen, b, l, c, n, 0.1, torch.bfloat16, dev))
+    a[1] = torch.rand((b, l, c), generator=gen, device=dev) * 0.1
+    n_cases = _scan_check(torch, "selective_scan bf16 x/B/C, fp32 dt", a,
+                          64, 64, "bfloat16", errs, False, plans)
+    a = list(scan_inputs(torch, gen, b, l, c, n, 0.1, torch.bfloat16, dev))
+    for i in (0, 1):
+        store = torch.empty(a[i].numel() + 1, dtype=a[i].dtype, device=dev)
+        a[i] = store[1:].view(a[i].shape).copy_(a[i])
+        check(a[i].data_ptr() % 16 != 0, "unaligned scan input is aligned")
+    return n_cases + _scan_check(torch, "selective_scan unaligned x/dt", a,
+                                 64, 64, "bfloat16", errs, False, plans)
+
+
+def _check_scan_plans(plans):
+    """Every lanes-per-channel choice the planner can make (every
+    instantiation of the kernel) was launched."""
+    from repro_torch.kernels.mamba_scan.kernel import MAX_LANES
+
+    reached = {p.lanes for p in plans}
+    every = {1 << i for i in range(MAX_LANES.bit_length())}
+    check(reached >= every, f"selective_scan: the cases reached lanes per "
+          f"channel {sorted(reached)}, not every choice {sorted(every)}")
+    log(f"selective_scan plans reached (lanes, channels, chunk): "
+        f"{sorted({(p.lanes, p.channels, p.chunk) for p in plans})}")
 
 
 def _check_tensor_core_ssd(torch, name, a, q, out, faithful):
@@ -828,7 +906,8 @@ def phase_train(torch, np, dev):
         # ---- the main path, counted per step ---------------------------
         cuda_lib.reset_launches()
         ops.reset_recomputes()
-        with dispatch.profile_dispatches() as prof:
+        with dispatch.profile_dispatches() as prof, \
+                dispatch.record_resolutions() as resolved:
             res = train(cfg, steps=TRAIN_SHAPE["steps"],
                         seq=TRAIN_SHAPE["seq"], batch=TRAIN_SHAPE["batch"],
                         device=dev, seed=0, log=log_step)
@@ -860,6 +939,14 @@ def phase_train(torch, np, dev):
             "launches_per_step": per_step[-1]["launches"],
             "recomputes_per_step": per_step[-1]["recomputes"],
             "recomputes": recomputes}
+        # the scan's launch options as the step resolved them: phase 5
+        # times the plan they give
+        scan = {tuple(sorted(r.launch.items())) for r in resolved
+                if r.family == "mamba_scan"}
+        if scan:
+            check(len(scan) == 1, f"{arch}: the scan resolved several launch "
+                  f"options {scan}")
+            out[arch]["scan_launch"] = dict(scan.pop())
         log(f"{arch} ({layers} of {out[arch]['of_layers']} layers, "
             f"{n_params / 1e9:.3f} B params): step p50 {p50 * 1000:.1f} ms "
             f"(steps 2-{TRAIN_SHAPE['steps']}), {tokens / p50:.0f} tok/s, "
@@ -983,7 +1070,57 @@ def _bound(nbytes, flops, dtype_name, elementwise=False):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_timings(torch, dev, errs, launches):
+SFU_EX2_PER_CLOCK_SM = 16  # CUDA C Programming Guide, compute capability 9.0
+
+
+def _scan_clock(torch, fn, calls=3000):
+    """The SM clock sampled by nvidia-smi while ``calls`` launches of the
+    scan keep the card busy, and the card's top SM clock (MHz)."""
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.3)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=30)
+    samples = [[float(v) for v in ln.split(",")] for ln in out.splitlines()
+               if ln.count(",") == 1]
+    check(bool(samples), "nvidia-smi gave no SM clock samples")
+    busy = [s for s, _ in samples]
+    log(f"selective_scan: SM clock {min(busy):.0f}-{max(busy):.0f} MHz "
+        f"under load (max {samples[-1][1]:.0f})")
+    return busy, samples[-1][1]
+
+
+def _scan_sweep(torch, a, flush, channels, chunks):
+    """The scan on ``a`` at each of ``channels`` a block and ``chunks``
+    steps a pass (explicit plans, the planner's rules off): the sweep
+    behind the planner's default of 64 channels and chunk 64."""
+    from repro_torch.kernels.mamba_scan.kernel import (launch_scan,
+                                                       make_plan)
+
+    b, l, c = a[0].shape
+    out = {}
+    for chunk in chunks:
+        for ch in channels:
+            p = make_plan(b, c, a[2].shape[1], a[0].element_size(), ch, chunk)
+            out[f"lanes{p.lanes}/ch{p.channels}/chunk{p.chunk}"] = _time_ms(
+                torch, lambda: launch_scan(p, *a), flush)
+    best = min(out, key=out.get)
+    log(f"selective_scan sweep at {tuple(a[0].shape)} (us): "
+        f"{ {k: round(v * 1e3, 1) for k, v in out.items()} }; fastest "
+        f"{best}")
+    return out
+
+
+def phase_timings(torch, dev, errs, launches, scan_launch):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import (
@@ -994,7 +1131,9 @@ def phase_timings(torch, dev, errs, launches):
         paged_decode_attention_cuda)
     from repro_torch.kernels.paged_attention.ref import (
         paged_decode_attention_ref)
-    from repro_torch.kernels.mamba_scan.kernel import selective_scan_cuda
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.mamba_scan.kernel import (plan_scan,
+                                                       selective_scan_cuda)
     from repro_torch.kernels.mamba_scan.ref import selective_scan_chunked_ref
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
@@ -1224,19 +1363,41 @@ def phase_timings(torch, dev, errs, launches):
           lambda: paged_decode_attention_ref(q, kp, vp, table, lens), None,
           nbytes=dec_bytes + 4 * used_pages, flops=dec_flops)
 
-    # the Mamba-1 scan at falcon-mamba-7b's training shape, with the
-    # config's chunk / c_block (snapped down by the wrapper); the plain
-    # version at the same chunk, as the recompute backward runs it
+    # the Mamba-1 scan at falcon-mamba-7b's training shape, with the launch
+    # options the train step resolved in phase 4b (the config's chunk 256,
+    # the family's c_block), so the plan timed is the plan the step
+    # launches; the plain version at the same chunk, as the recompute
+    # backward runs it
     b, l, c, n = 2, 1024, 8192, 16
     a = scan_inputs(torch, gen, b, l, c, n, 0.1, bf, dev)
+    plan = plan_scan(b, l, c, n, es, scan_launch["chunk"],
+                     scan_launch["c_block"])
     row("selective_scan", "src/repro_torch/csrc/selective_scan.cu",
         "src/repro/kernels/mamba_scan/kernel.py:87", [b, l, c, n],
-        lambda: selective_scan_cuda(*a, chunk=256, c_block=512),
-        lambda: selective_scan_chunked_ref(*a, chunk=256), None,
+        lambda: selective_scan_cuda(*a, **scan_launch),
+        lambda: selective_scan_chunked_ref(*a, chunk=scan_launch["chunk"]),
+        None,
         nbytes=3 * b * l * c * es + 2 * b * l * n * es + 4 * c * n + 4 * c,
         flops=7 * b * l * c * n, elementwise=True,
         note="operations: 7 per (b, t, c, n) (dt*A, exp, two products, two "
-             "FMAs' worth) at the fp32 rate")
+             "FMAs' worth) at the fp32 rate; the exponentials alone, on the "
+             "special-function units (16 a clock an SM at clocks.max.sm), "
+             "need B*L*C*N / (16 * SMs * clock)")
+    rows[-1]["launch"] = dict(scan_launch)
+    rows[-1]["plan"] = plan._asdict()
+    busy, max_mhz = _scan_clock(
+        torch, lambda: selective_scan_cuda(*a, **scan_launch))
+    rows[-1]["sm_clock_mhz_samples"] = busy
+    rows[-1]["sm_clock_max_mhz"] = max_mhz
+    # the floor the exponentials set, kept as text: the row's only
+    # computed time is bound_ms
+    floor_us = b * l * c * n / (SFU_EX2_PER_CLOCK_SM * cuda_lib.sm_count(dev)
+                                * max_mhz * 1e6) * 1e6
+    rows[-1]["note"] += f" = {floor_us:.1f} us at {max_mhz:.0f} MHz"
+    log(f"selective_scan: the exponentials alone need {floor_us:.1f} us on "
+        f"the special-function units at {max_mhz:.0f} MHz")
+    rows[-1]["sweep_ms"] = _scan_sweep(torch, a, flush, (8, 16, 32, 64),
+                                       (32, 64))
 
     # the Mamba-2 SSD at zamba2-2.7b's training shape (chunk 256 -> 64).
     # Its bound: the bytes (x, dt, B, C read, y written once) against the
@@ -1277,6 +1438,10 @@ def phase_timings(torch, dev, errs, launches):
 # --------------------------------------------------------------------------
 
 PROFILE_STEPS = 8
+# the substring of each kernel's symbol in the profiler's names
+KERNEL_SYMBOLS = {"selective_scan": "selective_scan_kernel",
+                  "ssd": "ssd_", "rmsnorm": "rmsnorm_kernel",
+                  "flash_attention": "flash_attention"}
 # kernels per decode step of the fixed batch with the unsplit decode
 # kernel: splitting the KV axis must not add launches
 MAX_DECODE_LAUNCHES = 1099
@@ -1398,8 +1563,7 @@ def phase_profile_train(torch, np, dev, arch):
     # between them): an upper bound on their busy time
     recompute = {e.key: e.self_device_time_total / 1e3 for e in ranges
                  if e.key.startswith("recompute_bwd.")}
-    ours = {"selective_scan_kernel", "ssd_kernel", "ssd_mma_kernel",
-            "flash_attention", "rmsnorm_kernel"}
+    ours = set(KERNEL_SYMBOLS.values())
     port_ms = sum(t for k, t, _ in kernels if any(o in k for o in ours))
 
     def by_name(sub):
@@ -1414,6 +1578,8 @@ def phase_profile_train(torch, np, dev, arch):
            "ssd_calls": by_name("ssd_")[1],
            "rmsnorm_kernel_ms": by_name("rmsnorm_kernel")[0],
            "rmsnorm_calls": by_name("rmsnorm_kernel")[1],
+           "scan_kernel_ms": by_name("selective_scan_kernel")[0],
+           "scan_calls": by_name("selective_scan_kernel")[1],
            "recompute_bwd_ms": recompute,
            "recompute_share": (sum(recompute.values()) / busy_ms
                                if busy_ms and recompute else None),
@@ -1426,9 +1592,16 @@ def phase_profile_train(torch, np, dev, arch):
             f"the port's kernels {port_ms:.1f} ms; recompute backwards "
             f"{ {k: round(v, 1) for k, v in recompute.items()} } ms "
             f"(share {out['recompute_share']})")
-        log(f"  SSD kernel {out['ssd_kernel_ms']:.2f} ms over "
-            f"{out['ssd_calls']} calls; RMSNorm kernel "
-            f"{out['rmsnorm_kernel_ms']:.2f} ms over {out['rmsnorm_calls']}")
+        log(f"  scan kernel {out['scan_kernel_ms']:.2f} ms over "
+            f"{out['scan_calls']} calls; SSD kernel "
+            f"{out['ssd_kernel_ms']:.2f} ms over {out['ssd_calls']} calls; "
+            f"RMSNorm kernel {out['rmsnorm_kernel_ms']:.2f} ms over "
+            f"{out['rmsnorm_calls']}")
+        # a renamed kernel would drop out of the port's sum silently
+        for name in TRAIN_KERNELS[arch]:
+            check(by_name(KERNEL_SYMBOLS[name])[1] > 0,
+                  f"{arch} train step profile: no device time under "
+                  f"{KERNEL_SYMBOLS[name]!r} for the {name} kernel")
         for t in out["top"][:8]:
             log(f"  {t['ms']:8.2f} ms {t['share'] * 100:5.1f}%  "
                 f"x{t['calls']}  {t['kernel']}")
@@ -1441,6 +1614,25 @@ def phase_profile_train(torch, np, dev, arch):
 
 
 # --------------------------------------------------------------------------
+
+def ptxas_usage(text):
+    """{kernel symbol: (registers, spill store bytes, spill load bytes)}
+    from ``nvcc -Xptxas -v`` output."""
+    usage, fn, spill = {}, None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn, spill = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage[fn] = (int(m.group(1)),) + spill
+            fn = None
+    return usage
+
 
 def tensor_core_instructions(lib_path, kernel_substring):
     """HMMA instructions per kernel whose mangled name holds
@@ -1501,9 +1693,19 @@ def main() -> int:
     cuda_lib.library()
     log(f"built {lib_path.name} from {len(cuda_lib.sources())} sources in "
         f"{time.perf_counter() - t0:.1f} s")
-    for line in (lib_path.parent / "ptxas.log").read_text().splitlines():
-        if "registers" in line or "spill" in line.lower():
-            log(f"ptxas: {line.strip()}")
+    usage = ptxas_usage((lib_path.parent / "ptxas.log").read_text())
+    scan = {}
+    for fn, (regs, st, ld) in usage.items():
+        m = re.search(r"selective_scan_kernelI(.*)Li(\d+)EE", fn)
+        if m:
+            io = {"ff": "f32", "f13__nv_bfloat16": "f32>bf16"}.get(
+                m.group(1), "bf16")
+            scan[f"{io} L{m.group(2)}"] = f"{regs}r/{st}+{ld}B"
+        else:
+            log(f"ptxas: {fn[:90]}: {regs} registers, spill {st} bytes "
+                f"stored, {ld} loaded")
+    log(f"ptxas, selective_scan_kernel (dtype, lanes: registers / spill "
+        f"stores + loads): {scan}")
     hmma = tensor_core_instructions(lib_path, "flash_attention_mma_kernel")
     log(f"tensor-core instructions (HMMA) in the bf16 prefill kernels' "
         f"SASS: {hmma}")
@@ -1542,7 +1744,8 @@ def main() -> int:
                for name in cuda_lib.LAUNCHES}
 
     # 5. timings
-    rows = phase_timings(torch, dev, errs, by_path)
+    rows = phase_timings(torch, dev, errs, by_path,
+                         train_out["falcon-mamba-7b"]["scan_launch"])
     torch.cuda.synchronize()
 
     # 6. where a decode step's and a train step's time goes

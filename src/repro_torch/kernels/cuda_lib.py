@@ -72,7 +72,7 @@ _SIGNATURES = {
     "repro_paged_decode_attention": [_ptr] * 6 + [_c_int] * 6
                                     + [_c_float] * 2 + [_c_int] * 3
                                     + [_ptr] * 2 + [_c_int, _ptr],
-    # x, dt, A, B, C, D, y, B, L, C, N, lpc, c_block, chunk, in_dtype,
+    # x, dt, A, B, C, D, y, B, L, C, N, lanes, channels, chunk, in_dtype,
     # out_dtype, stream
     "repro_selective_scan": [_ptr] * 7 + [_c_int] * 9 + [_ptr],
     # x, dt, A, B, C, D, y, B, L, H, P, G, N, chunk, in_dtype, dt_dtype,

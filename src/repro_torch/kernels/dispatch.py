@@ -378,8 +378,12 @@ def snap_down(value: int, domain: Tuple[int, ...]) -> int:
 #   planner (rmsnorm/kernel.py::plan_rmsnorm) gives a row 2, 4 or 8 warps,
 #   one row a block, when the row is wide or the rows are few;
 # - mamba_scan.chunk: time steps of x, dt, B, C staged in shared memory per
-#   pass; mamba_scan.c_block: channels per CUDA block (lanes per channel
-#   follow from the state size, clamped to 1024 threads);
+#   pass of the cp.async ring (raised to one unrolled group, lowered while
+#   a block would take more than half an SM's shared memory);
+#   mamba_scan.c_block: the most channels a CUDA block takes — the planner
+#   (mamba_scan/kernel.py::plan_scan) clamps it to 256 threads and takes
+#   fewer (down to 8) while the grid has fewer than 64 blocks; a lane holds
+#   4 states and lanes per channel follow from N;
 # - ssd.chunk: the SSD chunk Q, at most 64: one 16-step slab per warp of
 #   the tensor-core kernel's block, and the SIMT kernel's Q x Q score tile
 #   fits beside the (N, P) state in shared memory.

@@ -203,3 +203,29 @@ def test_tensor_core_ssd_long_chain_and_repeat(sm90):
                                              chunk=64).float(),
         atol=1e-3, rtol=1e-2)
     assert torch.equal(out, tdk.ssd_cuda(x, dt, A, Bm, Cm, D, chunk=64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_plans_match_plain_version_and_repeat(sm90, dtype):
+    """Every lanes-per-channel choice of the scan's planner (N from 4 to
+    128), at small sizes (ragged L and C), against the plain version, and
+    bit for bit across two launches."""
+    g = torch.Generator(device=sm90).manual_seed(7)
+    reached = set()
+    for b, l, c, n in ((1, 70, 40, 16), (2, 33, 200, 64), (1, 20, 24, 4),
+                       (1, 45, 70, 128), (3, 1, 72, 8), (2, 50, 96, 24)):
+        scan = (torch.randn((b, l, c), generator=g, device=sm90).to(dtype),
+                (torch.rand((b, l, c), generator=g, device=sm90) * 0.5
+                 ).to(dtype),
+                -torch.rand((c, n), generator=g, device=sm90) * 4,
+                torch.randn((b, l, n), generator=g, device=sm90).to(dtype),
+                torch.randn((b, l, n), generator=g, device=sm90).to(dtype),
+                torch.randn((c,), generator=g, device=sm90))
+        reached.add(tsk.plan_scan(b, l, c, n, scan[0].element_size(), 64,
+                                  64).lanes)
+        out = tsk.selective_scan_cuda(*scan, chunk=64, c_block=64)
+        _cmp(out, tsr.selective_scan_chunked_ref(*scan, chunk=64), dtype)
+        assert torch.equal(out, tsk.selective_scan_cuda(*scan, chunk=64,
+                                                        c_block=64))
+    assert reached == {1, 2, 4, 8, 16, 32}

@@ -3,9 +3,10 @@ Mamba-2 SSD (sequence, chunked, final / initial state and single-step
 forms) against the JAX reference's oracles AND against the Pallas kernels
 run in ``interpret=True`` mode, on the shapes of ``tests/test_kernels.py``;
 the recompute ``autograd.Function`` of :mod:`repro_torch.kernels.ops`
-against ``jax.grad`` of the reference's ops; and the kernels' launch
-geometry.  The CUDA kernels themselves are held against these plain
-versions on the card by ``chip_smoke.py`` and ``tests/test_torch_gpu.py``.
+against ``jax.grad`` of the reference's ops; and the scan's launch plan
+at the training width.  The CUDA kernels themselves are held against these
+plain versions on the card by ``chip_smoke.py`` and
+``tests/test_torch_gpu.py``.
 
 Tolerances: fp32 atol 1e-4 / rtol 1e-3, as the reference's own tests hold
 its Pallas scan and SSD kernels to their oracles (both sides sum in fp32,
@@ -254,20 +255,23 @@ def test_recompute_gives_a_history_free_forward_its_gradient():
 
 
 @pytest.mark.parametrize("n,chunk,cblk,expect", [
-    (16, 256, 512, (4, 128, 64)),   # falcon-mamba: the config's TPU sizes
+    (16, 256, 512, (4, 64, 64)),   # falcon-mamba: the config's TPU sizes
     (16, 64, 64, (4, 64, 64)),
-    (64, 256, 128, (16, 64, 64)),   # 1024 threads at most
-    (4, 16, 16, (1, 32, 16)),       # at least one warp
+    (64, 256, 128, (16, 16, 32)),  # 256 threads at most
+    (4, 16, 16, (1, 32, 16)),      # at least one warp
     (8, 32, 16, (2, 16, 32)),
-    (128, 64, 64, (32, 32, 64)),
+    (128, 64, 64, (32, 8, 32)),
 ])
 def test_selective_scan_launch_geometry(n, chunk, cblk, expect):
-    lpc, c_block, ch, smem = tsk.launch_geometry(n, chunk, cblk)
-    assert (lpc, c_block, ch) == expect
-    assert lpc * c_block % 32 == 0 and lpc * c_block <= 1024
-    assert lpc * tsk.STATES_PER_LANE >= n and smem <= cuda_lib.SMEM_LIMIT
+    """The planner's (lanes, channels, chunk) at falcon-mamba-7b's training
+    width (2 x 1024 tokens, 8192 channels)."""
+    plan = tsk.plan_scan(2, 1024, 8192, n, 2, chunk, cblk)
+    assert (plan.lanes, plan.channels, plan.chunk) == expect
+    assert plan.threads % 32 == 0 and plan.threads <= tsk.MAX_THREADS
+    assert plan.lanes * tsk.STATES >= n
+    assert plan.smem <= cuda_lib.SMEM_LIMIT
     with pytest.raises(ValueError):
-        tsk.lanes_per_channel(129)
+        tsk.plan_scan(2, 1024, 8192, 129, 2, chunk, cblk)
 
 
 def test_ssd_chunk_snaps_to_a_tile_that_fits():

@@ -14,7 +14,9 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    at widths 64-8192 (the training rows of zamba2-2.7b and falcon-mamba-7b,
    a 4-row decode case at each width, an odd width and an unaligned view;
    every warps-per-row plan must be reached), prefill attention at head
-   dims 16-128 (80: zamba2-2.7b's, causal, GQA G=1 and G=4), the Mamba-1
+   dims 16-128 (80: zamba2-2.7b's, causal, GQA G=1 and G=4) and with V
+   narrower than Q/K (MLA's 192 / 128 and 16 / 8, fp32 and bf16, causal
+   and not), the Mamba-1
    scan (ragged and unaligned L and C, L = 1, N = 4..128, large dt*A,
    every lanes-per-channel plan, bit for bit across two launches) and the
    Mamba-2 SSD (ragged L, G in {1, 2, 4}, N in {8, 16, 64}, large dt*A, a
@@ -42,11 +44,25 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    step must launch the scan resp. the SSD, attention and RMSNorm
    kernels); one step with the kernels against the same step under
    ``dispatch.use_mode("ref")`` (2 layers resp. 1 super-block);
+4c. the sim-to-real loop: ``make_sim2real_pair`` over llama3.2-1b at full
+   width on the card (a 17-request Poisson trace), two interventions on
+   the default configuration (the same schedule both times), then, on a
+   fresh pair, ``transfer_tune("cameo", ...)`` with the simulator as
+   source and trace replays through the batcher as target, traced, with
+   the counters set to 0 before and read after; the default's replays,
+   the tuning run and the winner's deployment must resolve RMSNorm and
+   attention to ``cuda`` only and launch RMSNorm, prefill and decode; one
+   line per target measurement, read off the trace (replayed p99 beside
+   the simulator's prediction, the round's tuner and replay time); the GP
+   surrogate timed on the CPU and the card in turns (3 x 31) against the
+   nine-tenths rule; the serve CLI's ``--workload ... --tune-serving 4
+   --sim2real-eval`` as a subprocess;
 5. timings: each kernel, its plain version and the one-call PyTorch
    yardstick where one exists, timed with CUDA events at the slices'
    shapes, beside the card's bound for the same work; RMSNorm also at the
    decode rows and both training shapes, prefill at a long prompt
-   (1 x 2048), decode at 32 slots over 2048-row caches, the scan at the
+   (1 x 2048) and at MLA's head dims (1 x 2048, 128 heads, 192 / 128),
+   decode at 32 slots over 2048-row caches, the scan at the
    plan the falcon-mamba train step launched (its launch options recorded
    in phase 4b), with a sweep of channels a block and chunk and the SM
    clock sampled under load;
@@ -57,8 +73,8 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    RMSNorm's kernel time; each kernel of the step must show device time
    under its symbol), and the device's busy share.
 
-Prints the kernel table, the serving and the training summaries as JSON
-lines, and, as the last line, ``{"ok": true, "device": {...}}``.  Any
+Prints the kernel table, the serving, training and sim-to-real summaries
+as JSON lines, and, as the last line, ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero without that line.  Without a CUDA card, or
 outside a checkout, it exits non-zero before doing anything.
 """
@@ -67,6 +83,8 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
+import os
 import re
 import subprocess
 import sys
@@ -100,6 +118,18 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+def _strict_json(obj):
+    """``obj`` with every non-finite float as None, so each printed line is
+    standard JSON (an infeasible measurement's y is inf)."""
+    if isinstance(obj, float):
+        return obj if math.isfinite(obj) else None
+    if isinstance(obj, dict):
+        return {k: _strict_json(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_strict_json(v) for v in obj]
+    return obj
 
 
 # --------------------------------------------------------------------------
@@ -140,6 +170,7 @@ def phase_kernels(torch, dev):
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
     gen = torch.Generator(device=dev).manual_seed(0)
+    mla_gen = torch.Generator(device=dev).manual_seed(16)
     errs = {k: [] for k in ("rmsnorm", "flash_attention", "decode_attention",
                             "paged_decode_attention")}
     n_cases = 0
@@ -210,6 +241,23 @@ def phase_kernels(torch, dev):
                 _compare(torch, f"flash_attention {(b, sq, skv, hq, hkv, d)} "
                          f"{kw} q{qb}/kv{kb} {dn}", out, ref, dn,
                          errs["flash_attention"], main)
+                n_cases += 1
+        # -- MLA prefill: V narrower than Q/K, causal and not (its own
+        #    generator, so the cases below see the data they always saw)
+        for (b, sq, skv, hq, hkv, d, dv, kw) in MLA_PREFILL_CASES:
+            q = _rand(torch, mla_gen, (b, sq, hq, d), dt, dev)
+            k = _rand(torch, mla_gen, (b, skv, hkv, d), dt, dev)
+            v = _rand(torch, mla_gen, (b, skv, hkv, dv), dt, dev)
+            ref = attention_blockwise_ref(q, k, v, kv_block=64, **kw)
+            for qb, kb in ((64, 64), (32, 32)):
+                out = flash_attention_cuda(q, k, v, q_block=qb, kv_block=kb,
+                                           **kw)
+                check(tuple(out.shape) == (b, sq, hq, dv),
+                      f"flash_attention d{d}/dv{dv}: output "
+                      f"{tuple(out.shape)}")
+                _compare(torch, f"flash_attention {(b, sq, skv, hq, hkv)} "
+                         f"d{d}/dv{dv} {kw} q{qb}/kv{kb} {dn}", out, ref, dn,
+                         errs["flash_attention"], False)
                 n_cases += 1
         # -- dense decode: fixed-batch cache, batcher cache (one empty slot
         #    whose length ran past the cache), window / softcap edges
@@ -284,6 +332,16 @@ def phase_kernels(torch, dev):
 # and the split decode where the split matters
 # --------------------------------------------------------------------------
 
+# MLA prefill (b, sq, skv, hq, hkv, d, dv, kwargs): deepseek-v3-671b's head
+# dims (q/k 192 = 128 + 64 rope, v 128) and its smoke config's (16, 8),
+# causal and not, ragged
+MLA_PREFILL_CASES = (
+    (2, 96, 96, 8, 8, 192, 128, {}),
+    (1, 77, 130, 4, 4, 192, 128, {"causal": False}),
+    (2, 77, 77, 4, 4, 16, 8, {}),
+    (1, 50, 33, 4, 4, 16, 8, {"causal": False}),
+)
+
 # (b, sq, skv, hq, hkv, kwargs): causal and ragged; non-causal Skv != Sq;
 # q_offset positive (a chunk of a longer prompt) and negative (its first
 # rows see nothing and give 0); window with softcap
@@ -316,16 +374,16 @@ def phase_attention_edges(torch, dev):
     bf = torch.bfloat16
     worst = []  # edge cases: checked, not reported as the slices' errors
     n_cases = 0
-    for d in PREFILL_HEAD_DIMS:
+    for d, dv in PREFILL_HEAD_DIMS:
         for (b, sq, skv, hq, hkv, kw) in PREFILL_EDGE_CASES:
             q = _rand(torch, gen, (b, sq, hq, d), bf, dev)
             k = _rand(torch, gen, (b, skv, hkv, d), bf, dev)
-            v = _rand(torch, gen, (b, skv, hkv, d), bf, dev)
+            v = _rand(torch, gen, (b, skv, hkv, dv), bf, dev)
             ref = attention_blockwise_ref(q, k, v, kv_block=64, **kw)
             for qb, kb in PREFILL_BLOCKS:
                 out = flash_attention_cuda(q, k, v, q_block=qb, kv_block=kb,
                                            **kw)
-                _compare(torch, f"flash_attention (tensor cores) d{d} "
+                _compare(torch, f"flash_attention (tensor cores) d{d}/dv{dv} "
                          f"{(b, sq, skv, hq, hkv)} {kw} q{qb}/kv{kb}", out,
                          ref, "bfloat16", worst, False)
                 if kw.get("q_offset", 0) < 0:
@@ -1027,6 +1085,287 @@ def _flat(tree, prefix=""):
 
 
 # --------------------------------------------------------------------------
+# phase 4c: the sim-to-real loop — CAMEO tunes the serving stack of
+# llama3.2-1b at full width with the simulator as source and the batcher
+# replaying a trace through the kernels on the card as target
+# --------------------------------------------------------------------------
+
+# about 20 requests and 500 output tokens at trace seed 0, the longest
+# context near 150
+SIM2REAL_SPEC = ("poisson:rate=1500,horizon=0.01,mean_prompt=96,"
+                 "mean_output=24,max_len=256")
+SIM2REAL_TUNE = dict(budget=4, n_source=32, n_target_init=2, seed=0)
+SIM2REAL_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
+#: counters that follow from the schedule alone (not the clock)
+SIM2REAL_DETERMINISTIC = ("queue_depth_mean", "queue_depth_max",
+                          "occupancy_mean", "rejected_rate")
+
+
+def _replay_checked(torch, config, what):
+    """One public replay of ``config`` under ``dispatch.record_resolutions``:
+    rmsnorm, prefill and decode resolve to cuda and launch."""
+    from repro_torch.kernels import cuda_lib, dispatch
+
+    before = dict(cuda_lib.LAUNCHES)
+    with dispatch.record_resolutions() as res:
+        y = what(config)
+        torch.cuda.synchronize()
+    _check_resolved(res, f"sim2real: {what.__name__}({config})")
+    grown = [k for k in SIM2REAL_KERNELS
+             if cuda_lib.LAUNCHES[k] <= before[k]]
+    check(not grown, f"sim2real: {what.__name__} launched no {grown} kernel")
+    return y
+
+
+def _check_resolved(res, where):
+    modes = {(r.family, r.mode) for r in res}
+    check({f for f, _ in modes} >= {"rmsnorm", "flash_attention"} and
+          all(m == "cuda" for _, m in modes),
+          f"{where} resolved {sorted(modes)}; rmsnorm, prefill and decode "
+          f"must resolve to cuda")
+
+
+def _tuning_measurements(events, rounds, sim):
+    """The tuning run's target measurements, read off the trace: each
+    ``measure`` span (config, replayed p99, ticks, completed / rejected and
+    its wall time, warm-up included), the round its tuner ``ask`` opened
+    (before the first ask: the initial target dataset), and the simulator's
+    prediction for the same config.  Each round's wall time splits into
+    replay (its measure spans) and tuner (the rest: surrogate fit and
+    acquisition)."""
+    asks = sorted(e["ts"] for e in events
+                  if e["name"] == "ask" and e["cat"] == "tuner")
+    out = []
+    for e in events:
+        if e["name"] != "measure" or e["cat"] != "env":
+            continue
+        a = e["args"]
+        rnd = sum(ts <= e["ts"] for ts in asks) or None
+        pred = sim.simulate(a["config"])
+        out.append({
+            "round": rnd, "config": a["config"], "stalled": "error" in a,
+            "replay_p99_ms": a.get("p99_ms"), "ticks": a.get("ticks"),
+            "completed": a.get("completed"), "rejected": a.get("rejected"),
+            "replay_s": e["dur"] * 1e-6,
+            "sim_p99_us": pred.p99_latency_us if pred.feasible else None,
+            "sim_ticks": pred.ticks})
+    for i, r in enumerate(rounds, start=1):
+        mine = [m for m in out if m["round"] == i]
+        r["replay_s"] = sum(m["replay_s"] for m in mine)
+        r["tuner_s"] = r["wall_s"] - r["replay_s"]
+        for m in mine:
+            m["round_wall_s"], m["tuner_s"] = r["wall_s"], r["tuner_s"]
+    return out
+
+
+def phase_sim2real(torch, np, dev):
+    """Returns (summary, launches of the counted tuning run)."""
+    from repro_torch.configs.registry import get_model_config
+    from repro_torch.envs.replay_env import make_sim2real_pair
+    from repro_torch.kernels import cuda_lib, dispatch
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.tuner.runner import transfer_tune
+
+    cfg = get_model_config(ARCH)
+
+    def pair():
+        return make_sim2real_pair(SIM2REAL_SPEC, model_cfg=cfg, seed=0,
+                                  trace_seed=0, repeats=1, device="cuda")
+
+    t0 = time.perf_counter()
+    src, tgt = pair()
+    torch.cuda.synchronize()
+    tr = tgt.trace
+    log(f"sim2real: {cfg.name} ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}) on {tgt.device}; trace {tr.spec}: "
+        f"{len(tr.requests)} requests, {tr.total_output_tokens} output "
+        f"tokens, longest context {tr.max_context}, {tgt.ticks_per_s:.0f} "
+        f"ticks/s; families {tgt.families}; set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(tgt.families == ("flash_attention", "rmsnorm"),
+          f"sim2real: the tuned families are {tgt.families}")
+
+    # two interventions on the default configuration: a finite y, and the
+    # schedule (every clock-free counter) the same both times
+    default = tgt.space.default_config()
+    (c1, y1), (c2, y2) = (_replay_checked(torch, default, tgt.intervene)
+                          for _ in range(2))
+    check(np.isfinite(y1) and y1 > 0 and np.isfinite(y2),
+          f"sim2real: default config measured {y1}, {y2}")
+    for name in SIM2REAL_DETERMINISTIC:
+        check(c1[name] == c2[name],
+              f"sim2real: {name} differs between two replays of the "
+              f"default config ({c1[name]} vs {c2[name]})")
+    log(f"sim2real: default config twice: p99 {y1:.1f} / {y2:.1f} ms, "
+        f"occupancy {c1['occupancy_mean']:.2f}; clock-free counters equal")
+
+    # the tuning run, counted, on a fresh pair (the model comes from the
+    # env's cache) so it measures from scratch; traced, so each target
+    # measurement and each round's split can be read back
+    src, tgt = pair()
+    check(obs_trace.active() is None, "sim2real: a tracer is already on")
+    tracer = obs_trace.start()
+    cuda_lib.reset_launches()
+    t1 = time.perf_counter()
+    try:
+        with dispatch.record_resolutions() as resolved:
+            res = transfer_tune("cameo", src, tgt,
+                                query_text=tgt.query_text, **SIM2REAL_TUNE)
+            torch.cuda.synchronize()
+    finally:
+        obs_trace.stop()
+    tune_s = time.perf_counter() - t1
+    launches = dict(cuda_lib.LAUNCHES)
+    log(f"sim2real: tuning-run launches {launches}")
+    _check_resolved(resolved, "sim2real: the tuning run")
+    for k in SIM2REAL_KERNELS:
+        check(launches[k] > 0, f"sim2real: the tuning run launched no {k}")
+    check(np.isfinite(res.best_y) and res.best_y > 0,
+          f"sim2real: best_y {res.best_y}")
+    check(tracer.dropped == 0, f"sim2real: the trace dropped "
+          f"{tracer.dropped} events")
+    tuned = _tuning_measurements(tracer.events(), res.rounds, src)
+    check(tuned and not all(m["stalled"] for m in tuned),
+          "sim2real: the tuning run completed no replay")
+    for m in tuned:
+        knobs = {k.split(".", 1)[1]: v for k, v in m["config"].items()}
+        where_s = (f"round {m['round']}" if m["round"] else "initial")
+        split = (f"; round {m['round_wall_s']:.2f} s = tuner "
+                 f"{m['tuner_s']:.2f} + replay {m['replay_s']:.2f}"
+                 if "tuner_s" in m else f"; replay {m['replay_s']:.2f} s")
+        sim = ("infeasible" if m["sim_p99_us"] is None
+               else f"{m['sim_p99_us']:.0f} us modeled")
+        got = ("did not drain (measured infeasible)" if m["stalled"] else
+               f"{m['replay_p99_ms']:.1f} ms, {m['ticks']} ticks, "
+               f"{m['completed']} completed / {m['rejected']} rejected")
+        log(f"sim2real {where_s}: {knobs} -> replayed p99 {got} | "
+            f"sim-predicted p99 {sim}{split}")
+    n_gated = SIM2REAL_TUNE["budget"] + SIM2REAL_TUNE["n_target_init"] \
+        - len(tuned)
+    # the winner deploys
+    final = _replay_checked(torch, res.best_config, tgt.replay)
+    check(final.completed == len(tr.requests) - final.rejected and
+          final.completed > 0, f"sim2real: the winner served {final}")
+    log(f"sim2real: best {res.best_config} -> p99 {res.best_y:.1f} ms "
+        f"(redeployed: {final.p99_latency_ms:.1f} ms, {final.ticks} "
+        f"ticks); tuning run {tune_s:.1f} s "
+        f"({sum(m['replay_s'] for m in tuned):.1f} s replaying, {n_gated} "
+        f"measurements gated or memoized)")
+    summary = {
+        "spec": tr.spec, "requests": len(tr.requests),
+        "output_tokens": tr.total_output_tokens,
+        "max_context": tr.max_context, "tune": SIM2REAL_TUNE,
+        "default_p99_ms": [y1, y2], "default_counters": c1,
+        "best_config": res.best_config,
+        "best_y_ms": res.best_y, "trace_best_y": res.trace_best_y,
+        "rounds": res.rounds, "measurements": tuned,
+        "winner": {"replay_p99_ms": final.p99_latency_ms,
+                   "ticks": final.ticks, "completed": final.completed,
+                   "rejected": final.rejected, "wall_s": final.wall_s},
+        "tune_s": tune_s, "extras": res.extras}
+    return summary, launches
+
+
+# the GP surrogate's cost on each device at a tuning budget's scale: one
+# fit and one predict, the devices taken in turns; three runs of 31 turns
+GP_TIMING = dict(n=64, d=8, m=256, reps=31, runs=3)
+
+
+def phase_gp_timing(torch, np, dev):
+    """One fit and one predict at n = 64, d = 8 (256 candidates), on the
+    CPU and on the card in turns; host clock around synchronized calls
+    (the posterior comes back to the host either way).  The card would
+    replace the CPU as the default only by the rule for a claimed gain:
+    faster in at least nine tenths of all turns, and its median lower than
+    the CPU's by more than the CPU's own quartile spread."""
+    from repro_torch.core.gp import fit_gp, gp_predict
+
+    g = GP_TIMING
+    rng = np.random.default_rng(0)
+    x = rng.uniform(0, 1, (g["n"], g["d"]))
+    y = np.sin(3 * x[:, 0]) + x[:, 1] ** 2 + 0.05 * rng.standard_normal(
+        g["n"])
+    xq = rng.uniform(0, 1, (g["m"], g["d"]))
+    times = {"cpu": ([], []), "cuda": ([], [])}
+    mus = {}
+    runs = []
+    for run in range(g["runs"]):
+        n0 = len(times["cpu"][0])
+        for rep in range(g["reps"] + 1):
+            for where in (("cpu", "cuda") if rep % 2 else ("cuda", "cpu")):
+                t0 = time.perf_counter()
+                fit = fit_gp(x, y, device=where)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                mus[where] = gp_predict(fit, xq)[0].numpy()
+                t2 = time.perf_counter()
+                if rep:  # the first turn of a run warms both devices up
+                    times[where][0].append((t1 - t0) * 1e3)
+                    times[where][1].append((t2 - t1) * 1e3)
+        tot = {w: np.add(*times[w])[n0:] for w in times}
+        runs.append({"cuda_wins": int(np.sum(tot["cuda"] < tot["cpu"])),
+                     "turns": len(tot["cpu"]),
+                     "cpu_total_ms": float(np.median(tot["cpu"])),
+                     "cuda_total_ms": float(np.median(tot["cuda"]))})
+    check(np.allclose(mus["cpu"], mus["cuda"], atol=1e-4, rtol=1e-4),
+          "gp: the card's posterior disagrees with the CPU's")
+    out = {"runs": runs}
+    for where, (fits, preds) in times.items():
+        tot = np.add(fits, preds)
+        out[where] = {"fit_ms": float(np.median(fits)),
+                      "predict_ms": float(np.median(preds)),
+                      "total_ms": float(np.median(tot)),
+                      "total_iqr_ms": [float(np.percentile(tot, 25)),
+                                       float(np.percentile(tot, 75))]}
+    tot = {w: np.add(*times[w]) for w in times}
+    wins = int(np.sum(tot["cuda"] < tot["cpu"]))
+    ties = int(np.sum(tot["cuda"] == tot["cpu"]))
+    spread = out["cpu"]["total_iqr_ms"][1] - out["cpu"]["total_iqr_ms"][0]
+    gain = out["cpu"]["total_ms"] - out["cuda"]["total_ms"]
+    out.update(cuda_wins=wins, turns=len(tot["cpu"]), ties=ties,
+               cuda_wins_share=wins / max(len(tot["cpu"]) - ties, 1),
+               cpu_spread_ms=spread, cuda_gain_ms=gain)
+    out["cuda_by_the_rule"] = bool(out["cuda_wins_share"] >= 0.9 and
+                                   gain > spread)
+    log(f"gp fit + predict at n={g['n']}, d={g['d']}, {g['m']} candidates "
+        f"({g['runs']} runs of {g['reps']} turns): cpu "
+        f"{out['cpu']['fit_ms']:.2f} + {out['cpu']['predict_ms']:.2f} ms "
+        f"(total IQR {out['cpu']['total_iqr_ms']}), cuda "
+        f"{out['cuda']['fit_ms']:.2f} + {out['cuda']['predict_ms']:.2f} ms "
+        f"(total IQR {out['cuda']['total_iqr_ms']}); the card faster in "
+        f"{wins} of {out['turns']} turns ({ties} ties; by run "
+        f"{[r['cuda_wins'] for r in runs]} of {g['reps']}), median gain "
+        f"{gain:.2f} ms against the CPU's spread {spread:.2f} ms: the card "
+        f"{'wins' if out['cuda_by_the_rule'] else 'does not win'} by the "
+        f"nine-tenths rule")
+    return out
+
+
+def phase_serve_cli():
+    """The serve launcher's trace path as a user runs it, in a process of
+    its own: tune (4 measurements in the simulator), replay on the card,
+    and print sim-predicted beside replayed-actual."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
+           "--full-config", "--workload", SIM2REAL_SPEC, "--tune-serving",
+           "4", "--sim2real-eval"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=str(ROOT), capture_output=True, text=True,
+                         timeout=600,
+                         env={**os.environ, "PYTHONPATH": str(SRC)})
+    wall = time.perf_counter() - t0
+    for line in res.stdout.splitlines():
+        log(f"serve CLI | {line}")
+    check(res.returncode == 0,
+          f"serve CLI exited {res.returncode}: {res.stderr[-2000:]}")
+    check("sim-predicted" in res.stdout and "replayed-actual" in res.stdout,
+          "serve CLI: no sim-predicted / replayed-actual line")
+    log(f"serve CLI: rc 0 in {wall:.1f} s")
+    return {"cmd": " ".join(cmd[1:]), "wall_s": wall,
+            "lines": [ln for ln in res.stdout.splitlines()
+                      if ln.startswith("[serve]")]}
+
+
+# --------------------------------------------------------------------------
 # phase 5: timings
 # --------------------------------------------------------------------------
 
@@ -1262,6 +1601,25 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
               lqt, lkt, lvt, is_causal=True, enable_gqa=True),
           nbytes=(2 * lq.numel() + lk.numel() + lv.numel()) * es,
           flops=4 * d * hq * s * (s + 1) // 2)
+    # MLA prefill at deepseek-v3-671b's head dims: q/k 192, v 128, 128
+    # heads, 1 x 2048 tokens, causal; SDPA takes a value head dim of its
+    # own, so it is the library yardstick here too
+    # (its own names and generator: the timings below reuse b, s, d and
+    # draw from gen)
+    mla = (1, 2048, 128, 192, 128)  # b, s, heads, d, dv
+    mgen = torch.Generator(device=dev).manual_seed(16)
+    mq, mk = (_rand(torch, mgen, mla[:3] + (mla[3],), bf, dev)
+              for _ in range(2))
+    mv = _rand(torch, mgen, mla[:3] + (mla[4],), bf, dev)
+    mqt, mkt, mvt = (t.transpose(1, 2) for t in (mq, mk, mv))
+    extra(rows[-1], "mla_prefill", [mla[0], mla[1], mla[2], mla[2],
+                                    mla[3], mla[4]],
+          lambda: flash_attention_cuda(mq, mk, mv),
+          lambda: attention_blockwise_ref(mq, mk, mv, kv_block=64),
+          lambda: F.scaled_dot_product_attention(
+              mqt, mkt, mvt, is_causal=True),
+          nbytes=(mq.numel() + mk.numel() + 2 * mv.numel()) * es,
+          flops=2 * (mla[3] + mla[4]) * mla[2] * mla[1] * (mla[1] + 1) // 2)
     # the tensor-core kernel's block shapes (q_block x kv_block) at the
     # training shape and the long prompt
     sweep = {}
@@ -1738,9 +2096,18 @@ def main() -> int:
     t0 = time.perf_counter()
     train_out = phase_train(torch, np, dev)
     log(f"training slice done in {time.perf_counter() - t0:.1f} s")
+
+    # 4c. the sim-to-real loop, the GP's device and the serve CLI
+    t0 = time.perf_counter()
+    sim2real, sim2real_launches = phase_sim2real(torch, np, dev)
+    sim2real["gp_timing"] = phase_gp_timing(torch, np, dev)
+    sim2real["serve_cli"] = phase_serve_cli()
+    sim2real["phase_s"] = time.perf_counter() - t0
+    log(f"sim-to-real loop done in {sim2real['phase_s']:.1f} s")
     by_path = {name: {"serve": launches.get(name, 0),
                       "train": sum(t["launches"][name]
-                                   for t in train_out.values())}
+                                   for t in train_out.values()),
+                      "sim2real": sim2real_launches[name]}
                for name in cuda_lib.LAUNCHES}
 
     # 5. timings
@@ -1756,10 +2123,11 @@ def main() -> int:
         train_out[arch]["step_profile"] = phase_profile_train(torch, np, dev,
                                                               arch)
 
-    print(json.dumps({"kernels": rows}), flush=True)
-    print(json.dumps({"slice": slice_out}), flush=True)
-    print(json.dumps({"train": train_out, "grad_check": grad_errs,
-                      "grad_tolerance": GRAD_TOL}), flush=True)
+    for line in ({"kernels": rows}, {"slice": slice_out},
+                 {"train": train_out, "grad_check": grad_errs,
+                  "grad_tolerance": GRAD_TOL}, {"sim2real": sim2real}):
+        print(json.dumps(_strict_json(line), allow_nan=False, default=str),
+              flush=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

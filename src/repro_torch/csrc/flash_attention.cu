@@ -1,5 +1,7 @@
 // Prefill (and non-causal cross-) attention with an online softmax in fp32.
-// q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), out (B, Sq, Hq, D), contiguous.
+// q (B, Sq, Hq, D), k (B, Skv, Hkv, D), v (B, Skv, Hkv, Dv), out
+// (B, Sq, Hq, Dv), contiguous.  V's head dim may differ from Q/K's (MLA
+// prefill: D 192 with Dv 128); the kernels are templated on both.
 // Masks: causal (with q_offset, which may be negative), sliding window, the
 // ragged tail past Skv (masked in place, never padded); logit softcap; GQA
 // maps q head h to kv head h / (Hq / Hkv).  A fully masked row gives 0, as
@@ -56,7 +58,7 @@ namespace repro {
 
 constexpr int kChunk = 8;
 
-template <typename T, int HD>
+template <typename T, int HD, int HV>
 __global__ void flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                        const T* __restrict__ v, T* __restrict__ o,
                                        int Sq, int Skv, int Hq, int Hkv, int causal,
@@ -64,7 +66,7 @@ __global__ void flash_attention_kernel(const T* __restrict__ q, const T* __restr
                                        int q_offset, int kv_block) {
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + kv_block * HD;
+  float* Vs = Ks + kv_block * HD;  // kv_block rows of HV
 
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -80,28 +82,42 @@ __global__ void flash_attention_kernel(const T* __restrict__ q, const T* __restr
   const int kv_lo = window > 0 ? max(0, q_first - window + 1) : 0;
 
   float qr[HD];
-  float acc[HD];
+  float acc[HV];
   const T* qrow = q + (static_cast<size_t>(b) * Sq + (active ? row : 0)) * Hq * HD +
                   static_cast<size_t>(h) * HD;
 #pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    qr[d] = active ? to_float(qrow[d]) * scale : 0.f;
-    acc[d] = 0.f;
-  }
+  for (int d = 0; d < HD; ++d) qr[d] = active ? to_float(qrow[d]) * scale : 0.f;
+#pragma unroll
+  for (int d = 0; d < HV; ++d) acc[d] = 0.f;
   float m = kNegInf, l = 0.f;
 
   for (int kv0 = (kv_lo / kv_block) * kv_block; kv0 < kv_hi; kv0 += kv_block) {
     __syncthreads();  // the previous tile is consumed
-    for (int e = threadIdx.x; e < kv_block * HD; e += BM) {
-      const int j = e / HD, d = e % HD, pos = kv0 + j;
-      float kk = 0.f, vv = 0.f;
-      if (pos < Skv) {
-        const size_t off = ((static_cast<size_t>(b) * Skv + pos) * Hkv + hk) * HD + d;
-        kk = to_float(k[off]);
-        vv = to_float(v[off]);
+    if constexpr (HV == HD) {  // K and V rows alike: one pass
+      for (int e = threadIdx.x; e < kv_block * HD; e += BM) {
+        const int j = e / HD, d = e % HD, pos = kv0 + j;
+        float kk = 0.f, vv = 0.f;
+        if (pos < Skv) {
+          const size_t off = ((static_cast<size_t>(b) * Skv + pos) * Hkv + hk) * HD + d;
+          kk = to_float(k[off]);
+          vv = to_float(v[off]);
+        }
+        Ks[e] = kk;
+        Vs[e] = vv;
       }
-      Ks[e] = kk;
-      Vs[e] = vv;
+    } else {
+      for (int e = threadIdx.x; e < kv_block * HD; e += BM) {
+        const int j = e / HD, d = e % HD, pos = kv0 + j;
+        Ks[e] = pos < Skv
+                    ? to_float(k[((static_cast<size_t>(b) * Skv + pos) * Hkv + hk) * HD + d])
+                    : 0.f;
+      }
+      for (int e = threadIdx.x; e < kv_block * HV; e += BM) {
+        const int j = e / HV, d = e % HV, pos = kv0 + j;
+        Vs[e] = pos < Skv
+                    ? to_float(v[((static_cast<size_t>(b) * Skv + pos) * Hkv + hk) * HV + d])
+                    : 0.f;
+      }
     }
     __syncthreads();
     if (!active) continue;
@@ -135,15 +151,15 @@ __global__ void flash_attention_kernel(const T* __restrict__ q, const T* __restr
       const float alpha = expf(m - m_new);
       l *= alpha;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] *= alpha;
+      for (int d = 0; d < HV; ++d) acc[d] *= alpha;
 #pragma unroll
       for (int c = 0; c < kChunk; ++c) {
         if (!vis[c]) continue;
         const float p = expf(s[c] - m_new);
         l += p;
-        const float4* vr = reinterpret_cast<const float4*>(Vs + (j0 + c) * HD);
+        const float4* vr = reinterpret_cast<const float4*>(Vs + (j0 + c) * HV);
 #pragma unroll
-        for (int d4 = 0; d4 < HD / 4; ++d4) {
+        for (int d4 = 0; d4 < HV / 4; ++d4) {
           const float4 vv4 = vr[d4];
           acc[4 * d4] += p * vv4.x;
           acc[4 * d4 + 1] += p * vv4.y;
@@ -156,9 +172,9 @@ __global__ void flash_attention_kernel(const T* __restrict__ q, const T* __restr
   }
   if (!active) return;
   const float denom = l == 0.f ? 1.f : l;  // fully masked rows -> 0
-  T* orow = o + (static_cast<size_t>(b) * Sq + row) * Hq * HD + static_cast<size_t>(h) * HD;
+  T* orow = o + (static_cast<size_t>(b) * Sq + row) * Hq * HV + static_cast<size_t>(h) * HV;
 #pragma unroll
-  for (int d = 0; d < HD; ++d) orow[d] = from_float<T>(acc[d] / denom);
+  for (int d = 0; d < HV; ++d) orow[d] = from_float<T>(acc[d] / denom);
 }
 
 // ---------------------------------------------------------------------------
@@ -171,21 +187,28 @@ __global__ void flash_attention_kernel(const T* __restrict__ q, const T* __restr
 constexpr int kMaxWarps = 4;
 constexpr int kStages = 2;  // K/V ring depth
 
-template <int HD, int BN>
+// HD: Q/K head dim; HV: V's (and O's).  V is computed HVP wide, rounded up
+// to the 16 of an ldmatrix pair, its extra columns zero-filled in shared
+// memory and never stored (Dv 8 for the MLA smoke shape).
+template <int HD, int HV, int BN>
 struct MmaTile {
-  static constexpr int LD = HD + 8;           // padded shared row (elements)
+  static constexpr int HVP = (HV + 15) / 16 * 16;
+  static constexpr int LDK = HD + 8;          // padded shared rows (elements)
+  static constexpr int LDV = HVP + 8;
   static constexpr int KSTEPS = HD / 16;      // k-steps of Q K^T
   static constexpr int NT = BN / 8;           // 8-key n-tiles of S
-  static constexpr int DT = HD / 8;           // 8-wide n-tiles of O
-  static constexpr int CPR = HD / 8;          // 16-byte chunks per row
-  static constexpr int STAGE = 2 * BN * LD;   // K then V, elements
+  static constexpr int DT = HVP / 8;          // 8-wide n-tiles of O computed
+  static constexpr int DTS = HV / 8;          // ... and stored
+  static constexpr int CPRK = HD / 8;         // 16-byte chunks per K row
+  static constexpr int CPRV = HVP / 8;        // ... per V row (HV / 8 read)
+  static constexpr int STAGE = BN * (LDK + LDV);  // K then V, elements
   static size_t smem_bytes() {
     return static_cast<size_t>(kStages) * STAGE * sizeof(__nv_bfloat16);
   }
-  static_assert(HD % 16 == 0 && BN % 16 == 0, "mma tiles");
+  static_assert(HD % 16 == 0 && HV % 8 == 0 && BN % 16 == 0, "mma tiles");
 };
 
-template <int HD, int BN>
+template <int HD, int HV, int BN>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
@@ -193,9 +216,9 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            __nv_bfloat16* __restrict__ o, int Sq, int Skv, int Hq,
                            int Hkv, int causal, int window, float softcap,
                            float scale, int q_offset) {
-  using Tile = MmaTile<HD, BN>;
-  constexpr int LD = Tile::LD, KSTEPS = Tile::KSTEPS, NT = Tile::NT,
-                DT = Tile::DT, CPR = Tile::CPR;
+  using Tile = MmaTile<HD, HV, BN>;
+  constexpr int LDK = Tile::LDK, LDV = Tile::LDV, KSTEPS = Tile::KSTEPS, NT = Tile::NT,
+                DT = Tile::DT, DTS = Tile::DTS, CPRK = Tile::CPRK, CPRV = Tile::CPRV;
   extern __shared__ uint4 smem_u4[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_u4);
 
@@ -244,18 +267,34 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   float l_run[2] = {0.f, 0.f};          // this thread's share of the row sum
   const float u = softcap > 0.f ? 1.f : scale * kLog2e;
 
-  const size_t kv_row_stride = static_cast<size_t>(Hkv) * HD;
-  const __nv_bfloat16* kbase = k + static_cast<size_t>(b) * Skv * kv_row_stride + hk * HD;
-  const __nv_bfloat16* vbase = v + static_cast<size_t>(b) * Skv * kv_row_stride + hk * HD;
+  const size_t k_row_stride = static_cast<size_t>(Hkv) * HD;
+  const size_t v_row_stride = static_cast<size_t>(Hkv) * HV;
+  const __nv_bfloat16* kbase = k + static_cast<size_t>(b) * Skv * k_row_stride + hk * HD;
+  const __nv_bfloat16* vbase = v + static_cast<size_t>(b) * Skv * v_row_stride + hk * HV;
   auto load_tile = [&](int t, int stage) {
     __nv_bfloat16* ks = smem + stage * Tile::STAGE;
-    __nv_bfloat16* vs = ks + BN * LD;
-    for (int c = tid; c < BN * CPR; c += nthreads) {
-      const int r = c / CPR, ch = c % CPR, pos = t * BN + r;
-      const bool valid = pos < Skv;
-      const size_t off = static_cast<size_t>(valid ? pos : 0) * kv_row_stride + ch * 8;
-      cp_async16(ks + r * LD + ch * 8, kbase + off, valid);
-      cp_async16(vs + r * LD + ch * 8, vbase + off, valid);
+    __nv_bfloat16* vs = ks + BN * LDK;
+    if constexpr (HV == HD) {  // K and V rows alike: one pass, as many copies
+      for (int c = tid; c < BN * CPRK; c += nthreads) {
+        const int r = c / CPRK, ch = c % CPRK, pos = t * BN + r;
+        const bool valid = pos < Skv;
+        const size_t off = static_cast<size_t>(valid ? pos : 0) * k_row_stride + ch * 8;
+        cp_async16(ks + r * LDK + ch * 8, kbase + off, valid);
+        cp_async16(vs + r * LDV + ch * 8, vbase + off, valid);
+      }
+    } else {
+      for (int c = tid; c < BN * CPRK; c += nthreads) {
+        const int r = c / CPRK, ch = c % CPRK, pos = t * BN + r;
+        const bool valid = pos < Skv;
+        const size_t off = static_cast<size_t>(valid ? pos : 0) * k_row_stride + ch * 8;
+        cp_async16(ks + r * LDK + ch * 8, kbase + off, valid);
+      }
+      for (int c = tid; c < BN * CPRV; c += nthreads) {
+        const int r = c / CPRV, ch = c % CPRV, pos = t * BN + r;
+        const bool valid = pos < Skv && ch < HV / 8;  // columns past HV: zeros
+        const size_t off = valid ? static_cast<size_t>(pos) * v_row_stride + ch * 8 : 0;
+        cp_async16(vs + r * LDV + ch * 8, vbase + off, valid);
+      }
     }
   };
 
@@ -274,7 +313,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                       (window > 0 && kv0 + BN - 1 <= wq_first - window);
     if (!skip) {
       const __nv_bfloat16* ks = smem + stage * Tile::STAGE;
-      const __nv_bfloat16* vs = ks + BN * LD;
+      const __nv_bfloat16* vs = ks + BN * LDK;
       // S = Q K^T
       float s[NT][4];
 #pragma unroll
@@ -288,7 +327,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
           // matrices: (keys 16jp, d 16kk), (keys 16jp, d 16kk+8),
           //           (keys 16jp+8, d 16kk), (keys 16jp+8, d 16kk+8)
           uint32_t bk[4];
-          ldmatrix_x4(bk, ks + (jp * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + kk * 16 +
+          ldmatrix_x4(bk, ks + (jp * 16 + (lane >> 4) * 8 + (lane & 7)) * LDK + kk * 16 +
                               ((lane >> 3) & 1) * 8);
           mma_bf16_16816(s[2 * jp], qa[kk], bk[0], bk[1]);
           mma_bf16_16816(s[2 * jp + 1], qa[kk], bk[2], bk[3]);
@@ -361,7 +400,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
           // matrices: (keys 16kk, d 16dp), (keys 16kk+8, d 16dp),
           //           (keys 16kk, d 16dp+8), (keys 16kk+8, d 16dp+8)
           uint32_t bv[4];
-          ldmatrix_x4_trans(bv, vs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+          ldmatrix_x4_trans(bv, vs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LDV +
                                     dp * 16 + (lane >> 4) * 8);
           mma_bf16_16816(oacc[2 * dp], pa, bv[0], bv[1]);
           mma_bf16_16816(oacc[2 * dp + 1], pa, bv[2], bv[3]);
@@ -379,10 +418,10 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int row = row0 + g + 8 * r;
     if (row >= Sq) continue;
     const float inv = l == 0.f ? 0.f : 1.f / l;  // fully masked rows -> 0
-    __nv_bfloat16* orow = o + (static_cast<size_t>(b) * Sq + row) * Hq * HD +
-                          static_cast<size_t>(h) * HD;
+    __nv_bfloat16* orow = o + (static_cast<size_t>(b) * Sq + row) * Hq * HV +
+                          static_cast<size_t>(h) * HV;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
+    for (int dt = 0; dt < DTS; ++dt)
       *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t4) =
           pack_bf16(oacc[dt][2 * r] * inv, oacc[dt][2 * r + 1] * inv);
   }
@@ -392,13 +431,13 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // launchers
 // ---------------------------------------------------------------------------
 
-template <int HD>
+template <int HD, int HV>
 static cudaError_t launch_simt_hd(const void* q, const void* k, const void* v, void* o,
                                   int B, int Sq, int Skv, int Hq, int Hkv, int causal,
                                   int window, float softcap, float scale, int q_offset,
                                   int q_block, int kv_block, cudaStream_t stream) {
-  const size_t smem = 2 * static_cast<size_t>(kv_block) * HD * sizeof(float);
-  auto kernel = flash_attention_kernel<float, HD>;
+  const size_t smem = static_cast<size_t>(kv_block) * (HD + HV) * sizeof(float);
+  auto kernel = flash_attention_kernel<float, HD, HV>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + q_block - 1) / q_block, Hq, B);
@@ -409,13 +448,13 @@ static cudaError_t launch_simt_hd(const void* q, const void* k, const void* v, v
   return cudaGetLastError();
 }
 
-template <int HD, int BN>
+template <int HD, int HV, int BN>
 static cudaError_t launch_mma_bn(const void* q, const void* k, const void* v, void* o,
                                  int B, int Sq, int Skv, int Hq, int Hkv, int causal,
                                  int window, float softcap, float scale, int q_offset,
                                  int q_block, cudaStream_t stream) {
-  const size_t smem = MmaTile<HD, BN>::smem_bytes();
-  auto kernel = flash_attention_mma_kernel<HD, BN>;
+  const size_t smem = MmaTile<HD, HV, BN>::smem_bytes();
+  auto kernel = flash_attention_mma_kernel<HD, HV, BN>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(Hq, B, (Sq + q_block - 1) / q_block);
@@ -426,57 +465,50 @@ static cudaError_t launch_mma_bn(const void* q, const void* k, const void* v, vo
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int HV>
 static cudaError_t launch_mma_hd(const void* q, const void* k, const void* v, void* o,
                                  int B, int Sq, int Skv, int Hq, int Hkv, int causal,
                                  int window, float softcap, float scale, int q_offset,
                                  int q_block, int kv_block, cudaStream_t stream) {
   if (q_block % 16 != 0 || q_block > 16 * kMaxWarps) return cudaErrorInvalidValue;
   if (kv_block == 32)
-    return launch_mma_bn<HD, 32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap,
+    return launch_mma_bn<HD, HV, 32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap,
                                  scale, q_offset, q_block, stream);
   if (kv_block == 64)
-    return launch_mma_bn<HD, 64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap,
+    return launch_mma_bn<HD, HV, 64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap,
                                  scale, q_offset, q_block, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace repro
 
-// dtype picks the route: fp32 -> the SIMT kernel, bf16 -> the tensor cores
+// dtype picks the route: fp32 -> the SIMT kernel, bf16 -> the tensor cores.
+// (D, Dv) pairs: equal head dims, plus MLA's (192, 128) and (16, 8).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
                                      void* o, int B, int Sq, int Skv, int Hq,
-                                     int Hkv, int D, int causal, int window,
+                                     int Hkv, int D, int Dv, int causal, int window,
                                      float softcap, float scale, int q_offset,
                                      int q_block, int kv_block, int dtype,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_FA_CASE(HD, LAUNCH)                                                      \
-  case HD:                                                                            \
-    return static_cast<int>(repro::LAUNCH<HD>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, \
-                                              window, softcap, scale, q_offset,       \
-                                              q_block, kv_block, s));
-  if (dtype == repro::kFloat32) {
-    switch (D) {
-      REPRO_FA_CASE(16, launch_simt_hd)
-      REPRO_FA_CASE(32, launch_simt_hd)
-      REPRO_FA_CASE(64, launch_simt_hd)
-      REPRO_FA_CASE(80, launch_simt_hd)
-      REPRO_FA_CASE(128, launch_simt_hd)
-      default:
-        break;
-    }
-  } else if (dtype == repro::kBFloat16) {
-    switch (D) {
-      REPRO_FA_CASE(16, launch_mma_hd)
-      REPRO_FA_CASE(32, launch_mma_hd)
-      REPRO_FA_CASE(64, launch_mma_hd)
-      REPRO_FA_CASE(80, launch_mma_hd)
-      REPRO_FA_CASE(128, launch_mma_hd)
-      default:
-        break;
-    }
-  }
+  const bool f32 = dtype == repro::kFloat32;
+  if (!f32 && dtype != repro::kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_FA_CASE(HD, HV)                                                          \
+  if (D == HD && Dv == HV)                                                            \
+    return static_cast<int>(                                                          \
+        f32 ? repro::launch_simt_hd<HD, HV>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal,  \
+                                            window, softcap, scale, q_offset,         \
+                                            q_block, kv_block, s)                     \
+            : repro::launch_mma_hd<HD, HV>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal,   \
+                                           window, softcap, scale, q_offset, q_block, \
+                                           kv_block, s));
+  REPRO_FA_CASE(16, 16)
+  REPRO_FA_CASE(32, 32)
+  REPRO_FA_CASE(64, 64)
+  REPRO_FA_CASE(80, 80)
+  REPRO_FA_CASE(128, 128)
+  REPRO_FA_CASE(192, 128)
+  REPRO_FA_CASE(16, 8)
 #undef REPRO_FA_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -58,9 +58,9 @@ _SIGNATURES = {
     # warps_per_row, slots, vectorized, stream
     "repro_rmsnorm": [_ptr] * 4 + [_c_int, _c_int, _c_float] + [_c_int] * 5
                      + [_ptr],
-    # q, k, v, o, B, Sq, Skv, Hq, Hkv, D, causal, window, softcap, scale,
-    # q_offset, q_block, kv_block, dtype, stream
-    "repro_flash_attention": [_ptr] * 4 + [_c_int] * 8 + [_c_float] * 2
+    # q, k, v, o, B, Sq, Skv, Hq, Hkv, D, Dv, causal, window, softcap,
+    # scale, q_offset, q_block, kv_block, dtype, stream
+    "repro_flash_attention": [_ptr] * 4 + [_c_int] * 9 + [_c_float] * 2
                              + [_c_int] * 4 + [_ptr],
     # q, k, v, cache_len, o, B, Skv, Hq, Hkv, D, window, softcap, scale,
     # kv_block, n_split, split_rows, partial, counters, dtype, stream

@@ -11,7 +11,9 @@
   rows per CUDA block (16 per warp) and ``kv_block`` K/V rows per stage;
   fp32 runs a SIMT kernel with fp32 FMAs, one thread per query row, since
   tensor cores cannot meet fp32's tolerance.  Fully masked tiles are
-  skipped on both.
+  skipped on both.  V (and the output) may be narrower than Q/K, as MLA
+  prefill passes them; both kernels are templated on the two head dims
+  (:data:`PREFILL_HEAD_DIMS`).
 - :func:`decode_attention_cuda` replaces
   ``repro/kernels/flash_attention/kernel.py::decode_attention_pallas``
   (``_decode_kernel``).  Bound by bytes (every valid K/V row read once per
@@ -36,9 +38,12 @@ from repro_torch.kernels import cuda_lib, dispatch
 from repro_torch.kernels.flash_attention.ref import (
     attention_blockwise_ref, decode_attention_ref)
 
-#: head dims the prefill kernel is instantiated for (80: zamba2-2.7b's and
-#: h2o-danube-1.8b's attention)
-PREFILL_HEAD_DIMS = (16, 32, 64, 80, 128)
+#: (Q/K head dim, V head dim) pairs the prefill kernel is instantiated for:
+#: equal dims (80: zamba2-2.7b's and h2o-danube-1.8b's attention) and the
+#: MLA prefill's (192, 128) of deepseek-v3-671b and (16, 8) of its smoke
+#: config
+PREFILL_HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (80, 80), (128, 128),
+                     (192, 128), (16, 8))
 
 #: split decode: blocks per SM the planner aims for.  A decode block holds
 #: ~38 KB of shared memory (bf16, kv_block 64), so five or six reside on an
@@ -94,8 +99,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          logit_softcap: float = 0.0,
                          scale: Optional[float] = None, q_offset: int = 0,
                          q_block: int = 64, kv_block: int = 64) -> torch.Tensor:
-    """Prefill attention, q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D) ->
-    (B, Sq, Hq, D).  A CPU tensor takes the plain version."""
+    """Prefill attention, q (B, Sq, Hq, D), k (B, Skv, Hkv, D), v
+    (B, Skv, Hkv, Dv) -> (B, Sq, Hq, Dv).  A CPU tensor takes the plain
+    version."""
     if q.device.type == "cpu":
         return attention_blockwise_ref(
             q, k, v, causal=causal, sliding_window=sliding_window,
@@ -104,24 +110,25 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     cuda_lib.require("flash_attention", q, k, v, dtype=q.dtype)
     b, sq, hq, d = q.shape
     _, skv, hkv, dv = v.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if dv != d or d not in PREFILL_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} (v {dv}) not in "
-                         f"{PREFILL_HEAD_DIMS}")
+    if (d, dv) not in PREFILL_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dims (q/k {d}, v {dv}) not "
+                         f"in {PREFILL_HEAD_DIMS}")
     if hq % hkv:
         raise ValueError(f"flash_attention: {hq} q heads over {hkv} kv heads")
     cuda_lib.require_aligned("flash_attention", q, k, v)
     if scale is None:
         scale = d ** -0.5
-    o = torch.empty_like(q)
+    o = q.new_empty((b, sq, hq, dv))
     if o.numel() == 0:
         return o
     err = cuda_lib.library().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, skv,
-        hq, hkv, d, int(causal), int(sliding_window), float(logit_softcap),
-        float(scale), int(q_offset), _block("q_block", q_block),
+        hq, hkv, d, dv, int(causal), int(sliding_window),
+        float(logit_softcap), float(scale), int(q_offset),
+        _block("q_block", q_block),
         _block("kv_block", kv_block), cuda_lib.dtype_code(q),
         cuda_lib.stream_of(q))
     cuda_lib.check(err, "flash_attention")

@@ -114,6 +114,26 @@ def test_recompute_wrapper_gradients_on_the_card(sm90):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,dv", [(192, 128), (16, 8)])
+def test_prefill_with_narrower_v_matches_plain_version(sm90, dtype, d, dv):
+    """MLA prefill's head dims: q/k D wide, v and the output Dv wide."""
+    g = torch.Generator(device=sm90).manual_seed(5)
+
+    def rnd(*s):
+        return torch.randn(s, generator=g, device=sm90).to(dtype)
+
+    for (sq, skv, kw) in ((77, 77, {}), (50, 120, {"causal": False})):
+        q, k, v = rnd(2, sq, 4, d), rnd(2, skv, 4, d), rnd(2, skv, 4, dv)
+        ref = tfr.attention_blockwise_ref(q, k, v, **kw)
+        for qb, kb in ((32, 32), (64, 64)):
+            out = tfk.flash_attention_cuda(q, k, v, q_block=qb, kv_block=kb,
+                                           **kw)
+            assert out.shape == (2, sq, 4, dv)
+            _cmp(out, ref, dtype)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("d", [64, 80, 128])
 def test_tensor_core_prefill_matches_plain_version(sm90, d):
     g = torch.Generator(device=sm90).manual_seed(3)

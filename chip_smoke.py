@@ -57,6 +57,19 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    surrogate timed on the CPU and the card in turns (3 x 31) against the
    nine-tenths rule; the serve CLI's ``--workload ... --tune-serving 4
    --sim2real-eval`` as a subprocess;
+4d. kernel-launch tuning: for three full-width cells (serve llama3.2-1b
+   4 x 96; train falcon-mamba-7b and zamba2-2.7b 2 x 1024)
+   ``tune_kernel_launch(..., target_backend="wallclock")`` — the analytic
+   launch geometry as source, CUDA-event timings of the kernels as target
+   — counted and traced; every kernel output at the default and at every
+   measured configuration against its plain version on the backend's own
+   inputs; the default and the tuned config remeasured in turns beside
+   the source's prediction; how many points of each family's launch
+   space give distinct launches (shapes only); the tuned configs deployed
+   (two train steps of each depth-cut model against ``phase_train``'s
+   first two, the tuned values seen by every resolution) and the serve
+   CLI's ``--full-config --tune-launch 4 --measure-backend wallclock`` as
+   a subprocess; every resolution of the phase ``cuda``;
 5. timings: each kernel, its plain version and the one-call PyTorch
    yardstick where one exists, timed with CUDA events at the slices'
    shapes, beside the card's bound for the same work; RMSNorm also at the
@@ -73,9 +86,10 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    RMSNorm's kernel time; each kernel of the step must show device time
    under its symbol), and the device's busy share.
 
-Prints the kernel table, the serving, training and sim-to-real summaries
-as JSON lines, and, as the last line, ``{"ok": true, "device": {...}}``.  Any
-failed check exits non-zero without that line.  Without a CUDA card, or
+Prints the kernel table, the serving, training, sim-to-real and
+kernel-launch tuning summaries as JSON lines, and, as the last line,
+``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
+without that line.  Without a CUDA card, or
 outside a checkout, it exits non-zero before doing anything.
 """
 
@@ -1366,6 +1380,323 @@ def phase_serve_cli():
 
 
 # --------------------------------------------------------------------------
+# phase 4d: kernel-launch tuning on the card — CAMEO transfers the analytic
+# launch geometry (source) to CUDA-event timings of the kernels (target)
+# --------------------------------------------------------------------------
+
+#: (kind, arch, batch, tokens, the families the model dispatches)
+TUNE_LAUNCH_CELLS = (
+    ("serve", "llama3.2-1b", 4, 96, ("flash_attention", "rmsnorm")),
+    ("train", "falcon-mamba-7b", 2, 1024, ("mamba_scan", "rmsnorm")),
+    ("train", "zamba2-2.7b", 2, 1024, ("flash_attention", "rmsnorm", "ssd")),
+)
+TUNE_LAUNCH = dict(budget=6, n_target_init=3, seed=0)
+#: the default and the tuned config remeasured in turns (D T T D D T)
+REMEASURE_ORDER = ("default", "tuned", "tuned", "default", "default",
+                   "tuned")
+FAMILY_KERNEL = {"flash_attention": "flash_attention",
+                 "mamba_scan": "selective_scan", "rmsnorm": "rmsnorm",
+                 "ssd": "ssd"}
+
+
+def launch_key(family, args, params):
+    """What the kernel wrapper launches for ``params`` on ``args``, from
+    the shapes alone: the sizes snapped into the family's domain, then
+    ``plan_rmsnorm`` / ``plan_scan`` / ``ssd_route``."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.mamba_scan.kernel import plan_scan, storage_size
+    from repro_torch.kernels.rmsnorm.kernel import plan_rmsnorm
+    from repro_torch.kernels.ssd.kernel import ssd_route
+
+    def snap(name):
+        return dispatch.snap_down(
+            params[name], dispatch.get_family(family).option(name).values)
+
+    if family == "rmsnorm":
+        x, w = args
+        d = x.shape[-1]
+        vectorized = d % (16 // x.element_size()) == 0 and all(
+            t.data_ptr() % 16 == 0 for t in args)
+        return plan_rmsnorm(x.numel() // d, d, x.element_size(), vectorized,
+                            snap("row_block"))
+    if family == "flash_attention":
+        return (str(args[0].dtype), snap("q_block"), snap("kv_block"))
+    if family == "mamba_scan":
+        x, dt, A, Bm, Cm, _ = args
+        return plan_scan(*x.shape, A.shape[1], storage_size(x, dt, Bm, Cm),
+                         params["chunk"], params["c_block"])
+    if family == "ssd":
+        q = snap("chunk")
+        return (ssd_route(args[0], args[3], args[4], q), q)
+    raise KeyError(family)
+
+
+def inert_knobs(backend, families):
+    """Per family: the points of its launch space and how many distinct
+    launches they give on the backend's inputs."""
+    from repro_torch.envs.measure import family_params
+    from repro_torch.kernels import dispatch
+
+    out = {}
+    for fam in families:
+        points = dispatch.launch_space([fam]).grid()
+        keys = {launch_key(fam, backend.inputs(fam),
+                           family_params(fam, p)) for p in points}
+        out[fam] = {"points": len(points), "distinct": len(keys),
+                    "launches": sorted(map(str, keys))}
+    return out
+
+
+def _plain(backend, family, params):
+    import inspect
+
+    from repro_torch.kernels import dispatch
+
+    fn = dispatch.ref_fn(family)
+    accepted = inspect.signature(fn).parameters
+    return fn(*backend.inputs(family),
+              **{k: v for k, v in params.items() if k in accepted})
+
+
+def phase_tune_launch(torch, np, dev, train_out):
+    """Returns (summary, launches of the counted tuning runs)."""
+    from repro_torch.configs.registry import get_model_config
+    from repro_torch.envs.measure import (LaunchGeometry, WallClockBackend,
+                                          family_params)
+    from repro_torch.kernels import cuda_lib, dispatch
+    from repro_torch.launch.tune import launch_workload_for
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.tuner.runner import tune_kernel_launch
+    from repro_torch.tuner.space import launch_families_for
+
+    out = {}
+    launches = {k: 0 for k in cuda_lib.LAUNCHES}
+    n_checked = 0
+    with dispatch.record_resolutions() as resolved:
+        for kind, arch, batch, tokens, fams in TUNE_LAUNCH_CELLS:
+            t_cell = time.perf_counter()
+            cfg = get_model_config(arch)
+            workload = launch_workload_for(cfg, batch, tokens, kind=kind)
+            families = tuple(sorted(launch_families_for(cfg)))
+            check(families == fams, f"tune_launch {arch}: families "
+                  f"{families}, expected {fams}")
+            cell = f"{kind} {arch}"
+            # ---- the tuning run: counted, traced -------------------------
+            check(obs_trace.active() is None,
+                  "tune_launch: a tracer is already on")
+            tracer = obs_trace.start()
+            cuda_lib.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                res = tune_kernel_launch(
+                    workload, families=families, target_backend="wallclock",
+                    target_opts={"device": dev}, **TUNE_LAUNCH)
+                torch.cuda.synchronize()
+            finally:
+                obs_trace.stop()
+            tune_s = time.perf_counter() - t0
+            counted = dict(cuda_lib.LAUNCHES)
+            for k, n in counted.items():
+                launches[k] += n
+            for fam in families:
+                check(counted[FAMILY_KERNEL[fam]] > 0,
+                      f"tune_launch {cell}: the tuning run launched no "
+                      f"{FAMILY_KERNEL[fam]}")
+            check(tracer.dropped == 0, "tune_launch: the trace dropped "
+                  f"{tracer.dropped} events")
+            events = tracer.events()
+            spans = [e for e in events
+                     if e["name"] == "measure" and e.get("cat") == "env"]
+            check(spans and np.isfinite(res.best_y) and res.best_y > 0,
+                  f"tune_launch {cell}: {len(spans)} measurements, best_y "
+                  f"{res.best_y}")
+            measure_s = sum(e["dur"] for e in spans) / 1e6
+            inputs_s = sum(e["dur"] for e in events
+                           if e["name"] == "inputs"
+                           and e.get("cat") == "env") / 1e6
+            tuner_s = tune_s - measure_s - inputs_s
+            tuned = res.launch_config
+            for e in spans:
+                knobs = {k: v for k, v in e["args"]["config"].items()
+                         if k.split(".")[0] in families}
+                log(f"tune_launch {cell}: {knobs} -> "
+                    f"{e['args']['y']:.2f} us "
+                    f"{ {f: round(t, 2) for f, t in e['args']['family_us'].items()} }")
+            # ---- outputs under every configuration measured ------------
+            backend = WallClockBackend(workload, families,
+                                       seed=TUNE_LAUNCH["seed"] + 2,
+                                       device=dev)
+            default = dispatch.launch_space(families).default_config()
+            configs = [default, res.best_config] + [
+                e["args"]["config"] for e in spans]
+            seen = set()
+            errs = {}
+            for config in configs:
+                key = tuple((f, tuple(sorted(family_params(f, config).items())))
+                            for f in families)
+                if key in seen:
+                    continue
+                seen.add(key)
+                for fam in families:
+                    params = family_params(fam, config)
+                    with torch.no_grad():
+                        got = backend.call(fam, params)
+                        want = _plain(backend, fam, params)
+                    err = _compare(torch, f"tune_launch {cell} {fam} "
+                                   f"{params}", got, want, "bfloat16", [],
+                                   False)
+                    errs[fam] = max(errs.get(fam, 0.0), err)
+                    n_checked += 1
+            # ---- default and tuned remeasured in turns -----------------
+            which = {"default": default, "tuned": res.best_config}
+            remeasured = {"default": [], "tuned": []}
+            for w in REMEASURE_ORDER:
+                remeasured[w].append(backend.measure(which[w])[1])
+            geometry = LaunchGeometry(workload)
+            predicted = {w: geometry.totals(families, c)[1]
+                         for w, c in which.items()}
+            spread = {w: max(v) - min(v) for w, v in remeasured.items()}
+            med = {w: float(np.median(v)) for w, v in remeasured.items()}
+            gain = med["default"] - med["tuned"]
+            inert = inert_knobs(backend, families)
+            out[cell] = {
+                "workload": {"batch": batch, "tokens": tokens,
+                             "d_model": workload.d_model,
+                             "head_dim": workload.head_dim,
+                             "channels": workload.channels,
+                             "ssm_heads": workload.ssm_heads,
+                             "ssm_state": workload.ssm_state},
+                "families": families, "tune": TUNE_LAUNCH,
+                "tuned": tuned, "best_y_us": res.best_y,
+                "trace_best_y_us": res.trace_best_y,
+                "measurements": [{"config": e["args"]["config"],
+                                  "y_us": e["args"]["y"],
+                                  "family_us": e["args"]["family_us"]}
+                                 for e in spans],
+                "default_us": remeasured["default"],
+                "tuned_us": remeasured["tuned"],
+                "spread_us": spread, "gain_us": gain,
+                "gain_beyond_spread": gain > max(spread.values()),
+                "source_predicted_us": predicted,
+                "tune_s": tune_s, "measure_s": measure_s,
+                "inputs_s": inputs_s, "tuner_share": tuner_s / tune_s,
+                "launches": {k: v for k, v in counted.items() if v},
+                "max_abs_err": errs, "inert_knobs": inert,
+                "extras": res.extras}
+            log(f"tune_launch {cell}: tuned {tuned}, best_y "
+                f"{res.best_y:.2f} us; remeasured default "
+                f"{[round(v, 2) for v in remeasured['default']]} us, tuned "
+                f"{[round(v, 2) for v in remeasured['tuned']]} us (gain "
+                f"{gain:.2f} us against spreads {spread}); the source "
+                f"predicted default {predicted['default']:.2f} / tuned "
+                f"{predicted['tuned']:.2f} us; tuning {tune_s:.2f} s: "
+                f"measuring {measure_s:.2f} s, inputs {inputs_s:.2f} s, "
+                f"tuner {tuner_s:.2f} s (share {tuner_s / tune_s:.2f}); "
+                f"launches "
+                f"{out[cell]['launches']}; max |err| {errs}")
+            for fam, v in inert.items():
+                log(f"tune_launch {cell}: {fam}: {v['points']} points of "
+                    f"the launch space give {v['distinct']} distinct "
+                    f"launches {v['launches']}")
+            log(f"tune_launch {cell} done in "
+                f"{time.perf_counter() - t_cell:.1f} s")
+            del backend
+            torch.cuda.empty_cache()
+        # ---- deployment: the tuned configs in the train steps ----------
+        for kind, arch, *_ in TUNE_LAUNCH_CELLS:
+            if kind == "train":
+                out[f"{kind} {arch}"]["deployed"] = _train_tuned(
+                    torch, np, dev, arch, out[f"{kind} {arch}"]["tuned"],
+                    train_out[arch])
+    modes = {(r.family, r.mode) for r in resolved}
+    check(all(m == "cuda" for _, m in modes),
+          f"tune_launch: dispatch resolved {sorted(modes)}; every "
+          f"resolution must be cuda")
+    out["serve_cli"] = _serve_cli_tuned()
+    out["outputs_checked"] = n_checked
+    log(f"tune_launch: {n_checked} kernel outputs agree with their plain "
+        f"versions; every resolution cuda ({sorted(modes)})")
+    return out, launches
+
+
+def _train_tuned(torch, np, dev, arch, tuned, default_run):
+    """Two steps of the depth-cut model under the tuned launch config,
+    against the first two steps ``phase_train`` ran at the default
+    config (the same seed, data and learning rates)."""
+    from repro_torch.configs.registry import get_model_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.train import train
+
+    cfg = get_model_config(arch).replace(num_layers=TRAIN[arch])
+    want = dispatch.split_launch_config(tuned)
+    with dispatch.record_resolutions() as rec:
+        res = train(cfg, steps=2, seq=TRAIN_SHAPE["seq"],
+                    batch=TRAIN_SHAPE["batch"], device=dev, seed=0,
+                    launch_config=tuned)
+        torch.cuda.synchronize()
+    check(all(np.isfinite(res.losses)), f"tune_launch {arch}: losses "
+          f"{res.losses}")
+    resolved = {}
+    for r in rec:
+        for p, v in want.get(r.family, {}).items():
+            domain = dispatch.get_family(r.family).option(p).values
+            check(r.launch[p] == v and dispatch.snap_down(v, domain) == v,
+                  f"tune_launch {arch}: {r.family}.{p} resolved "
+                  f"{r.launch[p]}, tuned {v}")
+        if r.family in want:
+            resolved.setdefault(r.family, set()).add(
+                tuple(sorted(r.launch.items())))
+    check(set(resolved) == set(want), f"tune_launch {arch}: resolved "
+          f"{sorted(resolved)}, tuned {sorted(want)}")
+    for i in range(2):
+        lk, lr_ = res.losses[i], default_run["losses"][i]
+        gk, gr = res.grad_norms[i], default_run["grad_norms"][i]
+        check(abs(lk - lr_) <= STEP_TOL["loss_rtol"] * abs(lr_),
+              f"tune_launch {arch} step {i}: loss {lk} vs default {lr_}")
+        check(abs(gk - gr) <= STEP_TOL["grad_norm_rtol"] * abs(gr),
+              f"tune_launch {arch} step {i}: grad norm {gk} vs default "
+              f"{gr}")
+    log(f"tune_launch {arch}: 2 steps under {tuned}: losses {res.losses} "
+        f"(default {default_run['losses'][:2]}), grad norms "
+        f"{res.grad_norms} (default {default_run['grad_norms'][:2]}), "
+        f"{[round(t * 1e3, 1) for t in res.step_s]} ms; resolved "
+        f"{ {f: sorted(v) for f, v in resolved.items()} }")
+    out = {"losses": res.losses, "grad_norms": res.grad_norms,
+           "default_losses": default_run["losses"][:2],
+           "default_grad_norms": default_run["grad_norms"][:2],
+           "step_ms": [t * 1e3 for t in res.step_s],
+           "resolved": {f: [dict(t) for t in sorted(v)]
+                        for f, v in resolved.items()}}
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_cli_tuned():
+    """The serve launcher's fixed batch as a user runs it, tuning its
+    launch config on the card first (wallclock target)."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
+           "--full-config", "--tune-launch", "4", "--measure-backend",
+           "wallclock"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=str(ROOT), capture_output=True, text=True,
+                         timeout=600,
+                         env={**os.environ, "PYTHONPATH": str(SRC)})
+    wall = time.perf_counter() - t0
+    for line in res.stdout.splitlines():
+        log(f"serve CLI | {line}")
+    check(res.returncode == 0,
+          f"serve CLI --tune-launch exited {res.returncode}: "
+          f"{res.stderr[-2000:]}")
+    check("tuned launch config" in res.stdout and "decode p50" in res.stdout,
+          "serve CLI --tune-launch: no tuned-config or decode line")
+    log(f"serve CLI --tune-launch: rc 0 in {wall:.1f} s")
+    return {"cmd": " ".join(cmd[1:]), "wall_s": wall,
+            "lines": [ln for ln in res.stdout.splitlines()
+                      if ln.startswith("[serve]")]}
+
+
+# --------------------------------------------------------------------------
 # phase 5: timings
 # --------------------------------------------------------------------------
 
@@ -2104,10 +2435,18 @@ def main() -> int:
     sim2real["serve_cli"] = phase_serve_cli()
     sim2real["phase_s"] = time.perf_counter() - t0
     log(f"sim-to-real loop done in {sim2real['phase_s']:.1f} s")
+
+    # 4d. kernel-launch tuning on the card, and its deployment
+    t0 = time.perf_counter()
+    tune_launch, tune_launch_launches = phase_tune_launch(torch, np, dev,
+                                                          train_out)
+    tune_launch["phase_s"] = time.perf_counter() - t0
+    log(f"kernel-launch tuning done in {tune_launch['phase_s']:.1f} s")
     by_path = {name: {"serve": launches.get(name, 0),
                       "train": sum(t["launches"][name]
                                    for t in train_out.values()),
-                      "sim2real": sim2real_launches[name]}
+                      "sim2real": sim2real_launches[name],
+                      "tune_launch": tune_launch_launches[name]}
                for name in cuda_lib.LAUNCHES}
 
     # 5. timings
@@ -2125,7 +2464,8 @@ def main() -> int:
 
     for line in ({"kernels": rows}, {"slice": slice_out},
                  {"train": train_out, "grad_check": grad_errs,
-                  "grad_tolerance": GRAD_TOL}, {"sim2real": sim2real}):
+                  "grad_tolerance": GRAD_TOL}, {"sim2real": sim2real},
+                 {"tune_launch": tune_launch}):
         print(json.dumps(_strict_json(line), allow_nan=False, default=str),
               flush=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,13 +1,19 @@
-"""Tuning environments: the ``PerfEnv`` contract, the measurement backends
-of the launch space, the simulated serving environment and the replay
-environment over the real batcher."""
+"""Tuning environments: the ``PerfEnv`` contract, the paper's sandbox
+SCM, the analytic TPU environment of the transfer experiments, the
+kernel-launch environment and its measurement backends, the simulated
+serving environment and the replay environment over the real batcher."""
 
 from repro_torch.envs.base import PerfEnv, PooledEnv  # noqa: F401
+from repro_torch.envs.sandbox import SandboxSCMEnv, make_sandbox_pair  # noqa: F401
+from repro_torch.envs.analytic import (  # noqa: F401
+    AnalyticTPUEnv, PaddedAnalyticEnv, environment_pair, tpu_config_space)
+from repro_torch.envs.kernel_launch import (  # noqa: F401
+    KernelLaunchEnv, KernelWorkload)
 from repro_torch.envs.measure import (  # noqa: F401
     SHIFT_KINDS, AnalyticBackend, EnvShift, FakeClock, HardwareSpec,
-    KernelWorkload, LaunchGeometry, MeasurementBackend,
-    ShiftedAnalyticBackend, TimingResult, backend_names, make_backend,
-    register_backend, shift_kinds, shifts_for, timeit)
+    LaunchGeometry, MeasurementBackend, ShiftedAnalyticBackend, TimingResult,
+    WallClockBackend, backend_names, make_backend, register_backend,
+    shift_kinds, shifts_for, timeit)
 
 
 # ServingEnv / ReplayServingEnv sit above the workloads subsystem, which

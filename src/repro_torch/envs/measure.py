@@ -14,13 +14,15 @@ launch space, and the geometry the serving simulator prices with:
   noise, a tightened footprint budget) build the paper's
   environmental-change target pairs on a CPU.  Named kinds live in
   ``SHIFT_KINDS`` and are selectable as ``shifted:<kind>``.
-- ``wallclock`` — timed execution of the port's CUDA kernels under the
-  candidate configuration — comes with the kernel-launch slice (the
-  kernel-launch environment, CUDA-event timing).  Until then
-  :func:`make_backend` raises ``NotImplementedError`` for it; the name
-  still resolves, so command-line validation is unchanged.
+- :class:`WallClockBackend` — timed execution of the port's kernels under
+  the candidate configuration: each family's representative inputs are
+  dispatched through :func:`repro_torch.kernels.dispatch.dispatch` with
+  the candidate installed exclusively, on the card by default (CUDA
+  events around each call, median of k) or on the CPU (the plain
+  versions, host clock) when asked.  Expensive and honest: the
+  intervention target.
 
-Both satisfy the :class:`MeasurementBackend` protocol —
+All satisfy the :class:`MeasurementBackend` protocol —
 ``measure(config) -> (counters, y)`` with latency in microseconds.
 Selection: an explicit constructor argument wins, then the
 ``REPRO_MEASURE_BACKEND`` env var, then ``analytic``.
@@ -63,6 +65,9 @@ SMEM_LIMIT_BYTES = 232448         # opt-in shared memory of one H100 block
 TENSOR_FLOPS_PER_US = 989e6       # H100 SXM bf16 dense tensor cores
 CUDA_CORE_FLOPS_PER_US = 67e6     # H100 SXM fp32 on the CUDA cores
 HBM_BYTES_PER_US = 3.35e6         # H100 SXM HBM3, 3.35 TB/s
+SM_CLOCK_HZ = 1.98e9              # H100 SXM boost clock (spin lengths)
+HOST_CALL_S = 5e-4                # a kernel call's host time, if unmeasured
+SPIN_MIN_S, SPIN_MAX_S = 1e-3, 2e-2  # the spin ahead of a timed run
 F32 = 4                           # scratch accumulators
 BF16 = 2                          # streamed in/out blocks
 
@@ -571,6 +576,9 @@ class ShiftedAnalyticBackend(AnalyticBackend):
     seeded and CPU-cheap, so source→target fidelity gaps (the paper's
     environmental changes) are reproducible in CI.
 
+    ``hardware`` is the unshifted card (default: one H100 SXM); the parity
+    tests pass the reference's constants.
+
     Heteroscedastic noise: a shift's ``hetero_noise`` adds a latency-
     dependent component ``hetero * t / (t + HETERO_PIVOT_US)`` to the
     relative noise — slow configurations measure noisier than fast ones, so
@@ -581,12 +589,13 @@ class ShiftedAnalyticBackend(AnalyticBackend):
 
     def __init__(self, workload: KernelWorkload, families: Iterable[str],
                  seed: int = 0, *,
-                 shifts: Union[str, Sequence[EnvShift]] = ()):
+                 shifts: Union[str, Sequence[EnvShift]] = (),
+                 hardware: Optional[HardwareSpec] = None):
         if isinstance(shifts, str):
             shifts = shifts_for(shifts)
         self.shifts = tuple(shifts)
         self.base_workload = workload
-        shifted, hardware = workload, HardwareSpec()
+        shifted, hardware = workload, hardware or HardwareSpec()
         for s in self.shifts:
             shifted, hardware = s.apply(shifted, hardware)
         super().__init__(shifted, families, seed, hardware=hardware)
@@ -601,12 +610,193 @@ class ShiftedAnalyticBackend(AnalyticBackend):
                 * total_us / (total_us + self.HETERO_PIVOT_US))
 
 
-def _wallclock_backend(*args: Any, **kw: Any) -> MeasurementBackend:
-    raise NotImplementedError(
-        "the wallclock measurement backend (CUDA-event timing of the port's "
-        "kernels under a candidate launch config) comes with the "
-        "kernel-launch slice (ROADMAP queue 1); use 'analytic' or "
-        "'shifted:<kind>' until then")
+class WallClockBackend:
+    """Timed execution of the port's kernels under the candidate config.
+
+    Each family's representative inputs are the reference's shapes, drawn
+    from ``default_rng(seed)`` in the reference's order, and go to
+    ``device`` (default ``cuda``, which raises without a card) in the
+    dtypes the port's serve and train paths hand that kernel: ``dtype``
+    activations (default bf16) with the fp32 ``A``, ``D`` and ``dt`` that
+    ``models/ssm.py`` passes.  Every call goes through the generic router
+    inside ``use_launch_config({family: params}, exclusive=True)``, so the
+    candidate outranks any configuration active around the measurement.
+
+    Timing: with no ``clock``, on the card, each call is bracketed by a
+    pair of CUDA events — ``warmup`` discarded calls, ``repeats`` timed
+    ones queued behind a spin kernel (so the events bracket the kernel, not
+    the host's launch latency), one synchronize, the median elapsed time.
+    The inputs stay in L2 between calls.  With a ``clock`` (the
+    reference's :class:`FakeClock` contract), or on the CPU, the
+    host-clock :func:`timeit` path runs unchanged.  Counters and the
+    footprint feasibility gate come from the geometry model; an
+    infeasible configuration returns ``inf`` without launching.
+
+    When the obs tracer is active each measurement exports a ``measure``
+    span on the env track with its config, ``y`` and per-family times (and
+    the first an ``inputs`` span for building the inputs).
+    """
+
+    counter_names = COUNTER_NAMES
+
+    def __init__(self, workload: KernelWorkload, families: Iterable[str],
+                 seed: int = 0, *, device: Any = None,
+                 dtype: Optional[torch.dtype] = None, warmup: int = 1,
+                 repeats: int = 3,
+                 clock: Optional[Callable[[], float]] = None):
+        from repro_torch.utils.device import resolve_device
+
+        self.workload = workload
+        self.families = tuple(sorted(families))
+        _check_modeled(self.families)
+        self.geometry = LaunchGeometry(workload)
+        self.device = resolve_device(device)
+        self.dtype = dtype or torch.bfloat16
+        self.warmup = warmup
+        self.repeats = repeats
+        self.clock = clock
+        self._input_rng = np.random.default_rng(seed)
+        self._inputs: Dict[str, Tuple[torch.Tensor, ...]] = {}
+
+    # -- representative inputs ------------------------------------------
+
+    def _build_inputs(self, family: str) -> Tuple[torch.Tensor, ...]:
+        w, rng = self.workload, self._input_rng
+        f32 = torch.float32
+
+        def draw(*shape):
+            return rng.normal(size=shape).astype(np.float32)
+
+        def put(a, dtype):
+            return torch.as_tensor(a).to(device=self.device, dtype=dtype)
+
+        if family == "flash_attention":
+            return (put(draw(w.batch, w.seq_len, w.heads, w.head_dim),
+                        self.dtype),
+                    put(draw(w.batch, w.seq_len, w.kv_heads, w.head_dim),
+                        self.dtype),
+                    put(draw(w.batch, w.seq_len, w.kv_heads, w.head_dim),
+                        self.dtype))
+        if family == "mamba_scan":
+            x = draw(w.batch, w.seq_len, w.channels)
+            dt = np.abs(draw(w.batch, w.seq_len, w.channels)) * 0.05
+            A = -np.abs(draw(w.channels, w.scan_state))
+            B = draw(w.batch, w.seq_len, w.scan_state)
+            C = draw(w.batch, w.seq_len, w.scan_state)
+            D = np.ones((w.channels,), np.float32)
+            return (put(x, self.dtype), put(dt, f32), put(A, f32),
+                    put(B, self.dtype), put(C, self.dtype), put(D, f32))
+        if family == "ssd":
+            x = draw(w.batch, w.seq_len, w.ssm_heads, w.ssm_head_dim)
+            dt = np.abs(draw(w.batch, w.seq_len, w.ssm_heads)) * 0.05
+            A = -np.abs(draw(w.ssm_heads))
+            B = draw(w.batch, w.seq_len, 1, w.ssm_state)
+            C = draw(w.batch, w.seq_len, 1, w.ssm_state)
+            D = np.ones((w.ssm_heads,), np.float32)
+            return (put(x, self.dtype), put(dt, f32), put(A, f32),
+                    put(B, self.dtype), put(C, self.dtype), put(D, f32))
+        if family == "rmsnorm":
+            return (put(draw(w.batch, w.seq_len, w.d_model), self.dtype),
+                    put(draw(w.d_model), self.dtype))
+        if family == "paged_attention":
+            # the pool's shape is the candidate's page_size: there are no
+            # config-independent inputs; the replay environment (a real
+            # batcher) measures paged decode
+            raise KeyError(
+                "paged_attention has no config-independent representative "
+                "inputs (the KV pool shape IS the launch config); measure "
+                "it through ReplayServingEnv instead")
+        raise KeyError(f"no representative workload for family {family!r}")
+
+    def inputs(self, family: str) -> Tuple[torch.Tensor, ...]:
+        """The family's representative inputs, built on first use."""
+        if family not in self._inputs:
+            self._inputs[family] = self._build_inputs(family)
+        return self._inputs[family]
+
+    def call(self, family: str, params: Dict[str, Any]) -> torch.Tensor:
+        """One call of ``family`` on its inputs with exactly ``params``
+        installed."""
+        from repro_torch.kernels import dispatch
+
+        args = self.inputs(family)
+        with dispatch.use_launch_config({family: dict(params)},
+                                        exclusive=True):
+            return dispatch.dispatch(family, *args)
+
+    def _time_us(self, fn: Callable[[], Any]) -> float:
+        if self.clock is not None or self.device.type != "cuda":
+            return timeit(fn, warmup=self.warmup, repeats=self.repeats,
+                          clock=self.clock).median_us
+        host_s = HOST_CALL_S
+        for i in range(self.warmup):
+            if i == self.warmup - 1:
+                torch.cuda.synchronize(self.device)
+                # repro: ignore[wall-clock] -- the host's enqueue time of one call sizes the spin below; no result is timed by it
+                t0 = time.perf_counter()
+            fn()
+        if self.warmup:
+            # repro: ignore[wall-clock] -- the host's enqueue time of one call sizes the spin below; no result is timed by it
+            host_s = time.perf_counter() - t0
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(self.repeats)]
+        # hold the card busy while the host queues every timed call, so
+        # each pair of events brackets the kernel and not the host's
+        # launch latency (0.1-0.5 ms a call through Python on an H100
+        # host); capped, since a first call's host time includes lazy
+        # set-up
+        spin_s = min(max(4.0 * host_s * self.repeats, SPIN_MIN_S),
+                     SPIN_MAX_S)
+        torch.cuda._sleep(int(spin_s * SM_CLOCK_HZ))
+        for start, end in events:
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize(self.device)
+        return float(np.median([s.elapsed_time(e) * 1e3
+                                for s, e in events]))
+
+    # -- MeasurementBackend ---------------------------------------------
+
+    def measure(self, config: Dict[str, Any]) -> Tuple[Dict[str, float], float]:
+        from repro_torch.obs import trace as obs_trace
+
+        counters, _, feasible = self.geometry.totals(self.families, config)
+        if not feasible:
+            return counters, float("inf")
+        missing = [f for f in self.families if f not in self._inputs]
+        if missing:
+            with obs_trace.span("inputs", cat="env",
+                                track=obs_trace.TRACK_ENV, families=missing):
+                for family in missing:
+                    self.inputs(family)
+        with obs_trace.span("measure", cat="env",
+                            track=obs_trace.TRACK_ENV,
+                            backend=WALLCLOCK) as span:
+            per_family = {}
+            with torch.no_grad():
+                for family in self.families:
+                    params = family_params(family, config)
+                    per_family[family] = self._time_us(
+                        lambda: self.call(family, params))
+            total_us = float(sum(per_family[f] for f in self.families))
+            span.set(config=dict(config), y=total_us, family_us=per_family)
+        return counters, total_us
+
+    def measure_batch(self, configs: Sequence[Dict[str, Any]]
+                      ) -> List[Tuple[Dict[str, float], float]]:
+        """Measures once per distinct tuple of launch parameters: members
+        with identical parameters share one timed measurement."""
+        out: List[Tuple[Dict[str, float], float]] = []
+        shared: Dict[tuple, Tuple[Dict[str, float], float]] = {}
+        for config in configs:
+            key = tuple((f, tuple(sorted(family_params(f, config).items())))
+                        for f in self.families)
+            if key not in shared:
+                shared[key] = self.measure(config)
+            out.append(shared[key])
+        return out
 
 
 # --------------------------------------------------------------------------
@@ -617,7 +807,7 @@ def _wallclock_backend(*args: Any, **kw: Any) -> MeasurementBackend:
 #: ``shifted:<kind>`` family is prefix-routed on top of these keys.
 BACKEND_FACTORIES: Dict[str, Callable[..., MeasurementBackend]] = {
     ANALYTIC: AnalyticBackend,
-    WALLCLOCK: _wallclock_backend,
+    WALLCLOCK: WallClockBackend,
 }
 
 

@@ -3,8 +3,9 @@ hand-written CUDA kernel or to its plain PyTorch version.
 
 Port of :mod:`repro.kernels.dispatch`, with the same API (``resolve``,
 ``use_launch_config`` including ``exclusive=True``, ``split_launch_config``,
-``record_resolutions``, ``profile_dispatches``, ``launch_space``) and the
-same ``family.param`` option names.
+``record_resolutions``, ``profile_dispatches``, ``launch_space``, and the
+generic router :func:`dispatch`) and the same ``family.param`` option
+names.
 
 Modes
 -----
@@ -29,13 +30,17 @@ from __future__ import annotations
 import contextlib
 import functools
 import importlib
+import inspect
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core.spaces import ConfigSpace, Option
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 REF = "ref"
 CUDA = "cuda"
@@ -289,25 +294,41 @@ def resolve(family: str, mode: Optional[str] = None, *, device: Any = None,
 # --------------------------------------------------------------------------
 
 class DispatchProfile:
-    """Aggregated dispatch telemetry: per-(family, mode) resolution counts.
-    Cross-thread, as in the reference.  The reference also times calls
-    made through its generic router, which only its wall-clock measurement
-    backend uses; that router comes with the port of that backend."""
+    """Aggregated dispatch telemetry: per-(family, mode) resolution counts
+    and wall time spent inside calls made through the generic router
+    :func:`dispatch` (the wall-clock measurement backend's path).
+
+    Built on the same notification path as :func:`record_resolutions`, but
+    *cross-thread*, as in the reference: a profile observes every
+    resolution process-wide while active."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.resolutions: Dict[Tuple[str, str], int] = {}
+        self.wall_s: Dict[Tuple[str, str], float] = {}
 
     def _saw(self, res: Resolution) -> None:
         key = (res.family, res.mode)
         with self._lock:
             self.resolutions[key] = self.resolutions.get(key, 0) + 1
 
-    def summary(self) -> Dict[str, Dict[str, Any]]:
-        """``{"family [mode]": {"resolutions": n}}``."""
+    def _timed(self, family: str, mode: str, dt: float) -> None:
+        key = (family, mode)
         with self._lock:
-            return {f"{fam} [{mode}]": {"resolutions": n}
-                    for (fam, mode), n in self.resolutions.items()}
+            self.wall_s[key] = self.wall_s.get(key, 0.0) + dt
+
+    def summary(self) -> Dict[str, Dict[str, Any]]:
+        """``{"family [mode]": {"resolutions": n, "wall_s": s}}``."""
+        out: Dict[str, Dict[str, Any]] = {}
+        with self._lock:
+            for (fam, mode), n in self.resolutions.items():
+                out[f"{fam} [{mode}]"] = {
+                    "resolutions": n,
+                    "wall_s": round(self.wall_s.get((fam, mode), 0.0), 6)}
+            for (fam, mode), s in self.wall_s.items():
+                out.setdefault(f"{fam} [{mode}]",
+                               {"resolutions": 0})["wall_s"] = round(s, 6)
+        return out
 
 
 _PROFILES: List[DispatchProfile] = []
@@ -325,7 +346,11 @@ def _notify_profiles(res: Resolution) -> None:
 @contextlib.contextmanager
 def profile_dispatches():
     """Profile every dispatch made while active (all threads): yields a
-    :class:`DispatchProfile` accumulating per-family resolution counts."""
+    :class:`DispatchProfile` accumulating per-family resolution counts and
+    the wall time spent inside calls made through :func:`dispatch`.  When
+    the obs tracer is active, each routed call additionally exports a span
+    on the kernel track and bumps the ``dispatch_wall_s`` /
+    ``dispatch_resolutions_total`` registry instruments."""
     prof = DispatchProfile()
     with _PROFILES_LOCK:
         _PROFILES.append(prof)
@@ -337,6 +362,51 @@ def profile_dispatches():
                 if _PROFILES[i] is prof:
                     del _PROFILES[i]
                     break
+
+
+def dispatch(family: str, *args: Any, mode: Optional[str] = None,
+             variant: Optional[str] = None, launch: Optional[Dict] = None,
+             **kwargs: Any) -> Any:
+    """Generic router: run ``family`` on the implementation resolved for
+    the device of the first tensor in ``args`` (an explicit ``mode``
+    wins).
+
+    Launch parameters the chosen implementation does not accept (e.g.
+    ``row_block`` on the plain RMSNorm, which has no blocking) are dropped
+    by signature inspection, so one launch config drives every mode.
+
+    On the card the call returns once the kernel is queued, so the
+    profiled wall time is the host's share of a call (resolution, checks,
+    allocation, launch), not the kernel's device time, which the
+    wall-clock measurement backend times with CUDA events.
+    """
+    device = next((a.device for a in args if isinstance(a, torch.Tensor)),
+                  None)
+    res = resolve(family, mode=mode, device=device, **(launch or {}))
+    fn = _load(_impl_ref(get_family(family), res.mode, variant))
+    accepted = set(inspect.signature(fn).parameters)
+    kw = {k: v for k, v in res.launch.items() if k in accepted}
+    kw.update(kwargs)
+    if not _PROFILES and not obs_trace.enabled():
+        return fn(*args, **kw)
+    # repro: ignore[wall-clock] -- dispatch profiling (host time inside a routed call), as the reference's router records it
+    t0 = time.perf_counter()
+    with obs_trace.span(family, cat="dispatch", track=obs_trace.TRACK_KERNEL,
+                        mode=res.mode, variant=variant if variant else ""):
+        out = fn(*args, **kw)
+    # repro: ignore[wall-clock] -- dispatch profiling (host time inside a routed call), as the reference's router records it
+    dt = time.perf_counter() - t0
+    if _PROFILES:
+        with _PROFILES_LOCK:
+            active = list(_PROFILES)
+        for p in active:
+            p._timed(family, res.mode, dt)
+    if obs_trace.enabled():
+        obs_metrics.REGISTRY.inc("dispatch_resolutions_total",
+                                 family=family, mode=res.mode)
+        obs_metrics.REGISTRY.inc("dispatch_wall_s", dt,
+                                 family=family, mode=res.mode)
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -6,6 +6,16 @@
 
 The prompts are the reference's (the same seeded synthetic data).
 
+``--tune-launch N`` closes the CAMEO loop before serving: a transfer-tuning
+run (analytic source, ``--measure-backend`` target) over the kernel-launch
+space picks block sizes for this serving shape (batch x prompt + gen), and
+the winning configuration is handed to the prefill / decode steps.  On the
+card ``--measure-backend wallclock`` times the CUDA kernels with CUDA
+events:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --full-config \
+        --tune-launch 4 --measure-backend wallclock
+
 ``--workload <spec>`` switches to trace-driven continuous batching: a
 seeded request trace (``repro_torch.workloads`` grammar, e.g.
 ``bursty:rate=2000``) is replayed through the port's ``ContinuousBatcher``.
@@ -18,9 +28,6 @@ simulator and prints sim-predicted vs replayed-actual:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --full-config --workload "poisson:rate=1500,horizon=0.01" \
         --tune-serving 4 --sim2real-eval
-
-Kernel-launch tuning (the reference's ``--tune-launch`` and
-``--measure-backend``) comes with the kernel-launch slice.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from __future__ import annotations
 import argparse
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,7 +43,8 @@ import torch
 from repro_torch.configs.registry import (get_model_config, get_smoke_config,
                                           list_archs)
 from repro_torch.data.pipeline import make_data
-from repro_torch.launch.tune import tune_serving_config
+from repro_torch.launch.tune import (measure_backend_arg, tune_launch_config,
+                                     tune_serving_config)
 from repro_torch.models.model import build_model
 from repro_torch.obs import trace as obs_trace
 from repro_torch.train.serve_step import jitted_steps, sample_token
@@ -55,13 +63,17 @@ class FixedBatchResult:
 
 def serve_fixed_batch(model, run: RunConfig, params, prompt: torch.Tensor, *,
                       gen: int, temperature: float = 0.0,
-                      keep_logits: int = 0) -> FixedBatchResult:
-    """Prefill ``prompt`` (B, S), then decode ``gen - 1`` steps.  Each step
-    is timed on the host around a device synchronize.  The last-position
-    logits of prefill and of the first ``keep_logits - 1`` decode steps
-    are kept (on the host) for comparison."""
+                      keep_logits: int = 0,
+                      launch_config: Optional[Dict[str, Any]] = None
+                      ) -> FixedBatchResult:
+    """Prefill ``prompt`` (B, S), then decode ``gen - 1`` steps, the steps
+    built with ``launch_config`` (a tuned ``family.param`` config).  Each
+    step is timed on the host around a device synchronize.  The
+    last-position logits of prefill and of the first ``keep_logits - 1``
+    decode steps are kept (on the host) for comparison."""
     cache_len = prompt.shape[1] + gen
-    prefill, decode = jitted_steps(model, run, cache_len=cache_len)
+    prefill, decode = jitted_steps(model, run, cache_len=cache_len,
+                                   launch_config=launch_config)
     gen_rng = torch.Generator(device=prompt.device).manual_seed(1)
     kept: List[torch.Tensor] = []
     # repro: ignore[wall-clock] -- serve-CLI step latency, as the reference's serve CLI reports it
@@ -177,6 +189,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--full-config", action="store_true")
+    ap.add_argument("--tune-launch", type=int, default=0, metavar="BUDGET",
+                    help="intervention budget for a kernel-launch tuning run "
+                         "before serving (0 = serve with registry defaults)")
+    ap.add_argument("--measure-backend", type=measure_backend_arg,
+                    default=None,
+                    help="target measurement backend for --tune-launch: "
+                         "analytic, wallclock, or shifted:<kind> "
+                         "(default: REPRO_MEASURE_BACKEND, then analytic)")
     ap.add_argument("--workload", default=None, metavar="SPEC",
                     help="request-trace spec (repro_torch.workloads grammar, "
                          "e.g. 'bursty:rate=2000'): replay it through the "
@@ -187,7 +207,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "(0 = serve with the default plan)")
     ap.add_argument("--query-batch", type=int, default=1, metavar="K",
                     help="measurements per ask/tell tuning round for "
-                         "--tune-serving (1 = sequential)")
+                         "--tune-launch / --tune-serving (1 = sequential)")
     ap.add_argument("--sim2real-eval", action="store_true",
                     help="with --workload: after the replay, price the "
                          "deployed configuration in the simulator too and "
@@ -227,8 +247,16 @@ def _run(args) -> int:
         return 0
     prompt = make_prompt(cfg, run.shape, args.batch, args.prompt_len,
                          model.device)
+    launch_config = None
+    if args.tune_launch > 0:
+        launch_config = tune_launch_config(cfg, args.batch, cache_len,
+                                           args.tune_launch,
+                                           args.measure_backend,
+                                           query_batch=args.query_batch,
+                                           device=model.device)
     res = serve_fixed_batch(model, run, params, prompt, gen=args.gen,
-                            temperature=args.temperature)
+                            temperature=args.temperature,
+                            launch_config=launch_config)
     print(f"[serve] prefill {args.batch}x{args.prompt_len}: "
           f"{res.prefill_s * 1000:.1f} ms")
     if len(res.decode_s) > 1:

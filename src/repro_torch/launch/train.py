@@ -11,8 +11,13 @@ training config are the reference's:
 ``make_data(cfg, shape, seed=0)`` and ``TrainConfig(lr=1e-3,
 warmup_steps=10)``.  The steps run in a plain loop that prints the loss,
 the gradient norm and the step time.  The reference's fault-tolerant
-driver, checkpointing, metrics logger and ``--tune-launch`` come in a
-later slice.
+driver, checkpointing and metrics logger come in a later slice.
+
+``--tune-launch N`` closes the CAMEO loop before training (mirroring
+serve): a transfer-tuning run (analytic source, ``--measure-backend``
+target) over the kernel-launch space picks block sizes / chunk lengths for
+this training shape, and the winning configuration is handed to the train
+step (``train(..., launch_config=...)``).
 """
 
 from __future__ import annotations
@@ -21,11 +26,12 @@ import argparse
 import math
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from repro_torch.configs.registry import (get_model_config, get_smoke_config,
                                           list_archs)
 from repro_torch.data.pipeline import make_data
+from repro_torch.launch.tune import measure_backend_arg, tune_launch_config
 from repro_torch.models.model import build_model
 from repro_torch.train.optimizer import make_optimizer
 from repro_torch.train.train_step import init_train_state, make_train_step
@@ -58,15 +64,18 @@ def make_run(cfg: ModelConfig, *, seq: int, batch: int,
 
 def train(cfg: ModelConfig, *, steps: int, seq: int, batch: int,
           device: DeviceLike = None, seed: int = 0,
-          log: Optional[Callable] = None) -> TrainResult:
+          log: Optional[Callable] = None,
+          launch_config: Optional[Dict[str, Any]] = None) -> TrainResult:
     """Train ``cfg`` for ``steps`` steps on the reference's synthetic data
-    (seed 0), parameters drawn from ``seed``.  Each step is timed on the
-    host around a device synchronize."""
+    (seed 0), parameters drawn from ``seed``, the step built with
+    ``launch_config`` (a tuned ``family.param`` config).  Each step is
+    timed on the host around a device synchronize."""
     run = make_run(cfg, seq=seq, batch=batch, steps=steps)
     run.validate()
     model = build_model(cfg, run.parallel, device=device)
     optimizer = make_optimizer(run.train)
-    step_fn = make_train_step(model, run, optimizer)
+    step_fn = make_train_step(model, run, optimizer,
+                              launch_config=launch_config)
     state = init_train_state(model, run, optimizer, seed=seed)
     data = make_data(cfg, run.shape, seed=0)
     out = TrainResult(run)
@@ -97,6 +106,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch versions)")
+    ap.add_argument("--tune-launch", type=int, default=0, metavar="BUDGET",
+                    help="intervention budget for a kernel-launch tuning run "
+                         "before training (0 = train with registry defaults)")
+    ap.add_argument("--measure-backend", type=measure_backend_arg,
+                    default=None,
+                    help="target measurement backend for --tune-launch: "
+                         "analytic, wallclock, or shifted:<kind> "
+                         "(default: REPRO_MEASURE_BACKEND, then analytic)")
+    ap.add_argument("--query-batch", type=int, default=1, metavar="K",
+                    help="measurements per ask/tell tuning round for "
+                         "--tune-launch (1 = sequential)")
     args = ap.parse_args(argv)
 
     cfg = (get_model_config(args.arch) if args.full_config
@@ -109,8 +129,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
               f"grad_norm {float(metrics['grad_norm']):.4f} "
               f"lr {metrics['lr']:.2e} {step_s * 1000:.1f} ms")
 
+    launch_config = None
+    if args.tune_launch > 0:
+        launch_config = tune_launch_config(cfg, args.batch, args.seq,
+                                           args.tune_launch,
+                                           args.measure_backend, kind="train",
+                                           query_batch=args.query_batch,
+                                           device=args.device)
     res = train(cfg, steps=args.steps, seq=args.seq, batch=args.batch,
-                device=args.device, log=log)
+                device=args.device, log=log, launch_config=launch_config)
     if not all(map(math.isfinite, res.losses)):
         print("[train] non-finite loss")
         return 1

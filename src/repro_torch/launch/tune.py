@@ -1,19 +1,23 @@
 """Shared tuning plumbing for the launchers — the port of
 :mod:`repro.launch.tune`.
 
-The serve launcher closes the CAMEO loop before serving a workload: build
+Both launchers close the CAMEO loop the same way before running: build
 the :class:`KernelWorkload` cell matching the assignment, transfer-tune the
-serving stack (scheduler knobs and kernel launch geometry) in the
-simulator, and deploy the winner on the batcher.  The family gating
-(``launch_families_for``) lives here once.  Kernel-launch tuning
-(``tune_launch_config``, the launchers' ``--tune-launch`` /
-``--measure-backend`` and the backend-name validator those flags take)
-comes with the kernel-launch slice.
+kernel-launch space (analytic source, ``--measure-backend`` target), and
+hand the winning configuration to the steps (``--tune-launch``).  The
+serve launcher can instead transfer-tune the whole serving stack
+(scheduler knobs and kernel launch geometry) against a workload trace in
+the simulator and deploy the winner on the batcher (``--tune-serving``).
+This module is the single implementation both import, so the tuned
+surface (family gating via ``launch_families_for``) and the backend
+selection semantics cannot drift between launchers.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
+
+from repro_torch.envs.measure import WALLCLOCK, resolve_backend_name
 
 
 def launch_workload_for(cfg, batch: int, seq_len: int, *,
@@ -39,6 +43,30 @@ def launch_workload_for(cfg, batch: int, seq_len: int, *,
         ssm_head_dim=(d_inner // cfg.ssm_num_heads if cfg.ssm_num_heads
                       else kw.ssm_head_dim),
         ssm_state=(cfg.ssm_state or kw.ssm_state) if is_ssm else kw.ssm_state)
+
+
+def tune_launch_config(cfg, batch: int, seq_len: int, budget: int,
+                       backend: Optional[str], *, kind: str = "serve",
+                       query_batch: int = 1, seed: int = 0,
+                       device=None) -> Dict[str, Any]:
+    """One transfer-tuning run over this assignment's kernel-launch space;
+    returns the winning ``family.param`` config for the step factories.
+    A wallclock target times the kernels on ``device`` (default ``cuda``;
+    ``cpu`` times the plain versions)."""
+    from repro_torch.tuner.runner import tune_kernel_launch
+    from repro_torch.tuner.space import launch_families_for
+
+    target_opts = ({"device": device}
+                   if resolve_backend_name(backend) == WALLCLOCK else None)
+    result = tune_kernel_launch(
+        launch_workload_for(cfg, batch, seq_len, kind=kind),
+        families=launch_families_for(cfg), budget=budget,
+        target_backend=backend, query_batch=query_batch, seed=seed,
+        target_opts=target_opts)
+    print(f"[{kind}] tuned launch config ({result.method}, "
+          f"budget={budget}, y={result.best_y:.1f} us): "
+          f"{result.launch_config}")
+    return result.launch_config
 
 
 def tune_serving_config(cfg, workload: str, budget: int, *,
@@ -89,3 +117,13 @@ def predicted_serving_report(cfg, trace, config: Optional[Dict[str, Any]]):
     sim = ServingSimulator(cell, families)
     return sim.run(trace, ServingPlan.from_config(config), config)
 
+
+def measure_backend_arg(name: str) -> str:
+    """argparse ``type=`` validator for ``--measure-backend``: any name
+    ``resolve_backend_name`` accepts (analytic, wallclock, shifted:<kind>)."""
+    try:
+        return resolve_backend_name(name)
+    except ValueError as e:
+        import argparse
+
+        raise argparse.ArgumentTypeError(str(e))

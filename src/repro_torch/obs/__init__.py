@@ -7,8 +7,9 @@ Carried over from :mod:`repro.obs` (pure Python, no jax).
 - :mod:`repro_torch.obs.metrics` — the metrics registry that is the single
   source of truth for discovery-variable names, plus labeled runtime
   instruments.
-- the reference's ``repro.obs.report`` (trace summaries and schema
-  validation) is not ported yet.
+- :mod:`repro_torch.obs.report` — summaries of an exported trace and the
+  schema check every exported trace must pass
+  (``python -m repro_torch.obs.report trace.json``).
 """
 
 from repro_torch.obs import trace

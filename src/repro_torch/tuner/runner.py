@@ -117,12 +117,38 @@ def transfer_tune(
                       rounds=rounds)
 
 
-def tune_kernel_launch(target_workload, **kw: Any) -> TuneResult:
-    """Transfer-tune the kernel-launch space for one workload cell (analytic
-    source, a timed target).  It needs the kernel-launch environment and a
-    CUDA-event wall-clock backend, which come with the kernel-launch slice
-    (ROADMAP queue 1)."""
-    raise NotImplementedError(
-        "tune_kernel_launch needs the kernel-launch environment "
-        "(envs/kernel_launch.py) and the CUDA-event wallclock backend, which "
-        "come with the kernel-launch slice (ROADMAP queue 1)")
+def tune_kernel_launch(target_workload, *, source_workload=None,
+                       families=None, method: str = "cameo",
+                       budget: int = 15, n_source: int = 64,
+                       n_target_init: int = 4,
+                       target_backend: Optional[str] = None,
+                       query_batch: int = 1, seed: int = 0,
+                       hardware=None,
+                       target_opts: Optional[Dict[str, Any]] = None
+                       ) -> TuneResult:
+    """Transfer-tune the kernel-launch space for one workload cell.
+
+    Source is always the cheap analytic geometry backend (the staging
+    environment); the target measures with ``target_backend`` (``None`` ->
+    ``REPRO_MEASURE_BACKEND`` -> analytic; ``"wallclock"`` times the port's
+    kernels with CUDA events).  ``families`` restricts the tuned surface to
+    the kernel families the workload actually dispatches — leaving it
+    ``None`` tunes (and, under wallclock, times) every modeled family.
+    ``hardware`` prices the analytic source (default: one H100 SXM);
+    ``target_opts`` go to the target backend's constructor (``device``,
+    ``repeats``, ``hardware`` ...).  The returned
+    ``TuneResult.launch_config`` feeds straight into the serve/train step
+    factories or ``TuneResult.install()``.
+    """
+    from repro_torch.envs.kernel_launch import KernelLaunchEnv
+
+    source_workload = source_workload or target_workload
+    src = KernelLaunchEnv(source_workload, families=families, seed=seed + 1,
+                          backend="analytic",
+                          backend_opts=({"hardware": hardware}
+                                        if hardware is not None else None))
+    tgt = KernelLaunchEnv(target_workload, families=families, seed=seed + 2,
+                          backend=target_backend, backend_opts=target_opts)
+    return transfer_tune(method, src, tgt, budget=budget, n_source=n_source,
+                         n_target_init=n_target_init,
+                         query_batch=query_batch, seed=seed)

@@ -114,4 +114,6 @@ def test_profile_dispatches_counts_by_family_and_mode():
         for _ in range(3):
             ops.rmsnorm(T(x), T(w))
     ops.rmsnorm(T(x), T(w))  # after the profile closed: not counted
-    assert prof.summary() == {"rmsnorm [ref]": {"resolutions": 3}}
+    # the ops resolve without the generic router, which alone is timed
+    assert prof.summary() == {"rmsnorm [ref]": {"resolutions": 3,
+                                                "wall_s": 0.0}}

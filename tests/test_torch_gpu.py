@@ -249,3 +249,56 @@ def test_scan_plans_match_plain_version_and_repeat(sm90, dtype):
         assert torch.equal(out, tsk.selective_scan_cuda(*scan, chunk=64,
                                                         c_block=64))
     assert reached == {1, 2, 4, 8, 16, 32}
+
+
+SMALL_CELL = dict(name="small", batch=2, seq_len=128, heads=4, kv_heads=2,
+                  head_dim=64, d_model=256, channels=256, scan_state=16,
+                  ssm_heads=4, ssm_head_dim=64, ssm_state=64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wallclock_env_times_the_kernels_on_the_card(sm90, dtype):
+    """The wall-clock environment at a small workload: every dispatch
+    resolves to ``cuda``, each launch config's times are finite, and its
+    outputs agree with the plain versions."""
+    import inspect
+
+    import numpy as np
+
+    from repro_torch.envs import KernelLaunchEnv
+    from repro_torch.envs.measure import KernelWorkload, family_params
+    from repro_torch.kernels import dispatch
+    from repro_torch.obs import trace as obs_trace
+
+    fams = ["flash_attention", "mamba_scan", "rmsnorm", "ssd"]
+    env = KernelLaunchEnv(KernelWorkload(**SMALL_CELL), families=fams,
+                          backend="wallclock",
+                          backend_opts={"dtype": dtype, "repeats": 3})
+    backend = env.backend
+    configs = [env.space.default_config()] + env.space.sample(
+        np.random.default_rng(0), 3)
+    tracer = obs_trace.start()
+    try:
+        with dispatch.record_resolutions() as rec:
+            for config in configs:
+                counters, y = env.intervene(config)
+                assert 0 < y < float("inf") and counters["grid_points"] > 0
+    finally:
+        obs_trace.stop()
+    spans = [e["args"] for e in tracer.events() if e["name"] == "measure"]
+    assert len(spans) == len(configs)
+    with dispatch.record_resolutions() as checked:
+        for config, span in zip(configs, spans):
+            assert set(span["family_us"]) == set(fams)
+            assert all(0 < t < 1e5 for t in span["family_us"].values())
+            for fam in fams:
+                params = family_params(fam, config)
+                plain = dispatch.ref_fn(fam)
+                kw = {k: v for k, v in params.items()
+                      if k in inspect.signature(plain).parameters}
+                _cmp(backend.call(fam, params),
+                     plain(*backend.inputs(fam), **kw), dtype)
+    for res in (rec, checked):
+        assert res and {r.mode for r in res} == {"cuda"}
+        assert {r.family for r in res} == set(fams)

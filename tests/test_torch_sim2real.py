@@ -212,8 +212,11 @@ def test_transfer_tune_sim_source_replay_target(weights):
 def test_fleet_replay_and_wallclock_name_what_they_wait_for():
     with pytest.raises(NotImplementedError, match="queue 1, item 7"):
         ReplayServingEnv(SPEC, device="cpu", fleet=True)
-    with pytest.raises(NotImplementedError, match="kernel-launch slice"):
-        measure_mod.make_backend("wallclock", KernelWorkload(), ["rmsnorm"])
+    # the wall-clock backend is ported: it builds, here on the CPU
+    backend = measure_mod.make_backend("wallclock", KernelWorkload(),
+                                       ["rmsnorm"], device="cpu")
+    assert isinstance(backend, measure_mod.WallClockBackend)
+    assert backend.families == ("rmsnorm",)
     assert measure_mod.resolve_backend_name("wallclock") == "wallclock"
 
 

@@ -207,6 +207,10 @@ def test_transfer_tune_runs_sequential_and_batched(query_batch):
 
 
 def test_kernel_launch_tuning_names_the_slice_it_waits_for():
-    with pytest.raises(NotImplementedError, match="kernel-launch slice"):
-        tune_kernel_launch(KernelWorkload())
+    # the kernel-launch slice is ported: the tuning runs (analytic target)
+    res = tune_kernel_launch(KernelWorkload(), budget=2, n_source=16,
+                             n_target_init=2)
+    assert np.isfinite(res.best_y) and res.best_y > 0
+    assert len(res.trace_best_y) == 2
+    assert res.launch_config and all("." in k for k in res.launch_config)
 

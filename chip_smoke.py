@@ -31,7 +31,13 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    split boundary, past the capacity), paged equal to dense bit for bit
    there too; the tensor-core instructions (HMMA) in the prefill and SSD
    kernels' SASS; and the gradient of each autograd-wrapped op (kernel forward,
-   recompute backward) against autograd through its plain version;
+   recompute backward) against autograd through its plain version; what
+   SSM serving launches: the scan with its final state and the SSD with
+   its initial and final states (both routes) at prefill lengths 1, 17,
+   63, 64, 65 and 200 and the fixed batch (4, 64), y bit for bit equal to
+   the launch without the state, SSD prefills of other lengths queued
+   between decode launches, and decode / paged decode at head dim 80,
+   G = 1;
 4. serving slice: llama3.2-1b at full width and depth (bf16, seeded random
    weights) through the fixed-batch serve path and through the continuous
    batcher (dense, paged, paged with chunked prefill), with every launch
@@ -70,6 +76,14 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    first two, the tuned values seen by every resolution) and the serve
    CLI's ``--full-config --tune-launch 4 --measure-backend wallclock`` as
    a subprocess; every resolution of the phase ``cuda``;
+4e. SSM serving: falcon-mamba-7b (64 layers) and zamba2-2.7b (54) at
+   full width and depth, seeded bf16 weights, through the fixed batch and
+   the continuous batcher (dense, paged, paged with chunked prefill),
+   counted (every resolution ``cuda``, the scan resp. the SSD, prefill,
+   decode and paged decode launched, the same tokens in every geometry);
+   the fixed batch's logits against a plain-version run; one request's
+   prefill time by prompt length, the decode step's launches and a
+   profiled decode step; the serve CLI with ``--full-config`` for each;
 5. timings: each kernel, its plain version and the one-call PyTorch
    yardstick where one exists, timed with CUDA events at the slices'
    shapes, beside the card's bound for the same work; RMSNorm also at the
@@ -78,7 +92,8 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    decode at 32 slots over 2048-row caches, the scan at the
    plan the falcon-mamba train step launched (its launch options recorded
    in phase 4b), with a sweep of channels a block and chunk and the SM
-   clock sampled under load;
+   clock sampled under load; the scan and the SSD at serving's fixed
+   batch (4 x 64) with and without the final state;
 6. profiles: device time by kernel over a few decode steps of the fixed
    batch (no more launches per step than before the split decode; RMSNorm's
    time per step), and over one train step of each training model (with
@@ -86,8 +101,9 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    RMSNorm's kernel time; each kernel of the step must show device time
    under its symbol), and the device's busy share.
 
-Prints the kernel table, the serving, training, sim-to-real and
-kernel-launch tuning summaries as JSON lines, and, as the last line,
+Prints the kernel table, the serving, training, sim-to-real,
+kernel-launch tuning and SSM serving summaries as JSON lines, and, as the
+last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without that line.  Without a CUDA card, or
 outside a checkout, it exits non-zero before doing anything.
@@ -688,6 +704,141 @@ def _check_tensor_core_ssd(torch, name, a, q, out, faithful):
     return 2
 
 
+# phase 3 (continued): what SSM serving launches — the final-state scan and
+# SSD (and the SSD's initial state) at the prefill lengths of the kernels'
+# edges at batch 1 (one step; inside, one short of, at and one past a
+# 64-step chunk; several chunks) and at the fixed batch (4, 64), at
+# falcon-mamba-7b's and zamba2-2.7b's widths; decode and paged decode at
+# zamba2-2.7b's shared attention (32 / 32 heads, G = 1, head dim 80)
+STATE_LENGTHS = ((1, 1), (1, 17), (1, 63), (1, 64), (1, 65), (1, 200),
+                 (4, 64))
+
+
+def phase_ssm_state_kernels(torch, dev):
+    """Each final-state case against the plain version (y and the state at
+    the dtype's tolerance), y equal bit for bit to the same launch without
+    the state; the tensor-core SSD also against its rounding-faithful
+    version (y and state); a run of SSD prefills of other lengths queued
+    between decode launches without a synchronize, checked after (no
+    stale chain flag); decode and paged decode at head dim 80.  Returns
+    the largest errors and the number of cases."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import decode_attention_ref
+    from repro_torch.kernels.mamba_scan.kernel import selective_scan_cuda
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_chunked_ref
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_decode_attention_cuda)
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_decode_attention_ref)
+    from repro_torch.kernels.ssd.kernel import ssd_cuda, ssd_route
+    from repro_torch.kernels.ssd.ref import ssd_ref, ssd_tensor_core_ref
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    errs = {"selective_scan": [], "ssd": [], "ssd_faithful": [],
+            "decode_attention": [], "paged_decode_attention": []}
+    n_cases = 0
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).split(".")[1]
+        for b, l in STATE_LENGTHS:
+            name = f"selective_scan final state {(b, l, 8192, 16)} {dn}"
+            a = scan_inputs(torch, gen, b, l, 8192, 16, 0.1, dt, dev)
+            y, h = selective_scan_cuda(*a, chunk=256, c_block=64,
+                                       return_state=True)
+            ry, rh = selective_scan_chunked_ref(*a, chunk=64,
+                                                return_state=True)
+            _compare(torch, f"{name} y", y, ry, dn, errs["selective_scan"],
+                     True)
+            _compare(torch, f"{name} h", h, rh, dn, errs["selective_scan"],
+                     True)
+            check(torch.equal(y, selective_scan_cuda(*a, chunk=256,
+                                                     c_block=64)),
+                  f"{name}: y differs from the launch without the state")
+            n_cases += 3
+            a = ssd_inputs(torch, gen, b, l, 80, 64, 1, 64, 0.1, dt, dev)
+            init = _rand(torch, gen, (b, 80, 64, 64), torch.float32, dev)
+            mma = ssd_route(a[0], a[3], a[4], 64) == "mma"
+            for s0 in (None, init):
+                name = (f"ssd {'init + ' if s0 is not None else ''}final "
+                        f"state {(b, l, 80, 64, 1, 64)} {dn}")
+                y, st = ssd_cuda(*a, chunk=256, init_state=s0,
+                                 return_state=True)
+                ry, rs = ssd_ref(*a, chunk=64, init_state=s0,
+                                 return_state=True)
+                _compare(torch, f"{name} y", y, ry, dn, errs["ssd"], True)
+                _compare(torch, f"{name} state", st, rs, dn, errs["ssd"],
+                         True)
+                n_cases += 2
+                if s0 is None:
+                    check(torch.equal(y, ssd_cuda(*a, chunk=256)),
+                          f"{name}: y differs from the launch without the "
+                          f"state")
+                    n_cases += 1
+                if mma:
+                    fy, fs = ssd_tensor_core_ref(*a, chunk=64, init_state=s0,
+                                                 return_state=True)
+                    _compare(torch, f"{name} y vs the rounding-faithful "
+                             f"version", y, fy, dn, errs["ssd_faithful"],
+                             True, FAITHFUL_TOL)
+                    _compare(torch, f"{name} state vs the rounding-faithful "
+                             f"version", st, fs, dn, errs["ssd_faithful"],
+                             True, FAITHFUL_TOL)
+                    n_cases += 2
+    # prefills of other lengths queued between decode launches, the
+    # outputs read only after all were launched
+    hq = hkv = 32
+    lens = torch.tensor([217, 17, 600, 130], dtype=torch.int32, device=dev)
+    q = _rand(torch, gen, (4, 1, hq, 80), torch.bfloat16, dev)
+    kc, vc = (_rand(torch, gen, (4, 512, hkv, 80), torch.bfloat16, dev)
+              for _ in range(2))
+    queued = []
+    for l in (200, 17, 65, 1, 64, 130):
+        a = ssd_inputs(torch, gen, 1, l, 80, 64, 1, 64, 0.1, torch.bfloat16,
+                       dev)
+        queued.append((l, a, ssd_cuda(*a, chunk=256, return_state=True)))
+        decode_attention_cuda(q, kc, vc, lens)
+    for l, a, (y, st) in queued:
+        ry, rs = ssd_ref(*a, chunk=64, return_state=True)
+        _compare(torch, f"ssd queued prefill L {l} y", y, ry, "bfloat16",
+                 errs["ssd"], True)
+        _compare(torch, f"ssd queued prefill L {l} state", st, rs,
+                 "bfloat16", errs["ssd"], True)
+        n_cases += 2
+    # decode and paged decode at head dim 80, G = 1 (zamba2-2.7b)
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).split(".")[1]
+        q = _rand(torch, gen, (4, 1, hq, 80), dt, dev)
+        kc, vc = (_rand(torch, gen, (4, 512, hkv, 80), dt, dev)
+                  for _ in range(2))
+        ref = decode_attention_ref(q, kc, vc, lens)
+        for kb in (32, 64):
+            _compare(torch, f"decode_attention d80 G1 kv{kb} {dn}",
+                     decode_attention_cuda(q, kc, vc, lens, kv_block=kb),
+                     ref, dn, errs["decode_attention"], True)
+            n_cases += 1
+        ps, pages_max = 64, 8
+        kp = torch.cat([kc.reshape(32, ps, hkv, 80),
+                        torch.zeros((1, ps, hkv, 80), dtype=dt, device=dev)])
+        vp = torch.cat([vc.reshape(32, ps, hkv, 80),
+                        torch.zeros((1, ps, hkv, 80), dtype=dt, device=dev)])
+        table = torch.randperm(32, generator=gen, device=dev).to(
+            torch.int32).reshape(4, pages_max)
+        out = paged_decode_attention_cuda(q, kp, vp, table, lens)
+        _compare(torch, f"paged_decode_attention d80 G1 {dn}", out,
+                 paged_decode_attention_ref(q, kp, vp, table, lens), dn,
+                 errs["paged_decode_attention"], True)
+        dense_k = kp[table.long()].reshape(4, pages_max * ps, hkv, 80)
+        dense_v = vp[table.long()].reshape(4, pages_max * ps, hkv, 80)
+        check(torch.equal(out, decode_attention_cuda(
+            q, dense_k.contiguous(), dense_v.contiguous(), lens,
+            kv_block=64)), f"paged vs dense decode differ at d80 {dn}")
+        n_cases += 2
+    torch.cuda.synchronize()
+    out = {k: max(v) for k, v in errs.items()}
+    log(f"SSM serving kernels: {n_cases} cases agree; max |err| {out}")
+    return out, n_cases
+
+
 GRAD_TOL = (2e-2, 2e-2)  # bf16 forward outputs feed the loss's gradient
 
 
@@ -771,14 +922,135 @@ def _requests(cfg, np):
             for i, n in enumerate(lens)]
 
 
+def _serve_plans():
+    """The batcher's deployments: dense, paged, paged with chunked
+    prefill (4 slots; 512 rows a slot either way)."""
+    from repro_torch.serving.paging import PagedPlan
+
+    return {
+        "dense": None,
+        "paged": PagedPlan(paging=True, pool_pages=64, page_size=64,
+                           pages_per_slot_max=8),
+        "paged_chunked": PagedPlan(paging=True, pool_pages=64, page_size=64,
+                                   pages_per_slot_max=8, prefill_chunk=64),
+    }
+
+
+def _drain_batcher(torch, np, model, run, params, plan):
+    """``_requests`` through a 4-slot ``ContinuousBatcher`` of ``plan``,
+    drained; what it produced and how long it took (host clock)."""
+    from repro_torch.serving.scheduler import ContinuousBatcher
+
+    b = ContinuousBatcher(model, run, params, num_slots=4, cache_len=512,
+                          paged=plan)
+    for req in _requests(model.cfg, np):
+        b.submit(req)
+    t1 = time.perf_counter()
+    done = b.run_until_drained(max_ticks=2000)
+    torch.cuda.synchronize()
+    return {"completed": len(done), "ticks": b.ticks,
+            "wall_s": time.perf_counter() - t1, "prefill_s": b.prefill_s,
+            "decode_s": b.decode_s,
+            "tokens": sum(len(d.generated) for d in done),
+            "order": [d.request.uid for d in done],
+            "generated": [list(d.generated) for d in done],
+            "prefill_chunks": b.prefill_chunks}
+
+
+def _check_batchers(served, n_req, what):
+    """Every geometry completed every request, and paged decode (the dense
+    kernel's arithmetic on the same rows) gave the dense batcher's tokens;
+    paging alone (no chunking) keeps the dense completion order."""
+    for name, s in served.items():
+        check(s["completed"] == n_req,
+              f"{what}: {name} batcher completed {s['completed']} of {n_req}")
+        log(f"{what} batcher {name}: {s['completed']} completed, "
+            f"{s['ticks']} ticks, {s['tokens']} tokens, wall "
+            f"{s['wall_s']:.3f} s (prefill {s['prefill_s']:.3f} s, decode "
+            f"{s['decode_s']:.3f} s)")
+
+    def by_uid(s):
+        return dict(zip(s["order"], s["generated"]))
+    for name in ("paged", "paged_chunked"):
+        check(by_uid(served[name]) == by_uid(served["dense"]),
+              f"{what}: {name} batcher tokens differ from the dense "
+              f"batcher's")
+    check(served["paged"]["order"] == served["dense"]["order"],
+          f"{what}: paged batcher completion order differs from the dense "
+          f"batcher's")
+
+
+def _plain_logits(torch, model, run, params, prompt, tokens, cache_len):
+    """Prefill and the first LOGIT_STEPS - 1 decode steps with the plain
+    versions (``dispatch.use_mode("ref")``), teacher-forced with the
+    kernel run's ``tokens``; the logits on the host."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.train.serve_step import jitted_steps
+
+    prefill, decode = jitted_steps(model, run, cache_len=cache_len)
+    toks = torch.as_tensor(tokens, device=prompt.device)
+    out = []
+    with torch.no_grad(), dispatch.use_mode(dispatch.REF):
+        state, lg = prefill(params, {"tokens": prompt})
+        out.append(lg.float().cpu())
+        for i in range(LOGIT_STEPS - 1):
+            state, lg = decode(params, state, toks[:, i:i + 1])
+            out.append(lg.float().cpu())
+    return out
+
+
+def _compare_logits(torch, kernel_logits, plain_logits, vocab, what,
+                    atol=None):
+    """Each step's logits within ``atol`` (LOGIT_ATOL unless given) +
+    LOGIT_RTOL |x| of the plain run's, and the same argmax wherever the
+    plain top-2 margin exceeds that tolerance.  Returns (max |diff|,
+    decided rows, max |logit|)."""
+    atol = LOGIT_ATOL if atol is None else atol
+    worst = 0.0
+    argmax_checked = 0
+    for step, (kl, pl) in enumerate(zip(kernel_logits, plain_logits)):
+        check(bool(torch.isfinite(kl).all()),
+              f"{what} step {step}: non-finite logits")
+        check(kl.shape == (FIXED["batch"], vocab),
+              f"{what} step {step}: logits shape {tuple(kl.shape)}")
+        err = (kl - pl).abs()
+        worst = max(worst, float(err.max()))
+        bad = err > atol + LOGIT_RTOL * pl.abs()
+        check(not bool(bad.any()),
+              f"{what} step {step}: {int(bad.sum())} logits differ from the "
+              f"plain run beyond {atol} + {LOGIT_RTOL}|x| (max |diff| "
+              f"{float(err.max())})")
+        top2 = pl.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]
+                   > atol + LOGIT_RTOL * top2[:, 0].abs())
+        argmax_checked += int(decided.sum())
+        same = kl.argmax(-1) == pl.argmax(-1)
+        check(bool(same[decided].all()),
+              f"{what} step {step}: argmax differs where the plain top-2 "
+              f"margin exceeds the tolerance")
+    scale = max(float(pl.abs().max()) for pl in plain_logits)
+    log(f"{what} logits vs plain run: max |diff| {worst:.4f} (tol "
+        f"{atol:.4g} + {LOGIT_RTOL}|x|; max |logit| {scale:.1f}), argmax "
+        f"equal on {argmax_checked} decided rows")
+    return worst, argmax_checked, scale
+
+
+def _fixed_batch_numbers(np, fixed):
+    """Prefill time, decode p50 / p99 (after the first step) and tokens/s of
+    a fixed-batch run (host clock around synchronized steps)."""
+    lat = np.asarray(fixed.decode_s[1:]) * 1000
+    return {"batch": FIXED["batch"], "prompt_len": FIXED["prompt_len"],
+            "gen": FIXED["gen"], "prefill_ms": fixed.prefill_s * 1000,
+            "decode_p50_ms": float(np.percentile(lat, 50)),
+            "decode_p99_ms": float(np.percentile(lat, 99)),
+            "tok_s": float(FIXED["batch"] / np.mean(lat) * 1000)}
+
+
 def phase_slice(torch, np, dev):
     from repro_torch.configs.registry import get_model_config
     from repro_torch.kernels import cuda_lib, dispatch
     from repro_torch.launch.serve import make_prompt, serve_fixed_batch
     from repro_torch.models.model import build_model
-    from repro_torch.serving.paging import PagedPlan
-    from repro_torch.serving.scheduler import ContinuousBatcher
-    from repro_torch.train.serve_step import jitted_steps
     from repro_torch.utils.config import MeshConfig, RunConfig, ShapeConfig
 
     cfg = get_model_config(ARCH)
@@ -797,13 +1069,6 @@ def phase_slice(torch, np, dev):
     prompt = make_prompt(cfg, run.shape, FIXED["batch"], FIXED["prompt_len"],
                          dev)
 
-    plans = {
-        "dense": None,
-        "paged": PagedPlan(paging=True, pool_pages=64, page_size=64,
-                           pages_per_slot_max=8),
-        "paged_chunked": PagedPlan(paging=True, pool_pages=64, page_size=64,
-                                   pages_per_slot_max=8, prefill_chunk=64),
-    }
     # warm-up outside the counted run: one short step pair per path
     serve_fixed_batch(model, run, params, prompt[:, :8], gen=2)
     torch.cuda.synchronize()
@@ -813,24 +1078,8 @@ def phase_slice(torch, np, dev):
     with dispatch.profile_dispatches() as prof:
         fixed = serve_fixed_batch(model, run, params, prompt,
                                   gen=FIXED["gen"], keep_logits=LOGIT_STEPS)
-        served = {}
-        for name, plan in plans.items():
-            b = ContinuousBatcher(model, run, params, num_slots=4,
-                                  cache_len=512, paged=plan)
-            for req in _requests(cfg, np):
-                b.submit(req)
-            t1 = time.perf_counter()
-            done = b.run_until_drained(max_ticks=2000)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t1
-            served[name] = {
-                "completed": len(done), "ticks": b.ticks,
-                "wall_s": wall, "prefill_s": b.prefill_s,
-                "decode_s": b.decode_s,
-                "tokens": sum(len(d.generated) for d in done),
-                "order": [d.request.uid for d in done],
-                "generated": [list(d.generated) for d in done],
-                "prefill_chunks": b.prefill_chunks}
+        served = {name: _drain_batcher(torch, np, model, run, params, plan)
+                  for name, plan in _serve_plans().items()}
     launches = dict(cuda_lib.LAUNCHES)
     summary = prof.summary()
     log(f"main-path launches: {launches}")
@@ -841,70 +1090,17 @@ def phase_slice(torch, np, dev):
     plain = [k for k in summary if k.endswith(f"[{dispatch.REF}]")]
     check(not plain, f"CUDA tensors resolved to plain versions: {plain}")
 
-    n_req = len(_requests(cfg, np))
-    for name, s in served.items():
-        check(s["completed"] == n_req,
-              f"{name} batcher completed {s['completed']} of {n_req}")
-        log(f"batcher {name}: {s['completed']} completed, {s['ticks']} "
-            f"ticks, {s['tokens']} tokens, wall {s['wall_s']:.3f} s "
-            f"(prefill {s['prefill_s']:.3f} s, decode {s['decode_s']:.3f} s)")
-    # paged decode runs the dense kernel's arithmetic on the same rows: the
-    # three deployments generate the same tokens for every request, and
-    # paging alone (no chunking) keeps the dense completion order
-    def by_uid(s):
-        return dict(zip(s["order"], s["generated"]))
-    for name in ("paged", "paged_chunked"):
-        check(by_uid(served[name]) == by_uid(served["dense"]),
-              f"{name} batcher tokens differ from the dense batcher's")
-    check(served["paged"]["order"] == served["dense"]["order"],
-          "paged batcher completion order differs from the dense batcher's")
+    _check_batchers(served, len(_requests(cfg, np)), ARCH)
 
     # ---- the plain-version run with the same weights, teacher-forced ----
-    prefill, decode = jitted_steps(model, run, cache_len=cache_len)
-    toks = torch.as_tensor(fixed.tokens, device=dev)
-    plain_logits = []
-    with torch.no_grad(), dispatch.use_mode(dispatch.REF):
-        state, lg = prefill(params, {"tokens": prompt})
-        plain_logits.append(lg.float().cpu())
-        for i in range(LOGIT_STEPS - 1):
-            state, lg = decode(params, state, toks[:, i:i + 1])
-            plain_logits.append(lg.float().cpu())
-    worst = 0.0
-    argmax_checked = 0
-    for step, (kl, pl) in enumerate(zip(fixed.logits, plain_logits)):
-        check(bool(torch.isfinite(kl).all()), f"step {step}: non-finite logits")
-        check(kl.shape == (FIXED["batch"], cfg.vocab_size),
-              f"step {step}: logits shape {tuple(kl.shape)}")
-        err = (kl - pl).abs()
-        worst = max(worst, float(err.max()))
-        bad = err > LOGIT_ATOL + LOGIT_RTOL * pl.abs()
-        check(not bool(bad.any()),
-              f"step {step}: {int(bad.sum())} logits differ from the plain "
-              f"run beyond {LOGIT_ATOL} + {LOGIT_RTOL}|x| (max |diff| "
-              f"{float(err.max())})")
-        top2 = pl.topk(2, dim=-1).values
-        decided = (top2[:, 0] - top2[:, 1]
-                   > LOGIT_ATOL + LOGIT_RTOL * top2[:, 0].abs())
-        argmax_checked += int(decided.sum())
-        same = kl.argmax(-1) == pl.argmax(-1)
-        check(bool(same[decided].all()),
-              f"step {step}: argmax differs where the plain top-2 margin "
-              f"exceeds the tolerance")
-    scale = max(float(pl.abs().max()) for pl in plain_logits)
-    log(f"logits vs plain run: max |diff| {worst:.4f} (tol {LOGIT_ATOL} + "
-        f"{LOGIT_RTOL}|x|; max |logit| {scale:.1f}), argmax equal on "
-        f"{argmax_checked} decided rows")
-
-    lat = np.asarray(fixed.decode_s[1:]) * 1000
-    fixed_out = {
-        "batch": FIXED["batch"], "prompt_len": FIXED["prompt_len"],
-        "gen": FIXED["gen"], "prefill_ms": fixed.prefill_s * 1000,
-        "decode_p50_ms": float(np.percentile(lat, 50)),
-        "decode_p99_ms": float(np.percentile(lat, 99)),
-        "tok_s": float(FIXED["batch"] / np.mean(lat) * 1000),
-        "logits_max_abs_diff": worst,
-        "logits_tol": {"atol": LOGIT_ATOL, "rtol": LOGIT_RTOL},
-        "logits_max_abs": scale}
+    plain_logits = _plain_logits(torch, model, run, params, prompt,
+                                 fixed.tokens, cache_len)
+    worst, _, scale = _compare_logits(torch, fixed.logits, plain_logits,
+                                      cfg.vocab_size, ARCH)
+    fixed_out = {**_fixed_batch_numbers(np, fixed),
+                 "logits_max_abs_diff": worst,
+                 "logits_tol": {"atol": LOGIT_ATOL, "rtol": LOGIT_RTOL},
+                 "logits_max_abs": scale}
     log(f"fixed batch {FIXED['batch']}x{FIXED['prompt_len']}+{FIXED['gen']}: "
         f"prefill {fixed_out['prefill_ms']:.2f} ms, decode p50 "
         f"{fixed_out['decode_p50_ms']:.2f} ms p99 "
@@ -928,6 +1124,10 @@ def phase_slice(torch, np, dev):
 # 2 ulps relative (2^-7) plus 2.0 absolute for the small logits.
 LOGIT_ATOL = 2.0
 LOGIT_RTOL = 2.0 ** -7
+# zamba2-2.7b's untied random head gives logits of a few units (max |x|
+# ~4), where 2.0 absolute would hold nothing: an SSM model's absolute term
+# is at most 2^-5 of its plain run's largest |logit| (8 bf16 ulps of it)
+SSM_LOGIT_ATOL_SHARE = 2.0 ** -5
 
 
 # --------------------------------------------------------------------------
@@ -1355,13 +1555,10 @@ def phase_gp_timing(torch, np, dev):
     return out
 
 
-def phase_serve_cli():
-    """The serve launcher's trace path as a user runs it, in a process of
-    its own: tune (4 measurements in the simulator), replay on the card,
-    and print sim-predicted beside replayed-actual."""
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
-           "--full-config", "--workload", SIM2REAL_SPEC, "--tune-serving",
-           "4", "--sim2real-eval"]
+def _serve_cli(args, expect):
+    """The serve launcher as a user runs it, in a process of its own, with
+    ``args``; it must exit 0 and print every string of ``expect``."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *args]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, cwd=str(ROOT), capture_output=True, text=True,
                          timeout=600,
@@ -1369,14 +1566,25 @@ def phase_serve_cli():
     wall = time.perf_counter() - t0
     for line in res.stdout.splitlines():
         log(f"serve CLI | {line}")
+    what = "serve CLI " + " ".join(args)
     check(res.returncode == 0,
-          f"serve CLI exited {res.returncode}: {res.stderr[-2000:]}")
-    check("sim-predicted" in res.stdout and "replayed-actual" in res.stdout,
-          "serve CLI: no sim-predicted / replayed-actual line")
-    log(f"serve CLI: rc 0 in {wall:.1f} s")
+          f"{what} exited {res.returncode}: {res.stderr[-2000:]}")
+    missing = [e for e in expect if e not in res.stdout]
+    check(not missing, f"{what}: no {missing} in its output")
+    log(f"{what}: rc 0 in {wall:.1f} s")
     return {"cmd": " ".join(cmd[1:]), "wall_s": wall,
             "lines": [ln for ln in res.stdout.splitlines()
                       if ln.startswith("[serve]")]}
+
+
+def phase_serve_cli():
+    """The serve launcher's trace path: tune (4 measurements in the
+    simulator), replay on the card, and print sim-predicted beside
+    replayed-actual."""
+    return _serve_cli(["--arch", ARCH, "--full-config", "--workload",
+                       SIM2REAL_SPEC, "--tune-serving", "4",
+                       "--sim2real-eval"],
+                      ("sim-predicted", "replayed-actual"))
 
 
 # --------------------------------------------------------------------------
@@ -1673,27 +1881,159 @@ def _train_tuned(torch, np, dev, arch, tuned, default_run):
 
 
 def _serve_cli_tuned():
-    """The serve launcher's fixed batch as a user runs it, tuning its
-    launch config on the card first (wallclock target)."""
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
-           "--full-config", "--tune-launch", "4", "--measure-backend",
-           "wallclock"]
+    """The serve launcher's fixed batch, tuning its launch config on the
+    card first (wallclock target)."""
+    return _serve_cli(["--arch", ARCH, "--full-config", "--tune-launch", "4",
+                       "--measure-backend", "wallclock"],
+                      ("tuned launch config", "decode p50"))
+
+
+# --------------------------------------------------------------------------
+# phase 4e: SSM serving — falcon-mamba-7b and zamba2-2.7b served at full
+# width and depth through the fixed batch, the continuous batcher and the
+# serve CLI
+# --------------------------------------------------------------------------
+
+# the kernels each model's serving path must launch
+SSM_SERVE_KERNELS = {
+    "falcon-mamba-7b": ("selective_scan", "rmsnorm"),
+    "zamba2-2.7b": ("ssd", "flash_attention", "decode_attention",
+                    "paged_decode_attention", "rmsnorm"),
+}
+PREFILL_LENGTHS = (1, 16, 64, 200)  # one request's prompt, batch 1
+PREFILL_REPS = 5
+SSM_PROFILE_STEPS = 4
+
+
+def phase_ssm_serve(torch, np, dev):
+    """Each SSM model served at full size, then its serve CLI; returns the
+    summaries and the launches of the counted runs, summed."""
+    from repro_torch.kernels import cuda_lib
+
+    out = {}
+    launches = {name: 0 for name in cuda_lib.LAUNCHES}
+    for arch, kernels in SSM_SERVE_KERNELS.items():
+        out[arch], counted = _serve_ssm(torch, np, dev, arch, kernels)
+        for name, n in counted.items():
+            launches[name] += n
+        torch.cuda.empty_cache()
+        out[arch]["serve_cli"] = _serve_cli(
+            ["--arch", arch, "--full-config"], ("decode p50",))
+    return out, launches
+
+
+def _serve_ssm(torch, np, dev, arch, kernels):
+    """One SSM model at full width and depth, seeded bf16 weights: the
+    fixed batch and the three batchers counted (every resolution ``cuda``,
+    every kernel of ``kernels`` launched, the same tokens in every
+    geometry), the fixed batch's logits against the plain versions', the
+    prefill time by prompt length and a profiled decode step."""
+    from repro_torch.configs.registry import get_model_config
+    from repro_torch.kernels import cuda_lib, dispatch
+    from repro_torch.launch.serve import make_prompt, serve_fixed_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.train.serve_step import jitted_steps
+    from repro_torch.utils.config import MeshConfig, RunConfig, ShapeConfig
+
+    cfg = get_model_config(arch)
+    cache_len = FIXED["prompt_len"] + FIXED["gen"]
+    run = RunConfig(model=cfg, shape=ShapeConfig("serve_cli", cache_len,
+                                                 FIXED["batch"], "decode"),
+                    mesh=MeshConfig(shape=(1,), axes=("data",)))
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, cwd=str(ROOT), capture_output=True, text=True,
-                         timeout=600,
-                         env={**os.environ, "PYTHONPATH": str(SRC)})
-    wall = time.perf_counter() - t0
-    for line in res.stdout.splitlines():
-        log(f"serve CLI | {line}")
-    check(res.returncode == 0,
-          f"serve CLI --tune-launch exited {res.returncode}: "
-          f"{res.stderr[-2000:]}")
-    check("tuned launch config" in res.stdout and "decode p50" in res.stdout,
-          "serve CLI --tune-launch: no tuned-config or decode line")
-    log(f"serve CLI --tune-launch: rc 0 in {wall:.1f} s")
-    return {"cmd": " ".join(cmd[1:]), "wall_s": wall,
-            "lines": [ln for ln in res.stdout.splitlines()
-                      if ln.startswith("[serve]")]}
+    model = build_model(cfg, run.parallel, device=dev)
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"{arch}: {cfg.param_count() / 1e9:.3f} B params, {cfg.num_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.dtype}; init {init_s:.1f} s")
+    prompt = make_prompt(cfg, run.shape, FIXED["batch"], FIXED["prompt_len"],
+                         dev)
+    serve_fixed_batch(model, run, params, prompt[:, :8], gen=2)  # warm-up
+    torch.cuda.synchronize()
+
+    # ---- the main path, counted -----------------------------------------
+    cuda_lib.reset_launches()
+    with dispatch.profile_dispatches() as prof, \
+            dispatch.record_resolutions() as resolved:
+        fixed = serve_fixed_batch(model, run, params, prompt,
+                                  gen=FIXED["gen"], keep_logits=LOGIT_STEPS)
+        served = {name: _drain_batcher(torch, np, model, run, params, plan)
+                  for name, plan in _serve_plans().items()}
+    launches = dict(cuda_lib.LAUNCHES)
+    modes = {(r.family, r.mode) for r in resolved}
+    log(f"{arch} serving launches: {launches}; resolutions "
+        f"{ {k: v['resolutions'] for k, v in prof.summary().items()} }")
+    check(bool(modes) and all(m == dispatch.CUDA for _, m in modes),
+          f"{arch} serving resolved {sorted(modes)}; every resolution must "
+          f"be cuda")
+    for name in kernels:
+        check(launches[name] > 0,
+              f"{arch}: kernel {name} was not launched on the serving path")
+    _check_batchers(served, len(_requests(cfg, np)), arch)
+    check(fixed.tokens.shape == (FIXED["batch"], FIXED["gen"]),
+          f"{arch} fixed batch tokens shape {fixed.tokens.shape}")
+
+    # ---- the plain-version run with the same weights, teacher-forced ----
+    plain_logits = _plain_logits(torch, model, run, params, prompt,
+                                 fixed.tokens, cache_len)
+    atol = min(LOGIT_ATOL, SSM_LOGIT_ATOL_SHARE * max(
+        float(pl.abs().max()) for pl in plain_logits))
+    worst, decided, scale = _compare_logits(torch, fixed.logits,
+                                            plain_logits, cfg.vocab_size,
+                                            arch, atol)
+    fixed_out = {**_fixed_batch_numbers(np, fixed),
+                 "logits_max_abs_diff": worst, "argmax_decided_rows": decided,
+                 "logits_tol": {"atol": atol, "rtol": LOGIT_RTOL},
+                 "logits_max_abs": scale}
+    log(f"{arch} fixed batch {FIXED['batch']}x{FIXED['prompt_len']}+"
+        f"{FIXED['gen']}: prefill {fixed_out['prefill_ms']:.2f} ms, decode "
+        f"p50 {fixed_out['decode_p50_ms']:.2f} ms p99 "
+        f"{fixed_out['decode_p99_ms']:.2f} ms, {fixed_out['tok_s']:.1f} "
+        f"tok/s")
+
+    # ---- one request's prefill by prompt length (the batcher's step) ----
+    prefill, _ = jitted_steps(model, run, cache_len=512)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    prefill_ms = {}
+    for length in PREFILL_LENGTHS:
+        toks = torch.randint(0, cfg.vocab_size, (1, length), generator=gen,
+                             device=dev, dtype=torch.int32)
+        times = []
+        for _ in range(PREFILL_REPS + 1):
+            t1 = time.perf_counter()
+            prefill(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        prefill_ms[length] = float(np.median(times[1:]))
+    log(f"{arch} prefill by prompt length (ms, median of {PREFILL_REPS}, "
+        f"batch 1): {prefill_ms}")
+
+    profile, _ = _profile_decode(torch, model, run, params, prompt,
+                                 SSM_PROFILE_STEPS)
+    if profile["device_busy_ms"]:
+        log(f"{arch} decode step profile: "
+            f"{profile['window_ms'] / SSM_PROFILE_STEPS:.2f} ms/step under "
+            f"the profiler, device busy "
+            f"{profile['device_busy_ms'] / SSM_PROFILE_STEPS:.2f} ms/step "
+            f"(idle share {profile['idle_share']:.2f}), "
+            f"{profile['launches_per_step']:.0f} kernels/step")
+    else:
+        log(f"{arch} decode step profile: the profiler recorded no device "
+            f"time (not measured)")
+    summary = {
+        "arch": arch, "params": cfg.param_count(), "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "dtype": cfg.dtype, "init_s": init_s,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "fixed_batch": fixed_out, "prefill_ms_by_length": prefill_ms,
+        "batcher": {k: {f: v[f] for f in ("completed", "ticks", "wall_s",
+                                           "prefill_s", "decode_s", "tokens",
+                                           "prefill_chunks")}
+                    for k, v in served.items()},
+        "launches": launches, "decode_profile": profile}
+    del model, params, prefill
+    return summary, launches
 
 
 # --------------------------------------------------------------------------
@@ -2087,6 +2427,20 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
         f"the special-function units at {max_mhz:.0f} MHz")
     rows[-1]["sweep_ms"] = _scan_sweep(torch, a, flush, (8, 16, 32, 64),
                                        (32, 64))
+    # serving's prefill: the fixed batch (4 x 64) of falcon-mamba-7b with
+    # the serving path's options, without and with the final state (its
+    # (B, C, N) fp32 store adds to the bytes)
+    b, l = FIXED["batch"], FIXED["prompt_len"]
+    a = scan_inputs(torch, gen, b, l, c, n, 0.1, bf, dev)
+    scan_bytes = 3 * b * l * c * es + 2 * b * l * n * es + 4 * c * n + 4 * c
+    for key, state in (("serve_prefill", False), ("serve_prefill_state", True)):
+        extra(rows[-1], key, [b, l, c, n],
+              lambda: selective_scan_cuda(*a, chunk=256, c_block=64,
+                                          return_state=state),
+              lambda: selective_scan_chunked_ref(*a, chunk=256,
+                                                 return_state=state),
+              None, nbytes=scan_bytes + state * 4 * b * c * n,
+              flops=7 * b * l * c * n, elementwise=True)
 
     # the Mamba-2 SSD at zamba2-2.7b's training shape (chunk 256 -> 64).
     # Its bound: the bytes (x, dt, B, C read, y written once) against the
@@ -2119,6 +2473,18 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
           None, nbytes=(2 * b * l * h * p + b * l * h + 2 * b * l * g * n)
           * es + 8 * h,
           flops=b * h * (l // q) * 2 * q * (q * n + q * p + 2 * n * p))
+    # serving's prefill: zamba2-2.7b's fixed batch (4 x 64, one chunk per
+    # pair), without and with the final state ((B, H, N, P) fp32 written)
+    b, l, h = FIXED["batch"], FIXED["prompt_len"], 80
+    a = ssd_inputs(torch, gen, b, l, h, p, g, n, 0.1, bf, dev)
+    ssd_bytes = (2 * b * l * h * p + b * l * h + 2 * b * l * g * n) * es \
+        + 8 * h
+    for key, state in (("serve_prefill", False), ("serve_prefill_state", True)):
+        extra(rows[-1], key, [b, l, h, p, g, n],
+              lambda: ssd_cuda(*a, chunk=256, return_state=state),
+              lambda: ssd_ref(*a, chunk=256, return_state=state), None,
+              nbytes=ssd_bytes + state * 4 * b * h * n * p,
+              flops=b * h * (l // q) * 2 * q * (q * n + q * p + 2 * n * p))
     return rows
 
 
@@ -2136,16 +2502,17 @@ KERNEL_SYMBOLS = {"selective_scan": "selective_scan_kernel",
 MAX_DECODE_LAUNCHES = 1099
 
 
-def phase_profile(torch, np, dev, ctx):
-    """Trace PROFILE_STEPS dense decode steps of the fixed batch with
-    torch.profiler: device time by kernel and the device's busy share of
-    the window (the profiler's own overhead makes the share a floor)."""
+def _profile_decode(torch, model, run, params, prompt, steps):
+    """Trace ``steps`` decode steps of the fixed batch with torch.profiler:
+    the window's host time, the device's busy time and idle share (the
+    profiler's own overhead makes the idle share a ceiling), kernels per
+    step and the largest by device time.  Returns (summary, [(kernel,
+    device ms, calls)] sorted by time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.train.serve_step import jitted_steps
 
-    model, run, params, prompt = ctx
     prefill, decode = jitted_steps(model, run, cache_len=run.shape.seq_len)
     state, logits = prefill(params, {"tokens": prompt})
     tok = logits.argmax(-1).to(torch.int32)[:, None]
@@ -2153,7 +2520,7 @@ def phase_profile(torch, np, dev, ctx):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
+        for _ in range(steps):
             state, logits = decode(params, state, tok)
             tok = logits.argmax(-1).to(torch.int32)[:, None]
         torch.cuda.synchronize()
@@ -2164,22 +2531,30 @@ def phase_profile(torch, np, dev, ctx):
                and e.self_device_time_total > 0]
     busy_ms = sum(t for _, t, _ in kernels)
     kernels.sort(key=lambda k: -k[1])
-    out = {"steps": PROFILE_STEPS, "window_ms": wall_ms,
-           "device_busy_ms": busy_ms,
+    out = {"steps": steps, "window_ms": wall_ms, "device_busy_ms": busy_ms,
            "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
-           "launches_per_step": sum(c for _, _, c in kernels) / PROFILE_STEPS,
-           "decode_attention_us_per_step": sum(
-               t for k, t, _ in kernels if "decode_attention_kernel" in k)
-           * 1e3 / PROFILE_STEPS,
-           "rmsnorm_us_per_step": sum(
-               t for k, t, _ in kernels if "rmsnorm_kernel" in k)
-           * 1e3 / PROFILE_STEPS,
-           "rmsnorm_calls_per_step": sum(
-               c for k, _, c in kernels if "rmsnorm_kernel" in k)
-           / PROFILE_STEPS,
-           "top": [{"kernel": k[:80], "ms_per_step": t / PROFILE_STEPS,
-                    "share": t / busy_ms, "calls_per_step": c / PROFILE_STEPS}
+           "launches_per_step": sum(c for _, _, c in kernels) / steps,
+           "top": [{"kernel": k[:80], "ms_per_step": t / steps,
+                    "share": t / busy_ms, "calls_per_step": c / steps}
                    for k, t, c in kernels[:12]]}
+    return out, kernels
+
+
+def phase_profile(torch, np, dev, ctx):
+    """PROFILE_STEPS dense decode steps of llama3.2-1b's fixed batch under
+    the profiler, with decode attention's and RMSNorm's time a step."""
+    out, kernels = _profile_decode(torch, *ctx, PROFILE_STEPS)
+    busy_ms, wall_ms = out["device_busy_ms"], out["window_ms"]
+    out.update({
+        "decode_attention_us_per_step": sum(
+            t for k, t, _ in kernels if "decode_attention_kernel" in k)
+        * 1e3 / PROFILE_STEPS,
+        "rmsnorm_us_per_step": sum(
+            t for k, t, _ in kernels if "rmsnorm_kernel" in k)
+        * 1e3 / PROFILE_STEPS,
+        "rmsnorm_calls_per_step": sum(
+            c for k, _, c in kernels if "rmsnorm_kernel" in k)
+        / PROFILE_STEPS})
     if busy_ms:
         log(f"decode step profile: {wall_ms / PROFILE_STEPS:.2f} ms/step "
             f"under the profiler, device busy {busy_ms / PROFILE_STEPS:.2f} "
@@ -2370,8 +2745,8 @@ def main() -> int:
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name = torch.cuda.get_device_name(0)
-    log(f"device {name}, capability {torch.cuda.get_device_capability(0)}, "
+    kind = torch.cuda.get_device_name(0)
+    log(f"device {kind}, capability {torch.cuda.get_device_capability(0)}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 2. build
@@ -2412,6 +2787,10 @@ def main() -> int:
     n_cases += phase_attention_edges(torch, dev)
     ssm_errs, n_ssm = phase_ssm_kernels(torch, dev)
     errs.update(ssm_errs)
+    state_errs, n_state = phase_ssm_state_kernels(torch, dev)
+    n_ssm += n_state
+    for kernel, err in state_errs.items():
+        errs[kernel] = max(errs[kernel], err)
     grad_errs = phase_grads(torch, dev)
     log(f"kernels vs plain: {n_cases + n_ssm} cases agree; max |err| at the "
         f"slices' shapes {errs}; gradients through the recompute wrapper "
@@ -2442,11 +2821,18 @@ def main() -> int:
                                                           train_out)
     tune_launch["phase_s"] = time.perf_counter() - t0
     log(f"kernel-launch tuning done in {tune_launch['phase_s']:.1f} s")
+
+    # 4e. SSM serving: falcon-mamba-7b and zamba2-2.7b at full size
+    t0 = time.perf_counter()
+    ssm_serve, ssm_serve_launches = phase_ssm_serve(torch, np, dev)
+    ssm_serve["phase_s"] = time.perf_counter() - t0
+    log(f"SSM serving done in {ssm_serve['phase_s']:.1f} s")
     by_path = {name: {"serve": launches.get(name, 0),
                       "train": sum(t["launches"][name]
                                    for t in train_out.values()),
                       "sim2real": sim2real_launches[name],
-                      "tune_launch": tune_launch_launches[name]}
+                      "tune_launch": tune_launch_launches[name],
+                      "ssm_serve": ssm_serve_launches[name]}
                for name in cuda_lib.LAUNCHES}
 
     # 5. timings
@@ -2465,12 +2851,12 @@ def main() -> int:
     for line in ({"kernels": rows}, {"slice": slice_out},
                  {"train": train_out, "grad_check": grad_errs,
                   "grad_tolerance": GRAD_TOL}, {"sim2real": sim2real},
-                 {"tune_launch": tune_launch}):
+                 {"tune_launch": tune_launch}, {"ssm_serve": ssm_serve}):
         print(json.dumps(_strict_json(line), allow_nan=False, default=str),
               flush=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -2,6 +2,8 @@
 //   h_t = exp(dt_t * A) * h_{t-1} + dt_t * x_t * B_t,   y_t = <h_t, C_t> + D * x_t
 // x, dt (B, L, C); A (C, N) fp32; Bm, Cm (B, L, N); D (C,) fp32; y (B, L, C).
 // Inputs share one storage type (fp32 or bf16); y has x's type.  N <= 128.
+// h_out, when not null: the final state h_L (B, C, N) fp32, which serving's
+// prefill hands to the decode steps.
 //
 // Replaces the TPU kernel repro/kernels/mamba_scan/kernel.py::
 // selective_scan_pallas (body _scan_kernel).
@@ -43,6 +45,9 @@
 //   are not whole 16-byte vectors (and unaligned tensors) are staged and
 //   stored element by element.  Steps past L and channels past C are
 //   zero-filled: dt = 0 leaves h unchanged, and their y is not stored.
+// - The final state: after the last chunk each lane still holds its S
+//   states of h_L in registers and writes those below N to h_out (one
+//   code path for both; a null h_out skips the store).
 // No atomics and nothing shared between blocks: two launches give the
 // same bits.
 #include "common.cuh"
@@ -64,6 +69,7 @@ struct Params {
   const void* Cm;
   const float* D;
   void* y;
+  float* h_out;  // (B, C, N) final state, or null
   int L, C, N, cpb, chunk;
   int vec_x, vec_bc, vec_y;  // 16-byte staging of x/dt, of B/C; 16-byte stores of y
 };
@@ -329,6 +335,12 @@ __global__ void __launch_bounds__(kMaxThreads)
     __syncthreads();
   }
   store_y(nchunks - 1, (nchunks - 1) & 1);
+  if (p.h_out != nullptr && valid_c) {
+    float* ho = p.h_out + (static_cast<size_t>(b) * C + c) * N;
+#pragma unroll
+    for (int k = 0; k < S; ++k)
+      if (g * S + k < N) ho[g * S + k] = h[k];
+  }
 }
 
 template <typename Tin, typename Tout, int LPC>
@@ -365,10 +377,11 @@ inline bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr)
 // bf16 inputs give bf16 y).  lanes (LPC), channels (cpb) and chunk come
 // from plan_scan; the entry point refuses a plan the kernel
 // does not take and picks the 16-byte paths from the widths and addresses.
+// h_out: (B, C, N) fp32 for the final state, or null.
 extern "C" int repro_selective_scan(const void* x, const void* dt, const void* A,
                                     const void* Bm, const void* Cm, const void* D, void* y,
                                     int B, int L, int C, int N, int lanes, int channels,
-                                    int chunk, int in_dtype, int out_dtype,
+                                    int chunk, int in_dtype, int out_dtype, void* h_out,
                                     void* stream) {
   using namespace repro;
   using namespace repro::scan;
@@ -383,7 +396,7 @@ extern "C" int repro_selective_scan(const void* x, const void* dt, const void* A
       smem_bytes(N, K, channels, chunk, in_size) > 227 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{x, dt, static_cast<const float*>(A), Bm, Cm, static_cast<const float*>(D), y,
-           L, C, N, channels, chunk, 0, 0, 0};
+           static_cast<float*>(h_out), L, C, N, channels, chunk, 0, 0, 0};
   p.vec_x = (C * in_size) % 16 == 0 && aligned16(x) && aligned16(dt);
   p.vec_bc = (N * in_size) % 16 == 0 && aligned16(Bm) && aligned16(Cm);
   p.vec_y = (C * out_size) % 16 == 0 && aligned16(y);

@@ -3,7 +3,10 @@
 //   y_t = C_t^T S_t + D_h * x_t
 // x (B, L, H, P); dt (B, L, H); A, D (H,) fp32; Bm, Cm (B, L, G, N), head h
 // reads group h / (H / G); y (B, L, H, P).  x, Bm and Cm share one storage
-// type (fp32 or bf16), dt has its own; y has x's type.
+// type (fp32 or bf16), dt has its own; y has x's type.  init, when not null,
+// is the state entering step 0 (B, H, N, P) fp32 (else zero); state_out,
+// when not null, receives the state after step L - 1, (B, H, N, P) fp32:
+// serving's prefill hands it to the decode steps.
 //
 // Replaces the TPU kernel repro/kernels/ssd/kernel.py::ssd_pallas (body
 // _ssd_kernel).
@@ -59,6 +62,10 @@
 //   Slot k % 2 is free: block k - 1 read it before it released block k.
 //   The first chunk's warps also form the second chunk's entering state,
 //   d_0 S_in + S_z0.
+// - The ends of the chain: block 0 takes S_in from init (zero without it),
+//   and the last block, which publishes nothing, forms S_out all the same
+//   when state_out is asked for and writes it there.  Steps past L were
+//   copied as zeros with dt = 0, so they leave the state as it was.
 // - Then the fourth product, C S_in (S_in split as above), scaled by
 //   exp(cum_t) per row; then D x; y goes out through shared memory, 16
 //   bytes a lane.
@@ -74,7 +81,8 @@
 // SIMT body: one block per (head, batch) walks the chunks in order with the
 // (N, P) state in shared memory and does the three products with fp32 FMAs.
 // B and C rows are padded by one float so that a warp reading one column
-// of <C_t, B_s> across s hits 32 banks.
+// of <C_t, B_s> across s hits 32 banks.  The state starts from init and
+// ends in state_out.
 //
 // The chunk is at most 64 (`ssd.chunk`); the config's requested 256 is
 // snapped down by the wrapper, which changes the rounding, not the result.
@@ -101,7 +109,8 @@ __global__ void __launch_bounds__(kSsdThreads)
     ssd_kernel(const Tin* __restrict__ x, const Tdt* __restrict__ dt,
                const float* __restrict__ A, const Tin* __restrict__ Bm,
                const Tin* __restrict__ Cm, const float* __restrict__ D,
-               Tout* __restrict__ y, int L, int H, int P, int G, int N, int Q) {
+               Tout* __restrict__ y, const float* __restrict__ init,
+               float* __restrict__ state_out, int L, int H, int P, int G, int N, int Q) {
   extern __shared__ float4 smem4[];
   float* S = reinterpret_cast<float*>(smem4);  // [N][P]
   float* xs = S + N * P;                        // [Q][P]
@@ -118,7 +127,8 @@ __global__ void __launch_bounds__(kSsdThreads)
   const float a = A[h], dh = D[h];
   const int NB = N + 1;
 
-  for (int e = tid; e < N * P; e += kSsdThreads) S[e] = 0.f;
+  const size_t head_state = (static_cast<size_t>(b) * H + h) * N * P;
+  for (int e = tid; e < N * P; e += kSsdThreads) S[e] = init ? init[head_state + e] : 0.f;
 
   for (int t0 = 0; t0 < L; t0 += Q) {
     const int steps = min(Q, L - t0);
@@ -183,12 +193,16 @@ __global__ void __launch_bounds__(kSsdThreads)
       S[e] = decay * S[e] + acc;
     }
   }
+  // each thread stores the entries it last updated itself
+  if (state_out)
+    for (int e = tid; e < N * P; e += kSsdThreads) state_out[head_state + e] = S[e];
 }
 
 template <typename Tin, typename Tdt, typename Tout>
 static cudaError_t launch_simt(const void* x, const void* dt, const float* A, const void* Bm,
-                               const void* Cm, const float* D, void* y, int B, int L, int H,
-                               int P, int G, int N, int Q, cudaStream_t stream) {
+                               const void* Cm, const float* D, void* y, const float* init,
+                               float* state_out, int B, int L, int H, int P, int G, int N,
+                               int Q, cudaStream_t stream) {
   const size_t smem = ssd_smem(N, P, Q);
   auto kernel = ssd_kernel<Tin, Tdt, Tout>;
   cudaError_t err = allow_smem(kernel, smem);
@@ -196,8 +210,8 @@ static cudaError_t launch_simt(const void* x, const void* dt, const float* A, co
   dim3 grid(H, B);
   kernel<<<grid, kSsdThreads, smem, stream>>>(
       static_cast<const Tin*>(x), static_cast<const Tdt*>(dt), A,
-      static_cast<const Tin*>(Bm), static_cast<const Tin*>(Cm), D, static_cast<Tout*>(y), L,
-      H, P, G, N, Q);
+      static_cast<const Tin*>(Bm), static_cast<const Tin*>(Cm), D, static_cast<Tout*>(y), init,
+      state_out, L, H, P, G, N, Q);
   return cudaGetLastError();
 }
 
@@ -292,7 +306,8 @@ __global__ void __launch_bounds__(kSsdMmaThreads, 2)
     ssd_mma_kernel(const bf16* __restrict__ x, const Tdt* __restrict__ dt,
                    const float* __restrict__ A, const bf16* __restrict__ Bm,
                    const bf16* __restrict__ Cm, const float* __restrict__ D,
-                   bf16* __restrict__ y, int Bsz, int L, int H, int G, int N, int Q,
+                   bf16* __restrict__ y, const float* __restrict__ init,
+                   float* __restrict__ state_out, int Bsz, int L, int H, int G, int N, int Q,
                    SsdChain chain) {
   constexpr int LDX = P + 8;  // padded rows (elements): 16 bytes past the row
   constexpr int PT = P / 8;   // 8-wide n-tiles over P
@@ -337,6 +352,7 @@ __global__ void __launch_bounds__(kSsdMmaThreads, 2)
   const size_t seq0 = static_cast<size_t>(b) * L + t0;  // (b, t0) as a row of (B L)
   const size_t seq_b = static_cast<size_t>(b) * L;      // a mapped row for masked copies
   const bool publish = kb + 1 < n_blocks;               // the next block needs S_out
+  const bool fold = publish || state_out != nullptr;    // this block forms S_out
   const int ctid = tid % (32 * kMmaWarps);              // thread within the chunk's warps
 
   // ---- stage x, B, C (cp.async, zero past L); dt and cum by the chunk's warp 0
@@ -453,7 +469,7 @@ __global__ void __launch_bounds__(kSsdMmaThreads, 2)
   for (int j = 0; j < PT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
-  if (srows && z + 1 < n_chunks) {
+  if (srows && (z + 1 < n_chunks || (state_out != nullptr && z < n_chunks))) {
 #pragma unroll
     for (int kk = 0; kk < kMaxQ / 16; ++kk) {
       if (kk * 16 < Q) {
@@ -493,7 +509,7 @@ __global__ void __launch_bounds__(kSsdMmaThreads, 2)
   // warps fold the first chunk's S_z into theirs
   const int NP = N * P;
   const float d0 = ex(first.cum[Q - 1]), d1 = ex(second.cum[Q - 1]);
-  if (publish) {
+  if (fold) {
     if (sub == 0 && srows) {
 #pragma unroll
       for (int j = 0; j < PT; ++j)
@@ -528,8 +544,13 @@ __global__ void __launch_bounds__(kSsdMmaThreads, 2)
     __syncthreads();
   }
   if (srows) {
-    const float* s_in = chain.states + (static_cast<size_t>(bh) * 2 + ((kb + 1) & 1)) * NP;
-    float* s_out = chain.states + (static_cast<size_t>(bh) * 2 + (kb & 1)) * NP;
+    // the entering state: the predecessor's slot, else init (or zero);
+    // the leaving one: the next block's slot, else state_out
+    const size_t head = static_cast<size_t>(bh) * NP;
+    const float* s_in = kb > 0 ? chain.states + head * 2 + ((kb + 1) & 1) * NP
+                               : (init != nullptr ? init + head : nullptr);
+    float* s_out = publish ? chain.states + head * 2 + (kb & 1) * NP
+                           : (state_out != nullptr ? state_out + head : nullptr);
     const float d01 = d0 * d1;
 #pragma unroll
     for (int j = 0; j < PT; ++j) {
@@ -537,7 +558,7 @@ __global__ void __launch_bounds__(kSsdMmaThreads, 2)
       for (int r = 0; r < 2; ++r) {
         const int n = m0 + g + 8 * r, p = j * 8 + 2 * t4;
         float2 v = make_float2(0.f, 0.f);
-        if (kb > 0) v = __ldcg(reinterpret_cast<const float2*>(s_in + n * P + p));
+        if (s_in != nullptr) v = __ldcg(reinterpret_cast<const float2*>(s_in + n * P + p));
         uint32_t hi, lo;
         if (sub == 0) {
           // the first chunk's S_in, and the second's: d_0 S_in + S_z0
@@ -547,7 +568,7 @@ __global__ void __launch_bounds__(kSsdMmaThreads, 2)
           split_bf16(d0 * v.x + sacc[j][2 * r], d0 * v.y + sacc[j][2 * r + 1], hi, lo);
           *reinterpret_cast<uint32_t*>(second.shi + n * LDX + p) = hi;
           *reinterpret_cast<uint32_t*>(second.slo + n * LDX + p) = lo;
-        } else if (publish) {
+        } else if (s_out != nullptr) {
           __stcg(reinterpret_cast<float2*>(s_out + n * P + p),
                  make_float2(d01 * v.x + sacc[j][2 * r], d01 * v.y + sacc[j][2 * r + 1]));
         }
@@ -557,8 +578,9 @@ __global__ void __launch_bounds__(kSsdMmaThreads, 2)
   __syncthreads();  // S_out is written and both S_in are in shared memory
   if (tid == 0 && publish) st_release_gpu(flags + kb, chain.epoch);
 
-  // ---- y += exp(cum_t) C_t S_in (product 4, S_in as high + low bf16)
-  if (rows && z > 0) {
+  // ---- y += exp(cum_t) C_t S_in (product 4, S_in as high + low bf16; the
+  // first chunk's S_in is zero unless init gives it)
+  if (rows && (z > 0 || init != nullptr)) {
     float oacc[PT][4];
 #pragma unroll
     for (int j = 0; j < PT; ++j)
@@ -615,8 +637,9 @@ __global__ void __launch_bounds__(kSsdMmaThreads, 2)
 
 template <int P, typename Tdt>
 static cudaError_t launch_mma_p(const void* x, const void* dt, const float* A, const void* Bm,
-                                const void* Cm, const float* D, void* y, int B, int L, int H,
-                                int G, int N, int Q, SsdChain chain, cudaStream_t stream) {
+                                const void* Cm, const float* D, void* y, const float* init,
+                                float* state_out, int B, int L, int H, int G, int N, int Q,
+                                SsdChain chain, cudaStream_t stream) {
   const size_t smem = ssd_mma_smem(N, P, Q);
   auto kernel = ssd_mma_kernel<P, Tdt>;
   cudaError_t err = allow_smem(kernel, smem);
@@ -625,22 +648,22 @@ static cudaError_t launch_mma_p(const void* x, const void* dt, const float* A, c
   const long n_blocks = (n_chunks + kChunksPerBlock - 1) / kChunksPerBlock;  // per pair
   kernel<<<static_cast<unsigned>(n_blocks * B * H), kSsdMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const Tdt*>(dt), A,
-      static_cast<const bf16*>(Bm), static_cast<const bf16*>(Cm), D, static_cast<bf16*>(y), B,
-      L, H, G, N, Q, chain);
+      static_cast<const bf16*>(Bm), static_cast<const bf16*>(Cm), D, static_cast<bf16*>(y), init,
+      state_out, B, L, H, G, N, Q, chain);
   return cudaGetLastError();
 }
 
 template <typename Tdt>
 static cudaError_t launch_mma(const void* x, const void* dt, const float* A, const void* Bm,
-                              const void* Cm, const float* D, void* y, int B, int L, int H,
-                              int P, int G, int N, int Q, SsdChain chain,
-                              cudaStream_t stream) {
+                              const void* Cm, const float* D, void* y, const float* init,
+                              float* state_out, int B, int L, int H, int P, int G, int N, int Q,
+                              SsdChain chain, cudaStream_t stream) {
   if (N % 16 != 0 || N > kMaxN || Q % 16 != 0 || Q > kMaxQ || chain.epoch == 0)
     return cudaErrorInvalidValue;
 #define REPRO_SSD_P(PP)                                                              \
   case PP:                                                                           \
-    return launch_mma_p<PP, Tdt>(x, dt, A, Bm, Cm, D, y, B, L, H, G, N, Q, chain, \
-                                 stream);
+    return launch_mma_p<PP, Tdt>(x, dt, A, Bm, Cm, D, y, init, state_out, B, L, H, G, N, Q, \
+                                 chain, stream);
   switch (P) {
     REPRO_SSD_P(16)
     REPRO_SSD_P(32)
@@ -656,6 +679,7 @@ static cudaError_t launch_mma(const void* x, const void* dt, const float* A, con
 }  // namespace repro
 
 // in_dtype: storage type of x, Bm, Cm; dt_dtype: of dt; out_dtype: of y.
+// init_state, state_out: (B, H, N, P) fp32 or null (see the top).
 // route 1 (tensor cores, bf16 x/Bm/Cm and y) needs the chain scratch:
 // states (B H 2 N P floats), flags (B H ceil(n_chunks / 2) ints at least),
 // ticket (one int, 0), epoch (this launch's flag value, not 0); route 0
@@ -663,12 +687,14 @@ static cudaError_t launch_mma(const void* x, const void* dt, const float* A, con
 extern "C" int repro_ssd(const void* x, const void* dt, const void* A, const void* Bm,
                          const void* Cm, const void* D, void* y, int B, int L, int H, int P,
                          int G, int N, int Q, int in_dtype, int dt_dtype, int out_dtype,
-                         int route, void* states, void* flags, void* ticket, int epoch,
-                         void* stream) {
+                         int route, const void* init_state, void* state_out, void* states,
+                         void* flags, void* ticket, int epoch, void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(A);
   const float* d = static_cast<const float*>(D);
+  const float* init = static_cast<const float*>(init_state);
+  float* so = static_cast<float*>(state_out);
   if (G < 1 || H % G != 0 || Q < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (route == 1) {
     if (in_dtype != kBFloat16 || out_dtype != kBFloat16)
@@ -676,13 +702,14 @@ extern "C" int repro_ssd(const void* x, const void* dt, const void* A, const voi
     SsdChain chain{static_cast<float*>(states), static_cast<int*>(flags),
                    static_cast<int*>(ticket), epoch};
     if (dt_dtype == kFloat32)
-      return launch_mma<float>(x, dt, a, Bm, Cm, d, y, B, L, H, P, G, N, Q, chain, s);
+      return launch_mma<float>(x, dt, a, Bm, Cm, d, y, init, so, B, L, H, P, G, N, Q, chain, s);
     if (dt_dtype == kBFloat16)
-      return launch_mma<__nv_bfloat16>(x, dt, a, Bm, Cm, d, y, B, L, H, P, G, N, Q, chain, s);
+      return launch_mma<__nv_bfloat16>(x, dt, a, Bm, Cm, d, y, init, so, B, L, H, P, G, N, Q,
+                                       chain, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
 #define REPRO_SSD(TI, TD, TO) \
-  return launch_simt<TI, TD, TO>(x, dt, a, Bm, Cm, d, y, B, L, H, P, G, N, Q, s)
+  return launch_simt<TI, TD, TO>(x, dt, a, Bm, Cm, d, y, init, so, B, L, H, P, G, N, Q, s)
 #define REPRO_SSD_DT(TI, TO)                                  \
   {                                                           \
     if (dt_dtype == kFloat32) REPRO_SSD(TI, float, TO);       \

@@ -73,11 +73,12 @@ _SIGNATURES = {
                                     + [_c_float] * 2 + [_c_int] * 3
                                     + [_ptr] * 2 + [_c_int, _ptr],
     # x, dt, A, B, C, D, y, B, L, C, N, lanes, channels, chunk, in_dtype,
-    # out_dtype, stream
-    "repro_selective_scan": [_ptr] * 7 + [_c_int] * 9 + [_ptr],
+    # out_dtype, h_out, stream
+    "repro_selective_scan": [_ptr] * 7 + [_c_int] * 9 + [_ptr] * 2,
     # x, dt, A, B, C, D, y, B, L, H, P, G, N, chunk, in_dtype, dt_dtype,
-    # out_dtype, route, states, flags, ticket, epoch, stream
-    "repro_ssd": [_ptr] * 7 + [_c_int] * 11 + [_ptr] * 3 + [_c_int, _ptr],
+    # out_dtype, route, init_state, state_out, states, flags, ticket, epoch,
+    # stream
+    "repro_ssd": [_ptr] * 7 + [_c_int] * 11 + [_ptr] * 5 + [_c_int, _ptr],
 }
 
 _lock = threading.Lock()

@@ -12,7 +12,10 @@ states of one channel, ``lanes`` lanes share the channel (a power of two,
 and the time loop is unrolled with every decay of 8 steps formed before
 the FMAs on h that need them.
 x, dt, B and C are staged ``chunk`` steps at a time through a two-stage
-``cp.async`` ring.  Ragged L and C are masked, not padded.
+``cp.async`` ring.  Ragged L and C are masked, not padded.  With
+``return_state`` the lanes also write the final state (B, C, N) fp32 from
+their registers after the last chunk (serving's prefill); the plan is the
+same.
 
 :func:`plan_scan` picks the plan from the shapes alone.  The launch
 options keep their names: ``chunk`` is the steps staged per pass and
@@ -151,24 +154,28 @@ def storage_size(x: torch.Tensor, dt: torch.Tensor, Bmat: torch.Tensor,
 def selective_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                         Bmat: torch.Tensor, Cmat: torch.Tensor,
                         D: torch.Tensor, *, chunk: int = 64,
-                        c_block: int = 64) -> torch.Tensor:
+                        c_block: int = 64, return_state: bool = False):
     """x, dt (B, L, C); A (C, N); Bmat, Cmat (B, L, N); D (C,) -> y (B, L,
-    C) in x's dtype.  A CPU tensor takes the plain version; a CUDA tensor
-    launches :func:`plan_scan`'s plan."""
+    C) in x's dtype, and with ``return_state`` the final state (B, C, N)
+    fp32.  A CPU tensor takes the plain version; a CUDA tensor launches
+    :func:`plan_scan`'s plan."""
     if x.device.type == "cpu":
         return selective_scan_chunked_ref(x, dt, A, Bmat, Cmat, D,
-                                          chunk=chunk)
+                                          chunk=chunk,
+                                          return_state=return_state)
     b, l, c = x.shape
     plan = plan_scan(b, l, c, A.shape[1], storage_size(x, dt, Bmat, Cmat),
                      chunk, c_block)
-    return launch_scan(plan, x, dt, A, Bmat, Cmat, D)
+    return launch_scan(plan, x, dt, A, Bmat, Cmat, D,
+                       return_state=return_state)
 
 
 def launch_scan(plan: ScanPlan, x: torch.Tensor, dt: torch.Tensor,
                 A: torch.Tensor, Bmat: torch.Tensor, Cmat: torch.Tensor,
-                D: torch.Tensor) -> torch.Tensor:
+                D: torch.Tensor, *, return_state: bool = False):
     """Launches the kernel on CUDA tensors with ``plan`` (from
-    :func:`plan_scan`, or :func:`make_plan` for a sweep)."""
+    :func:`plan_scan`, or :func:`make_plan` for a sweep); returns y, or
+    (y, h_final) with ``return_state``."""
     b, l, c = x.shape
     n = A.shape[1]
     if dt.shape != x.shape or A.shape != (c, n) or D.shape != (c,) \
@@ -183,13 +190,18 @@ def launch_scan(plan: ScanPlan, x: torch.Tensor, dt: torch.Tensor,
     d32 = D.to(torch.float32).contiguous()
     cuda_lib.require("selective_scan", xs, dts, bs, cs, a32, d32)
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
-    if y.numel() == 0:
-        return y
-    err = cuda_lib.library().repro_selective_scan(
-        xs.data_ptr(), dts.data_ptr(), a32.data_ptr(), bs.data_ptr(),
-        cs.data_ptr(), d32.data_ptr(), y.data_ptr(), b, l, c, n,
-        plan.lanes, plan.channels, plan.chunk, cuda_lib.dtype_code(xs),
-        out_code, cuda_lib.stream_of(x))
-    cuda_lib.check(err, "selective_scan")
-    cuda_lib.LAUNCHES["selective_scan"] += 1
-    return y
+    h = None
+    if return_state:  # an empty sequence leaves the state at zero
+        h = torch.zeros((b, c, n), dtype=torch.float32, device=x.device) \
+            if l == 0 else torch.empty((b, c, n), dtype=torch.float32,
+                                       device=x.device)
+    if y.numel() > 0:
+        err = cuda_lib.library().repro_selective_scan(
+            xs.data_ptr(), dts.data_ptr(), a32.data_ptr(), bs.data_ptr(),
+            cs.data_ptr(), d32.data_ptr(), y.data_ptr(), b, l, c, n,
+            plan.lanes, plan.channels, plan.chunk, cuda_lib.dtype_code(xs),
+            out_code, None if h is None else h.data_ptr(),
+            cuda_lib.stream_of(x))
+        cuda_lib.check(err, "selective_scan")
+        cuda_lib.LAUNCHES["selective_scan"] += 1
+    return (y, h) if return_state else y

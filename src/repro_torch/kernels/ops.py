@@ -23,11 +23,15 @@ everything upstream of it would get gradient only through the residual
 stream.
 
 The continuation variants (``selective_scan(..., return_state=True)``,
-``ssd(..., init_state=..., return_state=...)``) run the plain version on
-any device, as in the reference (``repro/kernels/ops.py:160-165``,
-``:191-196``), which routes them to its oracle even on a TPU; the decode
-steps are plain too, as there.  Training, the path these kernels serve
-here, uses neither.
+``ssd(..., init_state=..., return_state=...)``), which serving's prefill
+calls, resolve like the plain calls: a CUDA tensor launches the kernel,
+which also writes the final state (and the SSD reads the initial one), a
+CPU tensor runs the plain version.  The reference sends them to its oracle
+on every device (``repro/kernels/ops.py:160-165``, ``:191-196``); the
+function is the same.  They take no gradient (serving runs under
+``torch.no_grad()``): an input that requires one raises.  The decode steps
+(``selective_scan_step``, ``ssd_step``) are plain PyTorch on every
+device, as in the reference, which has no Pallas kernel for them either.
 """
 
 from __future__ import annotations
@@ -83,6 +87,16 @@ class _Recompute(torch.autograd.Function):
         RECOMPUTES[ctx.name] += 1
         return (None, None, None) + tuple(next(grads) if need else None
                                           for need in needs)
+
+
+def _no_grad_asked(name: str, *inputs) -> None:
+    """The continuation variants have no backward: refuse a call that could
+    ask for one."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{name} with a carried state takes no gradient (serving runs it "
+            f"under torch.no_grad()); an input requires grad")
 
 
 def recompute(name: str, forward: Callable, plain: Callable, *inputs):
@@ -155,18 +169,19 @@ def selective_scan(x, dt, A, Bmat, Cmat, D, *, chunk=None, c_block=None,
     res = dispatch.resolve("mamba_scan", device=x.device, chunk=chunk,
                            c_block=c_block)
     chunk = res.launch["chunk"]
-    if return_state:  # the prefill variant: plain on every device
-        return _scan_ref.selective_scan_chunked_ref(
-            x, dt, A, Bmat, Cmat, D, chunk=chunk, return_state=True)
 
-    def plain(*a):
-        return _scan_ref.selective_scan_chunked_ref(*a, chunk=chunk)
+    def plain(*a, **kw):
+        return _scan_ref.selective_scan_chunked_ref(*a, chunk=chunk, **kw)
 
-    def kernel(*a):
-        return res.impl(*a, chunk=chunk, c_block=res.launch["c_block"])
+    def kernel(*a, **kw):
+        return res.impl(*a, chunk=chunk, c_block=res.launch["c_block"], **kw)
 
     fwd = plain if res.mode == dispatch.REF else kernel
-    return recompute("selective_scan", fwd, plain, x, dt, A, Bmat, Cmat, D)
+    inputs = (x, dt, A, Bmat, Cmat, D)
+    if return_state:  # serving's prefill: y and the final state
+        _no_grad_asked("selective_scan", *inputs)
+        return fwd(*inputs, return_state=True)
+    return recompute("selective_scan", fwd, plain, *inputs)
 
 
 def selective_scan_step(h, x_t, dt_t, A, B_t, C_t, D):
@@ -181,19 +196,19 @@ def ssd(x, dt, A, Bmat, Cmat, D, *, chunk=None, init_state=None,
         return_state=False):
     res = dispatch.resolve("ssd", device=x.device, chunk=chunk)
     chunk = res.launch["chunk"]
-    if init_state is not None or return_state:  # continuation: plain
-        return _ssd_ref.ssd_ref(x, dt, A, Bmat, Cmat, D, chunk=chunk,
-                                init_state=init_state,
-                                return_state=return_state)
 
-    def plain(*a):
-        return _ssd_ref.ssd_ref(*a, chunk=chunk)
+    def plain(*a, **kw):
+        return _ssd_ref.ssd_ref(*a, chunk=chunk, **kw)
 
-    def kernel(*a):
-        return res.impl(*a, chunk=chunk)
+    def kernel(*a, **kw):
+        return res.impl(*a, chunk=chunk, **kw)
 
     fwd = plain if res.mode == dispatch.REF else kernel
-    return recompute("ssd", fwd, plain, x, dt, A, Bmat, Cmat, D)
+    inputs = (x, dt, A, Bmat, Cmat, D)
+    if init_state is not None or return_state:  # a carried state
+        _no_grad_asked("ssd", *inputs, init_state)
+        return fwd(*inputs, init_state=init_state, return_state=return_state)
+    return recompute("ssd", fwd, plain, *inputs)
 
 
 def ssd_step(state, x_t, dt_t, A, B_t, C_t, D):

@@ -20,12 +20,20 @@ x, B and C are read in their own storage (widened to fp32 together only
 when they disagree); dt in its own dtype, so a bf16 model's fp32 dt (from
 its fp32 ``dt_bias``) keeps the tensor-core route.  Ragged L is masked,
 not padded.  ``ssd.chunk`` snaps down into the family's domain (at most
-64): the config's 256 becomes 64, which changes only the rounding.  The
-continuation variants (``init_state``, ``return_state``) are the plain
-version's, as in the reference.
+64): the config's 256 becomes 64, which changes only the rounding.
+
+Serving's prefill takes the final state (``return_state``), and a call may
+start from a given state (``init_state``), both (B, H, N, P) fp32 as
+:func:`ref.ssd_ref` has them.  Both routes take them in the same launch:
+the tensor-core chain's first block reads its entering state from
+``init_state`` and its last block, which publishes nothing, writes the
+state it forms; the SIMT route seeds its shared-memory state and stores it
+at the end.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -58,20 +66,26 @@ def ssd_route(x: torch.Tensor, Bmat: torch.Tensor, Cmat: torch.Tensor,
 
 def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bmat: torch.Tensor, Cmat: torch.Tensor, D: torch.Tensor, *,
-             chunk: int = 64) -> torch.Tensor:
-    """x (B, L, H, P); dt (B, L, H); A, D (H,); Bmat, Cmat (B, L, G, N) ->
-    y (B, L, H, P) in x's dtype.  A CPU tensor takes the plain version."""
+             chunk: int = 64, init_state: Optional[torch.Tensor] = None,
+             return_state: bool = False):
+    """x (B, L, H, P); dt (B, L, H); A, D (H,); Bmat, Cmat (B, L, G, N);
+    init_state (B, H, N, P) or None -> y (B, L, H, P) in x's dtype, and with
+    ``return_state`` the final state (B, H, N, P) fp32.  A CPU tensor takes
+    the plain version."""
     if x.device.type == "cpu":
-        return ssd_ref(x, dt, A, Bmat, Cmat, D, chunk=chunk)
+        return ssd_ref(x, dt, A, Bmat, Cmat, D, chunk=chunk,
+                       init_state=init_state, return_state=return_state)
     b, l, h, p = x.shape
     g, n = Bmat.shape[2], Bmat.shape[3]
     if dt.shape != (b, l, h) or A.shape != (h,) or D.shape != (h,) \
             or Bmat.shape != (b, l, g, n) or Cmat.shape != Bmat.shape \
-            or h % g:
+            or h % g or (init_state is not None
+                         and init_state.shape != (b, h, n, p)):
         raise ValueError(
             f"ssd: x {tuple(x.shape)}, dt {tuple(dt.shape)}, A "
             f"{tuple(A.shape)}, B {tuple(Bmat.shape)}, C {tuple(Cmat.shape)}, "
-            f"D {tuple(D.shape)}")
+            f"D {tuple(D.shape)}, init_state "
+            f"{None if init_state is None else tuple(init_state.shape)}")
     q = dispatch.snap_down(chunk,
                            dispatch.get_family("ssd").option("chunk").values)
     out_code = cuda_lib.dtype_code(x)
@@ -79,10 +93,21 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dts = (dt if dt.dtype in cuda_lib.DTYPE_CODES else dt.float()).contiguous()
     a32 = A.to(torch.float32).contiguous()
     d32 = D.to(torch.float32).contiguous()
-    cuda_lib.require("ssd", xs, dts, bs, cs, a32, d32)
+    s0 = None
+    if init_state is not None:  # read as float2 pairs: 8-byte aligned
+        s0 = init_state.to(torch.float32).contiguous()
+        s0 = s0 if s0.data_ptr() % 16 == 0 else s0.clone()
+    cuda_lib.require("ssd", xs, dts, bs, cs, a32, d32,
+                     *(() if s0 is None else (s0,)))
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
-    if y.numel() == 0:
-        return y
+    state_shape = (b, h, n, p)
+    if y.numel() == 0:  # no step: the state is the one given
+        if not return_state:
+            return y
+        return y, (s0.clone() if s0 is not None else torch.zeros(
+            state_shape, dtype=torch.float32, device=x.device))
+    s_out = (torch.empty(state_shape, dtype=torch.float32, device=x.device)
+             if return_state else None)
     route = ssd_route(xs, bs, cs, q)
     if route == "mma":
         n_chunks = -(-l // q)
@@ -100,7 +125,9 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         xs.data_ptr(), dts.data_ptr(), a32.data_ptr(), bs.data_ptr(),
         cs.data_ptr(), d32.data_ptr(), y.data_ptr(), b, l, h, p, g, n, q,
         cuda_lib.dtype_code(xs), cuda_lib.dtype_code(dts), out_code,
-        int(route == "mma"), *chain, cuda_lib.stream_of(x))
+        int(route == "mma"), None if s0 is None else s0.data_ptr(),
+        None if s_out is None else s_out.data_ptr(), *chain,
+        cuda_lib.stream_of(x))
     cuda_lib.check(err, "ssd")
     cuda_lib.LAUNCHES["ssd"] += 1
-    return y
+    return (y, s_out) if return_state else y

@@ -113,7 +113,9 @@ def _split(t: torch.Tensor) -> torch.Tensor:
     return hi + _bf16(t - hi)
 
 
-def ssd_tensor_core_ref(x, dt, A, Bmat, Cmat, D, chunk: int = 64):
+def ssd_tensor_core_ref(x, dt, A, Bmat, Cmat, D, chunk: int = 64,
+                        init_state: Optional[torch.Tensor] = None,
+                        return_state: bool = False):
     """The tensor-core SSD kernel's arithmetic in plain PyTorch: the same
     chunked decomposition as :func:`ssd_ref`, rounded to bf16 exactly where
     the kernel (``ssd_mma_kernel`` in ``csrc/ssd.cu``) feeds an MMA, with
@@ -124,7 +126,8 @@ def ssd_tensor_core_ref(x, dt, A, Bmat, Cmat, D, chunk: int = 64):
     - M = split(<C_t, B_s> exp(cum_t - cum_s) dt_s) for s <= t, else 0;
       y = M x;
     - S_z = split(B_s exp(cum_end - cum_s) dt_s)^T x;
-    - S_out = exp(cum_end) S_in + S_z, in order over the chunks;
+    - S_out = exp(cum_end) S_in + S_z, in order over the chunks, from
+      ``init_state`` (else zero); the last is the final state;
     - y += exp(cum_t) C_t split(S_in);
     - y += D x, stored in x's dtype.
 
@@ -165,7 +168,8 @@ def ssd_tensor_core_ref(x, dt, A, Bmat, Cmat, D, chunk: int = 64):
     w = torch.exp(cum_end - cum) * dtf
     states = _split(Bh * w[..., None]).transpose(-1, -2) @ xf  # (b, h, nc, n, p)
     decay = torch.exp(cum_end[..., 0])  # (b, h, nc)
-    s = torch.zeros((b, h, n, p), dtype=f32, device=x.device)
+    s = (torch.zeros((b, h, n, p), dtype=f32, device=x.device)
+         if init_state is None else init_state.to(f32))
     prev = []
     for z in range(nc):
         prev.append(s)
@@ -173,8 +177,8 @@ def ssd_tensor_core_ref(x, dt, A, Bmat, Cmat, D, chunk: int = 64):
     s_in = torch.stack(prev, dim=2)  # (b, h, nc, n, p)
     y = y + torch.exp(cum)[..., None] * (Ch @ _split(s_in))
     y = y + xf * D.to(f32)[None, :, None, None, None]
-    y = y.permute(0, 2, 3, 1, 4).reshape(b, l, h, p)[:, :orig_l]
-    return y.to(x.dtype)
+    y = y.permute(0, 2, 3, 1, 4).reshape(b, l, h, p)[:, :orig_l].to(x.dtype)
+    return (y, s) if return_state else y
 
 
 def ssd_step_ref(state, x_t, dt_t, A, B_t, C_t, D):

@@ -4,7 +4,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --batch 4 --prompt-len 64 --gen 32 [--full-config] [--device cpu]
 
-The prompts are the reference's (the same seeded synthetic data).
+The prompts are the reference's (the same seeded synthetic data).  Every
+ported family serves: the dense llama3.2-1b, and the SSM families
+falcon-mamba-7b (Mamba-1) and zamba2-2.7b (Mamba-2 with a shared
+attention block), whose decode state carries the recurrent states.
 
 ``--tune-launch N`` closes the CAMEO loop before serving: a transfer-tuning
 run (analytic source, ``--measure-backend`` target) over the kernel-launch

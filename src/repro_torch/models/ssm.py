@@ -148,14 +148,14 @@ def apply_mamba1(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     return y @ p["w_out"], new_state
 
 
-def init_mamba1_state(cfg: ModelConfig, batch: int, dtype,
-                      device) -> MambaState:
+def init_mamba1_state(cfg: ModelConfig, batch: int, dtype, device,
+                      lead: Tuple[int, ...] = ()) -> MambaState:
     d_inner = cfg.ssm_expand * cfg.d_model
     return MambaState(
-        conv=torch.zeros((batch, cfg.ssm_conv - 1, d_inner), dtype=dtype,
-                         device=device),
-        ssm=torch.zeros((batch, d_inner, cfg.ssm_state), dtype=torch.float32,
-                        device=device),
+        conv=torch.zeros(lead + (batch, cfg.ssm_conv - 1, d_inner),
+                         dtype=dtype, device=device),
+        ssm=torch.zeros(lead + (batch, d_inner, cfg.ssm_state),
+                        dtype=torch.float32, device=device),
     )
 
 
@@ -255,13 +255,13 @@ def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
             * scale.to(torch.float32)).to(y.dtype)
 
 
-def init_mamba2_state(cfg: ModelConfig, batch: int, dtype,
-                      device) -> MambaState:
+def init_mamba2_state(cfg: ModelConfig, batch: int, dtype, device,
+                      lead: Tuple[int, ...] = ()) -> MambaState:
     d_inner, heads, head_dim, g = _m2_dims(cfg)
     conv_ch = d_inner + 2 * g * cfg.ssm_state
     return MambaState(
-        conv=torch.zeros((batch, cfg.ssm_conv - 1, conv_ch), dtype=dtype,
-                         device=device),
-        ssm=torch.zeros((batch, heads, cfg.ssm_state, head_dim),
+        conv=torch.zeros(lead + (batch, cfg.ssm_conv - 1, conv_ch),
+                         dtype=dtype, device=device),
+        ssm=torch.zeros(lead + (batch, heads, cfg.ssm_state, head_dim),
                         dtype=torch.float32, device=device),
     )

@@ -14,8 +14,17 @@ cache is a view into the stacked tensors, updated in place (see
 super-block, so its gradients add up over them.  This port runs on one
 device, so the reference's activation sharding constraint and its
 ``remat`` policies are dropped (the train CLI's ``ParallelConfig()`` has
-``remat="none"``).  Decode state for the SSM families comes with SSM
-serving, in a later slice.
+``remat="none"``).
+
+Decode state follows the reference's trees: a KV cache for a dense layer,
+a :class:`~repro_torch.models.ssm.MambaState` for a Mamba-1 layer,
+``{"mixer": MambaState}`` for a Mamba-2 layer and ``{"mixer": MambaState,
+"shared_kv": KV cache}`` for the hybrid's shared-attention layer, every
+leaf stacked over the super-blocks.  A forward with a cache updates those
+stacked tensors in place and returns a tree over the same tensors: the KV
+rows are written where they lie (only the lengths are new tensors), and
+the recurrent states a layer returns are written back into the stacked
+storage (:func:`_restack`).
 """
 
 from __future__ import annotations
@@ -108,14 +117,29 @@ def init_lm_params(cfg: ModelConfig, gen: Optional[torch.Generator], dtype,
 # caches / decode state
 # --------------------------------------------------------------------------
 
+def _init_sub_state(cfg: ModelConfig, kind: str, batch: int, kv_cache,
+                    dtype, device, lead: Tuple[int, ...]):
+    """One sub-layer's decode state; ``kv_cache()`` makes its KV cache."""
+    if kind == "mamba1":
+        return ssm.init_mamba1_state(cfg, batch, dtype, device, lead)
+    if kind in ("mamba2", "mamba2_shared_attn"):
+        st = {"mixer": ssm.init_mamba2_state(cfg, batch, dtype, device, lead)}
+        if kind == "mamba2_shared_attn":
+            st["shared_kv"] = kv_cache()
+        return st
+    return kv_cache()
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype,
                       device) -> Dict:
-    """Stacked per-super-block KV caches: leaves (nsb, B, ...)."""
-    _require_attention_only(cfg)
+    """Stacked per-super-block decode state: leaves (nsb, B, ...)."""
     lead = (num_superblocks(cfg),)
-    return {f"sub{i}": attn.init_kv_cache(cfg, batch, max_len, dtype, device,
-                                          lead)
-            for i, _ in enumerate(block_pattern(cfg))}
+
+    def kv_cache():
+        return attn.init_kv_cache(cfg, batch, max_len, dtype, device, lead)
+    return {f"sub{i}": _init_sub_state(cfg, kind, batch, kv_cache, dtype,
+                                       device, lead)
+            for i, kind in enumerate(block_pattern(cfg))}
 
 
 def init_paged_decode_state(cfg: ModelConfig, batch: int, pool_pages: int,
@@ -123,36 +147,43 @@ def init_paged_decode_state(cfg: ModelConfig, batch: int, pool_pages: int,
                             device) -> Dict:
     """Paged variant of :func:`init_decode_state`: every KV cache becomes a
     :class:`~repro_torch.models.attention.PagedKVCache` over a per-layer
-    ``pool_pages``-page pool (plus its scratch page)."""
+    ``pool_pages``-page pool (plus its scratch page); recurrent states
+    (O(1) a slot) are as in the dense state."""
     if cfg.attn_type == "mla":
         raise NotImplementedError(
             "paged serving does not support the MLA compressed cache yet; "
             "serve MLA models dense")
-    _require_attention_only(cfg)
     lead = (num_superblocks(cfg),)
-    return {f"sub{i}": attn.init_paged_kv_cache(
-                cfg, batch, pool_pages, page_size, pages_per_slot_max, dtype,
-                device, lead)
-            for i, _ in enumerate(block_pattern(cfg))}
 
-
-def _require_attention_only(cfg: ModelConfig) -> None:
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: decode state for the SSM families (serving) is not "
-            f"ported yet; this slice trains them")
+    def kv_cache():
+        return attn.init_paged_kv_cache(cfg, batch, pool_pages, page_size,
+                                        pages_per_slot_max, dtype, device,
+                                        lead)
+    return {f"sub{i}": _init_sub_state(cfg, kind, batch, kv_cache, dtype,
+                                       device, lead)
+            for i, kind in enumerate(block_pattern(cfg))}
 
 
 def _layer(cache, i: int):
     """Layer ``i``'s cache: views into the stacked tensors."""
+    if isinstance(cache, dict):
+        return {k: _layer(v, i) for k, v in cache.items()}
     return type(cache)(*(t[i] for t in cache))
 
 
 def _restack(cache, layers: List) -> Any:
-    """The stacked state after a forward: k/v (pools, tables) were updated
-    in place through the per-layer views, so only the lengths are new."""
-    lengths = torch.stack([c.length for c in layers])
-    return cache._replace(length=lengths)
+    """The stacked state after a forward, over the same tensors.  KV rows
+    (pools, tables) were written in place through the per-layer views, so
+    only the lengths are new; the recurrent states the layers returned are
+    stacked into the state's own storage."""
+    if isinstance(cache, dict):
+        return {k: _restack(v, [c[k] for c in layers])
+                for k, v in cache.items()}
+    if isinstance(cache, ssm.MambaState):
+        for stacked, new in zip(cache, zip(*layers)):
+            torch.stack(new, out=stacked)
+        return cache
+    return cache._replace(length=torch.stack([c.length for c in layers]))
 
 
 # --------------------------------------------------------------------------
@@ -162,26 +193,38 @@ def _restack(cache, layers: List) -> Any:
 def _apply_sublayer(sub_p, cfg, par, kind, h, positions, shared_p, cache,
                     decode):
     """Returns (h, new_cache).  ``cache`` may be present in decode (one
-    token) and in prefill (the whole prompt, filling the cache); the SSM
-    kinds run cacheless (training) only."""
+    token, the recurrent step) and in prefill (the whole prompt, filling
+    the KV cache and computing the final recurrent state)."""
+    use_cache = cache is not None
     if kind == "mamba1":
-        y, _ = ssm.apply_mamba1(sub_p["mixer"], cfg,
-                                apply_rmsnorm(sub_p["norm"], h, cfg.norm_eps))
-        return h + y, None
+        y, st = ssm.apply_mamba1(sub_p["mixer"], cfg,
+                                 apply_rmsnorm(sub_p["norm"], h, cfg.norm_eps),
+                                 state=cache if decode else None,
+                                 decode=decode,
+                                 return_state=use_cache and not decode)
+        return h + y, st
     if kind in ("mamba2", "mamba2_shared_attn"):
-        y, _ = ssm.apply_mamba2(sub_p["mixer"], cfg,
-                                apply_rmsnorm(sub_p["norm"], h, cfg.norm_eps))
+        y, st = ssm.apply_mamba2(sub_p["mixer"], cfg,
+                                 apply_rmsnorm(sub_p["norm"], h, cfg.norm_eps),
+                                 state=cache["mixer"] if decode else None,
+                                 decode=decode,
+                                 return_state=use_cache and not decode)
         h = h + y
+        new_cache = {"mixer": st} if use_cache else None
         if kind == "mamba2_shared_attn":
-            y2, _ = attn.apply_gqa(
+            y2, kv = attn.apply_gqa(
                 shared_p["attn"], cfg, par,
-                apply_rmsnorm(shared_p["norm"], h, cfg.norm_eps), positions)
+                apply_rmsnorm(shared_p["norm"], h, cfg.norm_eps), positions,
+                cache=cache["shared_kv"] if use_cache else None,
+                decode=decode)
             h = h + y2
             h = h + apply_mlp(
                 shared_p["mlp"],
                 apply_rmsnorm(shared_p["mlp_norm"], h, cfg.norm_eps),
                 cfg.mlp_type)
-        return h, None
+            if use_cache:
+                new_cache["shared_kv"] = kv
+        return h, new_cache
     hn = apply_rmsnorm(sub_p["attn_norm"], h, cfg.norm_eps)
     y, kv = attn.apply_gqa(sub_p["attn"], cfg, par, hn, positions,
                            cache=cache, decode=decode)
@@ -222,8 +265,6 @@ def forward(
     h = embed_tokens(params["embed"], tokens, cfg.d_model)
     shared_p = params.get("shared_attn")
     use_cache = decode_state is not None
-    if use_cache:
-        _require_attention_only(cfg)
     layers = _unstack(params["blocks"], nsb)
     new_layers: Dict[str, List] = {f"sub{i}": [] for i in range(len(pat))}
     for layer in range(nsb):

@@ -8,6 +8,11 @@ outputs are ignored.  Prefill runs per admitted request (batch 1) and its
 cache is scattered into the slot's rows of the shared stacked cache — or,
 for a paged deployment, into the pool pages reserved for the request.
 
+The shared state is the model's decode-state tree (KV caches, recurrent
+SSM states, the hybrid's ``{"mixer", "shared_kv"}`` dicts, every leaf
+stacked over the super-blocks); the scatters walk it as the reference's
+``jax.tree.map`` does.
+
 Scheduling decisions (admission, page reservation, chunked prefill,
 retirement, tick counts) are the reference's, step for step, so at
 temperature 0 the port reproduces the reference's tokens, completion order
@@ -84,30 +89,46 @@ class RequestState:
         return self.finished_at is not None
 
 
-def _caches(tree) -> List[tuple]:
-    """(key, cache record) pairs of a stacked decode state."""
-    return sorted(tree.items())
+def _walk(fn, dst, src=None) -> None:
+    """Call ``fn(dst_node, src_node)`` top-down over a decode-state tree
+    (dicts, and records such as KV caches and SSM states, down to tensor
+    leaves), ``src`` walked beside ``dst`` (or None throughout); a node for
+    which ``fn`` returns True is not descended into."""
+    if fn(dst, src):
+        return
+    if isinstance(dst, dict):
+        for key in sorted(dst):
+            _walk(fn, dst[key], None if src is None else src[key])
+    elif isinstance(dst, tuple):
+        for i, d in enumerate(dst):
+            _walk(fn, d, None if src is None else src[i])
+
+
+def _scatter_leaf(dst: torch.Tensor, src: torch.Tensor, slot: int) -> None:
+    """In place: a batch-1 leaf into batch row ``slot``; the slot is axis
+    1 of a stacked (layers, batch, ...) leaf, axis 0 of a flat one."""
+    if dst.ndim == src.ndim and dst.shape == src.shape:
+        return  # shared/static leaf — keep
+    if dst.ndim >= 2 and src.ndim == dst.ndim and \
+            src.shape[0] == dst.shape[0] and src.shape[1] == 1:
+        dst[:, slot] = src[:, 0]
+    elif src.ndim == dst.ndim and src.shape[0] == 1:
+        dst[slot] = src[0]
+    else:
+        raise ValueError(f"unscatterable leaf {tuple(src.shape)} -> "
+                         f"{tuple(dst.shape)}")
 
 
 def _scatter_rows(dst_tree, src_tree, slot: int):
     """Write src (batch-1 state rows) into dst at batch row ``slot``, in
-    place.  Cache leaves are stacked (layers, batch, ...): the slot is
-    axis 1 of a stacked leaf, axis 0 of a flat one."""
-    def one(dst: torch.Tensor, src: torch.Tensor) -> None:
-        if dst.ndim == src.ndim and dst.shape == src.shape:
-            return  # shared/static leaf — keep
-        if dst.ndim >= 2 and src.ndim == dst.ndim and \
-                src.shape[0] == dst.shape[0] and src.shape[1] == 1:
-            dst[:, slot] = src[:, 0]
-        elif src.ndim == dst.ndim and src.shape[0] == 1:
-            dst[slot] = src[0]
-        else:
-            raise ValueError(f"unscatterable leaf {tuple(src.shape)} -> "
-                             f"{tuple(dst.shape)}")
+    place, leaf by leaf (KV rows, lengths and recurrent states alike)."""
+    def one(dst, src) -> bool:
+        if isinstance(dst, torch.Tensor):
+            _scatter_leaf(dst, src, slot)
+            return True
+        return False
 
-    for key, dst in _caches(dst_tree):
-        for d, s in zip(dst, src_tree[key]):
-            one(d, s)
+    _walk(one, dst_tree, src_tree)
     return dst_tree
 
 
@@ -116,19 +137,22 @@ def _scatter_paged_rows(dst_tree, src_tree, slot: int, pages: List[int],
                         scratch_page: int):
     """Write a dense batch-1 prefill state into slot ``slot`` of a paged
     decode state, in place: KV rows land in the slot's reserved pool
-    ``pages``, and the slot's table row is rewritten wholesale (tail
-    entries pinned to the scratch page — valid and owned by nobody)."""
-    for key, dst in _caches(dst_tree):
-        src = src_tree[key]
+    ``pages``, the slot's table row is rewritten wholesale (tail entries
+    pinned to the scratch page — valid and owned by nobody), and recurrent
+    (SSM) leaves scatter as in the dense path."""
+    table_row = torch.full((pages_per_slot_max,), scratch_page,
+                           dtype=torch.int32)
+    table_row[:len(pages)] = torch.tensor(pages, dtype=torch.int32)
+    n = len(pages)
+
+    def one(dst, src) -> bool:
+        if isinstance(dst, torch.Tensor):
+            _scatter_leaf(dst, src, slot)
+            return True
         if not isinstance(dst, PagedKVCache):
-            _scatter_rows({key: dst}, {key: src}, slot)
-            continue
+            return False
         dev = dst.k_pages.device
-        table_row = torch.full((pages_per_slot_max,), scratch_page,
-                               dtype=torch.int32)
-        table_row[:len(pages)] = torch.tensor(pages, dtype=torch.int32)
         pages_t = torch.tensor(pages, dtype=torch.long, device=dev)
-        n = len(pages)
         nsb = src.k.shape[0]
         for pool, dense in ((dst.k_pages, src.k), (dst.v_pages, src.v)):
             rows = dense[:, 0, :n * page_size]
@@ -136,6 +160,9 @@ def _scatter_paged_rows(dst_tree, src_tree, slot: int, pages: List[int],
                                             *rows.shape[2:])
         dst.page_table[:, slot] = table_row.to(dev)[None]
         dst.length[:, slot] = src.length[:, 0]
+        return True
+
+    _walk(one, dst_tree, src_tree)
     return dst_tree
 
 
@@ -379,9 +406,13 @@ class ContinuousBatcher:
         """Point a freed slot's page-table rows back at the scratch page:
         the empty slot keeps writing pad-token K/V every tick, and those
         writes must not land on pages a later owner holds."""
-        for _, cache in _caches(self.state.caches):
+        def one(cache, _) -> bool:
             if isinstance(cache, PagedKVCache):
                 cache.page_table[:, slot] = self.paged.pool_pages
+                return True
+            return isinstance(cache, torch.Tensor)
+
+        _walk(one, self.state.caches)
 
     def tick(self) -> int:
         """Admit + one decode step for all resident requests.

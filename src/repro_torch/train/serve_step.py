@@ -1,9 +1,9 @@
 """Serve-step factories: prefill / decode / generate — the port of
-:mod:`repro.train.serve_step` for the dense family.
+:mod:`repro.train.serve_step`.
 
-``make_prefill_step`` runs the whole prompt, filling the KV caches, and
-returns the last-position logits; ``make_decode_step`` advances one token
-per slot.  Both run their body under an *exclusive*
+``make_prefill_step`` runs the whole prompt, filling the KV caches and
+computing the recurrent (SSM) states, and returns the last-position
+logits; ``make_decode_step`` advances one token per slot.  Both run their body under an *exclusive*
 ``dispatch.use_launch_config`` so a step is a pure function of its
 ``launch_config``.  :func:`jitted_steps` keeps its name and its cache key
 ``(model, run, cache_len, frozen launch config)``; it caches the eager
@@ -38,7 +38,7 @@ def freeze_launch_config(launch_config: Optional[Dict[str, Any]]
 
 
 class ServeState(NamedTuple):
-    caches: Any                   # stacked per-super-block decode caches
+    caches: Any                   # stacked per-super-block decode state
     lengths: torch.Tensor         # (B,) int32 tokens consumed so far
     extras: Dict[str, torch.Tensor]  # static per-request inputs (none for dense)
 

@@ -302,3 +302,39 @@ def test_wallclock_env_times_the_kernels_on_the_card(sm90, dtype):
     for res in (rec, checked):
         assert res and {r.mode for r in res} == {"cuda"}
         assert {r.family for r in res} == set(fams)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [1, 17, 63, 64, 65, 200])
+def test_final_state_scan_and_ssd_match_plain_versions(sm90, dtype, l):
+    """Serving's prefill variants: the scan's final state, and the SSD's
+    initial and final states on both routes (bf16 at P 64, N 64 takes the
+    tensor cores, fp32 the SIMT kernel)."""
+    g = torch.Generator(device=sm90).manual_seed(l)
+
+    def rnd(*s):
+        return torch.randn(s, generator=g, device=sm90).to(dtype)
+
+    def pos(*s):
+        return (torch.rand(s, generator=g, device=sm90) * 0.1).to(dtype)
+
+    A = -torch.rand((256, 16), generator=g, device=sm90) * 4
+    scan = (rnd(2, l, 256), pos(2, l, 256), A, rnd(2, l, 16), rnd(2, l, 16),
+            rnd(256).float())
+    y, h = tsk.selective_scan_cuda(*scan, chunk=64, return_state=True)
+    ry, rh = tsr.selective_scan_chunked_ref(*scan, chunk=64,
+                                            return_state=True)
+    _cmp(y, ry, dtype)
+    _cmp(h, rh, dtype)
+    A = -torch.arange(1, 9, dtype=torch.float32, device=sm90)
+    ssd = (rnd(2, l, 8, 64), pos(2, l, 8), A, rnd(2, l, 1, 64),
+           rnd(2, l, 1, 64), rnd(8).float())
+    s0 = torch.randn((2, 8, 64, 64), generator=g, device=sm90)
+    for init in (None, s0):
+        y, s = tdk.ssd_cuda(*ssd, chunk=64, init_state=init,
+                            return_state=True)
+        ry, rs = tdr.ssd_ref(*ssd, chunk=64, init_state=init,
+                             return_state=True)
+        _cmp(y, ry, dtype)
+        _cmp(s, rs, dtype)

@@ -198,8 +198,3 @@ def test_params_from_jax_keeps_fp32_ssm_leaves_in_a_bf16_model(name):
         assert tuple(node.shape) == leaf.shape, path
         assert str(node.dtype).split(".")[1] == str(leaf.dtype), path
 
-
-def test_ssm_serving_state_is_not_ported_yet():
-    tm = tbuild(port_cfg(J_FALCON_SMOKE), device="cpu")
-    with pytest.raises(NotImplementedError, match="SSM"):
-        tm.init_decode_state(1, 8)

@@ -84,6 +84,21 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    the fixed batch's logits against a plain-version run; one request's
    prefill time by prompt length, the decode step's launches and a
    profiled decode step; the serve CLI with ``--full-config`` for each;
+4f. the compiled decode step (``jitted_steps``' decode captured in a CUDA
+   graph; every phase from 4 on serves through it): for llama3.2-1b,
+   falcon-mamba-7b and zamba2-2.7b at full width and depth (the models of
+   phases 4 and 4e) the fixed batch through the eager and the captured
+   step in turns — the same tokens and logits bit for bit, host p50 /
+   p99, tok/s, device busy, idle share and kernels a step under the
+   profiler, the capture's time and pool — each port kernel's profiled
+   calls a replayed step against the launches its capture recorded, the
+   launch counters after 10 replays against 10 eager steps', and the
+   dense, paged and chunked batchers with the eager step against phases
+   4 / 4e's (tokens, order, counters and every step's logits bit for
+   bit); a 4-slot graph
+   replayed after a 32-slot eager decode grew the split decode's scratch;
+   phase 4c's measured replays capture nothing (the captures fall in the
+   deployments' warm-ups);
 5. timings: each kernel, its plain version and the one-call PyTorch
    yardstick where one exists, timed with CUDA events at the slices'
    shapes, beside the card's bound for the same work; RMSNorm also at the
@@ -936,25 +951,39 @@ def _serve_plans():
     }
 
 
-def _drain_batcher(torch, np, model, run, params, plan):
+def _drain_batcher(torch, np, model, run, params, plan, decode=None):
     """``_requests`` through a 4-slot ``ContinuousBatcher`` of ``plan``,
-    drained; what it produced and how long it took (host clock)."""
+    drained; what it produced and how long it took (host clock), and every
+    decode step's logits (copied on the card as the step returns them,
+    moved to the host after the drain).  The batcher's decode step is
+    ``jitted_steps``' captured one unless ``decode`` (the eager step) is
+    given."""
     from repro_torch.serving.scheduler import ContinuousBatcher
 
     b = ContinuousBatcher(model, run, params, num_slots=4, cache_len=512,
                           paged=plan)
+    step = decode or b._decode
+    logits_kept = []
+
+    def kept(p, state, tokens):
+        state, logits = step(p, state, tokens)
+        logits_kept.append(logits.clone())
+        return state, logits
+    b._decode = kept
     for req in _requests(model.cfg, np):
         b.submit(req)
     t1 = time.perf_counter()
     done = b.run_until_drained(max_ticks=2000)
     torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t1
     return {"completed": len(done), "ticks": b.ticks,
-            "wall_s": time.perf_counter() - t1, "prefill_s": b.prefill_s,
+            "wall_s": wall_s, "prefill_s": b.prefill_s,
             "decode_s": b.decode_s,
             "tokens": sum(len(d.generated) for d in done),
             "order": [d.request.uid for d in done],
             "generated": [list(d.generated) for d in done],
-            "prefill_chunks": b.prefill_chunks}
+            "prefill_chunks": b.prefill_chunks,
+            "logits": [lg.cpu() for lg in logits_kept]}
 
 
 def _check_batchers(served, n_req, what):
@@ -983,11 +1012,14 @@ def _check_batchers(served, n_req, what):
 def _plain_logits(torch, model, run, params, prompt, tokens, cache_len):
     """Prefill and the first LOGIT_STEPS - 1 decode steps with the plain
     versions (``dispatch.use_mode("ref")``), teacher-forced with the
-    kernel run's ``tokens``; the logits on the host."""
+    kernel run's ``tokens``; the logits on the host.  The eager steps: a
+    reference run is not captured."""
     from repro_torch.kernels import dispatch
-    from repro_torch.train.serve_step import jitted_steps
+    from repro_torch.train.serve_step import (make_decode_step,
+                                              make_prefill_step)
 
-    prefill, decode = jitted_steps(model, run, cache_len=cache_len)
+    prefill = make_prefill_step(model, run, cache_len=cache_len)
+    decode = make_decode_step(model, run)
     toks = torch.as_tensor(tokens, device=prompt.device)
     out = []
     with torch.no_grad(), dispatch.use_mode(dispatch.REF):
@@ -1115,7 +1147,7 @@ def phase_slice(torch, np, dev):
                                            "prefill_chunks")}
                     for k, v in served.items()},
         "launches": launches}
-    return slice_out, launches, (model, run, params, prompt)
+    return slice_out, launches, (model, run, params, prompt), served
 
 
 # Logits of the random-weight llama3.2-1b reach ~1.8e3 in magnitude, where
@@ -1412,6 +1444,9 @@ def phase_sim2real(torch, np, dev):
               f"default config ({c1[name]} vs {c2[name]})")
     log(f"sim2real: default config twice: p99 {y1:.1f} / {y2:.1f} ms, "
         f"occupancy {c1['occupancy_mean']:.2f}; clock-free counters equal")
+    check(tgt.measured_captures == 0,
+          f"sim2real: {tgt.measured_captures} decode graphs captured inside "
+          f"the default's measured replays")
 
     # the tuning run, counted, on a fresh pair (the model comes from the
     # env's cache) so it measures from scratch; traced, so each target
@@ -1460,6 +1495,14 @@ def phase_sim2real(torch, np, dev):
     final = _replay_checked(torch, res.best_config, tgt.replay)
     check(final.completed == len(tr.requests) - final.rejected and
           final.completed > 0, f"sim2real: the winner served {final}")
+    captures = sum(e["name"] == "decode_graph_capture"
+                   for e in tracer.events())
+    check(tgt.measured_captures == 0,
+          f"sim2real: {tgt.measured_captures} decode graphs captured inside "
+          f"measured replays of the tuning run or the winner's")
+    log(f"[{CARD}] sim2real on the captured decode step: {captures} graphs "
+        f"captured in the tuning run (its trace), none inside a measured "
+        f"replay of it or of the winner's deployment")
     log(f"sim2real: best {res.best_config} -> p99 {res.best_y:.1f} ms "
         f"(redeployed: {final.p99_latency_ms:.1f} ms, {final.ticks} "
         f"ticks); tuning run {tune_s:.1f} s "
@@ -1476,7 +1519,9 @@ def phase_sim2real(torch, np, dev):
         "winner": {"replay_p99_ms": final.p99_latency_ms,
                    "ticks": final.ticks, "completed": final.completed,
                    "rejected": final.rejected, "wall_s": final.wall_s},
-        "tune_s": tune_s, "extras": res.extras}
+        "tune_s": tune_s, "extras": res.extras,
+        "decode_graph_captures": captures, "captures_in_measured": 0,
+        "card": CARD}
     return summary, launches
 
 
@@ -1584,7 +1629,8 @@ def phase_serve_cli():
     return _serve_cli(["--arch", ARCH, "--full-config", "--workload",
                        SIM2REAL_SPEC, "--tune-serving", "4",
                        "--sim2real-eval"],
-                      ("sim-predicted", "replayed-actual"))
+                      ("sim-predicted", "replayed-actual",
+                       "decode graphs: 1 captured"))
 
 
 # --------------------------------------------------------------------------
@@ -1907,19 +1953,22 @@ SSM_PROFILE_STEPS = 4
 
 def phase_ssm_serve(torch, np, dev):
     """Each SSM model served at full size, then its serve CLI; returns the
-    summaries and the launches of the counted runs, summed."""
+    summaries, the launches of the counted runs, summed, and each model's
+    phase 4f summary."""
     from repro_torch.kernels import cuda_lib
 
-    out = {}
+    out, compiled = {}, {}
     launches = {name: 0 for name in cuda_lib.LAUNCHES}
     for arch, kernels in SSM_SERVE_KERNELS.items():
-        out[arch], counted = _serve_ssm(torch, np, dev, arch, kernels)
+        out[arch], counted, compiled[arch] = _serve_ssm(torch, np, dev, arch,
+                                                        kernels)
         for name, n in counted.items():
             launches[name] += n
         torch.cuda.empty_cache()
         out[arch]["serve_cli"] = _serve_cli(
-            ["--arch", arch, "--full-config"], ("decode p50",))
-    return out, launches
+            ["--arch", arch, "--full-config"],
+            ("decode p50", "decode graphs: 1 captured"))
+    return out, launches, compiled
 
 
 def _serve_ssm(torch, np, dev, arch, kernels):
@@ -2032,8 +2081,289 @@ def _serve_ssm(torch, np, dev, arch, kernels):
                                            "prefill_chunks")}
                     for k, v in served.items()},
         "launches": launches, "decode_profile": profile}
+    # phase 4f's part for this model, on its weights before they are freed
+    compiled = _compiled_decode(torch, np, dev, arch, model, run, params,
+                                prompt, served)
     del model, params, prefill
-    return summary, launches
+    return summary, launches, compiled
+
+
+# --------------------------------------------------------------------------
+# phase 4f: the compiled decode step — jitted_steps' decode captured in a
+# CUDA graph, held against the eager step and timed beside it
+# --------------------------------------------------------------------------
+
+#: the fixed batch in turns, so drift falls on both
+COMPILED_RUNS = ("eager", "captured", "captured", "eager")
+COMPILED_PROFILE_STEPS = 8
+#: replays after which the launch counters are read
+COMPILED_REPLAYS = 10
+#: the scratch-growth check: slots of the captured decode, then of the
+#: eager decode that grows the split decode's scratch
+GROWTH_SLOTS = (4, 32)
+#: the card's ``name, power.limit`` (nvidia-smi), beside every number
+CARD = ""
+
+
+def _fixed_batch_with(torch, np, step_pair, params, prompt, gen):
+    """The fixed batch through ``step_pair`` = (prefill, decode), greedy:
+    the tokens (B, gen) on the host, each decode step's host time in ms
+    (synchronized; the first step, a captured step's capture, left out)
+    and every decode step's logits (fp32 copies on the card)."""
+    from repro_torch.train.serve_step import sample_token
+
+    prefill, decode = step_pair
+    state, logits = prefill(params, {"tokens": prompt})
+    tok = sample_token(logits, None, 0.0)
+    toks, lats, kept = [tok], [], []
+    torch.cuda.synchronize()
+    for _ in range(gen - 1):
+        t1 = time.perf_counter()
+        state, logits = decode(params, state, tok[:, None])
+        torch.cuda.synchronize()
+        lats.append((time.perf_counter() - t1) * 1e3)
+        kept.append(logits.to(torch.float32, copy=True))
+        tok = sample_token(logits, None, 0.0)
+        toks.append(tok)
+    return (torch.stack(toks, dim=1).cpu().numpy(), np.asarray(lats[1:]),
+            kept)
+
+
+#: the port's decode kernels by the symbol the profiler names them with
+#: (dense and paged decode are one template)
+DECODE_KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel",
+                         "decode_attention": "decode_attention_kernel",
+                         "paged_decode_attention": "decode_attention_kernel"}
+
+
+def _calls_per_kernel_symbol(launches):
+    """A capture's recorded launches by kernel symbol, a step."""
+    check(set(launches) <= set(DECODE_KERNEL_SYMBOLS),
+          f"a decode graph launched {sorted(launches)}; only "
+          f"{sorted(DECODE_KERNEL_SYMBOLS)} are known to the profile check")
+    out = {sym: 0 for sym in DECODE_KERNEL_SYMBOLS.values()}
+    for name, n in launches.items():
+        out[DECODE_KERNEL_SYMBOLS[name]] += n
+    return out
+
+
+def _calls_by_symbol(kernels):
+    """Profiler calls of each port decode kernel symbol over a window,
+    from ``_profile_decode``'s [(kernel, device ms, calls)]."""
+    out = {sym: 0 for sym in DECODE_KERNEL_SYMBOLS.values()}
+    for key, _, calls in kernels:
+        for sym in out:
+            if re.search(rf"\b{sym}\b", key):
+                out[sym] += calls
+    return out
+
+
+def _graph_numbers(decode):
+    """The newest graph of a captured decode step: capture ms, pool MB."""
+    g = next(reversed(decode.graphs.values()))
+    return g.capture_s * 1e3, g.pool_bytes / 2 ** 20
+
+
+def _compiled_decode(torch, np, dev, arch, model, run, params, prompt,
+                     served):
+    """Phase 4f for one model at full width and depth: the fixed batch
+    through the eager and the captured step in turns (the same tokens
+    and logits, host p50 / p99 and tok/s), both profiled (device busy,
+    idle share, kernels a step; each port kernel's calls a replayed step
+    against the launches the profiled graph's capture recorded), the
+    captured graph's capture time and pool, the launch counters after
+    COMPILED_REPLAYS replays against the eager step's, and the three
+    batchers with the eager step against ``served`` (phase 4 / 4e: the
+    captured step), every decode step's logits bit for bit."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.train.serve_step import (jitted_steps,
+                                              make_decode_step,
+                                              make_prefill_step)
+
+    t0 = time.perf_counter()
+    cache_len = FIXED["prompt_len"] + FIXED["gen"]
+    pairs = {"eager": (make_prefill_step(model, run, cache_len=cache_len),
+                       make_decode_step(model, run)),
+             "captured": jitted_steps(model, run, cache_len=cache_len)}
+    decode = pairs["captured"][1]
+    captures = decode.captures
+    runs = {"eager": [], "captured": []}
+    for name in COMPILED_RUNS:
+        runs[name].append(_fixed_batch_with(torch, np, pairs[name], params,
+                                            prompt, FIXED["gen"]))
+    captures = decode.captures - captures
+    first = runs["eager"][0][0]
+    for name, rs in runs.items():
+        for toks, _, _ in rs:
+            check(np.array_equal(toks, first),
+                  f"{arch}: the {name} fixed batch's tokens differ from the "
+                  f"eager step's")
+    diff = max(float((a - b).abs().max()) for rs in runs.values()
+               for r in rs for a, b in zip(runs["eager"][0][2], r[2]))
+    check(diff == 0.0, f"{arch}: the fixed batch's logits differ between "
+          f"runs of the eager and the captured step (max |diff| {diff}); the "
+          f"same kernels with the same launches give the same bits")
+    check(captures <= 2, f"{arch}: {captures} captures in two fixed-batch "
+          f"runs (one a run at most)")
+    capture_ms, pool_mb = _graph_numbers(decode)
+    numbers, kernel_calls = {}, {}
+    for name, rs in runs.items():
+        lat = np.concatenate([r[1] for r in rs])
+        prof, kernels = _profile_decode(torch, model, run, params, prompt,
+                                        COMPILED_PROFILE_STEPS, pairs[name])
+        kernel_calls[name] = _calls_by_symbol(kernels)
+        busy = prof["device_busy_ms"]
+        numbers[name] = {
+            "host_p50_ms": float(np.percentile(lat, 50)),
+            "host_p99_ms": float(np.percentile(lat, 99)),
+            "tok_s": float(FIXED["batch"] / np.mean(lat) * 1e3),
+            "steps_timed": int(lat.size),
+            "profiled_ms_per_step": prof["window_ms"]
+            / COMPILED_PROFILE_STEPS,
+            "device_busy_ms_per_step": (busy / COMPILED_PROFILE_STEPS
+                                        if busy else None),
+            "idle_share": prof["idle_share"],
+            "kernels_per_step": prof["launches_per_step"]}
+
+    # the profiled graph's kernels, as the card ran them: each port
+    # kernel's calls over the replayed window are the launches its
+    # capture recorded (which each replay adds to the counters) times
+    # the steps.  The profiler's trace loses a kernel record now and then
+    # (one of 520-584 in a window, in either step), never adds one: a
+    # window may come one call short of that.  The eager window's calls
+    # are reported beside them
+    recorded = next(reversed(decode.graphs.values())).capture.launches
+    want = {sym: n * COMPILED_PROFILE_STEPS
+            for sym, n in _calls_per_kernel_symbol(recorded).items()}
+    got = kernel_calls["captured"]
+    check(all(want[sym] - 1 <= got[sym] <= want[sym] for sym in want),
+          f"{arch}: the captured step's profiled port kernels over "
+          f"{COMPILED_PROFILE_STEPS} replays {got}; its graph records "
+          f"{recorded} a step = {want}")
+
+    # the launch counters: COMPILED_REPLAYS replays count COMPILED_REPLAYS
+    # eager steps' launches
+    state, logits = pairs["captured"][0](params, {"tokens": prompt})
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    cuda_lib.reset_launches()
+    pairs["eager"][1](params, state, tok)
+    per_step = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    decode(params, state, tok)  # the capture for this state
+    cuda_lib.reset_launches()
+    for _ in range(COMPILED_REPLAYS):
+        decode(params, state, tok)
+    torch.cuda.synchronize()
+    replayed = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    check(replayed == {k: COMPILED_REPLAYS * v for k, v in per_step.items()},
+          f"{arch}: launch counters after {COMPILED_REPLAYS} replays "
+          f"{replayed}, the eager step launches {per_step}")
+    del state, logits
+
+    # the batchers with the eager step against the captured ones
+    batchers = {}
+    for name, plan in _serve_plans().items():
+        eager = _drain_batcher(torch, np, model, run, params, plan,
+                               decode=make_decode_step(model, run))
+        got = served[name]
+        for f in ("completed", "ticks", "order", "generated",
+                  "prefill_chunks"):
+            check(eager[f] == got[f],
+                  f"{arch}: the {name} batcher's {f} with the captured step "
+                  f"differ from the eager step's")
+        bdiff = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(eager["logits"], got["logits"]))
+        check(len(eager["logits"]) == len(got["logits"]) and bdiff == 0.0,
+              f"{arch}: the {name} batcher's decode logits with the "
+              f"captured step differ from the eager step's (max |diff| "
+              f"{bdiff} over {len(got['logits'])} steps)")
+        batchers[name] = {"ticks": got["ticks"], "logits_max_abs_diff": bdiff,
+                          "decode_s": {"eager": eager["decode_s"],
+                                       "captured": got["decode_s"]},
+                          "wall_s": {"eager": eager["wall_s"],
+                                     "captured": got["wall_s"]}}
+    out = {"card": CARD, "tokens_equal": True, "logits_max_abs_diff": diff,
+           "captures": captures, "capture_ms": capture_ms,
+           "graph_pool_mb": pool_mb, "fixed_batch": numbers,
+           "launches_per_step": per_step, "replays_counted": COMPILED_REPLAYS,
+           "profiled_calls": {**kernel_calls,
+                              "steps": COMPILED_PROFILE_STEPS,
+                              "recorded": want},
+           "batchers": batchers, "phase_s": time.perf_counter() - t0}
+    e, c = numbers["eager"], numbers["captured"]
+    log(f"[{CARD}] {arch} compiled decode (fixed batch {FIXED['batch']}x"
+        f"{FIXED['prompt_len']}+{FIXED['gen']}): tokens equal, logits max "
+        f"|diff| {diff}; host p50 / p99 eager {e['host_p50_ms']:.2f} / "
+        f"{e['host_p99_ms']:.2f} ms, captured {c['host_p50_ms']:.2f} / "
+        f"{c['host_p99_ms']:.2f} ms; tok/s {e['tok_s']:.1f} -> "
+        f"{c['tok_s']:.1f}; capture {capture_ms:.1f} ms, pool "
+        f"{pool_mb:.1f} MB")
+    for name, n in numbers.items():
+        busy = n["device_busy_ms_per_step"]
+        log(f"[{CARD}] {arch} {name} step under the profiler: "
+            + (f"device busy {busy:.3f} ms/step, idle share "
+               f"{n['idle_share']:.3f}, {n['kernels_per_step']:.0f} "
+               f"kernels/step" if busy else "no device time recorded "
+               "(not measured)"))
+    log(f"[{CARD}] {arch} batchers, decode s eager -> captured: "
+        + ", ".join(f"{k} {v['decode_s']['eager']:.3f} -> "
+                    f"{v['decode_s']['captured']:.3f}"
+                    for k, v in batchers.items())
+        + f"; logits equal; launches a step {per_step} x "
+          f"{COMPILED_REPLAYS} replays counted; over "
+          f"{COMPILED_PROFILE_STEPS} profiled steps the graph records "
+          f"{want}, the profiler saw {kernel_calls['captured']} captured, "
+          f"{kernel_calls['eager']} eager")
+    return out
+
+
+def _scratch_growth(torch, np, model, run, params, prompt):
+    """A GROWTH_SLOTS[0]-slot decode captured on a fresh split-decode
+    scratch; a GROWTH_SLOTS[1]-slot eager decode grows the scratch (its
+    old tensors are now held by the graph alone) and fresh NaN tensors
+    take the freed memory; the graph's replays still give the eager
+    step's logits."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.train.serve_step import (CapturedDecode,
+                                              make_decode_step,
+                                              make_prefill_step)
+    from repro_torch.utils.trees import tree_map
+
+    small_b, big_b = GROWTH_SLOTS
+    cache_len = FIXED["prompt_len"] + FIXED["gen"]
+    prefill = make_prefill_step(model, run, cache_len=cache_len)
+    eager = make_decode_step(model, run)
+    captured = CapturedDecode(make_decode_step(model, run))
+    cuda_lib._decode_scratch.clear()  # the capture takes a fresh scratch
+    state, logits = prefill(params, {"tokens": prompt[:small_b]})
+    ref = tree_map(torch.clone, state)
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    captured(params, state, tok)
+    eager(params, ref, tok)
+    key = state.lengths.device
+    small = cuda_lib._decode_scratch[key][0].numel()
+    big_prompt = prompt[:1].repeat(big_b, 1)
+    big, big_logits = prefill(params, {"tokens": big_prompt})
+    eager(params, big, big_logits.argmax(-1).to(torch.int32)[:, None])
+    grown = cuda_lib._decode_scratch[key][0].numel()
+    check(grown > small, f"scratch growth: a {big_b}-slot decode left the "
+          f"scratch at {grown} floats (the {small_b}-slot one took {small})")
+    del big, big_logits
+    junk = [torch.full((1 << 22,), float("nan"), device=prompt.device)
+            for _ in range(16)]
+    worst = 0.0
+    for _ in range(3):
+        _, lg = captured(params, state, tok)
+        _, ref_lg = eager(params, ref, tok)
+        worst = max(worst, float((lg.float() - ref_lg.float()).abs().max()))
+        check(torch.equal(lg, ref_lg), f"scratch growth: the {small_b}-slot "
+              f"graph's replay differs from the eager step (max |diff| "
+              f"{worst})")
+    del junk
+    log(f"[{CARD}] scratch growth: {small_b}-slot graph captured on a "
+        f"{small}-float scratch, a {big_b}-slot eager decode grew it to "
+        f"{grown}; 3 replays equal the eager step's logits")
+    return {"slots": list(GROWTH_SLOTS), "scratch_floats": [small, grown],
+            "replays_equal": True}
 
 
 # --------------------------------------------------------------------------
@@ -2502,19 +2832,25 @@ KERNEL_SYMBOLS = {"selective_scan": "selective_scan_kernel",
 MAX_DECODE_LAUNCHES = 1099
 
 
-def _profile_decode(torch, model, run, params, prompt, steps):
-    """Trace ``steps`` decode steps of the fixed batch with torch.profiler:
-    the window's host time, the device's busy time and idle share (the
-    profiler's own overhead makes the idle share a ceiling), kernels per
-    step and the largest by device time.  Returns (summary, [(kernel,
-    device ms, calls)] sorted by time)."""
+def _profile_decode(torch, model, run, params, prompt, steps,
+                    step_pair=None):
+    """Trace ``steps`` decode steps of the fixed batch with torch.profiler,
+    after one decode step outside the window (the captured step's
+    capture): the window's host time, the device's busy time and idle
+    share (the profiler's own overhead makes the idle share a ceiling),
+    kernels per step and the largest by device time.  ``step_pair`` is
+    ``(prefill, decode)``, ``jitted_steps``' unless given.  Returns
+    (summary, [(kernel, device ms, calls)] sorted by time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.train.serve_step import jitted_steps
 
-    prefill, decode = jitted_steps(model, run, cache_len=run.shape.seq_len)
+    prefill, decode = step_pair or jitted_steps(model, run,
+                                                cache_len=run.shape.seq_len)
     state, logits = prefill(params, {"tokens": prompt})
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    state, logits = decode(params, state, tok)
     tok = logits.argmax(-1).to(torch.int32)[:, None]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2743,6 +3079,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    global CARD
+    CARD = smi
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
@@ -2799,7 +3137,7 @@ def main() -> int:
 
     # 4. the serving slice
     t0 = time.perf_counter()
-    slice_out, launches, ctx = phase_slice(torch, np, dev)
+    slice_out, launches, ctx, served = phase_slice(torch, np, dev)
     log(f"serving slice done in {time.perf_counter() - t0:.1f} s")
 
     # 4b. the training slice
@@ -2824,9 +3162,20 @@ def main() -> int:
 
     # 4e. SSM serving: falcon-mamba-7b and zamba2-2.7b at full size
     t0 = time.perf_counter()
-    ssm_serve, ssm_serve_launches = phase_ssm_serve(torch, np, dev)
+    ssm_serve, ssm_serve_launches, compiled = phase_ssm_serve(torch, np,
+                                                              dev)
     ssm_serve["phase_s"] = time.perf_counter() - t0
-    log(f"SSM serving done in {ssm_serve['phase_s']:.1f} s")
+    log(f"SSM serving (with phase 4f's SSM part) done in "
+        f"{ssm_serve['phase_s']:.1f} s")
+
+    # 4f. the compiled decode step: llama3.2-1b (the SSM models' part ran
+    # in 4e, on their weights) and the scratch-growth replay
+    t0 = time.perf_counter()
+    compiled = {ARCH: _compiled_decode(torch, np, dev, ARCH, *ctx, served),
+                **compiled}
+    compiled["scratch_growth"] = _scratch_growth(torch, np, *ctx)
+    log(f"compiled decode (llama3.2-1b part) done in "
+        f"{time.perf_counter() - t0:.1f} s")
     by_path = {name: {"serve": launches.get(name, 0),
                       "train": sum(t["launches"][name]
                                    for t in train_out.values()),
@@ -2851,7 +3200,8 @@ def main() -> int:
     for line in ({"kernels": rows}, {"slice": slice_out},
                  {"train": train_out, "grad_check": grad_errs,
                   "grad_tolerance": GRAD_TOL}, {"sim2real": sim2real},
-                 {"tune_launch": tune_launch}, {"ssm_serve": ssm_serve}):
+                 {"tune_launch": tune_launch}, {"ssm_serve": ssm_serve},
+                 {"compiled_decode": compiled}):
         print(json.dumps(_strict_json(line), allow_nan=False, default=str),
               flush=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")

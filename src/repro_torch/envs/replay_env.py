@@ -38,6 +38,7 @@ ROADMAP queue 1, item 7.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections import OrderedDict
 from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
@@ -229,6 +230,9 @@ class ReplayServingEnv(PooledEnv):
         self._replay_seed = int(replay_seed)
         self.warmup = int(warmup)
         self.repeats = max(int(repeats), 1)
+        #: decode graphs captured inside measured replays (the captures
+        #: belong in the warm-up: a capture is set-up, not serving)
+        self.measured_captures = 0
         self._model_seed = int(model_seed)
         self.model, self.run, self.params = _built_model(
             self.model_cfg, model_seed, self.device, params)
@@ -318,8 +322,9 @@ class ReplayServingEnv(PooledEnv):
             paged=paged, on_too_long="reject")
         # warmup replays run every step shape this deployment needs (the
         # CUDA library's build on first use, cuBLAS's and the allocator's
-        # first calls) so the measured replay times execution, not set-up —
-        # the per-replay delta accounting of replay_trace makes reuse sound
+        # first calls, the decode graph's capture on the batcher's state) so
+        # the measured replay times execution, not set-up — the per-replay
+        # delta accounting of replay_trace makes reuse sound
         def one():
             return replay_trace(batcher, self.trace,
                                 admit_chunk=plan.admit_chunk,
@@ -332,10 +337,21 @@ class ReplayServingEnv(PooledEnv):
         # median-of-k on the objective metric, the WallClockBackend recipe
         # against wall-clock jitter; the whole median report is returned so
         # counters stay internally consistent
-        reports = sorted((one() for _ in range(self.repeats)),
-                         key=lambda r: (r.throughput_rps if self.maximize
-                                        else r.p99_latency_ms))
+        with self._counting_captures(batcher):
+            reports = sorted((one() for _ in range(self.repeats)),
+                             key=lambda r: (r.throughput_rps if self.maximize
+                                            else r.p99_latency_ms))
         return reports[len(reports) // 2]
+
+    @contextlib.contextmanager
+    def _counting_captures(self, batcher):
+        """Around measured replays: adds the decode graphs that
+        ``batcher``'s step captured inside to :attr:`measured_captures`."""
+        before = batcher._decode.captures
+        try:
+            yield
+        finally:
+            self.measured_captures += batcher._decode.captures - before
 
     def _measure(self, config: Dict[str, Any]
                  ) -> Tuple[Dict[str, float], float]:
@@ -364,13 +380,16 @@ class ReplayServingEnv(PooledEnv):
         """(counters, y) of one member measured on a warmed deployment."""
         from repro_torch.serving.replay import replay_trace
 
-        reports = sorted(
-            (replay_trace(batcher, self.trace, admit_chunk=plan.admit_chunk,
-                          ticks_per_s=self.ticks_per_s,
-                          seed=self._replay_seed, max_ticks=self.max_ticks)
-             for _ in range(self.repeats)),
-            key=lambda r: (r.throughput_rps if self.maximize
-                           else r.p99_latency_ms))
+        with self._counting_captures(batcher):
+            reports = sorted(
+                (replay_trace(batcher, self.trace,
+                              admit_chunk=plan.admit_chunk,
+                              ticks_per_s=self.ticks_per_s,
+                              seed=self._replay_seed,
+                              max_ticks=self.max_ticks)
+                 for _ in range(self.repeats)),
+                key=lambda r: (r.throughput_rps if self.maximize
+                               else r.p99_latency_ms))
         report = reports[len(reports) // 2]
         return (report.counters(self.slo_ms),
                 (report.throughput_rps if self.maximize
@@ -402,26 +421,30 @@ class ReplayServingEnv(PooledEnv):
         """Run every step shape this deployment's replays need once, eagerly
         and synchronized, without replaying: one prefill per distinct
         fitting prompt length plus one decode step (on first use this
-        builds the CUDA library and warms cuBLAS).  Direct calls — the
-        batcher's wall-time counters and scheduling state are untouched, so
-        the measured replays start clean.  The decode step writes its pad
-        rows into the fresh batcher's caches in place (the port's steps
-        update caches in place): at length 0, into slot rows that seating a
-        request overwrites whole, or a paged deployment's scratch page; the
-        returned state is dropped.  Recorded in a bounded LRU so repeat
-        deployments skip even the warm execution."""
+        builds the CUDA library and warms cuBLAS; on the card the decode
+        step captures its graph on this batcher's state).  Direct calls —
+        the batcher's wall-time counters and scheduling state are
+        untouched, so the measured replays start clean.  The decode step
+        writes its pad rows into the fresh batcher's caches in place and
+        advances every slot's length by one: rows and lengths that seating
+        a request overwrites whole, or a paged deployment's scratch page.
+        The prefills are recorded in a bounded LRU so repeat deployments
+        skip them; the decode step runs on every fresh batcher, whose state
+        a graph has not seen."""
         import torch
 
         wkey = (self._model_seed, self.model_cfg, self.device,
                 batcher.num_slots, batcher.cache_len, batcher.paged, frozen)
+        lens = []
         if wkey in _WARMED_DEPLOYMENTS:
             obs_trace.instant("warmup_cached", cat="env",
                               track=obs_trace.TRACK_ENV,
                               num_slots=batcher.num_slots,
                               cache_len=batcher.cache_len)
-            return
-        lens = sorted({r.prompt_len for r in self.trace.requests
-                       if r.prompt_len + r.output_len <= batcher.cache_len})
+        else:
+            lens = sorted({r.prompt_len for r in self.trace.requests
+                           if r.prompt_len + r.output_len
+                           <= batcher.cache_len})
         with obs_trace.span("warmup", cat="env", track=obs_trace.TRACK_ENV,
                             num_slots=batcher.num_slots,
                             cache_len=batcher.cache_len,
@@ -488,9 +511,11 @@ class ReplayServingEnv(PooledEnv):
                             results[i] = (self._infeasible_counters(), bad)
                             member_span.set(stalled=True)
                             # a stalled replay leaves residents behind —
-                            # rebuild (cheap: the steps are cached)
+                            # rebuild (cheap: the steps are cached) and
+                            # warm its decode step
                             batcher = self._fresh_batcher(
                                 num_slots, cache_len, paged, frozen)
+                            self._warm_deployment(batcher, frozen)
 
         for cfg, res in zip(configs, results):
             self._remember(cfg, res[0], res[1])

@@ -12,10 +12,18 @@ Each kernel wrapper checks its tensors, calls the C entry point on
 PyTorch's current stream, raises if the entry point reports a CUDA error
 (a refused launch never runs, and a later synchronize would not say so),
 and adds one to its count in :data:`LAUNCHES`.
+
+A CUDA graph capture (:func:`capture_scope`) records the kernels without
+running them: the counts its wrappers add are taken back out and kept as
+the graph's delta, which each replay adds again (:func:`add_launches`), so
+:data:`LAUNCHES` counts launches on the card either way.  The scope also
+keeps the scratch tensors handed out while it records, so a later growth
+of the scratch cannot free memory that a captured graph writes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,7 +31,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -97,6 +106,52 @@ _sm_counts: Dict[torch.device, int] = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def add_launches(delta: Dict[str, int]) -> None:
+    """Count the launches of a replayed graph: ``delta`` is what its
+    capture recorded (:attr:`Capture.launches`)."""
+    for name, n in delta.items():
+        LAUNCHES[name] += n
+
+
+@dataclass
+class Capture:
+    """What one graph capture recorded: the launches each replay makes, by
+    kernel, and the scratch tensors its kernels write (kept alive here)."""
+    launches: Dict[str, int] = field(default_factory=dict)
+    scratch: List[torch.Tensor] = field(default_factory=list)
+
+
+#: the captures recording now (scratch handed out is kept by each)
+_recording: List[Capture] = []
+
+
+@contextlib.contextmanager
+def capture_scope() -> Iterator[Capture]:
+    """Around a CUDA graph capture: on exit the counts that the wrappers
+    added inside are moved from :data:`LAUNCHES` into the yielded
+    :class:`Capture` (a capture launches nothing), and every scratch tensor
+    handed out inside is kept by it."""
+    rec = Capture()
+    before = dict(LAUNCHES)
+    with _lock:
+        _recording.append(rec)
+    try:
+        yield rec
+    finally:
+        with _lock:
+            _recording.remove(rec)
+        rec.launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                        if LAUNCHES[k] != before[k]}
+        LAUNCHES.update(before)
+
+
+def _keep(*tensors: torch.Tensor) -> None:
+    """Hand ``tensors`` to every capture recording now (call under
+    ``_lock``)."""
+    for rec in _recording:
+        rec.scratch.extend(tensors)
 
 
 def sources() -> List[Path]:
@@ -256,7 +311,9 @@ def decode_scratch(device: torch.device, partial_floats: int,
     """The split decode's scratch on ``device``, at least the sizes asked
     for: allocated once and grown only when a larger call comes, so a decode
     step allocates nothing.  Kernels on one stream share it in stream
-    order; the decode kernels are not launched on two streams at once."""
+    order; the decode kernels are not launched on two streams at once.  A
+    graph that captured a launch keeps the tensors it was given
+    (:func:`capture_scope`), so growing them here does not free them."""
     with _lock:
         part, cnt = _decode_scratch.get(device, (None, None))
         if part is None or part.numel() < partial_floats:
@@ -266,6 +323,7 @@ def decode_scratch(device: torch.device, partial_floats: int,
             cnt = torch.zeros(max(counters, 1), dtype=torch.int32,
                               device=device)
         _decode_scratch[device] = (part, cnt)
+        _keep(part, cnt)
         return part, cnt
 
 
@@ -287,14 +345,20 @@ def ssd_scratch(device: torch.device, state_floats: int, flags: int
         if tk is None:
             tk = torch.zeros(1, dtype=torch.int32, device=device)
         _ssd_scratch[device] = (st, fl, tk)
+        _keep(st, fl, tk)
         return st, fl, tk
 
 
 def next_epoch(device: torch.device) -> int:
     """A flag value no earlier launch on ``device`` used (1, 2, ...; it
     wraps past 2**31 - 1 back to 1, never to 0, the value of a fresh
-    flag)."""
+    flag).  The epoch is host data: a graph capture would freeze it, so a
+    capture that reaches here raises."""
     with _lock:
+        if _recording:
+            raise RuntimeError(
+                "the tensor-core SSD takes a host-side epoch per launch, "
+                "which a CUDA graph would freeze; it cannot be captured")
         e = _epochs.get(device, 0) % (2 ** 31 - 1) + 1
         _epochs[device] = e
         return e

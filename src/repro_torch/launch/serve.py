@@ -62,6 +62,8 @@ class FixedBatchResult:
     prefill_s: float              # host wall time of the prefill step
     decode_s: List[float]         # host wall time of each decode step
     logits: List[torch.Tensor] = field(default_factory=list)  # kept steps
+    captures: int = 0             # decode graphs captured in this run
+    capture_s: float = 0.0        # and their capture time
 
 
 def serve_fixed_batch(model, run: RunConfig, params, prompt: torch.Tensor, *,
@@ -71,12 +73,15 @@ def serve_fixed_batch(model, run: RunConfig, params, prompt: torch.Tensor, *,
                       ) -> FixedBatchResult:
     """Prefill ``prompt`` (B, S), then decode ``gen - 1`` steps, the steps
     built with ``launch_config`` (a tuned ``family.param`` config).  Each
-    step is timed on the host around a device synchronize.  The
+    step is timed on the host around a device synchronize; on the card
+    the first decode step captures the step's graph and the others replay
+    it (the callers leave the first out of their percentiles).  The
     last-position logits of prefill and of the first ``keep_logits - 1``
     decode steps are kept (on the host) for comparison."""
     cache_len = prompt.shape[1] + gen
     prefill, decode = jitted_steps(model, run, cache_len=cache_len,
                                    launch_config=launch_config)
+    graphs = (decode.captures, decode.capture_s)
     gen_rng = torch.Generator(device=prompt.device).manual_seed(1)
     kept: List[torch.Tensor] = []
     # repro: ignore[wall-clock] -- serve-CLI step latency, as the reference's serve CLI reports it
@@ -102,7 +107,9 @@ def serve_fixed_batch(model, run: RunConfig, params, prompt: torch.Tensor, *,
         tok = sample_token(logits, gen_rng, temperature)
         outs.append(tok)
     tokens = torch.stack(outs, dim=1).cpu().numpy()
-    return FixedBatchResult(tokens, prefill_s, lats, kept)
+    return FixedBatchResult(tokens, prefill_s, lats, kept,
+                            decode.captures - graphs[0],
+                            decode.capture_s - graphs[1])
 
 
 def serve_workload(model, run, params, workload_spec: str, *,
@@ -144,6 +151,7 @@ def serve_workload(model, run, params, workload_spec: str, *,
                                 launch_config=launch_config)
     report = replay_trace(batcher, trace, admit_chunk=plan.admit_chunk,
                           ticks_per_s=ticks_per_s, seed=seed)
+    print(graphs_line(batcher._decode.captures, batcher._decode.capture_s))
     print(f"[serve] replay: {report.completed} completed "
           f"({report.rejected} rejected), {report.ticks} ticks, "
           f"{report.tokens} tokens in {report.wall_s:.2f}s wall, "
@@ -173,6 +181,11 @@ def serve_workload(model, run, params, workload_spec: str, *,
                   f"{report.mean_occupancy:.2f}, queue depth "
                   f"{report.queue_depth_mean:.2f}")
     return plan, launch_config, report
+
+
+def graphs_line(captures: int, capture_s: float) -> str:
+    return (f"[serve] decode graphs: {captures} captured in "
+            f"{capture_s * 1000:.1f} ms")
 
 
 def make_prompt(cfg, shape: ShapeConfig, batch: int, prompt_len: int,
@@ -260,6 +273,7 @@ def _run(args) -> int:
     res = serve_fixed_batch(model, run, params, prompt, gen=args.gen,
                             temperature=args.temperature,
                             launch_config=launch_config)
+    print(graphs_line(res.captures, res.capture_s))
     print(f"[serve] prefill {args.batch}x{args.prompt_len}: "
           f"{res.prefill_s * 1000:.1f} ms")
     if len(res.decode_s) > 1:

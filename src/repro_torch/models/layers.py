@@ -14,6 +14,7 @@ axes (the stacked layer axis) to a parameter's shape.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -117,13 +118,18 @@ def init_embed(gen, vocab: int, d_model: int, dtype, device,
     return p
 
 
+@functools.lru_cache(maxsize=None)
+def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
+    """sqrt(d_model) rounded to ``dtype`` first, as in the reference (in
+    bf16 sqrt(2048) is 45.25, not 45.2548...), as a Python float computed
+    once on the host: a step captured in a CUDA graph may not copy host
+    data to the device."""
+    return torch.tensor(math.sqrt(d_model), dtype=dtype).item()
+
+
 def embed_tokens(p: Dict, tokens: torch.Tensor, d_model: int) -> torch.Tensor:
     emb = p["embedding"]
-    # the scale is rounded to the embedding's dtype first, as in the
-    # reference: in bf16 sqrt(2048) is 45.25, not 45.2548...
-    scale = torch.tensor(math.sqrt(d_model), dtype=emb.dtype,
-                         device=emb.device)
-    return F.embedding(tokens, emb) * scale
+    return F.embedding(tokens, emb) * _embed_scale(d_model, emb.dtype)
 
 
 def lm_logits(p: Dict, h: torch.Tensor) -> torch.Tensor:

@@ -22,9 +22,10 @@ a :class:`~repro_torch.models.ssm.MambaState` for a Mamba-1 layer,
 "shared_kv": KV cache}`` for the hybrid's shared-attention layer, every
 leaf stacked over the super-blocks.  A forward with a cache updates those
 stacked tensors in place and returns a tree over the same tensors: the KV
-rows are written where they lie (only the lengths are new tensors), and
-the recurrent states a layer returns are written back into the stacked
-storage (:func:`_restack`).
+rows are written where they lie, and the new lengths and the recurrent
+states a layer returns are written back into the stacked storage
+(:func:`_restack`), so a step captured in a CUDA graph keeps writing where
+the caller's state lies.
 """
 
 from __future__ import annotations
@@ -173,9 +174,9 @@ def _layer(cache, i: int):
 
 def _restack(cache, layers: List) -> Any:
     """The stacked state after a forward, over the same tensors.  KV rows
-    (pools, tables) were written in place through the per-layer views, so
-    only the lengths are new; the recurrent states the layers returned are
-    stacked into the state's own storage."""
+    (pools, tables) were written in place through the per-layer views; the
+    layers' new lengths and recurrent states are stacked into the state's
+    own storage."""
     if isinstance(cache, dict):
         return {k: _restack(v, [c[k] for c in layers])
                 for k, v in cache.items()}
@@ -183,7 +184,8 @@ def _restack(cache, layers: List) -> Any:
         for stacked, new in zip(cache, zip(*layers)):
             torch.stack(new, out=stacked)
         return cache
-    return cache._replace(length=torch.stack([c.length for c in layers]))
+    torch.stack([c.length for c in layers], out=cache.length)
+    return cache
 
 
 # --------------------------------------------------------------------------

@@ -3,24 +3,49 @@
 
 ``make_prefill_step`` runs the whole prompt, filling the KV caches and
 computing the recurrent (SSM) states, and returns the last-position
-logits; ``make_decode_step`` advances one token per slot.  Both run their body under an *exclusive*
-``dispatch.use_launch_config`` so a step is a pure function of its
-``launch_config``.  :func:`jitted_steps` keeps its name and its cache key
-``(model, run, cache_len, frozen launch config)``; it caches the eager
-step closures (PyTorch runs eagerly; CUDA graphs are later work).
+logits; ``make_decode_step`` advances one token per slot.  Both run their
+body under an *exclusive* ``dispatch.use_launch_config`` so a step is a
+pure function of its ``launch_config``.  They run eagerly.
 
-Unlike the reference's functional steps, a step updates the caches of the
-state it is given in place and returns a state over the same tensors.
+:func:`jitted_steps` keeps its name and its cache key ``(model, run,
+cache_len, frozen launch config)``.  Its prefill is the eager step (one
+shape per prompt length; the tensor-core SSD's host-side epoch cannot be
+captured).  Its decode is :class:`CapturedDecode`, the counterpart of the
+reference's ``jax.jit``: on CUDA inputs it captures the eager step in a
+CUDA graph at the first call with an input signature
+(:func:`step_signature`: the tokens' shape, the trees' structure, shapes,
+dtypes, strides and data pointers, the device and the dispatch mode) and
+replays that graph afterwards.  The first call runs the eager step on the
+live state — its result is the call's result and its run is the capture's
+warm-up — and then records the step without running it, so the state
+moves by exactly one token.  Later calls copy the tokens into the graph's
+own buffer and replay.  The logits come back in the graph's static output,
+overwritten by the next replay: the batcher and :func:`generate` consume
+them (sample, copy to the host) before their next step.  Dispatch
+resolutions, ``DispatchProfile`` entries and obs spans inside the step are
+recorded when it is captured, as the reference records them at trace time,
+and not again at a replay; the kernels' launch counts are added at every
+replay (:func:`repro_torch.kernels.cuda_lib.capture_scope`).  A capture or
+replay that fails raises: there is no eager fallback and no switch.  On
+the CPU the decode is the eager step.
+
+Unlike the reference's functional steps, a step updates the state it is
+given in place — KV rows, page tables, lengths and recurrent states — and
+returns a state over the same tensors; the step that :func:`jitted_steps`
+returns checks that (:func:`check_in_place`: a graph keeps writing where
+its capture wrote) and returns the input state itself.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+import time
+from collections import OrderedDict
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import cuda_lib, dispatch
 from repro_torch.models.model import Model
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -80,10 +105,170 @@ def make_decode_step(model: Model, run: RunConfig,
             logits, new_caches, _ = model.forward(
                 params, tokens, positions=positions,
                 decode_state=state.caches, decode=True)
-            new_state = ServeState(new_caches, state.lengths + 1, state.extras)
+            state.lengths.add_(1)
+            new_state = ServeState(new_caches, state.lengths, state.extras)
             return new_state, logits[:, -1]
 
     return decode_step
+
+
+# --------------------------------------------------------------------------
+# the captured decode step
+# --------------------------------------------------------------------------
+
+#: graphs kept by one cached decode step, least recently used evicted
+MAX_GRAPHS = 4
+
+
+def _describe(node: Any, out: List) -> None:
+    if isinstance(node, torch.Tensor):
+        out.append((tuple(node.shape), node.dtype, node.stride(),
+                    node.data_ptr(), node.device))
+    elif isinstance(node, dict):
+        keys = sorted(node)
+        out.append(("dict", tuple(keys)))
+        for k in keys:
+            _describe(node[k], out)
+    elif isinstance(node, tuple):
+        out.append((type(node).__name__, len(node)))
+        for x in node:
+            _describe(x, out)
+    elif node is None:
+        out.append(None)
+    else:
+        raise TypeError(f"unexpected node in a step's inputs: "
+                        f"{type(node).__name__}")
+
+
+def step_signature(params, state: ServeState, tokens: torch.Tensor) -> Tuple:
+    """What a captured decode graph is valid for, as ``jax.jit`` retraces
+    per input signature: the tokens' shape, dtype and device (their values
+    are copied in), every leaf of ``params`` and ``state`` by structure,
+    shape, dtype, strides, data pointer and device (the graph reads and
+    writes those addresses), and the dispatch mode in force."""
+    out: List = [("tokens", tuple(tokens.shape), tokens.dtype, tokens.device),
+                 ("mode", dispatch.default_mode(tokens.device))]
+    _describe(params, out)
+    _describe(state, out)
+    return tuple(out)
+
+
+def check_in_place(state: Any, new_state: Any, path: str = "state") -> None:
+    """Raise unless every tensor leaf of ``new_state`` (what a step
+    returned) is ``state``'s own tensor.  A graph's replays write where its
+    capture wrote: a leaf that the step returned as a new tensor would live
+    in the graph's pool and never reach the caller's state."""
+    if isinstance(state, torch.Tensor):
+        if new_state is not state:
+            raise ValueError(f"the decode step returned {path} as a new "
+                             f"tensor; it must update the state in place")
+    elif isinstance(state, dict):
+        if state.keys() != new_state.keys():
+            raise ValueError(f"{path}: keys {sorted(new_state)} != "
+                             f"{sorted(state)}")
+        for k in state:
+            check_in_place(state[k], new_state[k], f"{path}.{k}")
+    elif isinstance(state, tuple):
+        if type(new_state) is not type(state) or len(new_state) != len(state):
+            raise ValueError(f"{path}: {type(new_state).__name__} does not "
+                             f"match {type(state).__name__}")
+        names = getattr(state, "_fields", None) or range(len(state))
+        for name, a, b in zip(names, state, new_state):
+            check_in_place(a, b, f"{path}.{name}")
+    elif state is not None or new_state is not None:
+        raise TypeError(f"{path}: unexpected node {type(state).__name__}")
+
+
+class _Graph(NamedTuple):
+    graph: Any                    # torch.cuda.CUDAGraph
+    tokens: torch.Tensor          # the static token buffer
+    logits: torch.Tensor          # the static output
+    capture: cuda_lib.Capture     # launches per replay, scratch kept alive
+    pool_bytes: int               # device memory its capture reserved
+    capture_s: float
+
+
+_capture_streams: Dict[torch.device, Any] = {}
+
+
+def _capture_stream(device: torch.device):
+    """One side stream per device for the first calls and their captures
+    (the ``torch.cuda.graphs`` recipe warms up on the capture stream)."""
+    s = _capture_streams.get(device)
+    if s is None:
+        s = _capture_streams[device] = torch.cuda.Stream(device)
+    return s
+
+
+class CapturedDecode:
+    """The decode step of :func:`jitted_steps` (see the module docstring):
+    ``decode(params, state, tokens (B, 1)) -> (state, logits (B, V))`` with
+    ``state`` the input state, updated in place.  :attr:`graphs` maps each
+    input signature to its graph, at most :data:`MAX_GRAPHS` of them;
+    each graph has its own memory pool, released when it is evicted.  It
+    counts its captures, their wall time (capture and instantiation, not
+    the eager warm-up) and its replays."""
+
+    def __init__(self, eager: Callable):
+        self.eager = eager
+        self.graphs: "OrderedDict[Tuple, _Graph]" = OrderedDict()
+        self.captures = 0
+        self.capture_s = 0.0
+        self.replays = 0
+
+    def __call__(self, params, state: ServeState, tokens: torch.Tensor
+                 ) -> Tuple[ServeState, torch.Tensor]:
+        if tokens.device.type != "cuda":
+            new_state, logits = self.eager(params, state, tokens)
+            check_in_place(state, new_state)
+            return state, logits
+        sig = step_signature(params, state, tokens)
+        g = self.graphs.get(sig)
+        if g is None:
+            return self._first_call(sig, params, state, tokens)
+        self.graphs.move_to_end(sig)
+        g.tokens.copy_(tokens)
+        g.graph.replay()
+        cuda_lib.add_launches(g.capture.launches)
+        self.replays += 1
+        return state, g.logits
+
+    def _first_call(self, sig: Tuple, params, state: ServeState,
+                    tokens: torch.Tensor) -> Tuple[ServeState, torch.Tensor]:
+        dev = tokens.device
+        stream = _capture_stream(dev)
+        current = torch.cuda.current_stream(dev)
+        static_tokens = torch.empty_like(
+            tokens, memory_format=torch.contiguous_format)
+        static_tokens.copy_(tokens)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            # this call's step, on the live state: the capture's warm-up
+            new_state, logits = self.eager(params, state, tokens)
+        current.wait_stream(stream)
+        check_in_place(state, new_state)
+        graph = torch.cuda.CUDAGraph()
+        # repro: ignore[wall-clock] -- capture time, reported beside the step times
+        t0 = time.perf_counter()
+        with obs_trace.span("decode_graph_capture", cat="jit_cache",
+                            track=obs_trace.TRACK_KERNEL,
+                            graphs=len(self.graphs)), \
+                cuda_lib.capture_scope() as rec:
+            with torch.cuda.graph(graph, stream=stream):
+                reserved = torch.cuda.memory_reserved(dev)
+                cap_state, cap_logits = self.eager(params, state,
+                                                   static_tokens)
+            pool = torch.cuda.memory_reserved(dev) - reserved
+        check_in_place(state, cap_state)
+        # repro: ignore[wall-clock] -- capture time, reported beside the step times
+        dt = time.perf_counter() - t0
+        self.captures += 1
+        self.capture_s += dt
+        self.graphs[sig] = _Graph(graph, static_tokens, cap_logits, rec,
+                                  pool, dt)
+        while len(self.graphs) > MAX_GRAPHS:
+            self.graphs.popitem(last=False)
+        return state, logits
 
 
 # --------------------------------------------------------------------------
@@ -97,7 +282,8 @@ def _jitted_steps_cached(model: Model, run: RunConfig,
     launch_config = {f: dict(p) for f, p in frozen_launch}
     return (make_prefill_step(model, run, cache_len=cache_len,
                               launch_config=launch_config),
-            make_decode_step(model, run, launch_config=launch_config))
+            CapturedDecode(make_decode_step(model, run,
+                                            launch_config=launch_config)))
 
 
 def jitted_steps(model: Model, run: RunConfig,
@@ -106,7 +292,7 @@ def jitted_steps(model: Model, run: RunConfig,
                  ) -> Tuple[Callable, Callable]:
     """Cached ``(prefill, decode)`` step pair for this serving setup, keyed
     as in the reference on (model, run, cache_len, canonical launch
-    config); LRU-bounded."""
+    config); LRU-bounded.  The decode is a :class:`CapturedDecode`."""
     if not obs_trace.enabled():
         return _jitted_steps_cached(model, run, cache_len,
                                     freeze_launch_config(launch_config))

@@ -10,17 +10,24 @@ import torch
 
 def tree_map(fn: Callable, tree, *rest):
     """``fn`` over the leaves of ``tree`` (and the matching leaves of
-    ``rest``, trees of the same structure)."""
+    ``rest``, trees of the same structure).  Named tuples keep their type;
+    ``None`` is an empty subtree, as in ``jax.tree.map``."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        out = [tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else \
+            type(tree)(out)
     return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> List[Any]:
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
     if isinstance(tree, (list, tuple)):

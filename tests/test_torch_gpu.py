@@ -23,6 +23,7 @@ from repro_torch.kernels.mamba_scan import ref as tsr
 from repro_torch.kernels.rmsnorm import ref as trr
 from repro_torch.kernels.ssd import kernel as tdk
 from repro_torch.kernels.ssd import ref as tdr
+from repro_torch.utils.trees import tree_leaves, tree_map
 
 FP32 = dict(atol=2e-5, rtol=1e-4)
 
@@ -338,3 +339,192 @@ def test_final_state_scan_and_ssd_match_plain_versions(sm90, dtype, l):
                              return_state=True)
         _cmp(y, ry, dtype)
         _cmp(s, rs, dtype)
+
+
+# --------------------------------------------------------------------------
+# the captured decode step (jitted_steps' decode in a CUDA graph)
+# --------------------------------------------------------------------------
+
+GRAPH_ARCHS = ("llama3.2-1b", "falcon-mamba-7b", "zamba2-2.7b")
+
+
+def _smoke_served(dev, arch, batch=4, cache_len=32):
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.config import RunConfig, ShapeConfig
+
+    cfg = get_smoke_config(arch)
+    run = RunConfig(model=cfg, shape=ShapeConfig("s", cache_len, batch,
+                                                 "decode"))
+    model = build_model(cfg, device=dev)
+    return model, run, model.init(0)
+
+
+def _served_state(model, run, params, geometry, batch=4, prompt=6,
+                  cache_len=32):
+    """The prefilled decode state of ``batch`` seeded prompts: dense, or
+    its rows copied into a paged state (4 pages of 8 rows a slot)."""
+    from repro_torch.train.serve_step import make_prefill_step
+    from test_torch_graph_safe import paged_state
+
+    g = torch.Generator(device=model.device).manual_seed(3)
+    toks = torch.randint(0, model.cfg.vocab_size, (batch, prompt),
+                         generator=g, device=model.device, dtype=torch.int32)
+    state, logits = make_prefill_step(model, run, cache_len=cache_len)(
+        params, {"tokens": toks})
+    if geometry == "dense":
+        return state, logits
+    return paged_state(model, state, cache_len // 4, 4), logits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geometry", ["dense", "paged"])
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_captured_decode_matches_eager(sm90, arch, geometry):
+    """Teacher-forced steps of the captured step and of the eager step on
+    two copies of one state: the same logits and states, bit for bit (the
+    same kernels with the same launches), one capture, then replays."""
+    from repro_torch.train.serve_step import CapturedDecode, make_decode_step
+
+    model, run, params = _smoke_served(sm90, arch)
+    eager = make_decode_step(model, run)
+    captured = CapturedDecode(make_decode_step(model, run))
+    state, logits = _served_state(model, run, params, geometry)
+    ref = tree_map(torch.clone, state)
+    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    for _ in range(5):
+        out, lg = captured(params, state, tok)
+        ref, ref_lg = eager(params, ref, tok)
+        assert out is state
+        assert torch.equal(lg, ref_lg)
+        tok = ref_lg.argmax(-1, keepdim=True).to(torch.int32)
+    assert (captured.captures, captured.replays) == (1, 4)
+    assert len(captured.graphs) == 1
+    for got, want in zip(tree_leaves(state), tree_leaves(ref)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_first_captured_call_advances_the_state_by_one_token(sm90, arch):
+    from repro_torch.train.serve_step import CapturedDecode, make_decode_step
+
+    model, run, params = _smoke_served(sm90, arch)
+    captured = CapturedDecode(make_decode_step(model, run))
+    state, logits = _served_state(model, run, params, "dense")
+    before = tree_map(torch.clone, state)
+    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    captured(params, state, tok)
+    assert torch.equal(state.lengths, before.lengths + 1)
+    for new, old in zip(tree_leaves(state.caches),
+                        tree_leaves(before.caches)):
+        if new.dtype == torch.int32 and new.ndim == 2:   # stacked lengths
+            assert torch.equal(new, old + 1)
+        elif new.ndim == 5 and new.shape[2] == 32:       # dense K / V rows
+            pos = int(before.lengths[0])
+            assert not torch.equal(new[:, :, pos], old[:, :, pos])
+            assert torch.equal(new[:, :, pos + 1:], old[:, :, pos + 1:])
+            assert torch.equal(new[:, :, :pos], old[:, :, :pos])
+
+
+@pytest.mark.gpu
+def test_captured_graph_survives_scratch_growth(sm90):
+    """A 4-slot graph keeps the split decode's scratch it captured: a
+    32-slot eager decode grows the scratch (the old tensors would be
+    freed), fresh tensors take the freed memory, and the replays still
+    give the eager step's logits."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.train.serve_step import CapturedDecode, make_decode_step
+
+    model, run, params = _smoke_served(sm90, "llama3.2-1b")
+    eager = make_decode_step(model, run)
+    cuda_lib._decode_scratch.clear()  # the capture takes a fresh scratch
+    captured = CapturedDecode(make_decode_step(model, run))
+    state, logits = _served_state(model, run, params, "dense")
+    ref = tree_map(torch.clone, state)
+    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    captured(params, state, tok)
+    eager(params, ref, tok)
+    small = cuda_lib._decode_scratch[state.lengths.device][0]
+    big_state, big_logits = _served_state(model, run, params, "dense",
+                                          batch=32, cache_len=512)
+    eager(params, big_state, big_logits.argmax(-1, keepdim=True).int())
+    grown = cuda_lib._decode_scratch[state.lengths.device][0]
+    assert grown.numel() > small.numel()
+    graph = next(iter(captured.graphs.values()))
+    assert any(t is small for t in graph.capture.scratch)
+    del small
+    junk = [torch.full((1 << 20,), float("nan"), device=sm90)
+            for _ in range(8)]
+    for _ in range(3):
+        _, lg = captured(params, state, tok)
+        _, ref_lg = eager(params, ref, tok)
+        assert torch.equal(lg, ref_lg)
+    del junk
+
+
+@pytest.mark.gpu
+def test_launch_counters_count_replays(sm90):
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.train.serve_step import CapturedDecode, make_decode_step
+
+    model, run, params = _smoke_served(sm90, "zamba2-2.7b")
+    eager = make_decode_step(model, run)
+    captured = CapturedDecode(make_decode_step(model, run))
+    state, logits = _served_state(model, run, params, "dense")
+    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    cuda_lib.reset_launches()
+    eager(params, tree_map(torch.clone, state), tok)
+    per_step = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    assert per_step.get("rmsnorm") and per_step.get("decode_attention")
+    cuda_lib.reset_launches()
+    captured(params, state, tok)  # the eager run counts, the capture not
+    assert {k: v for k, v in cuda_lib.LAUNCHES.items() if v} == per_step
+    cuda_lib.reset_launches()
+    n = 6
+    for _ in range(n):
+        captured(params, state, tok)
+    assert {k: v for k, v in cuda_lib.LAUNCHES.items() if v} == {
+        k: n * v for k, v in per_step.items()}
+
+
+@pytest.mark.gpu
+def test_a_failed_capture_raises_and_does_not_fall_back(sm90):
+    from repro_torch.train.serve_step import CapturedDecode, ServeState
+
+    def host_read(params, state, tokens):
+        state.lengths.add_(int(tokens.sum()))  # .item(): refused in capture
+        return state, tokens.float()
+
+    state = ServeState({}, torch.zeros(4, dtype=torch.int32, device=sm90),
+                       {})
+    step = CapturedDecode(host_read)
+    tok = torch.ones((4, 1), dtype=torch.int32, device=sm90)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            step(None, state, tok)
+        torch.cuda.synchronize()
+    assert step.graphs == {} and step.captures == 0
+
+
+@pytest.mark.gpu
+def test_graphs_are_kept_per_signature_and_evicted_least_recent_first(
+        sm90, monkeypatch):
+    """Three states, two graphs kept: the third capture evicts the least
+    recently used one, and a call on its state captures again."""
+    from repro_torch.train import serve_step
+    from repro_torch.train.serve_step import CapturedDecode, make_decode_step
+
+    monkeypatch.setattr(serve_step, "MAX_GRAPHS", 2)
+    model, run, params = _smoke_served(sm90, "llama3.2-1b")
+    eager = make_decode_step(model, run)
+    captured = CapturedDecode(make_decode_step(model, run))
+    served = [_served_state(model, run, params, "dense") for _ in range(3)]
+    refs = [tree_map(torch.clone, state) for state, _ in served]
+    toks = [lg.argmax(-1, keepdim=True).to(torch.int32) for _, lg in served]
+    for i in (0, 1, 0, 2, 0, 1):  # 2 evicts 1 (0 was used after it)
+        _, lg = captured(params, served[i][0], toks[i])
+        _, ref_lg = eager(params, refs[i], toks[i])
+        assert torch.equal(lg, ref_lg)
+    assert captured.captures == 4  # 0, 1, 2, then 1 again
+    assert len(captured.graphs) == 2

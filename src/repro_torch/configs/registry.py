@@ -1,7 +1,8 @@
 """Architecture registry — the slice of :mod:`repro.configs.registry` the
-port runs so far: ``llama3.2-1b`` (served), ``falcon-mamba-7b`` and
-``zamba2-2.7b`` (trained).  The other seven configs, the shape cells and
-the dry-run input specs come in later slices.
+port runs so far: the reference's eight decoder-only archs (dense, moe,
+ssm, hybrid), in the reference's order.  ``llama-3.2-vision-11b`` (vlm)
+and ``whisper-large-v3`` (audio), the shape cells and the dry-run input
+specs come in later slices.
 """
 
 from __future__ import annotations
@@ -14,7 +15,12 @@ from repro_torch.utils.config import ModelConfig, ParallelConfig
 _ARCH_MODULES: Dict[str, str] = {
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
     "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
+    "nemotron-4-15b": "repro_torch.configs.nemotron_4_15b",
     "llama3.2-1b": "repro_torch.configs.llama3p2_1b",
+    "command-r-35b": "repro_torch.configs.command_r_35b",
+    "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1p8b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick_400b",
 }
 
 

@@ -55,6 +55,11 @@ LAUNCHES: Dict[str, int] = {
     "selective_scan": 0,
     "ssd": 0,
 }
+#: prefill launches since the last :func:`reset_launches` by kernel
+#: instance, ``(q/k head dim, v head dim, windowed)`` (windowed: the
+#: window is shorter than the keys, so it hides some): added beside
+#: ``LAUNCHES["flash_attention"]`` (prefill is never captured in a graph)
+PREFILL_INSTANCES: Dict[Tuple[int, int, bool], int] = {}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -106,6 +111,7 @@ _sm_counts: Dict[torch.device, int] = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    PREFILL_INSTANCES.clear()
 
 
 def add_launches(delta: Dict[str, int]) -> None:

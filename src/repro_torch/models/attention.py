@@ -1,6 +1,7 @@
 """Grouped-query attention with dense, ring (sliding-window) and paged KV
-caches — the GQA part of :mod:`repro.models.attention` (MLA and
-cross-attention come in a later slice).
+caches, and DeepSeek's multi-head latent attention (MLA) with its
+compressed cache — the GQA and MLA parts of :mod:`repro.models.attention`
+(cross-attention comes in a later slice).
 
 The attention contraction dispatches to :mod:`repro_torch.kernels.ops`
 (the CUDA kernels on the GPU, the plain versions on the CPU).
@@ -16,8 +17,9 @@ never faults on an out-of-range index and PyTorch does (a device-side
 assert on the GPU).  An empty batcher slot keeps decoding pad tokens and
 its length grows every tick, so both cases occur in normal serving:
 
-- dense decode writes through a one-hot (``_scatter_time``), so a write at
-  an index >= the cache length writes nothing: the port masks the write;
+- dense decode (GQA and MLA) writes through a one-hot (``_scatter_time``),
+  so a write at an index >= the cache length writes nothing: the port
+  masks the write;
 - paged decode gathers ``page_table[b, length // page_size]``, and JAX
   clamps an out-of-range gather index: the port clamps the column, which
   lands on a parked slot's scratch page.
@@ -38,6 +40,13 @@ class KVCache(NamedTuple):
     """Append cache. k/v: (B, S_max, H_kv, D); length: (B,) int32."""
     k: torch.Tensor
     v: torch.Tensor
+    length: torch.Tensor
+
+
+class MLACache(NamedTuple):
+    """DeepSeek MLA compressed cache: latent c_kv + rope key."""
+    c_kv: torch.Tensor  # (B, S_max, kv_lora_rank)
+    k_pe: torch.Tensor  # (B, S_max, qk_rope_head_dim)
     length: torch.Tensor
 
 
@@ -164,15 +173,16 @@ def apply_gqa(
 
 def _scatter_time_(cache: torch.Tensor, new: torch.Tensor,
                    idx: torch.Tensor) -> None:
-    """In place: write ``new`` (B, 1, H, D) at per-slot time ``idx`` (B,).
-    An index past the cache writes nothing, as the reference's one-hot
-    write does; the row at the clamped index is rewritten with itself."""
+    """In place: write ``new`` (B, 1, ...) at per-slot time ``idx`` (B,)
+    of ``cache`` (B, S, ...).  An index past the cache writes nothing, as
+    the reference's one-hot write does; the row at the clamped index is
+    rewritten with itself."""
     size = cache.shape[1]
     rows = torch.arange(cache.shape[0], device=cache.device)
     col = torch.clamp(idx, max=size - 1).long()
     keep = cache[rows, col]
-    cache[rows, col] = torch.where((idx < size)[:, None, None], new[:, 0],
-                                   keep)
+    inside = (idx < size).view((-1,) + (1,) * (keep.ndim - 1))
+    cache[rows, col] = torch.where(inside, new[:, 0], keep)
 
 
 def init_paged_kv_cache(cfg: ModelConfig, batch: int, pool_pages: int,
@@ -207,5 +217,107 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
+        length=torch.zeros(lead + (batch,), dtype=torch.int32, device=device),
+    )
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention)
+# --------------------------------------------------------------------------
+
+def init_mla(gen, cfg: ModelConfig, dtype, device,
+             lead: Tuple[int, ...] = ()) -> Dict:
+    qk_dim = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    h = cfg.num_heads
+    return {
+        "w_dq": dense_init(gen, cfg.d_model, cfg.q_lora_rank, dtype, device,
+                           lead=lead),
+        "w_uq": dense_init(gen, cfg.q_lora_rank, h * qk_dim, dtype, device,
+                           lead=lead),
+        "w_dkv": dense_init(gen, cfg.d_model,
+                            cfg.kv_lora_rank + cfg.qk_rope_head_dim, dtype,
+                            device, lead=lead),
+        "w_uk": dense_init(gen, cfg.kv_lora_rank, h * cfg.qk_nope_head_dim,
+                           dtype, device, lead=lead),
+        "w_uv": dense_init(gen, cfg.kv_lora_rank, h * cfg.v_head_dim, dtype,
+                           device, lead=lead),
+        "wo": dense_init(gen, h * cfg.v_head_dim, cfg.d_model, dtype, device,
+                         lead=lead),
+    }
+
+
+def apply_mla(
+    p: Dict,
+    cfg: ModelConfig,
+    par: ParallelConfig,
+    x: torch.Tensor,          # (B, S, D)
+    positions: torch.Tensor,  # (S,) at prefill, (B, 1) at decode
+    cache=None,
+    decode: bool = False,
+):
+    """Prefill: the full keys and values are expanded from the latent and
+    attended by ``ops.flash_attention`` with q/k of width ``dn + dr`` and
+    v of width ``dv``; the latent and the rope key fill the cache from row
+    0.  Decode: the reference's absorbed attention over the compressed
+    cache (``q_nope . W_uk`` against ``c_kv``, ``q_pe`` against ``k_pe``,
+    ``o_lat . W_uv``) in plain PyTorch, as the reference has no kernel for
+    it; the new row is written in place."""
+    b, s, _ = x.shape
+    h, dn, dr, dv = (cfg.num_heads, cfg.qk_nope_head_dim,
+                     cfg.qk_rope_head_dim, cfg.v_head_dim)
+    rank = cfg.kv_lora_rank
+
+    q = ((x @ p["w_dq"]) @ p["w_uq"]).reshape(b, s, h, dn + dr)
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+
+    ckv_full = x @ p["w_dkv"]
+    c_kv, k_pe_flat = ckv_full[..., :rank], ckv_full[..., rank:]
+    k_pe = apply_rope(k_pe_flat[:, :, None, :], positions,
+                      cfg.rope_theta)[:, :, 0, :]
+
+    if decode:
+        assert cache is not None and s == 1
+        _scatter_time_(cache.c_kv, c_kv, cache.length)
+        _scatter_time_(cache.k_pe, k_pe, cache.length)
+        new_len = cache.length + 1
+        # absorbed attention: score = q_nope^T W_uk c + q_pe^T k_pe
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope,
+                             p["w_uk"].reshape(rank, h, dn))
+        scale = (dn + dr) ** -0.5
+        logits = (torch.einsum("bshr,btr->bhst", q_lat, cache.c_kv)
+                  + torch.einsum("bshr,btr->bhst", q_pe, cache.k_pe)) * scale
+        t_pos = torch.arange(cache.c_kv.shape[1], device=x.device)[None, :]
+        valid = t_pos < new_len[:, None]
+        logits = logits.masked_fill(~valid[:, None, None, :], -1e30)
+        probs = torch.softmax(logits.to(torch.float32), dim=-1).to(x.dtype)
+        o_lat = torch.einsum("bhst,btr->bshr", probs, cache.c_kv)
+        o = torch.einsum("bshr,rhv->bshv", o_lat,
+                         p["w_uv"].reshape(rank, h, dv))
+        new_cache = MLACache(cache.c_kv, cache.k_pe, new_len)
+    else:
+        k_nope = (c_kv @ p["w_uk"]).reshape(b, s, h, dn)
+        vfull = (c_kv @ p["w_uv"]).reshape(b, s, h, dv)
+        k = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, s, h, dr)], -1)
+        q_cat = torch.cat([q_nope, q_pe], -1)
+        o = ops.flash_attention(q_cat, k, vfull, causal=True,
+                                q_block=par.attn_q_block,
+                                kv_block=par.attn_kv_block)
+        new_cache = None
+        if cache is not None:  # prefill into the cache, in place
+            cache.c_kv[:, :s] = c_kv
+            cache.k_pe[:, :s] = k_pe
+            new_cache = MLACache(cache.c_kv, cache.k_pe, cache.length + s)
+    out = o.reshape(b, s, h * dv) @ p["wo"]
+    return out, new_cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device, lead: Tuple[int, ...] = ()) -> MLACache:
+    return MLACache(
+        c_kv=torch.zeros(lead + (batch, max_len, cfg.kv_lora_rank),
+                         dtype=dtype, device=device),
+        k_pe=torch.zeros(lead + (batch, max_len, cfg.qk_rope_head_dim),
+                         dtype=dtype, device=device),
         length=torch.zeros(lead + (batch,), dtype=torch.int32, device=device),
     )

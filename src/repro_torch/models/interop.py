@@ -8,8 +8,8 @@ unstacked ``shared_attn`` block), so the conversion is leaf-for-leaf; the
 tree structure and every shape are checked against the port's own
 parameters (built on the ``meta`` device).  Each leaf takes its template
 leaf's dtype: the model dtype for weights, fp32 for the SSM parameters
-``A_log``, ``dt_bias`` and ``D``, which the reference keeps in fp32 in a
-bf16 model.  Callers hand over ``np.array(x)`` copies, not ``np.asarray``
+``A_log``, ``dt_bias`` and ``D`` and for the MoE router, which the
+reference keeps in fp32 in a bf16 model.  Callers hand over ``np.array(x)`` copies, not ``np.asarray``
 views, which are read-only.
 """
 

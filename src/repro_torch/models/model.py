@@ -1,5 +1,5 @@
-"""Model factory for the dense, ssm and hybrid families, plus parameter
-counting — the port of :mod:`repro.models.model`.
+"""Model factory for the dense, moe, ssm and hybrid families, plus
+parameter counting — the port of :mod:`repro.models.model`.
 
 ``build_model(cfg, par, device=...)`` binds the functions of one
 architecture to one device (``cuda`` unless the caller passes ``cpu``).
@@ -52,7 +52,7 @@ def build_model(cfg: ModelConfig, par: Optional[ParallelConfig] = None, *,
     def init(seed: Union[int, torch.Generator] = 0) -> Dict:
         """Parameters drawn from a seeded generator on the model's device."""
         gen = seed
-        if isinstance(seed, int):
+        if isinstance(seed, int) and dev.type != "meta":  # meta: shapes only
             gen = torch.Generator(device=dev).manual_seed(seed)
         return transformer.init_lm_params(cfg, gen, dtype, dev)
 
@@ -91,5 +91,14 @@ def _param_numels(cfg: ModelConfig) -> Dict[str, int]:
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
     """Exact parameter count from the parameter tree on the ``meta``
-    device.  ``active_only`` matters only for MoE, not ported yet."""
-    return sum(_param_numels(cfg).values())
+    device.  With ``active_only`` (MoE), routed-expert parameters are
+    scaled by top_k / num_experts — the "active parameters" convention."""
+    numels = _param_numels(cfg)
+    total = sum(numels.values())
+    expert = sum(n for path, n in numels.items()
+                 if "moe" in path and "shared" not in path
+                 and any(w in path for w in ("w_gate", "w_up", "w_down")))
+    if active_only and cfg.is_moe and expert:
+        total = total - expert + int(expert * cfg.moe_top_k
+                                     / cfg.moe_num_experts)
+    return total

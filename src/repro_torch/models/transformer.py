@@ -1,6 +1,7 @@
-"""Decoder-only LM: the dense, ssm (Mamba-1) and hybrid (Mamba-2 + one
-shared attention block) families of :mod:`repro.models.transformer` (moe,
-MLA and vlm come in later slices).
+"""Decoder-only LM: the dense (GQA or MLA attention), moe, ssm (Mamba-1)
+and hybrid (Mamba-2 + one shared attention block) families of
+:mod:`repro.models.transformer`, with deepseek's multi-token-prediction
+head (vlm comes in a later slice).
 
 Parameters and decode state keep the reference's layout: super-block
 weights stacked on a leading ``nsb`` axis under ``params["blocks"]``, and
@@ -16,8 +17,10 @@ device, so the reference's activation sharding constraint and its
 ``remat`` policies are dropped (the train CLI's ``ParallelConfig()`` has
 ``remat="none"``).
 
-Decode state follows the reference's trees: a KV cache for a dense layer,
-a :class:`~repro_torch.models.ssm.MambaState` for a Mamba-1 layer,
+Decode state follows the reference's trees: a KV cache for a dense or moe
+layer (an :class:`~repro_torch.models.attention.MLACache` with MLA
+attention), a :class:`~repro_torch.models.ssm.MambaState` for a Mamba-1
+layer,
 ``{"mixer": MambaState}`` for a Mamba-2 layer and ``{"mixer": MambaState,
 "shared_kv": KV cache}`` for the hybrid's shared-attention layer, every
 leaf stacked over the super-blocks.  A forward with a cache updates those
@@ -25,7 +28,8 @@ stacked tensors in place and returns a tree over the same tensors: the KV
 rows are written where they lie, and the new lengths and the recurrent
 states a layer returns are written back into the stacked storage
 (:func:`_restack`), so a step captured in a CUDA graph keeps writing where
-the caller's state lies.
+the caller's state lies.  :func:`forward` returns the sum of the MoE
+layers' load-balance losses as its aux (a zero without MoE layers).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from repro_torch.models.layers import (
     apply_mlp, apply_rmsnorm, embed_tokens, init_embed, init_mlp,
     init_rmsnorm, lm_logits,
 )
+from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.utils.config import ModelConfig, ParallelConfig
 
 
@@ -54,11 +59,14 @@ def block_pattern(cfg: ModelConfig) -> List[str]:
     if cfg.family == "hybrid":
         period = cfg.hybrid_attn_period or 6
         return ["mamba2"] * (period - 1) + ["mamba2_shared_attn"]
-    if cfg.family != "dense" or cfg.is_moe or cfg.attn_type == "mla":
+    if cfg.family in ("vlm", "audio"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA, ssm and hybrid families are "
-            f"ported so far (family={cfg.family!r}, "
-            f"attn_type={cfg.attn_type!r}, moe={cfg.is_moe})")
+            f"{cfg.name}: only the dense GQA / MLA, moe, ssm and hybrid "
+            f"families are ported so far (family={cfg.family!r})")
+    if cfg.is_moe:
+        if cfg.moe_layer_period > 1:
+            return ["dense"] * (cfg.moe_layer_period - 1) + ["moe"]
+        return ["moe"]
     return ["dense"]
 
 
@@ -73,20 +81,25 @@ def num_superblocks(cfg: ModelConfig) -> int:
 # --------------------------------------------------------------------------
 
 def _init_sublayer(gen, cfg: ModelConfig, kind: str, dtype, device,
-                   lead: Tuple[int, ...]) -> Dict:
+                   lead: Tuple[int, ...] = ()) -> Dict:
     if kind == "mamba1":
         return {"norm": init_rmsnorm(cfg.d_model, dtype, device, lead),
                 "mixer": ssm.init_mamba1(gen, cfg, dtype, device, lead)}
     if kind in ("mamba2", "mamba2_shared_attn"):
         return {"norm": init_rmsnorm(cfg.d_model, dtype, device, lead),
                 "mixer": ssm.init_mamba2(gen, cfg, dtype, device, lead)}
-    return {
+    init_attn = attn.init_mla if cfg.attn_type == "mla" else attn.init_gqa
+    p = {
         "attn_norm": init_rmsnorm(cfg.d_model, dtype, device, lead),
-        "attn": attn.init_gqa(gen, cfg, dtype, device, lead),
+        "attn": init_attn(gen, cfg, dtype, device, lead),
         "mlp_norm": init_rmsnorm(cfg.d_model, dtype, device, lead),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype,
-                        device, lead),
     }
+    if kind == "moe":
+        p["moe"] = init_moe(gen, cfg, dtype, device, lead)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype,
+                            device, lead)
+    return p
 
 
 def init_lm_params(cfg: ModelConfig, gen: Optional[torch.Generator], dtype,
@@ -111,7 +124,27 @@ def init_lm_params(cfg: ModelConfig, gen: Optional[torch.Generator], dtype,
             "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype,
                             device),
         }
+    if cfg.mtp_depth > 0:
+        d2 = 2 * cfg.d_model
+        params["mtp"] = {
+            "proj": _normal((d2, cfg.d_model), gen, dtype, device,
+                            d2 ** -0.5),
+            "block": _init_sublayer(gen, cfg,
+                                    "moe" if cfg.is_moe else "dense", dtype,
+                                    device),
+            "norm": init_rmsnorm(cfg.d_model, dtype, device),
+        }
     return params
+
+
+def _normal(shape: Tuple[int, ...], gen, dtype, device,
+            scale: float) -> torch.Tensor:
+    """A standard normal draw cast to ``dtype``, then scaled in ``dtype``
+    (the reference's MTP projection)."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    t = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return t.to(dtype) * scale
 
 
 # --------------------------------------------------------------------------
@@ -137,6 +170,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype,
     lead = (num_superblocks(cfg),)
 
     def kv_cache():
+        if cfg.attn_type == "mla":
+            return attn.init_mla_cache(cfg, batch, max_len, dtype, device,
+                                       lead)
         return attn.init_kv_cache(cfg, batch, max_len, dtype, device, lead)
     return {f"sub{i}": _init_sub_state(cfg, kind, batch, kv_cache, dtype,
                                        device, lead)
@@ -194,7 +230,8 @@ def _restack(cache, layers: List) -> Any:
 
 def _apply_sublayer(sub_p, cfg, par, kind, h, positions, shared_p, cache,
                     decode):
-    """Returns (h, new_cache).  ``cache`` may be present in decode (one
+    """Returns (h, new_cache, aux): aux is a MoE layer's load-balance loss,
+    None for the other kinds.  ``cache`` may be present in decode (one
     token, the recurrent step) and in prefill (the whole prompt, filling
     the KV cache and computing the final recurrent state)."""
     use_cache = cache is not None
@@ -204,7 +241,7 @@ def _apply_sublayer(sub_p, cfg, par, kind, h, positions, shared_p, cache,
                                  state=cache if decode else None,
                                  decode=decode,
                                  return_state=use_cache and not decode)
-        return h + y, st
+        return h + y, st, None
     if kind in ("mamba2", "mamba2_shared_attn"):
         y, st = ssm.apply_mamba2(sub_p["mixer"], cfg,
                                  apply_rmsnorm(sub_p["norm"], h, cfg.norm_eps),
@@ -226,14 +263,23 @@ def _apply_sublayer(sub_p, cfg, par, kind, h, positions, shared_p, cache,
                 cfg.mlp_type)
             if use_cache:
                 new_cache["shared_kv"] = kv
-        return h, new_cache
+        return h, new_cache, None
+    # attention (GQA | MLA) + (mlp | moe)
     hn = apply_rmsnorm(sub_p["attn_norm"], h, cfg.norm_eps)
-    y, kv = attn.apply_gqa(sub_p["attn"], cfg, par, hn, positions,
-                           cache=cache, decode=decode)
+    apply_attn = attn.apply_mla if cfg.attn_type == "mla" else attn.apply_gqa
+    y, kv = apply_attn(sub_p["attn"], cfg, par, hn, positions, cache=cache,
+                       decode=decode)
     h = h + y
     hm = apply_rmsnorm(sub_p["mlp_norm"], h, cfg.norm_eps)
-    h = h + apply_mlp(sub_p["mlp"], hm, cfg.mlp_type)
-    return h, kv
+    aux = None
+    if kind == "moe":
+        # dropless at decode: dropping a token would corrupt a live request
+        y, aux = apply_moe(sub_p["moe"], cfg, hm, router_mode=cfg.moe_router,
+                           group_size=par.moe_group_size, dropless=decode)
+        h = h + y
+    else:
+        h = h + apply_mlp(sub_p["mlp"], hm, cfg.mlp_type)
+    return h, kv, aux
 
 
 def _unstack(tree: Dict, n: int) -> List[Dict]:
@@ -269,19 +315,42 @@ def forward(
     use_cache = decode_state is not None
     layers = _unstack(params["blocks"], nsb)
     new_layers: Dict[str, List] = {f"sub{i}": [] for i in range(len(pat))}
+    aux = None
     for layer in range(nsb):
         for i, kind in enumerate(pat):
             key = f"sub{i}"
             cache = _layer(decode_state[key], layer) if use_cache else None
-            h, nc = _apply_sublayer(layers[layer][key], cfg, par, kind, h,
-                                    positions, shared_p, cache, decode)
+            h, nc, a = _apply_sublayer(layers[layer][key], cfg, par, kind, h,
+                                       positions, shared_p, cache, decode)
             if use_cache:
                 new_layers[key].append(nc)
+            if a is not None:
+                aux = a if aux is None else aux + a
     new_state = ({key: _restack(decode_state[key], caches)
                   for key, caches in new_layers.items()}
                  if use_cache else None)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
     h = apply_rmsnorm(params["final_norm"], h, cfg.norm_eps)
     if return_hidden:
         return h, new_state, aux
     return lm_logits(params["embed"], h), new_state, aux
+
+
+# --------------------------------------------------------------------------
+# MTP head (deepseek multi-token prediction)
+# --------------------------------------------------------------------------
+
+def mtp_logits(params: Dict, cfg: ModelConfig, par: ParallelConfig,
+               h: torch.Tensor, tokens: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """Predict token t+2 from hidden t combined with the embedding of token
+    t+1 (``tokens``)."""
+    mtp = params["mtp"]
+    emb_next = embed_tokens(params["embed"], tokens, cfg.d_model)
+    hh = torch.cat([h, emb_next], dim=-1) @ mtp["proj"]
+    kind = "moe" if "moe" in mtp["block"] else "dense"
+    hh, _, _ = _apply_sublayer(mtp["block"], cfg, par, kind, hh, positions,
+                               None, None, False)
+    hh = apply_rmsnorm(mtp["norm"], hh, cfg.norm_eps)
+    return lm_logits(params["embed"], hh)

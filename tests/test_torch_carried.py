@@ -66,11 +66,13 @@ def test_llama_config_equal(which):
     assert getattr(tllama, which).to_dict() == getattr(jllama, which).to_dict()
     assert tllama.default_parallel("train") == tconfig.ParallelConfig(
         **dataclasses.asdict(jllama.default_parallel("train")))
-    assert tregistry.list_archs() == ["falcon-mamba-7b", "zamba2-2.7b",
-                                      "llama3.2-1b"]
+    assert tregistry.list_archs() == [
+        "falcon-mamba-7b", "zamba2-2.7b", "nemotron-4-15b", "llama3.2-1b",
+        "command-r-35b", "h2o-danube-1.8b", "deepseek-v3-671b",
+        "llama4-maverick-400b-a17b"]
     assert tregistry.get_model_config("llama3.2-1b") is tllama.CONFIG
     with pytest.raises(KeyError, match="unknown arch"):
-        tregistry.get_model_config("deepseek-v3-671b")
+        tregistry.get_model_config("llama-3.2-vision-11b")
 
 
 def _space(mod):

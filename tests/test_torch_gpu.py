@@ -384,6 +384,23 @@ def test_captured_decode_matches_eager(sm90, arch, geometry):
     """Teacher-forced steps of the captured step and of the eager step on
     two copies of one state: the same logits and states, bit for bit (the
     same kernels with the same launches), one capture, then replays."""
+    _captured_matches_eager(sm90, arch, geometry)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,geometry", [
+    ("deepseek-v3-671b", "dense"),            # MLA has no paged cache
+    ("llama4-maverick-400b-a17b", "dense"),
+    ("llama4-maverick-400b-a17b", "paged"),
+])
+def test_captured_moe_decode_matches_eager(sm90, arch, geometry):
+    """The MoE smoke configs' decode step (routing, dense dispatch, the
+    shared expert; MLA's absorbed attention for deepseek) captured against
+    the eager step, bit for bit."""
+    _captured_matches_eager(sm90, arch, geometry)
+
+
+def _captured_matches_eager(sm90, arch, geometry):
     from repro_torch.train.serve_step import CapturedDecode, make_decode_step
 
     model, run, params = _smoke_served(sm90, arch)

@@ -1,7 +1,10 @@
 """The decode step that ``jitted_steps`` returns can be captured in a CUDA
-graph: checked on the CPU at the smoke configs of the three served
-families (``llama3.2-1b`` dense, ``falcon-mamba-7b`` ssm, ``zamba2-2.7b``
-hybrid), with dense and paged decode state.
+graph: checked on the CPU at the smoke configs of the served families
+(``llama3.2-1b`` dense, ``falcon-mamba-7b`` ssm, ``zamba2-2.7b`` hybrid,
+``deepseek-v3-671b`` moe with MLA and ``llama4-maverick-400b-a17b`` moe
+with GQA), with dense and paged decode state (deepseek's MLA cache has
+no paged form: its paged cases check that it raises, as the reference
+does).
 
 - Under a ``TorchDispatchMode`` the decode step runs no operation that a
   stream under capture refuses or that reads device data on the host:
@@ -41,7 +44,8 @@ from repro_torch.utils.trees import tree_leaves, tree_map
 
 torch.set_num_threads(1)
 
-ARCHS = ("llama3.2-1b", "falcon-mamba-7b", "zamba2-2.7b")
+ARCHS = ("llama3.2-1b", "falcon-mamba-7b", "zamba2-2.7b",
+         "deepseek-v3-671b", "llama4-maverick-400b-a17b")
 GEOMETRIES = ("dense", "paged")
 #: what a capturing stream refuses, or a host read of device data
 REFUSED = {"aten::lift_fresh", "aten::_local_scalar_dense", "aten::nonzero"}
@@ -108,6 +112,18 @@ def paged_state(model, state, page, pages_per_slot):
     return ServeState(caches, state.lengths.clone(), {})
 
 
+def _paged_mla_raises(model, geometry) -> bool:
+    """True (after checking it) where ``geometry`` is paged and the model's
+    attention is MLA: its compressed cache has no paged form, and the
+    paged state raises as the reference's does."""
+    if geometry == "dense" or model.cfg.attn_type != "mla":
+        return False
+    with pytest.raises(NotImplementedError, match="MLA"):
+        model.init_paged_decode_state(B, B * PAGES_PER_SLOT, PAGE,
+                                      PAGES_PER_SLOT)
+    return True
+
+
 def _state(model, run, params, geometry):
     """A decode state after prefilling ``_prompt``: the dense prefill's
     state, or its :func:`paged_state`."""
@@ -122,6 +138,8 @@ def _state(model, run, params, geometry):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_step_runs_no_refused_operation(models, arch, geometry):
     model, run, params = models[arch]
+    if _paged_mla_raises(model, geometry):
+        return
     _, decode = jitted_steps(model, run, cache_len=CACHE_LEN)
     state, logits = _state(model, run, params, geometry)
     tok = logits.argmax(-1, keepdim=True).to(torch.int32)
@@ -137,6 +155,8 @@ def test_decode_step_runs_no_refused_operation(models, arch, geometry):
 def test_jitted_decode_keeps_state_storage_and_eager_values(models, arch,
                                                            geometry):
     model, run, params = models[arch]
+    if _paged_mla_raises(model, geometry):
+        return
     _, decode = jitted_steps(model, run, cache_len=CACHE_LEN)
     eager = make_decode_step(model, run)
     state, logits = _state(model, run, params, geometry)
@@ -171,6 +191,11 @@ def test_batcher_state_keeps_one_signature(models, arch, geometry):
              "paged_chunked": PagedPlan(paging=True, pool_pages=8,
                                         page_size=4, pages_per_slot_max=4,
                                         prefill_chunk=2)}
+    if _paged_mla_raises(model, geometry):
+        with pytest.raises(NotImplementedError, match="MLA"):
+            ContinuousBatcher(model, run, params, num_slots=2, cache_len=16,
+                              paged=plans[geometry])
+        return
     b = ContinuousBatcher(model, run, params, num_slots=2, cache_len=16,
                           paged=plans[geometry])
     rng = np.random.default_rng(1)

@@ -193,7 +193,7 @@ def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="dense GQA"):
         block_pattern(ModelConfig(family="vlm"))
     with pytest.raises(NotImplementedError, match="dense GQA"):
-        block_pattern(ModelConfig(moe_num_experts=4, moe_top_k=2))
+        block_pattern(ModelConfig(family="audio"))
 
 
 def test_build_model_defaults_to_cuda():

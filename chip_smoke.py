@@ -38,7 +38,12 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    the launch without the state, SSD prefills of other lengths queued
    between decode launches, and decode / paged decode at head dim 80,
    G = 1 and at llama4-maverick's head dim 128, G = 5 (paged equal to
-   dense bit for bit);
+   dense bit for bit); a vlm / audio decode step's cross-attention (one
+   query row over 1600 patch rows at head dim 128, G = 4, and over 1500
+   encoder rows at head dim 64, G = 1, non-causal, fp32 and bf16, every
+   block shape) and mixed operands through ``ops`` (a bf16 query over fp32
+   K/V, fp32 rows with a bf16 weight and the reverse) against the plain
+   versions;
 4. serving slice: llama3.2-1b at full width and depth (bf16, seeded random
    weights) through the fixed-batch serve path and through the continuous
    batcher (dense, paged, paged with chunked prefill), with every launch
@@ -119,11 +124,26 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    p50 / p99, device busy, idle share, kernels a step), each step's
    weight-read floor, peak memory, and the serve CLI at both MoE smoke
    configs;
+4h. the vlm and audio families at published widths and full depth:
+   llama-3.2-vision-11b (40 layers, a gated cross-attention layer every
+   fifth, its gates opened to seeded values) and whisper-large-v3 (32
+   encoder and 32 decoder layers), seeded bf16 weights, one after the
+   other, the fixed batch with its ``vision_embeds`` (4, 1600, 4096) /
+   ``frames`` (4, 1500, 1280) in bf16: counted (RMSNorm, prefill, decode
+   and the non-causal prefill instance launched), the teacher-forced
+   eager kernel run equal to the served logits and held against the
+   plain run; the serve CLI's fp32 inputs (prefill and 4 decode steps,
+   kernel against plain, and the captured step timed); phase 4f's
+   compiled decode for each, the cross-attention (the prefill kernel at
+   one query row) launched inside the graph; each step's weight-read
+   floor; the serve CLI with whisper-large-v3 at its full config;
 5. timings: each kernel, its plain version and the one-call PyTorch
    yardstick where one exists, timed with CUDA events at the slices'
    shapes, beside the card's bound for the same work; RMSNorm also at the
    decode rows and both training shapes, prefill at a long prompt
-   (1 x 2048) and at MLA's head dims (1 x 2048, 128 heads, 192 / 128),
+   (1 x 2048), at MLA's head dims (1 x 2048, 128 heads, 192 / 128) and at
+   the vlm and audio shapes (a cross-attention decode step and prompt over
+   1600 rows, whisper's 1500 x 1500 encoder, non-causal),
    decode at 32 slots over 2048-row caches, the scan at the
    plan the falcon-mamba train step launched (its launch options recorded
    in phase 4b), with a sweep of channels a block and chunk and the SM
@@ -418,6 +438,15 @@ PREFILL_EDGE_CASES = (
     (1, 200, 200, 8, 2, {"sliding_window": 13, "logit_softcap": 20.0}),
 )
 PREFILL_BLOCKS = tuple((qb, kb) for qb in (32, 64) for kb in (32, 64))
+# a vlm / audio decode step's cross-attention: one query row a slot over
+# llama-3.2-vision-11b's 1600 patch rows (32 / 8 heads of 128) and
+# whisper-large-v3's 1500 encoder rows (20 / 20 heads of 64), non-causal
+# (b, sq, skv, hq, hkv, d)
+CROSS_DECODE_CASES = ((4, 1, 1600, 32, 8, 128), (4, 1, 1500, 20, 20, 64))
+# the other non-causal shapes of phase 4h's main path, in bf16: whisper's
+# 1500 x 1500 encoder self-attention and the vision model's cross-attention
+# at the 64-token prefill; at every block pair and at the serving blocks
+CROSS_PREFILL_CASES = ((4, 1500, 1500, 20, 20, 64), (4, 64, 1600, 32, 8, 128))
 # 16 slots over 4096-row caches (64 pages of 64): lengths 0, 1, on and just
 # past the first split boundary, the capacity, past it, and ragged others
 DECODE_SPLIT_SHAPE = dict(b=16, skv=4096, hq=32, hkv=8, d=64, ps=64)
@@ -434,6 +463,7 @@ def phase_attention_edges(torch, dev):
     from repro_torch.kernels.paged_attention.kernel import (
         KV_TILE, paged_decode_attention_cuda)
     from repro_torch.kernels.paged_attention.ref import gather_pages
+    from repro_torch.utils.config import ParallelConfig
 
     gen = torch.Generator(device=dev).manual_seed(4)
     bf = torch.bfloat16
@@ -457,6 +487,28 @@ def phase_attention_edges(torch, dev):
                           f"flash_attention d{d} q{qb}/kv{kb}: fully masked "
                           f"rows are not 0")
                 n_cases += 1
+
+    par = ParallelConfig()
+    serving = ((par.attn_q_block, par.attn_kv_block),)
+    for cases, dtypes, blocks in (
+            (CROSS_DECODE_CASES, (torch.float32, bf), PREFILL_BLOCKS),
+            (CROSS_PREFILL_CASES, (bf,), PREFILL_BLOCKS + serving)):
+        for (b, sq, skv, hq, hkv, d) in cases:
+            for dt in dtypes:
+                dn = str(dt).split(".")[1]
+                q = _rand(torch, gen, (b, sq, hq, d), dt, dev)
+                k = _rand(torch, gen, (b, skv, hkv, d), dt, dev)
+                v = _rand(torch, gen, (b, skv, hkv, d), dt, dev)
+                ref = attention_blockwise_ref(q, k, v, causal=False,
+                                              kv_block=64)
+                for qb, kb in blocks:
+                    out = flash_attention_cuda(q, k, v, causal=False,
+                                               q_block=qb, kv_block=kb)
+                    _compare(torch, f"flash_attention non-causal "
+                             f"{(b, sq, skv, hq, hkv, d)} q{qb}/kv{kb} {dn}",
+                             out, ref, dn, worst, False)
+                    n_cases += 1
+    n_cases += _mixed_dtype_ops(torch, gen, dev, worst)
 
     sh = DECODE_SPLIT_SHAPE
     b, skv, hq, hkv, d, ps = (sh[k] for k in ("b", "skv", "hq", "hkv", "d",
@@ -521,6 +573,52 @@ def phase_attention_edges(torch, dev):
             n_cases += 2
     torch.cuda.synchronize()
     return n_cases
+
+
+def _mixed_dtype_ops(torch, gen, dev, worst):
+    """The stub frontends' fp32 inputs in a bf16 model, through ``ops``
+    (which casts the operands to the widest dtype, so the fp32 kernels
+    run, and returns the query's / the rows' dtype) against the plain
+    versions on the same mixed inputs: a bf16 query over fp32 K/V at the
+    vision model's cross shapes (one row and the 64-token prompt), and
+    fp32 rows with a bf16 weight (whisper's encoder norms over fp32
+    frames).  Counted: each call launches its kernel once."""
+    from repro_torch.kernels import cuda_lib, ops
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_blockwise_ref)
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    n = 0
+    for sq in (1, 64):
+        q = _rand(torch, gen, (4, sq, 32, 128), torch.bfloat16, dev)
+        k, v = (_rand(torch, gen, (4, 1600, 8, 128), torch.float32, dev)
+                for _ in range(2))
+        cuda_lib.reset_launches()
+        out = ops.flash_attention(q, k, v, causal=False)
+        check(out.dtype == torch.bfloat16 and
+              cuda_lib.PREFILL_INSTANCES == {(128, 128, False, False): 1},
+              f"mixed flash_attention: {out.dtype}, instances "
+              f"{cuda_lib.PREFILL_INSTANCES}")
+        _compare(torch, f"ops.flash_attention q bf16 / k, v fp32 sq {sq}",
+                 out, attention_blockwise_ref(q, k, v, causal=False),
+                 "bfloat16", worst, False)
+        n += 1
+    for x_dt, w_dt in ((torch.float32, torch.bfloat16),
+                       (torch.bfloat16, torch.float32)):
+        x = _rand(torch, gen, (4, 1500, 1280), x_dt, dev)
+        w = _rand(torch, gen, (1280,), w_dt, dev)
+        cuda_lib.reset_launches()
+        y = ops.rmsnorm(x, w)
+        dn = str(x_dt).split(".")[1]
+        check(y.dtype == x_dt and cuda_lib.LAUNCHES["rmsnorm"] == 1,
+              f"mixed rmsnorm: {y.dtype}, {cuda_lib.LAUNCHES['rmsnorm']} "
+              f"launches")
+        _compare(torch, f"ops.rmsnorm x {dn} / weight "
+                 f"{str(w_dt).split('.')[1]}", y, rmsnorm_ref(x, w), dn,
+                 worst, False)
+        n += 1
+    cuda_lib.reset_launches()
+    return n
 
 
 # --------------------------------------------------------------------------
@@ -1039,7 +1137,8 @@ def _check_batchers(served, n_req, what,
               f"dense batcher's")
 
 
-def _plain_logits(torch, model, run, params, prompt, tokens, cache_len):
+def _plain_logits(torch, model, run, params, prompt, tokens, cache_len,
+                  extras=None):
     """Prefill and the first LOGIT_STEPS - 1 decode steps with the plain
     versions (``dispatch.use_mode("ref")``), teacher-forced with the
     kernel run's ``tokens``; the logits on the host.  The eager steps: a
@@ -1047,14 +1146,16 @@ def _plain_logits(torch, model, run, params, prompt, tokens, cache_len):
     from repro_torch.kernels import dispatch
 
     return _forced_logits(torch, model, run, params, prompt, tokens,
-                          cache_len, dispatch.REF)[0]
+                          cache_len, dispatch.REF, extras)[0]
 
 
 def _forced_logits(torch, model, run, params, prompt, tokens, cache_len,
-                   mode):
-    """Prefill and the first LOGIT_STEPS - 1 decode steps, eager, in
-    dispatch ``mode``, teacher-forced with ``tokens``: the logits on the
-    host and every MoE layer's routes (``_recorded_routes``)."""
+                   mode, extras=None):
+    """Prefill (of ``prompt`` with the batch's ``extras``: the vlm's
+    ``vision_embeds``, the audio model's ``frames``) and the first
+    LOGIT_STEPS - 1 decode steps, eager, in dispatch ``mode``,
+    teacher-forced with ``tokens``: the logits on the host and every MoE
+    layer's routes (``_recorded_routes``)."""
     from repro_torch.kernels import dispatch
     from repro_torch.train.serve_step import (make_decode_step,
                                               make_prefill_step)
@@ -1065,7 +1166,7 @@ def _forced_logits(torch, model, run, params, prompt, tokens, cache_len,
     out = []
     with torch.no_grad(), dispatch.use_mode(mode), \
             _recorded_routes() as routes:
-        state, lg = prefill(params, {"tokens": prompt})
+        state, lg = prefill(params, {"tokens": prompt, **(extras or {})})
         out.append(lg.float().cpu())
         for i in range(LOGIT_STEPS - 1):
             state, lg = decode(params, state, toks[:, i:i + 1])
@@ -1995,11 +2096,11 @@ PREFILL_REPS = 5
 SSM_PROFILE_STEPS = 4
 
 
-def _build_served(torch, dev, cfg):
+def _build_served(torch, dev, cfg, extras=None):
     """``cfg`` on the card with seeded weights, at the fixed batch: (model,
     run, params, prompt, init seconds), the peak memory counted from the
-    init, one short serve run as warm-up."""
-    from repro_torch.launch.serve import make_prompt, serve_fixed_batch
+    init, one short serve run (with the batch's ``extras``) as warm-up."""
+    from repro_torch.launch.serve import make_batch, serve_fixed_batch
     from repro_torch.models.model import build_model
     from repro_torch.utils.config import MeshConfig, RunConfig, ShapeConfig
 
@@ -2013,18 +2114,21 @@ def _build_served(torch, dev, cfg):
     params = model.init(0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    prompt = make_prompt(cfg, run.shape, FIXED["batch"], FIXED["prompt_len"],
-                         dev)
-    serve_fixed_batch(model, run, params, prompt[:, :8], gen=2)  # warm-up
+    prompt = make_batch(cfg, run.shape, FIXED["batch"], FIXED["prompt_len"],
+                        dev)["tokens"]
+    serve_fixed_batch(model, run, params, prompt[:, :8], gen=2,
+                      extras=extras)  # warm-up
     torch.cuda.synchronize()
     return model, run, params, prompt, init_s
 
 
-def _counted_serve(torch, np, model, run, params, prompt, plans, kernels):
+def _counted_serve(torch, np, model, run, params, prompt, plans, kernels,
+                   extras=None):
     """The main path with every launch counter set to 0 before: the fixed
-    batch (its first LOGIT_STEPS logits kept) and the batchers of
-    ``plans``; every resolution ``cuda``, every kernel of ``kernels``
-    launched.  Returns (fixed, served, launches, prefill instances)."""
+    batch (with ``extras``; its first LOGIT_STEPS logits kept) and the
+    batchers of ``plans``; every resolution ``cuda``, every kernel of
+    ``kernels`` launched.  Returns (fixed, served, launches, prefill
+    instances)."""
     from repro_torch.kernels import cuda_lib, dispatch
     from repro_torch.launch.serve import serve_fixed_batch
 
@@ -2033,7 +2137,8 @@ def _counted_serve(torch, np, model, run, params, prompt, plans, kernels):
     with dispatch.profile_dispatches() as prof, \
             dispatch.record_resolutions() as resolved:
         fixed = serve_fixed_batch(model, run, params, prompt,
-                                  gen=FIXED["gen"], keep_logits=LOGIT_STEPS)
+                                  gen=FIXED["gen"], keep_logits=LOGIT_STEPS,
+                                  extras=extras)
         served = {name: _drain_batcher(torch, np, model, run, params,
                                        _serve_plans()[name])
                   for name in plans}
@@ -2175,15 +2280,17 @@ GROWTH_SLOTS = (4, 32)
 CARD = ""
 
 
-def _fixed_batch_with(torch, np, step_pair, params, prompt, gen):
-    """The fixed batch through ``step_pair`` = (prefill, decode), greedy:
+def _fixed_batch_with(torch, np, step_pair, params, prompt, gen,
+                      extras=None):
+    """The fixed batch (with ``extras``) through ``step_pair`` = (prefill,
+    decode), greedy:
     the tokens (B, gen) on the host, each decode step's host time in ms
     (synchronized; the first step, a captured step's capture, left out)
     and every decode step's logits (fp32 copies on the card)."""
     from repro_torch.train.serve_step import sample_token
 
     prefill, decode = step_pair
-    state, logits = prefill(params, {"tokens": prompt})
+    state, logits = prefill(params, {"tokens": prompt, **(extras or {})})
     tok = sample_token(logits, None, 0.0)
     toks, lats, kept = [tok], [], []
     torch.cuda.synchronize()
@@ -2200,10 +2307,12 @@ def _fixed_batch_with(torch, np, step_pair, params, prompt, gen):
 
 
 #: the port's decode kernels by the symbol the profiler names them with
-#: (dense and paged decode are one template)
+#: (dense and paged decode are one template; the vlm and audio steps'
+#: cross-attention is the bf16 prefill kernel at one query row)
 DECODE_KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel",
                          "decode_attention": "decode_attention_kernel",
-                         "paged_decode_attention": "decode_attention_kernel"}
+                         "paged_decode_attention": "decode_attention_kernel",
+                         "flash_attention": "flash_attention_mma_kernel"}
 
 
 def _calls_per_kernel_symbol(launches):
@@ -2235,7 +2344,7 @@ def _graph_numbers(decode):
 
 
 def _compiled_decode(torch, np, dev, arch, model, run, params, prompt,
-                     served):
+                     served, extras=None):
     """Phase 4f for one model at full width and depth: the fixed batch
     through the eager and the captured step in turns (the same tokens
     and logits, host p50 / p99 and tok/s), both profiled (device busy,
@@ -2244,7 +2353,9 @@ def _compiled_decode(torch, np, dev, arch, model, run, params, prompt,
     captured graph's capture time and pool, the launch counters after
     COMPILED_REPLAYS replays against the eager step's, and each batcher
     of ``served`` (phase 4 / 4e / 4g: the captured step) again with the
-    eager step, every decode step's logits bit for bit."""
+    eager step, every decode step's logits bit for bit.  ``extras`` go
+    with the prompt (the vlm's ``vision_embeds``, the audio model's
+    ``frames``)."""
     from repro_torch.kernels import cuda_lib
     from repro_torch.train.serve_step import (jitted_steps,
                                               make_decode_step,
@@ -2260,7 +2371,7 @@ def _compiled_decode(torch, np, dev, arch, model, run, params, prompt,
     runs = {"eager": [], "captured": []}
     for name in COMPILED_RUNS:
         runs[name].append(_fixed_batch_with(torch, np, pairs[name], params,
-                                            prompt, FIXED["gen"]))
+                                            prompt, FIXED["gen"], extras))
     captures = decode.captures - captures
     first = runs["eager"][0][0]
     for name, rs in runs.items():
@@ -2280,7 +2391,8 @@ def _compiled_decode(torch, np, dev, arch, model, run, params, prompt,
     for name, rs in runs.items():
         lat = np.concatenate([r[1] for r in rs])
         prof, kernels = _profile_decode(torch, model, run, params, prompt,
-                                        COMPILED_PROFILE_STEPS, pairs[name])
+                                        COMPILED_PROFILE_STEPS, pairs[name],
+                                        extras)
         kernel_calls[name] = _calls_by_symbol(kernels)
         busy = prof["device_busy_ms"]
         numbers[name] = {
@@ -2314,7 +2426,7 @@ def _compiled_decode(torch, np, dev, arch, model, run, params, prompt,
     while not matches(windows[-1]) and len(windows) < PROFILE_WINDOWS:
         _, kernels = _profile_decode(torch, model, run, params, prompt,
                                      COMPILED_PROFILE_STEPS,
-                                     pairs["captured"])
+                                     pairs["captured"], extras)
         windows.append(_calls_by_symbol(kernels))
     check(matches(windows[-1]),
           f"{arch}: the captured step's profiled port kernels over "
@@ -2323,7 +2435,8 @@ def _compiled_decode(torch, np, dev, arch, model, run, params, prompt,
 
     # the launch counters: COMPILED_REPLAYS replays count COMPILED_REPLAYS
     # eager steps' launches
-    state, logits = pairs["captured"][0](params, {"tokens": prompt})
+    state, logits = pairs["captured"][0](params, {"tokens": prompt,
+                                                  **(extras or {})})
     tok = logits.argmax(-1).to(torch.int32)[:, None]
     cuda_lib.reset_launches()
     pairs["eager"][1](params, state, tok)
@@ -2454,8 +2567,8 @@ def _scratch_growth(torch, np, model, run, params, prompt):
 # --------------------------------------------------------------------------
 
 #: arch -> (depth cuts, the batchers it runs, the kernels its serving path
-#: must launch, the prefill kernel instance (q/k dim, v dim, windowed) it
-#: must launch; danube's 64-token prompts leave its 4096-row window
+#: must launch, the prefill kernel instance (q/k dim, v dim, windowed,
+#: causal) it must launch; danube's 64-token prompts leave its 4096-row window
 #: unused, its long prompt runs the windowed instance).  Widths are the published ones; the depth is cut where one
 #: 80 GB card forces it: deepseek's 2 of 61 MoE layers are 45 GB of
 #: experts (its MTP head is never read when serving), llama4's one
@@ -2463,20 +2576,21 @@ def _scratch_growth(torch, np, model, run, params, prompt):
 #: configs' init draws a stacked weight in fp32 twice
 MOE_SERVE = {
     "deepseek-v3-671b": (dict(num_layers=2, mtp_depth=0), ("dense",),
-                         ("rmsnorm", "flash_attention"), (192, 128, False)),
+                         ("rmsnorm", "flash_attention"),
+                         (192, 128, False, True)),
     "llama4-maverick-400b-a17b": (
         dict(num_layers=2), ("dense", "paged", "paged_chunked"),
         ("rmsnorm", "flash_attention", "decode_attention",
-         "paged_decode_attention"), (128, 128, False)),
+         "paged_decode_attention"), (128, 128, False, True)),
     "h2o-danube-1.8b": ({}, ("dense",),
                         ("rmsnorm", "flash_attention", "decode_attention"),
-                        (80, 80, False)),
+                        (80, 80, False, True)),
     "nemotron-4-15b": (dict(num_layers=8), (),
                        ("rmsnorm", "flash_attention", "decode_attention"),
-                       (128, 128, False)),
+                       (128, 128, False, True)),
     "command-r-35b": (dict(num_layers=8), (),
                       ("rmsnorm", "flash_attention", "decode_attention"),
-                      (128, 128, False)),
+                      (128, 128, False, True)),
 }
 #: one request longer than the model's window: the ring cache packs at
 #: prefill, the windowed prefill runs, decode reads the ring
@@ -2501,8 +2615,8 @@ def phase_moe_serve(torch, np, dev):
 
     out = {}
     launches = {name: 0 for name in cuda_lib.LAUNCHES}
-    for arch in MOE_SERVE:
-        out[arch], counted = _serve_family(torch, np, dev, arch)
+    for arch, spec in MOE_SERVE.items():
+        out[arch], counted = _serve_family(torch, np, dev, arch, *spec)
         for name, n in counted.items():
             launches[name] += n
     for arch in ("deepseek-v3-671b", "llama4-maverick-400b-a17b"):
@@ -2569,36 +2683,58 @@ def _route_agreement(torch, cfg, batch, kernel_routes, plain_routes):
     return flipped / total, held, total, gaps
 
 
-def _serve_family(torch, np, dev, arch):
-    """One model of MOE_SERVE at full width, seeded bf16 weights: the
-    fixed batch and its batchers counted (every resolution ``cuda``, its
-    kernels and its prefill instance launched), the teacher-forced eager
-    kernel run equal to the served logits and held against the plain run
-    (for MoE: the routes compared first, the logits of the rows whose
-    routes agree held), the long prompt through the ring cache where the
-    model has a window, and phase 4f's compiled decode on its weights."""
+def _serve_family(torch, np, dev, arch, overrides, plans, kernels, instance,
+                  key=None):
+    """One model at published widths (its depth cut by ``overrides``),
+    seeded bf16 weights: the fixed batch and the batchers of ``plans``
+    counted (every resolution ``cuda``, every kernel of ``kernels`` and the
+    prefill ``instance`` launched), the teacher-forced eager kernel run
+    equal to the served logits and held against the plain run (for MoE:
+    the routes compared first, the logits of the rows whose routes agree
+    held), the long prompt through the ring cache where the model has a
+    window, and phase 4f's compiled decode on its weights.  With ``key``
+    (the vlm / audio families) the fixed batch carries that stub frontend
+    input in bf16 (the CLI's fp32 data, cast), the vision model's cross
+    gates are opened (``_open_cross_gates``), ``_cross_path`` holds the
+    cross path and the CLI's fp32 inputs, and the captured step must
+    launch the cross-attention."""
     from repro_torch.configs.registry import get_model_config
     from repro_torch.kernels import dispatch
-    from repro_torch.models.model import count_params_analytic, torch_dtype
+    from repro_torch.launch.serve import make_batch
+    from repro_torch.models.model import count_params_analytic
     from repro_torch.train import serve_step
+    from repro_torch.utils.config import ShapeConfig
 
-    overrides, plans, kernels, instance = MOE_SERVE[arch]
     t_model = time.perf_counter()
     full = get_model_config(arch)
     cfg = full.replace(**overrides)
     cache_len = FIXED["prompt_len"] + FIXED["gen"]
     torch.cuda.empty_cache()
-    model, run, params, prompt, init_s = _build_served(torch, dev, cfg)
+    extras = f32 = None
+    if key:
+        f32 = {key: make_batch(cfg, ShapeConfig("serve_cli", cache_len,
+                                                FIXED["batch"], "decode"),
+                               FIXED["batch"], FIXED["prompt_len"],
+                               dev)[key]}
+        extras = {key: f32[key].to(torch.bfloat16)}
+    model, run, params, prompt, init_s = _build_served(torch, dev, cfg,
+                                                       extras)
+    gates = _open_cross_gates(torch, dev, cfg, params)
     n_params = count_params_analytic(cfg)
     init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     resident_gb = torch.cuda.memory_allocated() / 1e9
     log(f"[{CARD}] {arch}: {n_params / 1e9:.3f} B params "
         f"({count_params_analytic(cfg, True) / 1e9:.3f} B active), "
-        f"{cfg.num_layers} of {full.num_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.dtype}; init {init_s:.1f} s, peak "
-        f"{init_peak_gb:.2f} GB, resident {resident_gb:.2f} GB")
+        f"{cfg.num_layers} of {full.num_layers} layers"
+        + (f" + {cfg.encoder_layers} encoder layers"
+           if cfg.family == "audio" else "")
+        + f", d_model {cfg.d_model}, {cfg.dtype}"
+        + (f", {key} {tuple(extras[key].shape)}" if key else "")
+        + f"; init {init_s:.1f} s, peak {init_peak_gb:.2f} GB, resident "
+        f"{resident_gb:.2f} GB"
+        + (f"; cross gates {[round(x, 3) for x in gates]}" if gates else ""))
     fixed, served, launches, instances = _counted_serve(
-        torch, np, model, run, params, prompt, plans, kernels)
+        torch, np, model, run, params, prompt, plans, kernels, extras)
     check(instances.get(instance, 0) > 0,
           f"{arch}: the prefill instance {instance} was not launched "
           f"({instances})")
@@ -2614,13 +2750,13 @@ def _serve_family(torch, np, dev, arch):
     # ---- the kernels against the plain versions, teacher-forced ---------
     kernel_logits, kernel_routes = _forced_logits(
         torch, model, run, params, prompt, fixed.tokens, cache_len,
-        dispatch.CUDA)
+        dispatch.CUDA, extras)
     for step, (a, b) in enumerate(zip(kernel_logits, fixed.logits)):
         check(torch.equal(a, b), f"{arch} step {step}: the eager kernel "
               f"run's logits differ from the served (captured) run's")
     plain_logits, plain_routes = _forced_logits(
         torch, model, run, params, prompt, fixed.tokens, cache_len,
-        dispatch.REF)
+        dispatch.REF, extras)
     routing = None
     held = None
     if cfg.is_moe:
@@ -2660,16 +2796,33 @@ def _serve_family(torch, np, dev, arch):
     long_out = None
     if arch in LONG_PROMPT:
         long_out = _long_prompt(torch, np, dev, model, run, params,
-                                LONG_PROMPT[arch], (*instance[:2], True))
+                                LONG_PROMPT[arch], (*instance[:2], True, True))
+    cross = None
+    if key:
+        cross = _cross_path(torch, np, arch, model, run, params, prompt,
+                            fixed, extras, f32, kernel_logits, atol)
+        cross["cross_gates"] = gates
 
     # ---- phase 4f on this model's weights -------------------------------
     compiled = _compiled_decode(torch, np, dev, arch, model, run, params,
-                                prompt, served)
-    # a decode step reads every weight but the embedding table (a tied
-    # table is the head, read whole): the dense dispatch computes every
-    # expert on its capacity rows
-    table = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model
-    step_bytes = (n_params - table) * torch_dtype(cfg.dtype).itemsize
+                                prompt, served, extras)
+    graph = None
+    if key:
+        decode = serve_step.jitted_steps(model, run, cache_len=cache_len)[1]
+        capture = next(reversed(decode.graphs.values())).capture
+        want = compiled["profiled_calls"]["recorded"]
+        check(capture.launches.get("flash_attention", 0) > 0
+              and capture.instances.get(instance, 0) > 0
+              and want[DECODE_KERNEL_SYMBOLS["flash_attention"]] > 0,
+              f"{arch}: the captured decode step records no cross-attention "
+              f"({capture.launches}, {capture.instances}, {want})")
+        graph = {"launches_per_step": capture.launches,
+                 "prefill_instances": {str(k): v for k, v in
+                                       capture.instances.items()}}
+        log(f"[{CARD}] {arch}: the captured step launches "
+            f"{capture.launches}, prefill instances {capture.instances}")
+        del decode, capture
+    step_bytes = _decode_weight_bytes(cfg, params)
     floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
     busy = compiled["fixed_batch"]["captured"]["device_busy_ms_per_step"]
     log(f"[{CARD}] {arch} decode step reads {step_bytes / 1e9:.2f} GB of "
@@ -2680,7 +2833,9 @@ def _serve_family(torch, np, dev, arch):
         "card": CARD, "arch": arch, "params": n_params,
         "active_params": count_params_analytic(cfg, True),
         "layers": cfg.num_layers, "full_layers": full.num_layers,
+        "encoder_layers": cfg.encoder_layers,
         "reduced": overrides, "d_model": cfg.d_model, "dtype": cfg.dtype,
+        "extras": {k: list(v.shape) for k, v in (extras or {}).items()},
         "init_s": init_s, "init_peak_gb": init_peak_gb,
         "resident_gb": resident_gb,
         "fixed_batch": fixed_out,
@@ -2690,7 +2845,8 @@ def _serve_family(torch, np, dev, arch):
                     for k, v in served.items()},
         "launches": launches,
         "prefill_instances": {str(k): v for k, v in instances.items()},
-        "long_prompt": long_out, "compiled_decode": compiled,
+        "long_prompt": long_out, "cross_path": cross,
+        "compiled_decode": compiled, "captured_cross": graph,
         "decode_weight_bytes": step_bytes, "decode_floor_ms": floor_ms,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     del model, params, fixed, served
@@ -2700,6 +2856,20 @@ def _serve_family(torch, np, dev, arch):
     log(f"[{CARD}] {arch} served in {summary['phase_s']:.1f} s, peak "
         f"memory {summary['peak_memory_gb']:.2f} GB")
     return summary, launches
+
+
+def _decode_weight_bytes(cfg, params):
+    """The weight bytes a decode step reads: every parameter but the
+    encoder's (ENCODER_KEYS), and but the embedding table where the head
+    is not tied (a tied table is the head, read whole); a MoE layer's
+    dense dispatch computes every expert on its capacity rows."""
+    from repro_torch.utils.trees import tree_leaves
+
+    kept = {k: v for k, v in params.items() if k not in ENCODER_KEYS}
+    if not cfg.tie_embeddings:
+        kept["embed"] = {k: v for k, v in kept["embed"].items()
+                         if k != "embedding"}
+    return sum(x.numel() * x.element_size() for x in tree_leaves(kept))
 
 
 def _long_prompt(torch, np, dev, model, run, params, length, instance):
@@ -2752,6 +2922,263 @@ def _long_prompt(torch, np, dev, model, run, params, length, instance):
     log(f"[{CARD}] {cfg.name} long prompt 1x{length} (window {window}, "
         f"ring of {rows} rows): prefill {out['prefill_ms']:.1f} ms, decode "
         f"p50 {out['decode_p50_ms']:.2f} ms; launches {launches}")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 4h: the vlm and audio families (llama-3.2-vision-11b with gated
+# cross-attention, the whisper-large-v3 encoder-decoder) at full depth
+# --------------------------------------------------------------------------
+
+#: arch -> (the key of its stub frontend's input, the non-causal prefill
+#: instance its cross-attention (and whisper's encoder) must launch).
+#: Published widths and full depth: 10.1 B / 1.5 B parameters fit one card
+VLM_AUDIO = {
+    "llama-3.2-vision-11b": ("vision_embeds", (128, 128, False, False)),
+    "whisper-large-v3": ("frames", (64, 64, False, False)),
+}
+VLM_AUDIO_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
+#: decode steps timed with the serve CLI's fp32 inputs (the first, the
+#: capture, left out)
+F32_EXTRAS_GEN = 8
+#: parameters the decode step does not read: the encoder's
+ENCODER_KEYS = ("enc_blocks", "frame_proj", "enc_norm")
+
+
+def phase_vlm_audio_serve(torch, np, dev):
+    """Each model of VLM_AUDIO served on the card in turn (the vision
+    model freed before whisper is built), then the serve CLI with
+    whisper-large-v3 at its full config; returns the summaries and the
+    launches of the counted runs, summed."""
+    from repro_torch.kernels import cuda_lib
+
+    out = {}
+    launches = {name: 0 for name in cuda_lib.LAUNCHES}
+    for arch, (key, instance) in VLM_AUDIO.items():
+        out[arch], counted = _serve_family(torch, np, dev, arch, {}, (),
+                                           VLM_AUDIO_KERNELS, instance, key)
+        for name, n in counted.items():
+            launches[name] += n
+    out["whisper-large-v3"]["serve_cli"] = _serve_cli(
+        ["--arch", "whisper-large-v3", "--full-config"],
+        ("decode p50", "decode graphs: 1 captured"))
+    return out, launches
+
+
+def _open_cross_gates(torch, dev, cfg, params):
+    """The vision model's cross gates set to seeded values of either sign,
+    |g| in [0.5, 1.5] (their init, tanh(0), makes every cross sublayer a
+    no-op); None for a model without gates."""
+    from repro_torch.models.transformer import block_pattern
+
+    if cfg.family != "vlm":
+        return None
+    gate = params["blocks"][f"sub{len(block_pattern(cfg)) - 1}"][
+        "cross_gate"]
+    g = torch.Generator(device=dev).manual_seed(13)
+    n = gate.shape[0]
+    mag = 0.5 + torch.rand(n, generator=g, device=dev)
+    sign = torch.where(torch.rand(n, generator=g, device=dev) < 0.5, -1.0,
+                       1.0)
+    gate.copy_(mag * sign)
+    gates = gate.float().cpu().tolist()
+    check(all(abs(x) >= 0.5 for x in gates),
+          f"{cfg.name}: cross gates {gates}")
+    return gates
+
+
+def _cross_layer(cfg, params):
+    """The model's first cross layer (its ``cross_norm`` and ``cross``
+    parameters, unstacked) and its number of cross layers."""
+    from repro_torch.models.transformer import block_pattern
+
+    if cfg.family == "vlm":
+        stacked = params["blocks"][f"sub{len(block_pattern(cfg)) - 1}"]
+    else:
+        stacked = params["dec_blocks"]
+    layer = {name: {k: v[0] for k, v in stacked[name].items()}
+             for name in ("cross_norm", "cross")}
+    return layer, stacked["cross"]["wk"].shape[0]
+
+
+def _hold(torch, what, kernel, plain, control):
+    """A tensor of the cross path held directly: the kernel run's within
+    TOL's pair for its dtype of the plain run's, the atol scaled by the
+    plain tensor's max |x| (a cross sublayer's output is a few hundredths,
+    below TOL's bf16 atol).  The same hold must reject ``control`` (the
+    kernel run's tensor from another slot's source), or it could not see
+    the path."""
+    dn = str(plain.dtype).split(".")[1]
+    share, rtol = TOL[dn]
+    p = plain.float()
+    scale = float(p.abs().max())
+    atol = share * scale
+    err = _compare(torch, what, kernel, plain, dn, [], False, (atol, rtol))
+    tol = atol + rtol * p.abs()
+    used = float(((kernel.float() - p).abs() / tol).max())
+    off = (control.float() - p).abs()
+    rejected = float((off > tol).float().mean())
+    check(rejected > 0, f"{what}: the control (another slot's source) "
+          f"passes the hold (atol {atol:.3e}, rtol {rtol}), so the hold "
+          f"cannot see the path")
+    norm = float(torch.linalg.vector_norm(p))
+    out = {"max_abs_err": err, "atol": atol, "rtol": rtol, "max_abs": scale,
+           "tol_used": used,
+           "rel_err": float(torch.linalg.vector_norm(kernel.float() - p))
+           / norm,
+           "control_max_abs_diff": float(off.max()),
+           "control_rel_diff": float(torch.linalg.vector_norm(
+               control.float() - p)) / norm,
+           "control_rejected_share": rejected}
+    log(f"{what}: kernel vs plain max |err| {err:.3e} (tol {atol:.3e} + "
+        f"{rtol}|x|, max |x| {scale:.3e}; at most {used:.2f} of the "
+        f"tolerance), relative {out['rel_err']:.2e}; "
+        f"the control differs by {out['control_max_abs_diff']:.3e} "
+        f"(relative {out['control_rel_diff']:.2e}), "
+        f"{rejected * 100:.1f}% of it rejected")
+    return out
+
+
+def _cross_path(torch, np, arch, model, run, params, prompt, fixed, extras,
+                f32, kernel_logits, atol):
+    """What phase 4h adds for a model with a cross path: the CLI's fp32
+    inputs (prefill and LOGIT_STEPS - 1 decode steps, kernel against plain,
+    and the captured step timed); direct holds (``_hold``) of whisper's
+    encoder output and of the first cross sublayer at the prefill's and at
+    a decode step's query rows, over the served bf16 source and the CLI's
+    fp32 one; how far another slot's source moves the logits (against
+    their tolerance: at full width the residual stream dwarfs the cross
+    path, so the logits alone cannot hold it); and what recomputing the
+    cross K/V costs a step."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import serve_fixed_batch
+    from repro_torch.models import attention as attn
+    from repro_torch.models.encdec import encode
+    from repro_torch.models.layers import apply_rmsnorm
+    from repro_torch.models.model import torch_dtype
+
+    cfg, par = model.cfg, run.parallel
+    (key,) = extras
+    cache_len = FIXED["prompt_len"] + FIXED["gen"]
+
+    # ---- the serve CLI's fp32 inputs: the promotion path ---------------
+    f32_kernel, _ = _forced_logits(torch, model, run, params, prompt,
+                                   fixed.tokens, cache_len, dispatch.CUDA,
+                                   f32)
+    f32_plain = _plain_logits(torch, model, run, params, prompt,
+                              fixed.tokens, cache_len, f32)
+    f32_atol = min(LOGIT_ATOL, SSM_LOGIT_ATOL_SHARE * max(
+        float(pl.abs().max()) for pl in f32_plain))
+    f32_worst, f32_decided, _ = _compare_logits(
+        torch, f32_kernel, f32_plain, cfg.vocab_size,
+        f"{arch} with the CLI's fp32 {key}", f32_atol)
+    res = serve_fixed_batch(model, run, params, prompt, gen=F32_EXTRAS_GEN,
+                            extras=f32)
+    f32_lat = np.asarray(res.decode_s[1:]) * 1e3
+    f32_out = {"logits_max_abs_diff": f32_worst,
+               "argmax_decided_rows": f32_decided,
+               "logits_tol": {"atol": f32_atol, "rtol": LOGIT_RTOL},
+               "prefill_ms": res.prefill_s * 1e3,
+               "decode_p50_ms": float(np.percentile(f32_lat, 50)),
+               "decode_p99_ms": float(np.percentile(f32_lat, 99)),
+               "steps_timed": int(f32_lat.size)}
+    log(f"[{CARD}] {arch} with the CLI's fp32 {key}: logits within "
+        f"{f32_worst:.4f} of the plain run; captured step p50 "
+        f"{f32_out['decode_p50_ms']:.2f} ms over {f32_lat.size} steps, "
+        f"prefill {f32_out['prefill_ms']:.1f} ms")
+    del res
+
+    # ---- the cross path held directly, kernel run against plain run -----
+    def ran(mode, fn, *args):
+        with torch.no_grad(), dispatch.use_mode(mode):
+            return fn(*args)
+
+    def held(what, fn, src):
+        return _hold(torch, what, ran(dispatch.CUDA, fn, src),
+                     ran(dispatch.REF, fn, src),
+                     ran(dispatch.CUDA, fn, src.roll(1, 0)))
+
+    def enc(src):
+        return encode(params, cfg, par, src)
+
+    holds, sources = {}, {}
+    for dn, src in (("bfloat16", extras[key]), ("float32", f32[key])):
+        if cfg.family == "audio":
+            holds[f"enc_out {dn}"] = held(
+                f"{arch} encoder output ({dn} frames {tuple(src.shape)})",
+                enc, src)
+            src = ran(dispatch.CUDA, enc, src)
+        sources[dn] = src
+    layer, n_cross = _cross_layer(cfg, params)
+    g = torch.Generator(device=prompt.device).manual_seed(19)
+    for sq in (FIXED["prompt_len"], 1):
+        x = torch.randn((FIXED["batch"], sq, cfg.d_model), generator=g,
+                        device=prompt.device).to(torch_dtype(cfg.dtype))
+
+        def sub(src):
+            return attn.apply_cross_attn(
+                layer["cross"], cfg, par,
+                apply_rmsnorm(layer["cross_norm"], x, cfg.norm_eps), src)
+        for dn, src in sources.items():
+            holds[f"cross sq{sq} {dn}"] = held(
+                f"{arch} first cross sublayer, {sq} query rows over the "
+                f"{dn} source {tuple(src.shape)}", sub, src)
+
+    # ---- how far the cross path moves the logits ------------------------
+    moved, _ = _forced_logits(torch, model, run, params, prompt,
+                              fixed.tokens, cache_len, dispatch.CUDA,
+                              {key: extras[key].roll(1, 0)})
+    diffs = [(a - b).abs() for a, b in zip(moved, kernel_logits)]
+    effect = {"max_abs_diff": max(float(d.max()) for d in diffs),
+              "beyond_logit_tol": sum(
+                  int((d > atol + LOGIT_RTOL * b.abs()).sum())
+                  for d, b in zip(diffs, kernel_logits)),
+              "logits": sum(d.numel() for d in diffs)}
+    log(f"{arch}: another slot's {key} moves the kernel run's logits by "
+        f"at most {effect['max_abs_diff']:.4f}; {effect['beyond_logit_tol']}"
+        f" of {effect['logits']} logits move beyond the logit tolerance "
+        f"({atol:.4g} + {LOGIT_RTOL}|x|)")
+    del moved, diffs
+
+    cross_cost = _cross_cost(torch, cfg, par, layer["cross"], n_cross,
+                             sources)
+    return {"cli_fp32_extras": f32_out, "holds": holds,
+            "other_source_at_logits": effect, "cross_cost": cross_cost}
+
+
+def _cross_cost(torch, cfg, par, p, n_cross, sources):
+    """What a decode step spends recomputing the cross-attention, as the
+    reference does at every step: one cross layer's K and V projections of
+    its source (the vision embeddings, or the encoder output) and the
+    whole cross sublayer at one query row a slot, timed with CUDA events
+    (median of 30, L2 flushed) on the cross layer ``p``, times the model's
+    ``n_cross`` cross layers; for each source dtype of ``sources``."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import mm
+
+    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=p["wk"].device)
+    g = torch.Generator(device=l2.device).manual_seed(17)
+    x = torch.randn((FIXED["batch"], 1, cfg.d_model), generator=g,
+                    device=l2.device).to(p["wq"].dtype)
+    out = {"cross_layers": n_cross}
+    for name, src in sources.items():
+        kv_ms = _time_ms(torch, lambda: (mm(src, p["wk"]), mm(src, p["wv"])),
+                         l2.zero_)
+        layer_ms = _time_ms(torch, lambda: attn.apply_cross_attn(
+            p, cfg, par, x, src), l2.zero_)
+        flops = 2 * 2 * src.shape[0] * src.shape[1] * src.shape[2] * \
+            p["wk"].shape[1]
+        out[name] = {"source": list(src.shape), "kv_ms_per_layer": kv_ms,
+                     "cross_ms_per_layer": layer_ms,
+                     "kv_ms_per_step": kv_ms * n_cross,
+                     "cross_ms_per_step": layer_ms * n_cross,
+                     "kv_tflop_per_step": flops * n_cross / 1e12,
+                     "kv_tflop_s": flops / (kv_ms * 1e-3) / 1e12}
+        log(f"[{CARD}] {cfg.name} cross K/V recomputed every step "
+            f"({name} {tuple(src.shape)}): {kv_ms * 1e3:.1f} us a layer "
+            f"({out[name]['kv_tflop_s']:.0f} TF/s), x {n_cross} layers = "
+            f"{kv_ms * n_cross:.2f} ms a step; the whole cross sublayer "
+            f"{layer_ms * n_cross:.2f} ms a step")
     return out
 
 
@@ -3024,6 +3451,29 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
                                                  is_causal=True),
           nbytes=(sq.numel() + sk.numel() + 2 * sv.numel()) * es,
           flops=2 * (192 + 128) * 128 * 4 * 64 * 65 // 2)
+    # the vlm and audio families' non-causal shapes (phase 4h), with the
+    # serving path's block sizes: a vision decode step's cross-attention
+    # (4 slots x 1 query row over 1600 patch rows, 32 / 8 heads of 128) and
+    # its prompt's (4 x 64 over 1600), and whisper's encoder
+    # self-attention (4 x 1500 frames, 20 / 20 heads of 64)
+    xgen = torch.Generator(device=dev).manual_seed(21)
+    for key, (xb, xsq, xskv, xhq, xhkv, xd) in (
+            ("cross_decode", (4, 1, 1600, 32, 8, 128)),
+            ("cross_prefill", (4, 64, 1600, 32, 8, 128)),
+            ("whisper_encoder", (4, 1500, 1500, 20, 20, 64))):
+        xq = _rand(torch, xgen, (xb, xsq, xhq, xd), bf, dev)
+        xk, xv = (_rand(torch, xgen, (xb, xskv, xhkv, xd), bf, dev)
+                  for _ in range(2))
+        xqt, xkt, xvt = (t.transpose(1, 2) for t in (xq, xk, xv))
+        extra(rows[-1], key, [xb, xsq, xskv, xhq, xhkv, xd],
+              lambda: flash_attention_cuda(xq, xk, xv, causal=False,
+                                           q_block=512, kv_block=1024),
+              lambda: attention_blockwise_ref(xq, xk, xv, causal=False,
+                                              kv_block=1024),
+              lambda: F.scaled_dot_product_attention(xqt, xkt, xvt,
+                                                     enable_gqa=True),
+              nbytes=(2 * xq.numel() + xk.numel() + xv.numel()) * es,
+              flops=4 * xd * xhq * xb * xsq * xskv)
     # the tensor-core kernel's block shapes (q_block x kv_block) at the
     # training shape and the long prompt
     sweep = {}
@@ -3236,14 +3686,15 @@ MAX_DECODE_LAUNCHES = 1099
 
 
 def _profile_decode(torch, model, run, params, prompt, steps,
-                    step_pair=None):
+                    step_pair=None, extras=None):
     """Trace ``steps`` decode steps of the fixed batch with torch.profiler,
     after one decode step outside the window (the captured step's
     capture): the window's host time, the device's busy time and idle
     share (the profiler's own overhead makes the idle share a ceiling),
     kernels per step and the largest by device time.  ``step_pair`` is
-    ``(prefill, decode)``, ``jitted_steps``' unless given.  Returns
-    (summary, [(kernel, device ms, calls)] sorted by time)."""
+    ``(prefill, decode)``, ``jitted_steps``' unless given; ``extras`` go
+    with the prompt.  Returns (summary, [(kernel, device ms, calls)]
+    sorted by time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -3251,7 +3702,7 @@ def _profile_decode(torch, model, run, params, prompt, steps,
 
     prefill, decode = step_pair or jitted_steps(model, run,
                                                 cache_len=run.shape.seq_len)
-    state, logits = prefill(params, {"tokens": prompt})
+    state, logits = prefill(params, {"tokens": prompt, **(extras or {})})
     tok = logits.argmax(-1).to(torch.int32)[:, None]
     state, logits = decode(params, state, tok)
     tok = logits.argmax(-1).to(torch.int32)[:, None]
@@ -3600,13 +4051,21 @@ def main() -> int:
     moe_serve["phase_s"] = time.perf_counter() - t0
     log(f"[{CARD}] MoE and carried dense serving done in "
         f"{moe_serve['phase_s']:.1f} s")
+
+    # 4h. the vlm and audio families at full depth
+    t0 = time.perf_counter()
+    vlm_audio, vlm_audio_launches = phase_vlm_audio_serve(torch, np, dev)
+    vlm_audio["phase_s"] = time.perf_counter() - t0
+    log(f"[{CARD}] vlm and audio serving done in "
+        f"{vlm_audio['phase_s']:.1f} s")
     by_path = {name: {"serve": launches.get(name, 0),
                       "train": sum(t["launches"][name]
                                    for t in train_out.values()),
                       "sim2real": sim2real_launches[name],
                       "tune_launch": tune_launch_launches[name],
                       "ssm_serve": ssm_serve_launches[name],
-                      "moe_serve": moe_serve_launches[name]}
+                      "moe_serve": moe_serve_launches[name],
+                      "vlm_audio_serve": vlm_audio_launches[name]}
                for name in cuda_lib.LAUNCHES}
 
     # 5. timings
@@ -3626,7 +4085,8 @@ def main() -> int:
                  {"train": train_out, "grad_check": grad_errs,
                   "grad_tolerance": GRAD_TOL}, {"sim2real": sim2real},
                  {"tune_launch": tune_launch}, {"ssm_serve": ssm_serve},
-                 {"compiled_decode": compiled}, {"moe_serve": moe_serve}):
+                 {"compiled_decode": compiled}, {"moe_serve": moe_serve},
+                 {"vlm_audio_serve": vlm_audio}):
         print(json.dumps(_strict_json(line), allow_nan=False, default=str),
               flush=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,8 +1,8 @@
 """Architecture registry — the slice of :mod:`repro.configs.registry` the
-port runs so far: the reference's eight decoder-only archs (dense, moe,
-ssm, hybrid), in the reference's order.  ``llama-3.2-vision-11b`` (vlm)
-and ``whisper-large-v3`` (audio), the shape cells and the dry-run input
-specs come in later slices.
+port runs so far: the reference's ten archs (dense, moe, ssm, hybrid, the
+vlm ``llama-3.2-vision-11b`` and the audio encoder-decoder
+``whisper-large-v3``), in the reference's order.  The shape cells and the
+dry-run input specs come in a later slice.
 """
 
 from __future__ import annotations
@@ -21,6 +21,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1p8b",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick_400b",
+    "llama-3.2-vision-11b": "repro_torch.configs.llama3p2_vision_11b",
+    "whisper-large-v3": "repro_torch.configs.whisper_large_v3",
 }
 
 

@@ -56,10 +56,11 @@ LAUNCHES: Dict[str, int] = {
     "ssd": 0,
 }
 #: prefill launches since the last :func:`reset_launches` by kernel
-#: instance, ``(q/k head dim, v head dim, windowed)`` (windowed: the
-#: window is shorter than the keys, so it hides some): added beside
-#: ``LAUNCHES["flash_attention"]`` (prefill is never captured in a graph)
-PREFILL_INSTANCES: Dict[Tuple[int, int, bool], int] = {}
+#: instance, ``(q/k head dim, v head dim, windowed, causal)`` (windowed:
+#: the window is shorter than the keys, so it hides some): added beside
+#: ``LAUNCHES["flash_attention"]``, and by a replayed graph as its capture
+#: recorded them (the vlm and audio decode steps' cross-attention)
+PREFILL_INSTANCES: Dict[Tuple[int, int, bool, bool], int] = {}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -114,18 +115,24 @@ def reset_launches() -> None:
     PREFILL_INSTANCES.clear()
 
 
-def add_launches(delta: Dict[str, int]) -> None:
-    """Count the launches of a replayed graph: ``delta`` is what its
-    capture recorded (:attr:`Capture.launches`)."""
+def add_launches(delta: Dict[str, int],
+                 instances: Optional[Dict[Tuple, int]] = None) -> None:
+    """Count the launches of a replayed graph: ``delta`` and ``instances``
+    are what its capture recorded (:attr:`Capture.launches`,
+    :attr:`Capture.instances`)."""
     for name, n in delta.items():
         LAUNCHES[name] += n
+    for inst, n in (instances or {}).items():
+        PREFILL_INSTANCES[inst] = PREFILL_INSTANCES.get(inst, 0) + n
 
 
 @dataclass
 class Capture:
     """What one graph capture recorded: the launches each replay makes, by
-    kernel, and the scratch tensors its kernels write (kept alive here)."""
+    kernel and by prefill instance, and the scratch tensors its kernels
+    write (kept alive here)."""
     launches: Dict[str, int] = field(default_factory=dict)
+    instances: Dict[Tuple, int] = field(default_factory=dict)
     scratch: List[torch.Tensor] = field(default_factory=list)
 
 
@@ -136,11 +143,13 @@ _recording: List[Capture] = []
 @contextlib.contextmanager
 def capture_scope() -> Iterator[Capture]:
     """Around a CUDA graph capture: on exit the counts that the wrappers
-    added inside are moved from :data:`LAUNCHES` into the yielded
-    :class:`Capture` (a capture launches nothing), and every scratch tensor
-    handed out inside is kept by it."""
+    added inside are moved from :data:`LAUNCHES` and
+    :data:`PREFILL_INSTANCES` into the yielded :class:`Capture` (a capture
+    launches nothing), and every scratch tensor handed out inside is kept
+    by it."""
     rec = Capture()
     before = dict(LAUNCHES)
+    before_inst = dict(PREFILL_INSTANCES)
     with _lock:
         _recording.append(rec)
     try:
@@ -150,7 +159,12 @@ def capture_scope() -> Iterator[Capture]:
             _recording.remove(rec)
         rec.launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
                         if LAUNCHES[k] != before[k]}
+        rec.instances = {k: n - before_inst.get(k, 0)
+                         for k, n in PREFILL_INSTANCES.items()
+                         if n != before_inst.get(k, 0)}
         LAUNCHES.update(before)
+        PREFILL_INSTANCES.clear()
+        PREFILL_INSTANCES.update(before_inst)
 
 
 def _keep(*tensors: torch.Tensor) -> None:

@@ -133,7 +133,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         cuda_lib.stream_of(q))
     cuda_lib.check(err, "flash_attention")
     cuda_lib.LAUNCHES["flash_attention"] += 1
-    inst = (d, dv, 0 < sliding_window < skv)  # windowed: the window bites
+    # windowed: the window bites
+    inst = (d, dv, 0 < sliding_window < skv, bool(causal))
     cuda_lib.PREFILL_INSTANCES[inst] = cuda_lib.PREFILL_INSTANCES.get(inst,
                                                                       0) + 1
     return o

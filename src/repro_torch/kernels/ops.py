@@ -32,10 +32,20 @@ function is the same.  They take no gradient (serving runs under
 ``torch.no_grad()``): an input that requires one raises.  The decode steps
 (``selective_scan_step``, ``ssd_step``) are plain PyTorch on every
 device, as in the reference, which has no Pallas kernel for them either.
+
+Mixed dtypes.  The reference's ``flash_attention`` and ``rmsnorm`` take
+operands of different float dtypes (the stub frontends' fp32 inputs meet
+a bf16 model): its Pallas kernels read every operand as fp32 and write
+``q.dtype`` / ``x.dtype``, and so do its plain versions.  Each kernel here
+is instantiated for one dtype, so :func:`flash_attention` and
+:func:`rmsnorm` cast the operands to the widest of their dtypes before
+dispatch (fp32 operands launch the fp32 instance) and return ``q``'s /
+``x``'s dtype.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict
 
 import torch
@@ -107,6 +117,10 @@ def recompute(name: str, forward: Callable, plain: Callable, *inputs):
     return forward(*inputs)
 
 
+def _widest(*tensors: torch.Tensor) -> torch.dtype:
+    return functools.reduce(torch.promote_types, (t.dtype for t in tensors))
+
+
 # --------------------------------------------------------------------------
 # attention
 # --------------------------------------------------------------------------
@@ -128,7 +142,9 @@ def flash_attention(q, k, v, *, causal=True, sliding_window=0,
                         kv_block=res.launch["kv_block"], **kw)
 
     fwd = plain if res.mode == dispatch.REF else kernel
-    return recompute("flash_attention", fwd, plain, q, k, v)
+    wide = _widest(q, k, v)
+    return recompute("flash_attention", fwd, plain, q.to(wide), k.to(wide),
+                     v.to(wide)).to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, sliding_window=0,
@@ -232,4 +248,6 @@ def rmsnorm(x, weight, *, eps=1e-5, residual=None, row_block=None):
 
     fwd = plain if res.mode == dispatch.REF else kernel
     inputs = (x, weight) + ((residual,) if residual is not None else ())
-    return recompute("rmsnorm", fwd, plain, *inputs)
+    wide = _widest(*inputs)
+    return recompute("rmsnorm", fwd, plain,
+                     *(t.to(wide) for t in inputs)).to(x.dtype)

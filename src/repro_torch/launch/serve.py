@@ -5,9 +5,16 @@
         --batch 4 --prompt-len 64 --gen 32 [--full-config] [--device cpu]
 
 The prompts are the reference's (the same seeded synthetic data).  Every
-ported family serves: the dense llama3.2-1b, and the SSM families
+arch of the registry serves: the dense ones, the SSM families
 falcon-mamba-7b (Mamba-1) and zamba2-2.7b (Mamba-2 with a shared
-attention block), whose decode state carries the recurrent states.
+attention block), whose decode state carries the recurrent states, the
+MoE family, and llama-3.2-vision-11b (vlm) and whisper-large-v3 (audio
+encoder-decoder), whose fixed batch also carries the stub frontends'
+``vision_embeds`` / ``frames`` from the same data, in fp32 as the
+reference's CLI passes them (a bf16 model promotes where they meet its
+weights, as jax does).  The continuous batcher (``--workload``) serves the
+decoder-only families: as in the reference it keeps no per-request
+``extras`` in its state, so a vlm or audio request fails at its prefill.
 
 ``--tune-launch N`` closes the CAMEO loop before serving: a transfer-tuning
 run (analytic source, ``--measure-backend`` target) over the kernel-launch
@@ -69,10 +76,13 @@ class FixedBatchResult:
 def serve_fixed_batch(model, run: RunConfig, params, prompt: torch.Tensor, *,
                       gen: int, temperature: float = 0.0,
                       keep_logits: int = 0,
-                      launch_config: Optional[Dict[str, Any]] = None
+                      launch_config: Optional[Dict[str, Any]] = None,
+                      extras: Optional[Dict[str, torch.Tensor]] = None
                       ) -> FixedBatchResult:
-    """Prefill ``prompt`` (B, S), then decode ``gen - 1`` steps, the steps
-    built with ``launch_config`` (a tuned ``family.param`` config).  Each
+    """Prefill ``prompt`` (B, S) with the batch's ``extras`` (the vlm's
+    ``vision_embeds``, the audio model's ``frames``), then decode
+    ``gen - 1`` steps, the steps built with ``launch_config`` (a tuned
+    ``family.param`` config).  Each
     step is timed on the host around a device synchronize; on the card
     the first decode step captures the step's graph and the others replay
     it (the callers leave the first out of their percentiles).  The
@@ -86,7 +96,7 @@ def serve_fixed_batch(model, run: RunConfig, params, prompt: torch.Tensor, *,
     kept: List[torch.Tensor] = []
     # repro: ignore[wall-clock] -- serve-CLI step latency, as the reference's serve CLI reports it
     t0 = time.perf_counter()
-    state, logits = prefill(params, {"tokens": prompt})
+    state, logits = prefill(params, {"tokens": prompt, **(extras or {})})
     synchronize(prompt.device)
     # repro: ignore[wall-clock] -- serve-CLI step latency, as the reference's serve CLI reports it
     prefill_s = time.perf_counter() - t0
@@ -188,13 +198,20 @@ def graphs_line(captures: int, capture_s: float) -> str:
             f"{capture_s * 1000:.1f} ms")
 
 
-def make_prompt(cfg, shape: ShapeConfig, batch: int, prompt_len: int,
-                device) -> torch.Tensor:
-    """The reference CLI's prompts: the first batch of the data seeded for
-    the run's shape (whose sequence length is prompt + generation)."""
+def make_batch(cfg, shape: ShapeConfig, batch: int, prompt_len: int,
+               device) -> Dict[str, torch.Tensor]:
+    """The reference CLI's fixed batch: the first batch of the data seeded
+    for the run's shape (whose sequence length is prompt + generation) —
+    the prompts as ``tokens`` and, for the vlm and audio families, the
+    stub frontends' ``vision_embeds`` / ``frames`` (fp32, as the data
+    gives them)."""
     raw = make_data(cfg, shape, seed=0).batch_at(0)
-    return torch.as_tensor(raw["inputs"][:batch, :prompt_len],
-                           device=device)
+    out = {"tokens": torch.as_tensor(raw["inputs"][:batch, :prompt_len],
+                                     device=device)}
+    for key in ("vision_embeds", "frames"):
+        if key in raw:
+            out[key] = torch.as_tensor(raw[key][:batch], device=device)
+    return out
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -261,8 +278,9 @@ def _run(args) -> int:
                        query_batch=args.query_batch,
                        sim2real_eval=args.sim2real_eval)
         return 0
-    prompt = make_prompt(cfg, run.shape, args.batch, args.prompt_len,
-                         model.device)
+    extras = make_batch(cfg, run.shape, args.batch, args.prompt_len,
+                        model.device)
+    prompt = extras.pop("tokens")
     launch_config = None
     if args.tune_launch > 0:
         launch_config = tune_launch_config(cfg, args.batch, cache_len,
@@ -272,7 +290,7 @@ def _run(args) -> int:
                                            device=model.device)
     res = serve_fixed_batch(model, run, params, prompt, gen=args.gen,
                             temperature=args.temperature,
-                            launch_config=launch_config)
+                            launch_config=launch_config, extras=extras)
     print(graphs_line(res.captures, res.capture_s))
     print(f"[serve] prefill {args.batch}x{args.prompt_len}: "
           f"{res.prefill_s * 1000:.1f} ms")

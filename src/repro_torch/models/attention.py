@@ -1,7 +1,7 @@
 """Grouped-query attention with dense, ring (sliding-window) and paged KV
-caches, and DeepSeek's multi-head latent attention (MLA) with its
-compressed cache — the GQA and MLA parts of :mod:`repro.models.attention`
-(cross-attention comes in a later slice).
+caches, DeepSeek's multi-head latent attention (MLA) with its compressed
+cache, and the cross-attention of the vlm image layers and of the
+encoder-decoder — the port of :mod:`repro.models.attention`.
 
 The attention contraction dispatches to :mod:`repro_torch.kernels.ops`
 (the CUDA kernels on the GPU, the plain versions on the CPU).
@@ -32,7 +32,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, mm
 from repro_torch.utils.config import ModelConfig, ParallelConfig
 
 
@@ -321,3 +321,40 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                          dtype=dtype, device=device),
         length=torch.zeros(lead + (batch,), dtype=torch.int32, device=device),
     )
+
+
+# --------------------------------------------------------------------------
+# Cross-attention (VLM image layers / enc-dec)
+# --------------------------------------------------------------------------
+
+def init_cross_attn(gen, cfg: ModelConfig, kv_dim: int, dtype, device,
+                    lead: Tuple[int, ...] = ()) -> Dict:
+    hd = cfg.head_dim
+    return {
+        "wq": dense_init(gen, cfg.d_model, cfg.num_heads * hd, dtype, device,
+                         lead=lead),
+        "wk": dense_init(gen, kv_dim, cfg.num_kv_heads * hd, dtype, device,
+                         lead=lead),
+        "wv": dense_init(gen, kv_dim, cfg.num_kv_heads * hd, dtype, device,
+                         lead=lead),
+        "wo": dense_init(gen, cfg.num_heads * hd, cfg.d_model, dtype, device,
+                         lead=lead),
+    }
+
+
+def apply_cross_attn(p: Dict, cfg: ModelConfig, par: ParallelConfig,
+                     x: torch.Tensor, kv_src: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, D); kv_src: (B, T, D_kv) — no causal mask, no rope on K/V.
+    As in the reference there is no cross K/V cache: every call (every
+    decode step) projects the whole ``kv_src``.  An fp32 ``kv_src`` (the
+    stub frontends' inputs) gives fp32 K/V, as ``jnp.einsum`` promotes;
+    the output takes ``x``'s dtype."""
+    b, s, _ = x.shape
+    t = kv_src.shape[1]
+    hd = cfg.head_dim
+    q = mm(x, p["wq"]).reshape(b, s, cfg.num_heads, hd)
+    k = mm(kv_src, p["wk"]).reshape(b, t, cfg.num_kv_heads, hd)
+    v = mm(kv_src, p["wv"]).reshape(b, t, cfg.num_kv_heads, hd)
+    o = ops.flash_attention(q, k, v, causal=False, q_block=par.attn_q_block,
+                            kv_block=par.attn_kv_block)
+    return mm(o.reshape(b, s, cfg.num_heads * hd), p["wo"])

@@ -3,8 +3,10 @@ nested dicts of numpy arrays, becomes the port's parameter tree.
 
 The port keeps the reference's layout (``(in, out)`` weights, super-block
 leaves stacked on a leading ``nsb`` axis, whatever the pattern's length —
-one sub-layer for dense and ssm, six for zamba2 — and the hybrid family's
-unstacked ``shared_attn`` block), so the conversion is leaf-for-leaf; the
+one sub-layer for dense and ssm, five for the vlm, six for zamba2 — the
+hybrid family's unstacked ``shared_attn`` block, and the
+encoder-decoder's ``enc_blocks`` / ``dec_blocks`` stacked on their layer
+axes), so the conversion is leaf-for-leaf; the
 tree structure and every shape are checked against the port's own
 parameters (built on the ``meta`` device).  Each leaf takes its template
 leaf's dtype: the model dtype for weights, fp32 for the SSM parameters
@@ -20,8 +22,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.models import transformer
-from repro_torch.models.model import torch_dtype
+from repro_torch.models.model import init_params_tree, torch_dtype
 from repro_torch.utils.config import ModelConfig
 from repro_torch.utils.device import DeviceLike, resolve_device
 
@@ -37,13 +38,13 @@ def _to_tensor(a: np.ndarray, dtype: torch.dtype,
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device: DeviceLike = None,
                     dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
-    """The reference's ``init_lm_params`` tree -> the port's parameters.
+    """The reference's ``init_lm_params`` tree (``init_encdec_params`` for
+    the audio family) -> the port's parameters.
     ``dtype`` (default: the config's) is the model dtype of the template;
     leaves the reference keeps in fp32 stay fp32."""
     dev = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
-    template = transformer.init_lm_params(cfg, None, dtype,
-                                          torch.device("meta"))
+    template = init_params_tree(cfg, None, dtype, torch.device("meta"))
 
     def convert(src, tmpl, path):
         if isinstance(tmpl, dict):

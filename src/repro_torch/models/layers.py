@@ -81,6 +81,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+# -- products ----------------------------------------------------------------
+
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with jax's promotion of mixed float dtypes: the reference's
+    ``jnp.einsum`` of an fp32 operand and a bf16 one computes in fp32 (the
+    stub frontends hand fp32 frames and patch embeddings to a bf16 model),
+    where ``torch.matmul`` refuses mixed operands.  The narrower operand is
+    widened first; equal dtypes multiply as they are."""
+    if a.dtype != b.dtype:
+        wide = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(wide), b.to(wide)
+    return a @ b
+
+
 # -- MLP variants ----------------------------------------------------------
 
 def init_mlp(gen, d_model: int, d_ff: int, mlp_type: str, dtype, device,
@@ -100,12 +114,12 @@ def init_mlp(gen, d_model: int, d_ff: int, mlp_type: str, dtype, device,
 
 def apply_mlp(p: Dict, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
     if mlp_type == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        h = F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"])
     elif mlp_type == "relu2":
-        h = torch.square(F.relu(x @ p["w_up"]))
+        h = torch.square(F.relu(mm(x, p["w_up"])))
     else:  # gelu — jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(x @ p["w_up"], approximate="tanh")
-    return h @ p["w_down"]
+        h = F.gelu(mm(x, p["w_up"]), approximate="tanh")
+    return mm(h, p["w_down"])
 
 
 # -- Embedding + LM head ---------------------------------------------------

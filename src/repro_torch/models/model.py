@@ -1,5 +1,7 @@
-"""Model factory for the dense, moe, ssm and hybrid families, plus
-parameter counting — the port of :mod:`repro.models.model`.
+"""Model factory for the ten assigned families' archs (dense, moe, ssm,
+hybrid and vlm through :mod:`~repro_torch.models.transformer`, the audio
+encoder-decoder through :mod:`~repro_torch.models.encdec`), plus parameter
+counting — the port of :mod:`repro.models.model`.
 
 ``build_model(cfg, par, device=...)`` binds the functions of one
 architecture to one device (``cuda`` unless the caller passes ``cpu``).
@@ -15,7 +17,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Union
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.utils.config import ModelConfig, ParallelConfig
 from repro_torch.utils.device import DeviceLike, resolve_device
 
@@ -37,9 +39,19 @@ class Model(NamedTuple):
     forward: Callable[..., Any]           # prefill / decode forward
     init_decode_state: Callable[..., Dict]
     # paged-KV variant: (batch, pool_pages, page_size, pages_per_slot_max)
-    # -> stacked decode state
+    # -> stacked decode state; None for families without a paged serving
+    # path (audio)
     init_paged_decode_state: Optional[Callable[..., Dict]] = None
     device: torch.device = torch.device("cpu")
+
+
+def init_params_tree(cfg: ModelConfig, gen: Optional[torch.Generator],
+                     dtype, device) -> Dict[str, Any]:
+    """The family's parameter tree (the reference's ``init_encdec_params``
+    for audio, ``init_lm_params`` otherwise), drawn from ``gen``."""
+    if cfg.family == "audio":
+        return encdec.init_encdec_params(cfg, gen, dtype, device)
+    return transformer.init_lm_params(cfg, gen, dtype, device)
 
 
 def build_model(cfg: ModelConfig, par: Optional[ParallelConfig] = None, *,
@@ -47,21 +59,36 @@ def build_model(cfg: ModelConfig, par: Optional[ParallelConfig] = None, *,
     par = par or ParallelConfig()
     dtype = torch_dtype(cfg.dtype)
     dev = resolve_device(device)
-    transformer.block_pattern(cfg)  # unported families fail here, early
 
     def init(seed: Union[int, torch.Generator] = 0) -> Dict:
         """Parameters drawn from a seeded generator on the model's device."""
         gen = seed
         if isinstance(seed, int) and dev.type != "meta":  # meta: shapes only
             gen = torch.Generator(device=dev).manual_seed(seed)
-        return transformer.init_lm_params(cfg, gen, dtype, dev)
+        return init_params_tree(cfg, gen, dtype, dev)
 
-    def forward(params, tokens, *, decode_state=None, decode=False,
-                positions=None, return_hidden=False, **kw):
+    if cfg.family == "audio":
+        def forward(params, tokens, *, frames=None, decode_state=None,
+                    decode=False, positions=None, **kw):
+            enc_out = encdec.encode(params, cfg, par, frames)
+            logits, state = encdec.decode_forward(
+                params, cfg, par, tokens, enc_out, positions=positions,
+                decode_state=decode_state, decode=decode)
+            return logits, state, torch.zeros((), dtype=torch.float32,
+                                              device=logits.device)
+
+        def init_state(batch, max_len):
+            return encdec.init_encdec_decode_state(cfg, batch, max_len, dtype,
+                                                   dev)
+
+        return Model(cfg, init, forward, init_state, None, dev)
+
+    def forward(params, tokens, *, vision_embeds=None, decode_state=None,
+                decode=False, positions=None, return_hidden=False, **kw):
         return transformer.forward(
             params, cfg, par, tokens, positions=positions,
-            decode_state=decode_state, decode=decode,
-            return_hidden=return_hidden)
+            vision_embeds=vision_embeds, decode_state=decode_state,
+            decode=decode, return_hidden=return_hidden)
 
     def init_state(batch, max_len):
         return transformer.init_decode_state(cfg, batch, max_len, dtype, dev)
@@ -75,8 +102,8 @@ def build_model(cfg: ModelConfig, par: Optional[ParallelConfig] = None, *,
 
 @functools.lru_cache(maxsize=64)
 def _param_numels(cfg: ModelConfig) -> Dict[str, int]:
-    params = transformer.init_lm_params(cfg, None, torch_dtype(cfg.dtype),
-                                        torch.device("meta"))
+    params = init_params_tree(cfg, None, torch_dtype(cfg.dtype),
+                              torch.device("meta"))
     out: Dict[str, int] = {}
 
     def walk(tree, prefix):

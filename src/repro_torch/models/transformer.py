@@ -1,7 +1,8 @@
-"""Decoder-only LM: the dense (GQA or MLA attention), moe, ssm (Mamba-1)
-and hybrid (Mamba-2 + one shared attention block) families of
-:mod:`repro.models.transformer`, with deepseek's multi-token-prediction
-head (vlm comes in a later slice).
+"""Decoder-only LM: the dense (GQA or MLA attention), moe, ssm (Mamba-1),
+hybrid (Mamba-2 + one shared attention block) and vlm (dense layers with
+a gated cross-attention image layer every ``cross_attn_period``-th) families
+of :mod:`repro.models.transformer`, with deepseek's multi-token-prediction
+head.  The audio encoder-decoder is :mod:`repro_torch.models.encdec`.
 
 Parameters and decode state keep the reference's layout: super-block
 weights stacked on a leading ``nsb`` axis under ``params["blocks"]``, and
@@ -17,10 +18,10 @@ device, so the reference's activation sharding constraint and its
 ``remat`` policies are dropped (the train CLI's ``ParallelConfig()`` has
 ``remat="none"``).
 
-Decode state follows the reference's trees: a KV cache for a dense or moe
-layer (an :class:`~repro_torch.models.attention.MLACache` with MLA
-attention), a :class:`~repro_torch.models.ssm.MambaState` for a Mamba-1
-layer,
+Decode state follows the reference's trees: a KV cache for a dense,
+cross or moe layer (an :class:`~repro_torch.models.attention.MLACache`
+with MLA attention), a :class:`~repro_torch.models.ssm.MambaState` for a
+Mamba-1 layer,
 ``{"mixer": MambaState}`` for a Mamba-2 layer and ``{"mixer": MambaState,
 "shared_kv": KV cache}`` for the hybrid's shared-attention layer, every
 leaf stacked over the super-blocks.  A forward with a cache updates those
@@ -59,10 +60,9 @@ def block_pattern(cfg: ModelConfig) -> List[str]:
     if cfg.family == "hybrid":
         period = cfg.hybrid_attn_period or 6
         return ["mamba2"] * (period - 1) + ["mamba2_shared_attn"]
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA / MLA, moe, ssm and hybrid "
-            f"families are ported so far (family={cfg.family!r})")
+    if cfg.family == "vlm":
+        period = cfg.cross_attn_period or 5
+        return ["dense"] * (period - 1) + ["cross"]
     if cfg.is_moe:
         if cfg.moe_layer_period > 1:
             return ["dense"] * (cfg.moe_layer_period - 1) + ["moe"]
@@ -99,6 +99,12 @@ def _init_sublayer(gen, cfg: ModelConfig, kind: str, dtype, device,
     else:
         p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype,
                             device, lead)
+    if kind == "cross":
+        p["cross_norm"] = init_rmsnorm(cfg.d_model, dtype, device, lead)
+        p["cross"] = attn.init_cross_attn(
+            gen, cfg, cfg.vision_dim or cfg.d_model, dtype, device, lead)
+        # gated cross-attention (llama3.2-vision): tanh(0) closes the gate
+        p["cross_gate"] = torch.zeros(lead, dtype=dtype, device=device)
     return p
 
 
@@ -228,12 +234,14 @@ def _restack(cache, layers: List) -> Any:
 # forward
 # --------------------------------------------------------------------------
 
-def _apply_sublayer(sub_p, cfg, par, kind, h, positions, shared_p, cache,
-                    decode):
+def _apply_sublayer(sub_p, cfg, par, kind, h, positions, shared_p,
+                    vision_kv, cache, decode):
     """Returns (h, new_cache, aux): aux is a MoE layer's load-balance loss,
     None for the other kinds.  ``cache`` may be present in decode (one
     token, the recurrent step) and in prefill (the whole prompt, filling
-    the KV cache and computing the final recurrent state)."""
+    the KV cache and computing the final recurrent state).  A ``cross``
+    sublayer attends over ``vision_kv`` between its self-attention and its
+    MLP, every call (its cache is the self-attention's)."""
     use_cache = cache is not None
     if kind == "mamba1":
         y, st = ssm.apply_mamba1(sub_p["mixer"], cfg,
@@ -264,12 +272,16 @@ def _apply_sublayer(sub_p, cfg, par, kind, h, positions, shared_p, cache,
             if use_cache:
                 new_cache["shared_kv"] = kv
         return h, new_cache, None
-    # attention (GQA | MLA) + (mlp | moe)
+    # attention (GQA | MLA) [+ cross] + (mlp | moe)
     hn = apply_rmsnorm(sub_p["attn_norm"], h, cfg.norm_eps)
     apply_attn = attn.apply_mla if cfg.attn_type == "mla" else attn.apply_gqa
     y, kv = apply_attn(sub_p["attn"], cfg, par, hn, positions, cache=cache,
                        decode=decode)
     h = h + y
+    if kind == "cross":
+        hc = apply_rmsnorm(sub_p["cross_norm"], h, cfg.norm_eps)
+        yc = attn.apply_cross_attn(sub_p["cross"], cfg, par, hc, vision_kv)
+        h = h + torch.tanh(sub_p["cross_gate"]) * yc
     hm = apply_rmsnorm(sub_p["mlp_norm"], h, cfg.norm_eps)
     aux = None
     if kind == "moe":
@@ -300,6 +312,7 @@ def forward(
     tokens: torch.Tensor,            # (B, S) int
     *,
     positions: Optional[torch.Tensor] = None,
+    vision_embeds: Optional[torch.Tensor] = None,  # (B, T, D_v) for vlm
     decode_state: Optional[Dict] = None,
     decode: bool = False,
     return_hidden: bool = False,
@@ -321,7 +334,8 @@ def forward(
             key = f"sub{i}"
             cache = _layer(decode_state[key], layer) if use_cache else None
             h, nc, a = _apply_sublayer(layers[layer][key], cfg, par, kind, h,
-                                       positions, shared_p, cache, decode)
+                                       positions, shared_p, vision_embeds,
+                                       cache, decode)
             if use_cache:
                 new_layers[key].append(nc)
             if a is not None:
@@ -351,6 +365,6 @@ def mtp_logits(params: Dict, cfg: ModelConfig, par: ParallelConfig,
     hh = torch.cat([h, emb_next], dim=-1) @ mtp["proj"]
     kind = "moe" if "moe" in mtp["block"] else "dense"
     hh, _, _ = _apply_sublayer(mtp["block"], cfg, par, kind, hh, positions,
-                               None, None, False)
+                               None, None, None, False)
     hh = apply_rmsnorm(mtp["norm"], hh, cfg.norm_eps)
     return lm_logits(params["embed"], hh)

@@ -3,7 +3,12 @@
 
 ``make_prefill_step`` runs the whole prompt, filling the KV caches and
 computing the recurrent (SSM) states, and returns the last-position
-logits; ``make_decode_step`` advances one token per slot.  Both run their
+logits; ``make_decode_step`` advances one token per slot.  The vlm and
+audio families carry a per-request input in ``ServeState.extras``: the
+prefill keeps the batch's ``vision_embeds``, or encodes the batch's
+``frames`` once and keeps ``enc_out``, and every decode step attends over
+it (the graph reads it where it lies, so its address is part of the
+signature).  Both run their
 body under an *exclusive* ``dispatch.use_launch_config`` so a step is a
 pure function of its ``launch_config``.  They run eagerly.
 
@@ -46,6 +51,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import cuda_lib, dispatch
+from repro_torch.models import encdec
 from repro_torch.models.model import Model
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -65,7 +71,7 @@ def freeze_launch_config(launch_config: Optional[Dict[str, Any]]
 class ServeState(NamedTuple):
     caches: Any                   # stacked per-super-block decode state
     lengths: torch.Tensor         # (B,) int32 tokens consumed so far
-    extras: Dict[str, torch.Tensor]  # static per-request inputs (none for dense)
+    extras: Dict[str, torch.Tensor]  # enc_out / vision_embeds, per request
 
 
 def make_prefill_step(model: Model, run: RunConfig,
@@ -73,6 +79,7 @@ def make_prefill_step(model: Model, run: RunConfig,
                       launch_config: Optional[Dict[str, Any]] = None
                       ) -> Callable[..., Tuple[ServeState, torch.Tensor]]:
     """Returns prefill(params, batch) -> (ServeState, last_logits (B, V))."""
+    cfg = model.cfg
     max_len = cache_len or run.shape.seq_len
     dispatch.split_launch_config(launch_config or {})  # eager validation
 
@@ -82,11 +89,24 @@ def make_prefill_step(model: Model, run: RunConfig,
             tokens = batch["tokens"]
             b, s = tokens.shape
             caches = model.init_decode_state(b, max_len)
-            logits, new_caches, _ = model.forward(
-                params, tokens, decode_state=caches, decode=False)
+            extras: Dict[str, torch.Tensor] = {}
+            if cfg.family == "audio":
+                par = run.parallel
+                enc_out = encdec.encode(params, cfg, par, batch["frames"])
+                extras["enc_out"] = enc_out
+                logits, new_caches = encdec.decode_forward(
+                    params, cfg, par, tokens, enc_out, decode_state=caches,
+                    decode=False)
+            else:
+                fkw = {}
+                if cfg.family == "vlm":
+                    extras["vision_embeds"] = batch["vision_embeds"]
+                    fkw["vision_embeds"] = batch["vision_embeds"]
+                logits, new_caches, _ = model.forward(
+                    params, tokens, decode_state=caches, decode=False, **fkw)
             lengths = torch.full((b,), s, dtype=torch.int32,
                                  device=tokens.device)
-            return ServeState(new_caches, lengths, {}), logits[:, -1]
+            return ServeState(new_caches, lengths, extras), logits[:, -1]
 
     return prefill_step
 
@@ -95,6 +115,7 @@ def make_decode_step(model: Model, run: RunConfig,
                      launch_config: Optional[Dict[str, Any]] = None
                      ) -> Callable[..., Tuple[ServeState, torch.Tensor]]:
     """Returns decode(params, state, tokens (B,1)) -> (state', logits (B, V))."""
+    cfg = model.cfg
     dispatch.split_launch_config(launch_config or {})  # eager validation
 
     @torch.no_grad()
@@ -102,9 +123,18 @@ def make_decode_step(model: Model, run: RunConfig,
                     ) -> Tuple[ServeState, torch.Tensor]:
         with dispatch.use_launch_config(launch_config, exclusive=True):
             positions = state.lengths[:, None]  # (B, 1) per-request positions
-            logits, new_caches, _ = model.forward(
-                params, tokens, positions=positions,
-                decode_state=state.caches, decode=True)
+            if cfg.family == "audio":
+                logits, new_caches = encdec.decode_forward(
+                    params, cfg, run.parallel, tokens,
+                    state.extras["enc_out"], positions=positions,
+                    decode_state=state.caches, decode=True)
+            else:
+                fkw = {}
+                if cfg.family == "vlm":
+                    fkw["vision_embeds"] = state.extras["vision_embeds"]
+                logits, new_caches, _ = model.forward(
+                    params, tokens, positions=positions,
+                    decode_state=state.caches, decode=True, **fkw)
             state.lengths.add_(1)
             new_state = ServeState(new_caches, state.lengths, state.extras)
             return new_state, logits[:, -1]
@@ -229,7 +259,7 @@ class CapturedDecode:
         self.graphs.move_to_end(sig)
         g.tokens.copy_(tokens)
         g.graph.replay()
-        cuda_lib.add_launches(g.capture.launches)
+        cuda_lib.add_launches(g.capture.launches, g.capture.instances)
         self.replays += 1
         return state, g.logits
 

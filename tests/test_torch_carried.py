@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 from repro.configs import llama3p2_1b as jllama
+from repro.configs import registry as jregistry
 from repro.core import spaces as jspaces
 from repro.data import pipeline as jpipeline
 from repro.obs import metrics as jmetrics
@@ -66,13 +67,17 @@ def test_llama_config_equal(which):
     assert getattr(tllama, which).to_dict() == getattr(jllama, which).to_dict()
     assert tllama.default_parallel("train") == tconfig.ParallelConfig(
         **dataclasses.asdict(jllama.default_parallel("train")))
-    assert tregistry.list_archs() == [
+    assert tregistry.list_archs() == jregistry.list_archs() == [
         "falcon-mamba-7b", "zamba2-2.7b", "nemotron-4-15b", "llama3.2-1b",
         "command-r-35b", "h2o-danube-1.8b", "deepseek-v3-671b",
-        "llama4-maverick-400b-a17b"]
+        "llama4-maverick-400b-a17b", "llama-3.2-vision-11b",
+        "whisper-large-v3"]
     assert tregistry.get_model_config("llama3.2-1b") is tllama.CONFIG
+    for arch in ("llama-3.2-vision-11b", "whisper-large-v3"):
+        assert tregistry.get_model_config(arch).to_dict() == \
+            jregistry.get_model_config(arch).to_dict()
     with pytest.raises(KeyError, match="unknown arch"):
-        tregistry.get_model_config("llama-3.2-vision-11b")
+        tregistry.get_model_config("no-such-arch")
 
 
 def _space(mod):

@@ -156,6 +156,56 @@ def test_tensor_core_prefill_matches_plain_version(sm90, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 1600, 32, 8, 128),
+                                   (4, 1500, 20, 20, 64)])
+def test_cross_attention_at_one_query_matches_plain_version(sm90, dtype,
+                                                            shape):
+    """A decode step's cross-attention: one query row a slot over the
+    vision model's 1600 patch rows (32 / 8 heads of 128) and whisper's
+    1500 encoder rows (20 / 20 heads of 64), non-causal, every block."""
+    b, skv, hq, hkv, d = shape
+    g = torch.Generator(device=sm90).manual_seed(8)
+
+    def rnd(*s):
+        return torch.randn(s, generator=g, device=sm90).to(dtype)
+
+    q, k, v = rnd(b, 1, hq, d), rnd(b, skv, hkv, d), rnd(b, skv, hkv, d)
+    ref = tfr.attention_blockwise_ref(q, k, v, causal=False)
+    for qb in (32, 64):
+        for kb in (32, 64):
+            out = tfk.flash_attention_cuda(q, k, v, causal=False,
+                                           q_block=qb, kv_block=kb)
+            _cmp(out, ref, dtype)
+
+
+@pytest.mark.gpu
+def test_mixed_dtype_ops_match_plain_versions(sm90):
+    """The stub frontends' fp32 inputs in a bf16 model: ``ops`` casts the
+    operands to the widest dtype (the fp32 kernels run) and returns the
+    query's / the rows' dtype, as the reference's kernels do."""
+    from repro_torch.kernels import cuda_lib
+
+    g = torch.Generator(device=sm90).manual_seed(9)
+    q = torch.randn((4, 3, 8, 64), generator=g, device=sm90).bfloat16()
+    k, v = (torch.randn((4, 100, 2, 64), generator=g, device=sm90)
+            for _ in range(2))
+    cuda_lib.reset_launches()
+    out = ops.flash_attention(q, k, v, causal=False)
+    assert out.dtype == torch.bfloat16
+    _cmp(out, tfr.attention_blockwise_ref(q, k, v, causal=False),
+         torch.bfloat16)
+    x = torch.randn((4, 7, 1280), generator=g, device=sm90)
+    w = torch.randn((1280,), generator=g, device=sm90).bfloat16()
+    y = ops.rmsnorm(x, w)
+    assert y.dtype == torch.float32
+    _cmp(y, trr.rmsnorm_ref(x, w), torch.float32)
+    assert cuda_lib.LAUNCHES["flash_attention"] == 1
+    assert cuda_lib.LAUNCHES["rmsnorm"] == 1
+    assert cuda_lib.PREFILL_INSTANCES == {(64, 64, False, False): 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_decode_matches_split_oracle_and_paged_equals_dense(sm90,
                                                                   dtype):
     g = torch.Generator(device=sm90).manual_seed(4)
@@ -367,11 +417,20 @@ def _served_state(model, run, params, geometry, batch=4, prompt=6,
     from repro_torch.train.serve_step import make_prefill_step
     from test_torch_graph_safe import paged_state
 
+    cfg = model.cfg
     g = torch.Generator(device=model.device).manual_seed(3)
-    toks = torch.randint(0, model.cfg.vocab_size, (batch, prompt),
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt),
                          generator=g, device=model.device, dtype=torch.int32)
+    extras = {}
+    if cfg.family == "vlm":
+        extras["vision_embeds"] = torch.randn(
+            (batch, cfg.vision_seq, cfg.vision_dim), generator=g,
+            device=model.device)
+    if cfg.family == "audio":
+        extras["frames"] = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                                       generator=g, device=model.device)
     state, logits = make_prefill_step(model, run, cache_len=cache_len)(
-        params, {"tokens": toks})
+        params, {"tokens": toks, **extras})
     if geometry == "dense":
         return state, logits
     return paged_state(model, state, cache_len // 4, 4), logits
@@ -400,10 +459,28 @@ def test_captured_moe_decode_matches_eager(sm90, arch, geometry):
     _captured_matches_eager(sm90, arch, geometry)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,geometry", [
+    ("llama-3.2-vision-11b", "dense"),
+    ("llama-3.2-vision-11b", "paged"),
+    ("whisper-large-v3", "dense"),            # audio has no paged state
+])
+def test_captured_vlm_and_audio_decode_matches_eager(sm90, arch, geometry):
+    """The vlm and audio smoke configs' decode step — the cross-attention
+    over ``vision_embeds`` / ``enc_out`` recomputed every step (the
+    prefill kernel at one query row), the vlm's gates opened — captured
+    against the eager step, bit for bit, with the cross-attention's
+    launches inside the graph."""
+    _captured_matches_eager(sm90, arch, geometry)
+
+
 def _captured_matches_eager(sm90, arch, geometry):
     from repro_torch.train.serve_step import CapturedDecode, make_decode_step
 
     model, run, params = _smoke_served(sm90, arch)
+    for sub in params.get("blocks", {}).values():
+        if "cross_gate" in sub:  # tanh(0) would hide the cross sublayer
+            sub["cross_gate"].fill_(0.75)
     eager = make_decode_step(model, run)
     captured = CapturedDecode(make_decode_step(model, run))
     state, logits = _served_state(model, run, params, geometry)
@@ -417,6 +494,9 @@ def _captured_matches_eager(sm90, arch, geometry):
         tok = ref_lg.argmax(-1, keepdim=True).to(torch.int32)
     assert (captured.captures, captured.replays) == (1, 4)
     assert len(captured.graphs) == 1
+    graph = next(iter(captured.graphs.values()))
+    cross = model.cfg.family in ("vlm", "audio")
+    assert (graph.capture.launches.get("flash_attention", 0) > 0) == cross
     for got, want in zip(tree_leaves(state), tree_leaves(ref)):
         assert torch.equal(got, want)
 

@@ -1,10 +1,14 @@
 """The decode step that ``jitted_steps`` returns can be captured in a CUDA
 graph: checked on the CPU at the smoke configs of the served families
 (``llama3.2-1b`` dense, ``falcon-mamba-7b`` ssm, ``zamba2-2.7b`` hybrid,
-``deepseek-v3-671b`` moe with MLA and ``llama4-maverick-400b-a17b`` moe
-with GQA), with dense and paged decode state (deepseek's MLA cache has
-no paged form: its paged cases check that it raises, as the reference
-does).
+``deepseek-v3-671b`` moe with MLA, ``llama4-maverick-400b-a17b`` moe
+with GQA, ``llama-3.2-vision-11b`` vlm and ``whisper-large-v3`` audio,
+the last two with their ``vision_embeds`` / ``enc_out`` in the state's
+extras), with dense and paged decode state (deepseek's MLA cache has no
+paged form: its paged cases check that it raises, as the reference does;
+the audio family has no paged state, as in the reference).  The batcher
+keeps no extras for the vlm and audio families, as the reference's does
+not: their requests fail at prefill.
 
 - Under a ``TorchDispatchMode`` the decode step runs no operation that a
   stream under capture refuses or that reads device data on the host:
@@ -45,7 +49,10 @@ from repro_torch.utils.trees import tree_leaves, tree_map
 torch.set_num_threads(1)
 
 ARCHS = ("llama3.2-1b", "falcon-mamba-7b", "zamba2-2.7b",
-         "deepseek-v3-671b", "llama4-maverick-400b-a17b")
+         "deepseek-v3-671b", "llama4-maverick-400b-a17b",
+         "llama-3.2-vision-11b", "whisper-large-v3")
+#: families whose decode step reads a per-request input from the extras
+EXTRAS_FAMILIES = ("vlm", "audio")
 GEOMETRIES = ("dense", "paged")
 #: what a capturing stream refuses, or a host read of device data
 REFUSED = {"aten::lift_fresh", "aten::_local_scalar_dense", "aten::nonzero"}
@@ -78,10 +85,19 @@ def models():
     return out
 
 
-def _prompt(cfg):
+def _batch(cfg):
+    """The prompts and, for the vlm and audio families, their seeded
+    ``vision_embeds`` / ``frames``."""
     rng = np.random.default_rng(0)
-    return torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, PROMPT))
-                           .astype(np.int32))
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (B, PROMPT)).astype(np.int32))}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.as_tensor(rng.standard_normal(
+            (B, cfg.vision_seq, cfg.vision_dim)).astype(np.float32))
+    if cfg.family == "audio":
+        batch["frames"] = torch.as_tensor(rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    return batch
 
 
 def paged_state(model, state, page, pages_per_slot):
@@ -109,14 +125,20 @@ def paged_state(model, state, page, pages_per_slot):
             for d, s in zip(dst, src):
                 d.copy_(s)
     fill(caches, state.caches)
-    return ServeState(caches, state.lengths.clone(), {})
+    return ServeState(caches, state.lengths.clone(), state.extras)
 
 
-def _paged_mla_raises(model, geometry) -> bool:
-    """True (after checking it) where ``geometry`` is paged and the model's
-    attention is MLA: its compressed cache has no paged form, and the
-    paged state raises as the reference's does."""
-    if geometry == "dense" or model.cfg.attn_type != "mla":
+def _paged_absent(model, geometry) -> bool:
+    """True (after checking it) where ``geometry`` is paged and the model
+    has no paged state: MLA's compressed cache has no paged form (the
+    paged state raises, as the reference's does), and the audio family
+    has no paged state at all (as in the reference)."""
+    if geometry == "dense":
+        return False
+    if model.cfg.family == "audio":
+        assert model.init_paged_decode_state is None
+        return True
+    if model.cfg.attn_type != "mla":
         return False
     with pytest.raises(NotImplementedError, match="MLA"):
         model.init_paged_decode_state(B, B * PAGES_PER_SLOT, PAGE,
@@ -125,10 +147,10 @@ def _paged_mla_raises(model, geometry) -> bool:
 
 
 def _state(model, run, params, geometry):
-    """A decode state after prefilling ``_prompt``: the dense prefill's
+    """A decode state after prefilling ``_batch``: the dense prefill's
     state, or its :func:`paged_state`."""
     prefill = make_prefill_step(model, run, cache_len=CACHE_LEN)
-    state, logits = prefill(params, {"tokens": _prompt(model.cfg)})
+    state, logits = prefill(params, _batch(model.cfg))
     if geometry == "dense":
         return state, logits
     return paged_state(model, state, PAGE, PAGES_PER_SLOT), logits
@@ -138,7 +160,7 @@ def _state(model, run, params, geometry):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_step_runs_no_refused_operation(models, arch, geometry):
     model, run, params = models[arch]
-    if _paged_mla_raises(model, geometry):
+    if _paged_absent(model, geometry):
         return
     _, decode = jitted_steps(model, run, cache_len=CACHE_LEN)
     state, logits = _state(model, run, params, geometry)
@@ -155,7 +177,7 @@ def test_decode_step_runs_no_refused_operation(models, arch, geometry):
 def test_jitted_decode_keeps_state_storage_and_eager_values(models, arch,
                                                            geometry):
     model, run, params = models[arch]
-    if _paged_mla_raises(model, geometry):
+    if _paged_absent(model, geometry):
         return
     _, decode = jitted_steps(model, run, cache_len=CACHE_LEN)
     eager = make_decode_step(model, run)
@@ -191,8 +213,9 @@ def test_batcher_state_keeps_one_signature(models, arch, geometry):
              "paged_chunked": PagedPlan(paging=True, pool_pages=8,
                                         page_size=4, pages_per_slot_max=4,
                                         prefill_chunk=2)}
-    if _paged_mla_raises(model, geometry):
-        with pytest.raises(NotImplementedError, match="MLA"):
+    if _paged_absent(model, geometry):
+        with pytest.raises(NotImplementedError,
+                           match="MLA|no paged decode state"):
             ContinuousBatcher(model, run, params, num_slots=2, cache_len=16,
                               paged=plans[geometry])
         return
@@ -202,6 +225,12 @@ def test_batcher_state_keeps_one_signature(models, arch, geometry):
     for uid, n in enumerate((5, 3, 6)):
         b.submit(Request(uid=uid, prompt=rng.integers(0, 100, n)
                          .astype(np.int32), max_new_tokens=4))
+    if model.cfg.family in EXTRAS_FAMILIES:
+        # the batcher keeps no per-request extras, as the reference's
+        # does not: the prefill finds no vision_embeds / frames
+        with pytest.raises(KeyError, match="vision_embeds|frames"):
+            b.run_until_drained(max_ticks=100)
+        return
     seen = []
     step = b._decode
 

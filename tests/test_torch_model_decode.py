@@ -17,9 +17,12 @@ import torch
 
 from repro.envs.replay_env import default_replay_model
 from repro.models import attention as jattn
+from repro.models.transformer import block_pattern as jblock_pattern
+from repro.utils.config import ModelConfig as JModelConfig
 from repro.utils.config import ParallelConfig as JParallelConfig
 from repro_torch.models import attention as tattn
 from repro_torch.models.model import build_model as tbuild
+from repro_torch.models.transformer import block_pattern
 from repro_torch.utils.config import ModelConfig, ParallelConfig
 from test_torch_model import (CONFIGS, TOL, N, T, both, cache_to_port,
                               port_cfg, tokens)
@@ -189,11 +192,21 @@ def test_paged_prefill_and_sliding_window_are_rejected_like_reference():
 
 
 def test_unported_families_raise():
-    from repro_torch.models.transformer import block_pattern
-    with pytest.raises(NotImplementedError, match="dense GQA"):
-        block_pattern(ModelConfig(family="vlm"))
-    with pytest.raises(NotImplementedError, match="dense GQA"):
-        block_pattern(ModelConfig(family="audio"))
+    """No family is left unported: the vlm and audio configs, which raised
+    here until they were ported, build on the CPU and their block patterns
+    are the reference's."""
+    for kw in (dict(family="vlm"), dict(family="vlm", cross_attn_period=2),
+               dict(family="audio")):
+        assert block_pattern(ModelConfig(**kw)) == \
+            jblock_pattern(JModelConfig(**kw))
+    for kw in (dict(family="vlm", num_layers=4, cross_attn_period=2,
+                    vision_seq=3, vision_dim=32),
+               dict(family="audio", encoder_layers=2, encoder_seq=5)):
+        model = tbuild(ModelConfig(**kw), device="cpu")
+        assert model.device.type == "cpu"
+        assert (model.init_paged_decode_state is None) == \
+            (kw["family"] == "audio")
+        assert model.init(0)
 
 
 def test_build_model_defaults_to_cuda():

@@ -100,7 +100,11 @@ def test_configs_equal_reference(arch):
 def test_registry_lists_the_reference_decoder_archs_in_order():
     ref = [a for a in jregistry.list_archs()
            if jregistry.get_model_config(a).family not in ("vlm", "audio")]
-    assert tregistry.list_archs() == ref and len(ref) == 8
+    ported = [a for a in tregistry.list_archs()
+              if tregistry.get_model_config(a).family not in ("vlm", "audio")]
+    assert ported == ref and len(ref) == 8
+    # the vlm and audio archs follow them, as in the reference
+    assert tregistry.list_archs() == jregistry.list_archs()
 
 
 # --------------------------------------------------------------------------

@@ -243,7 +243,7 @@ def test_serve_cli_on_cpu_matches_reference_tokens(served, capsys):
     assert f"[serve] {tm.cfg.name}" in out and "decode p50" in out
     shape = ShapeConfig("serve_cli", 12, 2, "decode")
     jshape = JShapeConfig("serve_cli", 12, 2, "decode")
-    prompt = serve.make_prompt(tm.cfg, shape, 2, 8, "cpu")
+    prompt = serve.make_batch(tm.cfg, shape, 2, 8, "cpu")["tokens"]
     ref = jmake_data(jm.cfg, jshape, seed=0).batch_at(0)["inputs"][:2, :8]
     np.testing.assert_array_equal(prompt.numpy(), ref)
     res = serve.serve_fixed_batch(tm, RunConfig(model=tm.cfg, shape=shape),

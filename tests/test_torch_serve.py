@@ -219,8 +219,8 @@ def test_serve_cli_on_cpu_matches_reference_prompts_and_tokens(capsys):
     assert "[serve] llama3.2-smoke" in out and "decode p50" in out
     # the CLI's prompts are the reference CLI's
     shape = ShapeConfig("serve_cli", 12, 2, "decode")
-    prompt = serve.make_prompt(serve.get_smoke_config("llama3.2-1b"), shape,
-                               2, 8, "cpu")
+    prompt = serve.make_batch(serve.get_smoke_config("llama3.2-1b"), shape,
+                              2, 8, "cpu")["tokens"]
     ref = jmake_data(JSMOKE, JShapeConfig("serve_cli", 12, 2, "decode"),
                      seed=0).batch_at(0)["inputs"][:2, :8]
     np.testing.assert_array_equal(prompt.numpy(), ref)

@@ -266,8 +266,8 @@ def test_serve_cli_on_cpu_matches_reference_prompts_and_tokens(family,
     assert f"[serve] {jcfg.name}" in out and "decode p50" in out
     shape = ShapeConfig("serve_cli", 12, 2, "decode")
     jshape = JShapeConfig("serve_cli", 12, 2, "decode")
-    prompt = serve.make_prompt(serve.get_smoke_config(arch), shape, 2, 8,
-                               "cpu")
+    prompt = serve.make_batch(serve.get_smoke_config(arch), shape, 2, 8,
+                              "cpu")["tokens"]
     ref = jmake_data(jcfg, jshape, seed=0).batch_at(0)["inputs"][:2, :8]
     np.testing.assert_array_equal(prompt.numpy(), ref)
     jm = jbuild(jcfg)

@@ -31,7 +31,11 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    split boundary, past the capacity), paged equal to dense bit for bit
    there too; the tensor-core instructions (HMMA) in the prefill and SSD
    kernels' SASS; and the gradient of each autograd-wrapped op (kernel forward,
-   recompute backward) against autograd through its plain version; what
+   recompute backward) against autograd through its plain version, prefill
+   also at the instances phase 4i trains (MLA's 192 / 128; non-causal
+   self-attention, fp32 and bf16; non-causal cross-attention, 64 over 1600
+   rows, GQA; a bf16 query over fp32 K/V, each gradient in its input's
+   dtype); what
    SSM serving launches: the scan with its final state and the SSD with
    its initial and final states (both routes) at prefill lengths 1, 17,
    63, 64, 65 and 200 and the fixed batch (4, 64), y bit for bit equal to
@@ -137,6 +141,26 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    compiled decode for each, the cross-attention (the prefill kernel at
    one query row) launched inside the graph; each step's weight-read
    floor; the serve CLI with whisper-large-v3 at its full config;
+4i. training every family: whisper-large-v3 (32 + 32 layers, 2 x 448
+   tokens, fp32 ``frames`` as ``make_data`` gives them),
+   llama-3.2-vision-11b (one super-block, 5 of 40 layers, gates opened,
+   2 x 1024 with fp32 ``vision_embeds``), deepseek-v3-671b (1 of 61 layers
+   and the MTP head, 12 of 256 routed experts, 1 x 1024) and
+   llama4-maverick-400b-a17b (one super-block, 4 of 128 experts, 1 x
+   1024) at published widths, bf16 compute with fp32 AdamW masters, 3
+   steps each through ``repro_torch.launch.train``, counted step by step
+   (every resolution ``cuda``, RMSNorm and prefill launched with exactly
+   the expected prefill instances, their recompute backwards run; loss,
+   ``moe_aux`` and ``mtp_loss`` finite; step p50, tokens/s, peak memory);
+   one step with the kernels against the plain step (whisper at 2 + 2
+   layers, the others at their training depth; for MoE the expert choices
+   first); the fault-tolerant driver on the card (whisper at 4 + 4
+   layers, 8 steps, a checkpoint every 3, faults before steps 5 and 8,
+   against two unbroken runs: the restored checkpoint bit for bit, peak
+   memory across the restarts, the final parameters; a save and a
+   restore timed); the train CLI run twice on one ``--ckpt-dir``
+   (deepseek-v3-671b and whisper-large-v3 smoke configs), the second run
+   resuming;
 5. timings: each kernel, its plain version and the one-call PyTorch
    yardstick where one exists, timed with CUDA events at the slices'
    shapes, beside the card's bound for the same work; RMSNorm also at the
@@ -157,8 +181,8 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    under its symbol), and the device's busy share.
 
 Prints the kernel table, the serving, training, sim-to-real,
-kernel-launch tuning and SSM serving summaries as JSON lines, and, as the
-last line,
+kernel-launch tuning, SSM, MoE, vlm / audio serving and every family's
+training summaries as JSON lines, and, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without that line.  Without a CUDA card, or
 outside a checkout, it exits non-zero before doing anything.
@@ -980,13 +1004,19 @@ def phase_ssm_state_kernels(torch, dev):
 
 
 GRAD_TOL = (2e-2, 2e-2)  # bf16 forward outputs feed the loss's gradient
+GRAD_TOL_F32 = TOL["float32"]  # an fp32 forward: the kernel's fp32 rounding
 
 
 def phase_grads(torch, dev):
     """Each autograd-wrapped op on CUDA tensors (kernel forward, recompute
-    backward) against autograd through its plain version, bf16 inputs, on
-    the loss sum(y^2): the gradients may differ only as far as the kernel's
-    bf16 output differs from the plain one."""
+    backward) against autograd through its plain version, on the loss
+    sum(y^2): the gradients may differ only as far as the kernel's output
+    differs from the plain one (bf16 inputs at GRAD_TOL, fp32 at
+    GRAD_TOL_F32).  Prefill also at the instances training differentiates
+    (phase 4i): MLA's 192 / 128, non-causal self-attention in fp32 and
+    bf16, non-causal cross-attention (Sq != Skv, GQA), and a bf16 query
+    over fp32 K/V through ``ops.flash_attention`` (each gradient in its
+    input's dtype)."""
     from repro_torch.kernels import cuda_lib, ops
     from repro_torch.kernels.flash_attention.ref import attention_blockwise_ref
     from repro_torch.kernels.mamba_scan.ref import selective_scan_chunked_ref
@@ -994,55 +1024,86 @@ def phase_grads(torch, dev):
     from repro_torch.kernels.ssd.ref import ssd_ref
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    bf = torch.bfloat16
-    cases = {
-        "rmsnorm": ((_rand(torch, gen, (2, 64, 2560), bf, dev),
-                     _rand(torch, gen, (2560,), bf, dev)),
-                    lambda x, w: ops.rmsnorm(x, w),
-                    lambda x, w: rmsnorm_ref(x, w)),
-        "flash_attention": (
-            tuple(_rand(torch, gen, (1, 128, 8, 80), bf, dev)
-                  for _ in range(3)),
-            lambda q, k, v: ops.flash_attention(q, k, v),
-            lambda q, k, v: attention_blockwise_ref(q, k, v)),
-        "selective_scan": (
-            scan_inputs(torch, gen, 1, 100, 256, 16, 0.1, bf, dev),
-            lambda *a: ops.selective_scan(*a, chunk=256),
-            lambda *a: selective_scan_chunked_ref(*a, chunk=256)),
-        "ssd": (ssd_inputs(torch, gen, 1, 100, 8, 64, 1, 64, 0.1, bf, dev),
-                lambda *a: ops.ssd(*a, chunk=256),
-                lambda *a: ssd_ref(*a, chunk=256)),
-    }
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def qkv(b, sq, skv, hq, hkv, d, dv, dtype, kv_dtype=None):
+        kv_dtype = kv_dtype or dtype
+        return (_rand(torch, gen, (b, sq, hq, d), dtype, dev),
+                _rand(torch, gen, (b, skv, hkv, d), kv_dtype, dev),
+                _rand(torch, gen, (b, skv, hkv, dv), kv_dtype, dev))
+
+    def attn(causal):
+        return (lambda q, k, v: ops.flash_attention(q, k, v, causal=causal),
+                lambda q, k, v: attention_blockwise_ref(q, k, v,
+                                                        causal=causal))
+
+    # (label, family, inputs, op, plain, tolerance)
+    cases = [
+        ("rmsnorm", "rmsnorm",
+         (_rand(torch, gen, (2, 64, 2560), bf, dev),
+          _rand(torch, gen, (2560,), bf, dev)),
+         lambda x, w: ops.rmsnorm(x, w), lambda x, w: rmsnorm_ref(x, w),
+         GRAD_TOL),
+        ("flash_attention", "flash_attention",
+         qkv(1, 128, 128, 8, 8, 80, 80, bf), *attn(True), GRAD_TOL),
+        ("flash_attention mla 192/128", "flash_attention",
+         qkv(1, 128, 128, 16, 16, 192, 128, bf), *attn(True), GRAD_TOL),
+        ("flash_attention non-causal fp32", "flash_attention",
+         qkv(1, 256, 256, 20, 20, 64, 64, f32), *attn(False), GRAD_TOL_F32),
+        ("flash_attention non-causal bf16", "flash_attention",
+         qkv(1, 256, 256, 20, 20, 64, 64, bf), *attn(False), GRAD_TOL),
+        ("flash_attention cross 64/1600", "flash_attention",
+         qkv(1, 64, 1600, 32, 8, 128, 128, bf), *attn(False), GRAD_TOL),
+        # jax's promotion: the fp32 K/V of the stub inputs against a bf16
+        # query; the op computes in fp32 and returns the query's dtype
+        ("flash_attention bf16 q / fp32 kv", "flash_attention",
+         qkv(1, 64, 1500, 20, 20, 64, 64, bf, f32),
+         lambda q, k, v: ops.flash_attention(q, k, v, causal=False),
+         lambda q, k, v: attention_blockwise_ref(
+             q.to(f32), k, v, causal=False).to(q.dtype), GRAD_TOL),
+        ("selective_scan", "selective_scan",
+         scan_inputs(torch, gen, 1, 100, 256, 16, 0.1, bf, dev),
+         lambda *a: ops.selective_scan(*a, chunk=256),
+         lambda *a: selective_scan_chunked_ref(*a, chunk=256), GRAD_TOL),
+        ("ssd", "ssd", ssd_inputs(torch, gen, 1, 100, 8, 64, 1, 64, 0.1, bf,
+                                  dev),
+         lambda *a: ops.ssd(*a, chunk=256),
+         lambda *a: ssd_ref(*a, chunk=256), GRAD_TOL),
+    ]
     out = {}
-    for name, (inputs, op, plain) in cases.items():
+    for label, name, inputs, op, plain, tol in cases:
         grads = []
         for fn in (op, plain):
             xs = [t.detach().clone().requires_grad_() for t in inputs]
             cuda_lib.reset_launches()
             ops.reset_recomputes()
             (fn(*xs).float() ** 2).sum().backward()
+            check(all(t.grad.dtype == t.dtype for t in xs),
+                  f"{label}: gradient dtypes "
+                  f"{[t.grad.dtype for t in xs]} for inputs "
+                  f"{[t.dtype for t in xs]}")
             grads.append([t.grad.float() for t in xs])
             if fn is op:
                 check(cuda_lib.LAUNCHES[name] == 1 and
                       ops.RECOMPUTES[name] == 1,
-                      f"{name}: the wrapped op launched "
+                      f"{label}: the wrapped op launched "
                       f"{cuda_lib.LAUNCHES[name]} kernels and ran "
                       f"{ops.RECOMPUTES[name]} recomputes (want 1 and 1)")
         worst = 0.0
         for i, (gk, gp) in enumerate(zip(*grads)):
             check(bool(torch.isfinite(gk).all()),
-                  f"{name}: non-finite gradient of input {i}")
+                  f"{label}: non-finite gradient of input {i}")
             err = (gk - gp).abs()
             scale = float(gp.abs().max())
             # a relative bound on the whole tensor: reductions (w, A, D)
             # sum many rounded products
-            bad = err > GRAD_TOL[0] * scale + GRAD_TOL[1] * gp.abs()
+            bad = err > tol[0] * scale + tol[1] * gp.abs()
             check(not bool(bad.any()),
-                  f"{name}: gradient of input {i} off in {int(bad.sum())} "
+                  f"{label}: gradient of input {i} off in {int(bad.sum())} "
                   f"elements, max |err| {float(err.max()):.3e} (max |g| "
                   f"{scale:.3e})")
             worst = max(worst, float(err.max()) / max(scale, 1e-30))
-        out[name] = worst
+        out[label] = worst
     torch.cuda.synchronize()
     return out
 
@@ -1191,7 +1252,7 @@ def _recorded_routes():
         tg = moe._group_size(x.shape[0] * x.shape[1], group_size)
         logits, _, idx = moe.route(p, x.reshape(-1, tg, x.shape[-1]),
                                    cfg.moe_top_k, router_mode)
-        calls.append((logits.cpu(), idx.cpu()))
+        calls.append((logits.detach().cpu(), idx.cpu()))
         return inner(p, cfg, x, router_mode=router_mode,
                      group_size=group_size, dropless=dropless)
     transformer.apply_moe = recorded
@@ -1404,15 +1465,20 @@ def phase_train(torch, np, dev):
             f"{per_step[-1]['recomputes']}")
         del res
         torch.cuda.empty_cache()
-        out[arch]["vs_plain"] = _compare_step(torch, np, dev, arch)
+        out[arch]["vs_plain"] = _step_vs_plain(
+            torch, np, dev, cfg.replace(num_layers=COMPARE_LAYERS[arch]),
+            TRAIN_SHAPE["seq"], TRAIN_SHAPE["batch"], arch)
     return out
 
 
-def _compare_step(torch, np, dev, arch):
-    """One step with the kernels and the same step under
-    ``dispatch.use_mode("ref")``, from the same weights on the same
-    batch."""
-    from repro_torch.configs.registry import get_model_config
+def _step_vs_plain(torch, np, dev, cfg, seq, batch_size, what,
+                   prepare=None, routes=False):
+    """One step of ``cfg`` with the kernels and the same step under
+    ``dispatch.use_mode("ref")``, from the same weights (``model.init(0)``,
+    changed by ``prepare``) on the same batch, one state on the card at a
+    time (the initial and the kernel step's parameters wait on the host).
+    With ``routes`` (MoE) the two forwards' expert choices are compared
+    first (``_route_agreement``)."""
     from repro_torch.data.pipeline import make_data
     from repro_torch.kernels import dispatch
     from repro_torch.launch.train import make_run
@@ -1421,49 +1487,75 @@ def _compare_step(torch, np, dev, arch):
     from repro_torch.train.train_step import (init_train_state,
                                               make_train_step)
 
-    cfg = get_model_config(arch).replace(num_layers=COMPARE_LAYERS[arch])
-    run = make_run(cfg, seq=TRAIN_SHAPE["seq"], batch=TRAIN_SHAPE["batch"],
-                   steps=TRAIN_SHAPE["steps"])
+    run = make_run(cfg, seq=seq, batch=batch_size, steps=TRAIN_SHAPE["steps"])
     model = build_model(cfg, run.parallel, device=dev)
     opt = make_optimizer(run.train)
     step = make_train_step(model, run, opt)
     batch = make_data(cfg, run.shape, seed=0).batch_at(0)
-    results = {}
-    init = None
+    results, recorded = {}, {}
+    init = kernel_params = None
     for mode in ("cuda", "ref"):
-        state = init_train_state(model, run, opt, seed=0)
+        params = model.init(0)
+        if prepare is not None:
+            prepare(params)
+        state = init_train_state(model, run, opt, params=params)
+        del params
         if init is None:
-            init = {k: v.detach().clone() for k, v in _flat(state.params)}
+            init = {k: v.detach().to("cpu", copy=True)
+                    for k, v in _flat(state.params)}
         with (dispatch.use_mode(dispatch.REF) if mode == "ref"
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), \
+                (_recorded_routes() if routes
+                 else contextlib.nullcontext([])) as calls:
             state, m = step(state, batch)
         torch.cuda.synchronize()
-        results[mode] = (float(m["loss"]), float(m["grad_norm"]),
-                         {k: (v - init[k]).float()
-                          for k, v in _flat(state.params)})
-        del state
-        torch.cuda.empty_cache()
-    (lk, gk, dk), (lr_, gr, dr) = results["cuda"], results["ref"]
+        recorded[mode] = calls
+        results[mode] = (float(m["loss"]), float(m["grad_norm"]))
+        if mode == "cuda":
+            kernel_params = {k: v.to("cpu", copy=True)
+                             for k, v in _flat(state.params)}
+            del state, m
+            torch.cuda.empty_cache()
     lr_step = float(m["lr"])
-    flipped = sum(int(((dk[k] - dr[k]).abs() > lr_step / 2).sum())
-                  for k in dk)
-    n = sum(v.numel() for v in dk.values())
-    rel_l2 = float(torch.sqrt(sum(((dk[k] - dr[k]) ** 2).sum() for k in dk))
-                   / torch.sqrt(sum((dr[k] ** 2).sum() for k in dr)))
+    flipped = n = 0
+    diff_sq = ref_sq = 0.0
+    for k, v in _flat(state.params):  # the plain step's, on the card
+        dr = (v - init[k].to(dev)).float()
+        dk = (kernel_params[k].to(dev) - init[k].to(dev)).float()
+        flipped += int(((dk - dr).abs() > lr_step / 2).sum())
+        n += v.numel()
+        diff_sq += float(((dk - dr) ** 2).sum())
+        ref_sq += float((dr ** 2).sum())
+    del state, m, init, kernel_params
+    torch.cuda.empty_cache()
+    (lk, gk), (lr_, gr) = results["cuda"], results["ref"]
+    rel_l2 = math.sqrt(diff_sq / ref_sq)
     out = {"layers": cfg.num_layers, "loss": lk, "loss_plain": lr_,
            "grad_norm": gk, "grad_norm_plain": gr,
            "flipped_share": flipped / n, "update_rel_l2": rel_l2,
            "lr": lr_step, "tolerance": STEP_TOL}
-    log(f"{arch} step vs plain ({cfg.num_layers} layers): loss {lk:.5f} vs "
+    if routes:
+        share, _, choices, gaps = _route_agreement(
+            torch, cfg, batch_size, recorded["cuda"], recorded["ref"],
+            steps=1)
+        check(share <= MAX_FLIPPED_SHARE,
+              f"{what}: {share:.2%} of the expert choices differ from the "
+              f"plain step's (limit {MAX_FLIPPED_SHARE:.0%})")
+        out["routes"] = {"moe_calls": len(recorded["cuda"]),
+                         "choices": choices, "flipped_share": share,
+                         "first_flip_gaps": gaps}
+        log(f"{what} routes vs plain step: {share:.3%} of {choices} "
+            f"choices differ, first-flip gaps {gaps}")
+    log(f"{what} step vs plain ({cfg.num_layers} layers): loss {lk:.5f} vs "
         f"{lr_:.5f}, grad norm {gk:.4f} vs {gr:.4f}, updates differing by "
         f"> lr/2: {flipped} of {n} ({flipped / n:.2e}), update rel. L2 "
         f"{rel_l2:.3e}")
     check(abs(lk - lr_) <= STEP_TOL["loss_rtol"] * abs(lr_),
-          f"{arch}: loss {lk} vs plain {lr_}")
+          f"{what}: loss {lk} vs plain {lr_}")
     check(abs(gk - gr) <= STEP_TOL["grad_norm_rtol"] * abs(gr),
-          f"{arch}: grad norm {gk} vs plain {gr}")
+          f"{what}: grad norm {gk} vs plain {gr}")
     check(flipped / n <= STEP_TOL["flipped_share"],
-          f"{arch}: {flipped} of {n} parameter updates differ by > lr/2")
+          f"{what}: {flipped} of {n} parameter updates differ by > lr/2")
     return out
 
 
@@ -2625,7 +2717,8 @@ def phase_moe_serve(torch, np, dev):
     return out, launches
 
 
-def _route_agreement(torch, cfg, batch, kernel_routes, plain_routes):
+def _route_agreement(torch, cfg, batch, kernel_routes, plain_routes,
+                     steps=LOGIT_STEPS):
     """The kernel run's and the plain run's routes (``_recorded_routes``),
     MoE layer by layer, step by step (prefill, then the decode steps): the
     share of (token, k) choices that differ; for each step the (B,) mask
@@ -2636,14 +2729,14 @@ def _route_agreement(torch, cfg, batch, kernel_routes, plain_routes):
     a row that agreed until this layer call (its router input differs
     from the plain run's only by rounding) must be a near tie in the plain
     run (NEAR_TIE_SHARE); a later flip in a row that already differs is
-    its consequence.  Prefill drops past the capacity; decode is
-    dropless."""
+    its consequence.  Prefill (the first of ``steps`` forwards; a train
+    step's one forward) drops past the capacity; decode is dropless."""
     from repro_torch.models.moe import capacity, queue_positions
 
-    n_moe = len(kernel_routes) // LOGIT_STEPS
-    check(len(kernel_routes) == len(plain_routes) == n_moe * LOGIT_STEPS
+    n_moe = len(kernel_routes) // steps
+    check(len(kernel_routes) == len(plain_routes) == n_moe * steps
           and n_moe > 0, f"{cfg.name}: {len(kernel_routes)} / "
-          f"{len(plain_routes)} routed calls, not {LOGIT_STEPS} steps' worth")
+          f"{len(plain_routes)} routed calls, not {steps} steps' worth")
     k = cfg.moe_top_k
     flipped = total = 0
     gaps = []  # each first flip's plain-run gap / the token's max |logit|
@@ -3179,6 +3272,460 @@ def _cross_cost(torch, cfg, par, p, n_cross, sources):
             f"({out[name]['kv_tflop_s']:.0f} TF/s), x {n_cross} layers = "
             f"{kv_ms * n_cross:.2f} ms a step; the whole cross sublayer "
             f"{layer_ms * n_cross:.2f} ms a step")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 4i: training every family — the moe, vlm and audio archs trained at
+# published widths, the fault-tolerant driver on the card, the train CLI's
+# resume from its checkpoints
+# --------------------------------------------------------------------------
+
+# arch -> (cuts, batch, seq, the step-vs-plain comparison's further cuts,
+# the prefill instances every step launches).  Cut to fit one 80 GB card at
+# 18 bytes a parameter (fp32 master, m, v and gradient, bf16 compute copy)
+# with the widths, heads, top-k and vocabulary published: whisper at full
+# depth (32 + 32); the vision model one super-block (5 of 40 layers, one
+# gated cross layer); deepseek 1 of 61 layers and its MTP head, 12 of 256
+# routed experts; llama4 one super-block (a dense and a MoE layer), 4 of
+# 128 experts.  The comparison runs at 2 + 2 layers for whisper and at the
+# training depth for the others (their least: one layer, one super-block).
+TRAIN_FAMILIES = {
+    "whisper-large-v3": (
+        {}, 2, 448, dict(num_layers=2, encoder_layers=2),
+        {(64, 64, False, False), (64, 64, False, True)}),
+    "llama-3.2-vision-11b": (
+        dict(num_layers=5), 2, 1024, {},
+        {(128, 128, False, True), (128, 128, False, False)}),
+    "deepseek-v3-671b": (
+        dict(num_layers=1, moe_num_experts=12), 1, 1024, {},
+        {(192, 128, False, True)}),
+    "llama4-maverick-400b-a17b": (
+        dict(num_layers=2, moe_num_experts=4), 1, 1024, {},
+        {(128, 128, False, True)}),
+}
+TRAIN_FAMILY_STEPS = 3
+TRAIN_FAMILY_KERNELS = ("rmsnorm", "flash_attention")
+#: the driver on the card: whisper-large-v3 at full width, 4 + 4 layers,
+#: 8 steps, a checkpoint every 3, faults injected before steps 5 and 8
+DRIVER = dict(arch="whisper-large-v3",
+              cuts=dict(num_layers=4, encoder_layers=4), batch=2, seq=448,
+              steps=8, checkpoint_every=3, faults=(5, 8))
+#: a faulted run's final parameters lie within this multiple of the
+#: distance between two unbroken runs, when those differ (a step that is
+#: not deterministic on the card)
+DRIVER_SPREAD = 2.0
+#: the train CLI runs twice on one checkpoint directory (smoke configs;
+#: the two archs' processes side by side)
+TRAIN_CLI_RESUME = (("deepseek-v3-671b", 6, 8), ("whisper-large-v3", 6, 8))
+#: phase 6 profiles a train step of these cells: whisper's fp32 encoder,
+#: deepseek's experts, two heads and the largest optimizer state
+TRAIN_PROFILED = ("whisper-large-v3", "deepseek-v3-671b")
+
+
+def phase_train_families(torch, np, dev):
+    """Each model of TRAIN_FAMILIES trained on the card in turn (counted),
+    then held against the plain step; the driver's restart on the card;
+    the train CLI's resume.  Returns the summaries and the launches of the
+    counted runs, summed."""
+    from repro_torch.kernels import cuda_lib
+
+    out = {}
+    launches = {name: 0 for name in cuda_lib.LAUNCHES}
+    for arch, (cuts, batch, seq, compare_cuts, instances) in \
+            TRAIN_FAMILIES.items():
+        out[arch], counted = _train_family(torch, np, dev, arch, cuts, batch,
+                                           seq, instances)
+        for name, n in counted.items():
+            launches[name] += n
+        cfg = out[arch]["cfg"].replace(**compare_cuts)
+        del out[arch]["cfg"]
+        out[arch]["vs_plain"] = _step_vs_plain(
+            torch, np, dev, cfg, seq, batch, arch,
+            prepare=(lambda p, c=cfg: _open_cross_gates(torch, dev, c, p))
+            if cfg.family == "vlm" else None, routes=cfg.is_moe)
+    out["driver"] = _driver_on_card(torch, np, dev)
+    out["cli"] = _train_cli_resume(TRAIN_CLI_RESUME)
+    return out, launches
+
+
+def _opened_init(torch, dev, cfg):
+    """The vision model's parameters from seed 0 with the cross gates
+    opened (``_open_cross_gates``); None for the other families, which
+    ``train`` draws from seed 0 itself."""
+    from repro_torch.models.model import build_model
+
+    if cfg.family != "vlm":
+        return None
+    params = build_model(cfg, device=dev).init(0)
+    _open_cross_gates(torch, dev, cfg, params)
+    return params
+
+
+def _train_family(torch, np, dev, arch, cuts, batch, seq, instances):
+    """``train`` on one model, counted step by step: every resolution
+    ``cuda``, RMSNorm and prefill launched each step with exactly the
+    expected prefill instances, their recompute backwards run, the loss
+    and the family's aux terms finite."""
+    from repro_torch.configs.registry import get_model_config
+    from repro_torch.kernels import cuda_lib, dispatch, ops
+    from repro_torch.launch.train import train
+
+    cfg = get_model_config(arch).replace(**cuts)
+    extra = (("moe_aux",) if cfg.is_moe else ()) + \
+        (("mtp_loss",) if cfg.mtp_depth > 0 else ())
+    per_step = []
+
+    def log_step(i, metrics, step_s):
+        per_step.append({
+            "launches": dict(cuda_lib.LAUNCHES),
+            "instances": dict(cuda_lib.PREFILL_INSTANCES),
+            "recomputes": dict(ops.RECOMPUTES),
+            "metrics": {k: float(metrics[k])
+                        for k in ("loss", "grad_norm") + extra}})
+        cuda_lib.reset_launches()
+        ops.reset_recomputes()
+        log(f"{arch} step {i}: {per_step[-1]['metrics']}, "
+            f"{step_s * 1000:.1f} ms")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # by the earlier phases
+    # ---- the main path, counted per step -------------------------------
+    cuda_lib.reset_launches()
+    ops.reset_recomputes()
+    with dispatch.profile_dispatches() as prof, \
+            dispatch.record_resolutions() as resolved:
+        res = train(cfg, steps=TRAIN_FAMILY_STEPS, seq=seq, batch=batch,
+                    device=dev, seed=0, log=log_step,
+                    params=_opened_init(torch, dev, cfg))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    _check_resolved(resolved, f"{arch} training")
+    plain = [k for k in prof.summary() if k.endswith(f"[{dispatch.REF}]")]
+    check(not plain, f"{arch}: CUDA tensors resolved to plain versions in "
+          f"the forward: {plain}")
+    for i, counts in enumerate(per_step):
+        for name in TRAIN_FAMILY_KERNELS:
+            check(counts["launches"][name] > 0 and
+                  counts["recomputes"][name] > 0,
+                  f"{arch} step {i}: {name} launched "
+                  f"{counts['launches'][name]} times, its recompute "
+                  f"backward run {counts['recomputes'][name]} times")
+        check(set(counts["instances"]) == instances,
+              f"{arch} step {i}: prefill instances "
+              f"{sorted(counts['instances'])}, want {sorted(instances)}")
+        bad = {k: v for k, v in counts["metrics"].items()
+               if not math.isfinite(v)}
+        check(not bad, f"{arch} step {i}: non-finite {bad}")
+    steady = res.step_s[1:]
+    p50 = float(np.percentile(steady, 50))
+    tokens = batch * seq
+    summary = {
+        "cfg": cfg, "cuts": cuts, "params": cfg.param_count(),
+        "batch": batch, "seq": seq, "steps": TRAIN_FAMILY_STEPS,
+        "metrics": [c["metrics"] for c in per_step],
+        "step_ms": [t * 1000 for t in res.step_s],
+        "step_p50_ms": p50 * 1000, "tokens_per_s": tokens / p50,
+        "peak_mem_gb": peak / 1e9, "held_before_gb": held / 1e9,
+        "launches_per_step": per_step[-1]["launches"],
+        "prefill_instances_per_step": {
+            str(k): n for k, n in per_step[-1]["instances"].items()},
+        "recomputes_per_step": per_step[-1]["recomputes"]}
+    log(f"[{CARD}] {arch} ({cfg.num_layers} layers, "
+        f"{summary['params'] / 1e9:.3f} B params, batch {batch} x {seq}): "
+        f"step p50 {p50 * 1000:.1f} ms (steps 2-{TRAIN_FAMILY_STEPS}), "
+        f"{tokens / p50:.0f} tok/s, peak {peak / 1e9:.1f} GB ({held / 1e9:.1f}"
+        f" of it held by earlier phases); launches per "
+        f"step {per_step[-1]['launches']}, prefill instances "
+        f"{summary['prefill_instances_per_step']}, recomputes per step "
+        f"{per_step[-1]['recomputes']}")
+    counted = {k: sum(c["launches"][k] for c in per_step)
+               for k in cuda_lib.LAUNCHES}
+    del res
+    torch.cuda.empty_cache()
+    return summary, counted
+
+
+def _driver_run(torch, dev, cfg, root, name, faults):
+    """``TrainDriver`` over DRIVER's run in ``root/name`` with ``faults``
+    injected: (final state, driver, logged records, peak bytes beyond what
+    the earlier phases hold, wall s)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import make_data
+    from repro_torch.launch.train import make_run
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.driver import FaultInjector, TrainDriver
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step,
+                                              train_state_template)
+    from repro_torch.utils.logging import MetricsLogger
+
+    run = make_run(cfg, seq=DRIVER["seq"], batch=DRIVER["batch"],
+                   steps=DRIVER["steps"],
+                   checkpoint_dir=os.path.join(root, name)).replace(
+        checkpoint_every=DRIVER["checkpoint_every"], log_every=1)
+    model = build_model(cfg, run.parallel, device=dev)
+    opt = make_optimizer(run.train)
+    path = os.path.join(root, f"{name}.jsonl")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # by the earlier phases
+    t0 = time.perf_counter()
+    with MetricsLogger(path=path, name=f"driver-{name}") as logger:
+        driver = TrainDriver(
+            run, make_train_step(model, run, opt),
+            lambda: init_train_state(model, run, opt, seed=0),
+            make_data(cfg, run.shape, seed=0),
+            CheckpointManager(run.checkpoint_dir, keep=2), logger=logger,
+            fault_injector=FaultInjector(list(faults)), device=dev,
+            state_template=lambda: train_state_template(model, run, opt))
+        state = driver.run_steps(DRIVER["steps"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(path) as f:
+        records = [json.loads(line) for line in f]
+    return (state, driver, records, torch.cuda.max_memory_allocated() - held,
+            wall)
+
+
+def _tree_bytes(tree):
+    from repro_torch.utils.trees import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if hasattr(t, "element_size"))
+
+
+def _driver_on_card(torch, np, dev):
+    """DRIVER's run three times (unbroken, faulted, unbroken again), each
+    into its own checkpoint directory under a temporary directory that is
+    removed: the restored last checkpoint bit for bit equal to the state
+    that was saved, the faulted run's peak memory no more than the
+    unbroken run's plus the restore's staging (its largest leaf), the
+    faulted run's final parameters equal to the unbroken run's bit for bit
+    if the two unbroken runs agree bit for bit, else within DRIVER_SPREAD
+    of their distance (and the leaves whose first update differs between
+    two identical steps named); a save and a restore timed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import get_model_config
+    from repro_torch.utils.trees import flatten_with_paths
+
+    cfg = get_model_config(DRIVER["arch"]).replace(**DRIVER["cuts"])
+    out = {"arch": DRIVER["arch"], **{k: v for k, v in DRIVER.items()
+                                      if k != "arch"}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as root:
+        finals, peaks = {}, {}
+        for name, faults in (("unbroken", ()), ("faulted", DRIVER["faults"]),
+                             ("unbroken_again", ())):
+            state, driver, records, peak, wall = _driver_run(
+                torch, dev, cfg, root, name, faults)
+            events = [(r["step"], r["event"]) for r in records
+                      if "event" in r]
+            out[name] = {"restarts": driver.restarts, "events": events,
+                         "losses": {r["step"]: r["loss"] for r in records
+                                    if "loss" in r},
+                         "peak_mem_gb": peak / 1e9, "wall_s": wall}
+            peaks[name] = peak
+            check(state.step == DRIVER["steps"] and
+                  driver.restarts == len(faults),
+                  f"driver {name}: step {state.step}, {driver.restarts} "
+                  f"restarts")
+            if faults:
+                check(events == [(0, "init_fresh"), (-1, "fault"),
+                                 (3, "restored"), (-1, "fault"),
+                                 (6, "restored")],
+                      f"driver {name}: events {events}")
+            if name == "unbroken":
+                state_bytes = _tree_bytes(state)
+                staging = max(t.numel() * t.element_size() for t in
+                              flatten_with_paths(state).values()
+                              if hasattr(t, "element_size"))
+                out["state_gb"] = state_bytes / 1e9
+                free = shutil.disk_usage(root).free
+                out["disk_free_gb"] = free / 1e9
+                check(free > 4 * state_bytes,
+                      f"{free / 1e9:.1f} GB free under {root}: too little "
+                      f"for the timed checkpoints of {state_bytes / 1e9:.2f}"
+                      f" GB")
+                out.update(_timed_checkpoint(torch, dev, cfg, root, state,
+                                             state_bytes))
+            finals[name] = {k: v.detach().to("cpu", copy=True)
+                            for k, v in flatten_with_paths(state).items()
+                            if hasattr(v, "detach")}
+            del state, driver
+            shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+            torch.cuda.empty_cache()
+    a, f, b = finals["unbroken"], finals["faulted"], finals["unbroken_again"]
+
+    def dist(x, y):
+        return (max(float((x[k].float() - y[k].float()).abs().max())
+                    for k in x),
+                math.sqrt(sum(float(((x[k].float() - y[k].float()) ** 2)
+                                    .sum()) for k in x)))
+    deterministic = all(torch.equal(a[k], b[k]) for k in a)
+    out["unbroken_runs_bit_equal"] = deterministic
+    out["faulted_bit_equal"] = all(torch.equal(a[k], f[k]) for k in a)
+    out["faulted_vs_unbroken"] = dist(f, a)
+    out["unbroken_vs_unbroken"] = dist(b, a)
+    out["staging_gb"] = staging / 1e9
+    check(peaks["faulted"] <= peaks["unbroken"] + staging,
+          f"driver: peak {peaks['faulted'] / 1e9:.3f} GB across the restarts"
+          f" against {peaks['unbroken'] / 1e9:.3f} GB unbroken (staging "
+          f"{staging / 1e9:.3f} GB)")
+    if deterministic:
+        check(out["faulted_bit_equal"],
+              f"driver: the faulted run's final state differs from the "
+              f"unbroken run's (max |diff|, L2 {out['faulted_vs_unbroken']})"
+              f" though two unbroken runs agree bit for bit")
+    else:
+        out["nondeterministic_leaves"] = _first_step_spread(torch, dev, cfg)
+        check(all(x <= DRIVER_SPREAD * y for x, y in
+                  zip(out["faulted_vs_unbroken"],
+                      out["unbroken_vs_unbroken"])),
+              f"driver: faulted vs unbroken {out['faulted_vs_unbroken']} "
+              f"beyond {DRIVER_SPREAD} x unbroken vs unbroken "
+              f"{out['unbroken_vs_unbroken']}")
+    log(f"[{CARD}] driver on the card ({DRIVER['arch']}, "
+        f"{cfg.num_layers} + {cfg.encoder_layers} layers, state "
+        f"{out['state_gb']:.2f} GB): peaks unbroken / faulted / again "
+        f"{[round(peaks[k] / 1e9, 3) for k in peaks]} GB (staging "
+        f"{staging / 1e9:.3f}); unbroken runs bit equal: {deterministic}; "
+        f"faulted equal: {out['faulted_bit_equal']} (max |diff|, L2 "
+        f"{out['faulted_vs_unbroken']}; unbroken vs unbroken "
+        f"{out['unbroken_vs_unbroken']}); save: snapshot "
+        f"{out['save_snapshot_gb_per_s']:.2f} GB/s, write "
+        f"{out['save_write_gb_per_s']:.2f} GB/s, restore "
+        f"{out['restore_gb_per_s']:.2f} GB/s")
+    return out
+
+
+def _timed_checkpoint(torch, dev, cfg, root, state, state_bytes):
+    """One async save of ``state`` (the host snapshot until ``save``
+    returns, then the write until ``wait`` returns) and its restore into
+    a ``meta`` template, timed; the restored state equal to ``state`` bit
+    for bit."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.train import make_run
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import train_state_template
+    from repro_torch.utils.trees import flatten_with_paths
+
+    mgr = CheckpointManager(os.path.join(root, "timed"), keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(state.step, state)
+    t1 = time.perf_counter()
+    mgr.wait()
+    t2 = time.perf_counter()
+    run = make_run(cfg, seq=DRIVER["seq"], batch=DRIVER["batch"],
+                   steps=DRIVER["steps"])
+    template = train_state_template(build_model(cfg, device="meta"), run,
+                                    make_optimizer(run.train))
+    t3 = time.perf_counter()
+    restored = mgr.restore(state.step, template, device=dev)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    want, got = flatten_with_paths(state), flatten_with_paths(restored)
+    same = sorted(want) == sorted(got) and all(
+        (want[k] == got[k]) if isinstance(want[k], int) else
+        (want[k].dtype == got[k].dtype and torch.equal(want[k], got[k]))
+        for k in want)
+    check(same, "driver: the restored checkpoint differs from the state "
+          "that was saved")
+    del restored, got
+    return {"restored_bit_equal": same,
+            "save_snapshot_s": t1 - t0, "save_write_s": t2 - t1,
+            "restore_s": t4 - t3,
+            "save_snapshot_gb_per_s": state_bytes / 1e9 / (t1 - t0),
+            "save_write_gb_per_s": state_bytes / 1e9 / (t2 - t1),
+            "restore_gb_per_s": state_bytes / 1e9 / (t4 - t3)}
+
+
+def _first_step_spread(torch, dev, cfg):
+    """The leaves whose parameters differ after one step taken twice from
+    the same state on the same batch: where the step is not deterministic
+    on the card."""
+    from repro_torch.data.pipeline import make_data
+    from repro_torch.launch.train import make_run
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+
+    run = make_run(cfg, seq=DRIVER["seq"], batch=DRIVER["batch"],
+                   steps=DRIVER["steps"])
+    model = build_model(cfg, run.parallel, device=dev)
+    opt = make_optimizer(run.train)
+    step = make_train_step(model, run, opt)
+    batch = make_data(cfg, run.shape, seed=0).batch_at(0)
+    after = []
+    for _ in range(2):
+        state, _ = step(init_train_state(model, run, opt, seed=0), batch)
+        after.append({k: v.to("cpu", copy=True)
+                      for k, v in _flat(state.params)})
+        del state
+    torch.cuda.empty_cache()
+    return sorted(k for k in after[0]
+                  if not torch.equal(after[0][k], after[1][k]))
+
+
+def _train_cli_resume(specs):
+    """The train launcher as a user runs it, twice on one checkpoint
+    directory (a temporary one, removed) for each ``(arch, first,
+    second)`` of ``specs``, the archs' processes side by side: ``--steps
+    first`` from a fresh state, then ``--steps second``, which must log
+    ``restored`` at step ``first`` and finish at step ``second``."""
+    import tempfile
+
+    out = {arch: [] for arch, _, _ in specs}
+    with contextlib.ExitStack() as stack:
+        dirs = {arch: stack.enter_context(tempfile.TemporaryDirectory(
+            prefix="chip_smoke_cli_")) for arch, _, _ in specs}
+        for run in (0, 1):
+            procs = {}
+            t0 = time.perf_counter()
+            for arch, first, second in specs:
+                steps = (first, second)[run]
+                cmd = [sys.executable, "-m", "repro_torch.launch.train",
+                       "--arch", arch, "--steps", str(steps),
+                       "--ckpt-dir", dirs[arch]]
+                procs[arch] = (cmd, steps, first, subprocess.Popen(
+                    cmd, cwd=str(ROOT), stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True,
+                    env={**os.environ, "PYTHONPATH": str(SRC)}))
+            for arch, (cmd, steps, first, proc) in procs.items():
+                try:
+                    stdout, stderr = proc.communicate(timeout=600)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.communicate()
+                    raise
+                wall = time.perf_counter() - t0
+                what = "train CLI " + " ".join(cmd[3:])
+                check(proc.returncode == 0, f"{what} exited "
+                      f"{proc.returncode}: {stderr[-2000:]}")
+                tag = f"[train-{arch}] "
+                lines = [ln for ln in stderr.splitlines()
+                         if ln.startswith(tag)]
+                events = [(int(ln.split("step=")[1].split()[0]),
+                           ln.split("event=")[1].split()[0])
+                          for ln in lines if "event=" in ln]
+                want = [(0, "init_fresh")] if run == 0 else \
+                    [(first, "restored")]
+                check(events == want, f"{what}: events {events}, want "
+                      f"{want}")
+                check(f"[train] finished at step {steps}" in stdout,
+                      f"{what}: no 'finished at step {steps}' in its output")
+                for line in lines:
+                    log(f"train CLI | {line}")
+                log(f"{what}: rc 0 in {wall:.1f} s, events {events}")
+                out[arch].append({"cmd": " ".join(cmd[1:]), "wall_s": wall,
+                                  "events": events})
     return out
 
 
@@ -3782,11 +4329,12 @@ def phase_profile(torch, np, dev, ctx):
     return out
 
 
-def phase_profile_train(torch, np, dev, arch):
+def phase_profile_train(torch, np, dev, arch, family=None):
     """Trace one steady train step (after one warm-up step) of the
-    training slice's ``arch`` with torch.profiler: device busy share, time
-    by kernel, and the share of the device time spent in the recompute
-    backwards (the plain versions run under ``recompute_bwd.*`` ranges)."""
+    training slice's ``arch`` (or, with ``family``, of phase 4i's cut of
+    it) with torch.profiler: device busy share, time by kernel, and the
+    share of the device time spent in the recompute backwards (the plain
+    versions run under ``recompute_bwd.*`` ranges)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3798,13 +4346,20 @@ def phase_profile_train(torch, np, dev, arch):
     from repro_torch.train.train_step import (init_train_state,
                                               make_train_step)
 
-    cfg = get_model_config(arch).replace(num_layers=TRAIN[arch])
-    run = make_run(cfg, seq=TRAIN_SHAPE["seq"], batch=TRAIN_SHAPE["batch"],
-                   steps=TRAIN_SHAPE["steps"])
+    if family:
+        cuts, batch, seq, _, _ = TRAIN_FAMILIES[arch]
+        cfg = get_model_config(arch).replace(**cuts)
+        wrapped = TRAIN_FAMILY_KERNELS
+    else:
+        cfg = get_model_config(arch).replace(num_layers=TRAIN[arch])
+        batch, seq = TRAIN_SHAPE["batch"], TRAIN_SHAPE["seq"]
+        wrapped = TRAIN_KERNELS[arch]
+    run = make_run(cfg, seq=seq, batch=batch, steps=TRAIN_SHAPE["steps"])
     model = build_model(cfg, run.parallel, device=dev)
     opt = make_optimizer(run.train)
     step = make_train_step(model, run, opt)
-    state = init_train_state(model, run, opt, seed=0)
+    state = init_train_state(model, run, opt, seed=0,
+                             params=_opened_init(torch, dev, cfg))
     data = make_data(cfg, run.shape, seed=0)
     state, _ = step(state, data.batch_at(0))
     torch.cuda.synchronize()
@@ -3866,7 +4421,7 @@ def phase_profile_train(torch, np, dev, arch):
             f"RMSNorm kernel {out['rmsnorm_kernel_ms']:.2f} ms over "
             f"{out['rmsnorm_calls']}")
         # a renamed kernel would drop out of the port's sum silently
-        for name in TRAIN_KERNELS[arch]:
+        for name in wrapped:
             check(by_name(KERNEL_SYMBOLS[name])[1] > 0,
                   f"{arch} train step profile: no device time under "
                   f"{KERNEL_SYMBOLS[name]!r} for the {name} kernel")
@@ -4058,6 +4613,14 @@ def main() -> int:
     vlm_audio["phase_s"] = time.perf_counter() - t0
     log(f"[{CARD}] vlm and audio serving done in "
         f"{vlm_audio['phase_s']:.1f} s")
+
+    # 4i. training every family, the driver and the train CLI's resume
+    t0 = time.perf_counter()
+    train_families, train_families_launches = phase_train_families(torch, np,
+                                                                   dev)
+    train_families["phase_s"] = time.perf_counter() - t0
+    log(f"[{CARD}] training every family done in "
+        f"{train_families['phase_s']:.1f} s")
     by_path = {name: {"serve": launches.get(name, 0),
                       "train": sum(t["launches"][name]
                                    for t in train_out.values()),
@@ -4065,7 +4628,8 @@ def main() -> int:
                       "tune_launch": tune_launch_launches[name],
                       "ssm_serve": ssm_serve_launches[name],
                       "moe_serve": moe_serve_launches[name],
-                      "vlm_audio_serve": vlm_audio_launches[name]}
+                      "vlm_audio_serve": vlm_audio_launches[name],
+                      "train_families": train_families_launches[name]}
                for name in cuda_lib.LAUNCHES}
 
     # 5. timings
@@ -4080,13 +4644,17 @@ def main() -> int:
     for arch in TRAIN:
         train_out[arch]["step_profile"] = phase_profile_train(torch, np, dev,
                                                               arch)
+    for arch in TRAIN_PROFILED:
+        train_families[arch]["step_profile"] = phase_profile_train(
+            torch, np, dev, arch, family=True)
 
     for line in ({"kernels": rows}, {"slice": slice_out},
                  {"train": train_out, "grad_check": grad_errs,
                   "grad_tolerance": GRAD_TOL}, {"sim2real": sim2real},
                  {"tune_launch": tune_launch}, {"ssm_serve": ssm_serve},
                  {"compiled_decode": compiled}, {"moe_serve": moe_serve},
-                 {"vlm_audio_serve": vlm_audio}):
+                 {"vlm_audio_serve": vlm_audio},
+                 {"train_families": train_families}):
         print(json.dumps(_strict_json(line), allow_nan=False, default=str),
               flush=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")

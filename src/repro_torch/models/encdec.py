@@ -16,8 +16,9 @@ reference scans; the decode state is one
 over the decoder layers.  A forward with a cache writes the KV rows in
 place and the new lengths into the stacked storage, as
 :mod:`repro_torch.models.transformer` does.  The reference's ``remat`` is
-dropped: serving runs under ``torch.no_grad()``, and training this family
-comes in a later slice.
+dropped: the kernels' recompute backward (:mod:`repro_torch.kernels.ops`)
+already keeps only their inputs, and the train step runs with
+``remat="none"``.
 
 Mixed dtypes follow jax's promotion (:func:`~repro_torch.models.layers.mm`):
 fp32 ``frames`` in a bf16 model make the whole encoder, and the decoder's

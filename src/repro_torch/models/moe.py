@@ -109,9 +109,12 @@ def route(p: Dict, tokens: torch.Tensor, k: int, router_mode: str
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The router on grouped tokens (G, Tg, D): the fp32 router logits
     (G, Tg, E) and the top-k (weights, experts), each (G, Tg, k) — softmax
-    scores, or sigmoid scores renormalised over the chosen experts."""
+    scores, or sigmoid scores renormalised over the chosen experts.  The
+    router is drawn in fp32, as in the reference; a train step's bf16
+    compute copy of it is widened here, as jax promotes it against the
+    fp32 tokens."""
     logits = torch.einsum("gtd,de->gte", tokens.to(torch.float32),
-                          p["router"])
+                          p["router"].to(torch.float32))
     if router_mode == "sigmoid":  # deepseek-v3 scoring
         scores = torch.sigmoid(logits)
     else:

@@ -12,7 +12,12 @@ batch) -> (state, metrics)`` with:
 - microbatch accumulation (``ParallelConfig.microbatch``): a Python loop
   where the reference uses ``lax.scan``; gradients are averaged and the
   metrics are the last microbatch's;
-- global-norm clipping, z-loss and accuracy metrics;
+- global-norm clipping, z-loss, the MoE aux loss (``moe_aux_loss * aux``)
+  and DeepSeek's MTP loss (0.3 x the cross-entropy of the next-but-one
+  token, from ``mtp_logits``), with accuracy metrics;
+- the vlm / audio stub inputs (``vision_embeds`` / ``frames``) passed
+  from the batch into the forward as they are: fp32 inputs meet the bf16
+  compute copy and promote where they meet a weight, as jax promotes them;
 - the launch configuration installed with ``exclusive=True`` around the
   step body, so a step is a function of its ``launch_config`` alone.
 
@@ -31,7 +36,9 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import dispatch
-from repro_torch.models.model import Model, torch_dtype
+from repro_torch.models.layers import lm_logits
+from repro_torch.models.model import Model, build_model, torch_dtype
+from repro_torch.models.transformer import mtp_logits
 from repro_torch.train.grad import (
     compress_int8_ef, cross_entropy_loss, init_error_buffer)
 from repro_torch.train.optimizer import (
@@ -62,6 +69,15 @@ def init_train_state(model: Model, run: RunConfig, optimizer: Optimizer,
     return TrainState(params, opt_state, 0, err)
 
 
+def train_state_template(model: Model, run: RunConfig,
+                         optimizer: Optimizer) -> TrainState:
+    """:func:`init_train_state`'s structure, shapes and dtypes on the
+    ``meta`` device — nothing allocated: the restore template of a
+    checkpoint, where the reference takes ``jax.eval_shape``."""
+    meta = build_model(model.cfg, run.parallel, device="meta")
+    return init_train_state(meta, run, optimizer)
+
+
 def _unflatten(tree, leaves):
     it = iter(leaves)
     return tree_map(lambda _: next(it), tree)
@@ -76,14 +92,32 @@ def make_train_step(model: Model, run: RunConfig, optimizer: Optimizer,
     compute_dtype = torch_dtype(tc.compute_dtype)
     n_micro = par.microbatch
     dispatch.split_launch_config(launch_config or {})  # eager validation
-    if cfg.family not in ("dense", "ssm", "hybrid"):
-        raise NotImplementedError(f"{cfg.name}: training the {cfg.family} "
-                                  f"family is not ported yet")
 
     def loss_fn(params_c, batch):
-        logits, _, _ = model.forward(params_c, batch["inputs"])
-        loss, metrics = cross_entropy_loss(logits, batch["targets"],
-                                           z_loss=tc.z_loss)
+        inputs, targets = batch["inputs"], batch["targets"]
+        fkw = {}
+        if cfg.family == "vlm":
+            fkw["vision_embeds"] = batch["vision_embeds"]
+        if cfg.family == "audio":
+            fkw["frames"] = batch["frames"]
+        if cfg.mtp_depth > 0:
+            h, _, aux = model.forward(params_c, inputs, return_hidden=True,
+                                      **fkw)
+            logits = lm_logits(params_c["embed"], h)
+        else:
+            logits, _, aux = model.forward(params_c, inputs, **fkw)
+        loss, metrics = cross_entropy_loss(logits, targets, z_loss=tc.z_loss)
+        if cfg.is_moe:
+            loss = loss + tc.moe_aux_loss * aux
+            metrics["moe_aux"] = aux
+        if cfg.mtp_depth > 0:
+            positions = torch.arange(inputs.shape[1], device=inputs.device)
+            lg2 = mtp_logits(params_c, cfg, par, h, targets, positions)
+            mtp_tgt = torch.cat([targets[:, 1:],
+                                 torch.full_like(targets[:, :1], -1)], dim=1)
+            mtp_loss, _ = cross_entropy_loss(lg2, mtp_tgt)
+            loss = loss + 0.3 * mtp_loss
+            metrics["mtp_loss"] = mtp_loss
         metrics["loss"] = loss
         return loss, metrics
 

@@ -1,5 +1,6 @@
 """On an sm_90 card only: each CUDA kernel of the port against its plain
-PyTorch version, and the recompute wrapper's gradients on the card (marked
+PyTorch version, the recompute wrapper's gradients, the compiled decode
+step, and the checkpoints and the train driver on the card (marked
 ``gpu``; skips without the card).  Imports no jax,
 so it runs on a GPU machine that has only PyTorch:
 
@@ -625,3 +626,75 @@ def test_graphs_are_kept_per_signature_and_evicted_least_recent_first(
         assert torch.equal(lg, ref_lg)
     assert captured.captures == 4  # 0, 1, 2, then 1 again
     assert len(captured.graphs) == 2
+
+
+# --------------------------------------------------------------------------
+# checkpoints and the fault-tolerant driver on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_cuda_checkpoint_roundtrip_survives_in_place_updates(sm90, tmp_path):
+    """An async save of CUDA tensors (fp32, bf16, int32) copies them to
+    the host before it returns: updating them in place afterwards leaves
+    the checkpoint as it was; the restore lands on the card bit for bit."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    g = torch.Generator(device=sm90).manual_seed(7)
+    tree = {"w": torch.randn(64, 48, generator=g, device=sm90),
+            "n": {"s": torch.randn(48, generator=g, device=sm90)
+                  .to(torch.bfloat16),
+                  "i": torch.arange(5, dtype=torch.int32, device=sm90)}}
+    want = tree_map(torch.clone, tree)
+    mgr = CheckpointManager(str(tmp_path), keep=1)
+    mgr.save(3, tree)
+    for leaf in tree_leaves(tree):
+        leaf.add_(1)
+    meta = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), want)
+    got = mgr.restore(3, meta, device=sm90)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_driver_restarts_on_the_card(sm90, tmp_path):
+    """A short driver run on ``cuda`` with a fault before step 3: it
+    restores step 2 and finishes, its losses finite."""
+    import json
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.pipeline import make_data
+    from repro_torch.launch.train import make_run
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.driver import FaultInjector, TrainDriver
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step,
+                                              train_state_template)
+    from repro_torch.utils.logging import MetricsLogger
+
+    cfg = get_smoke_config("deepseek-v3-671b")
+    run = make_run(cfg, seq=32, batch=2, steps=4,
+                   checkpoint_dir=str(tmp_path / "ckpt")).replace(
+        checkpoint_every=2, log_every=1)
+    model = build_model(cfg, run.parallel, device=sm90)
+    opt = make_optimizer(run.train)
+    with MetricsLogger(path=str(tmp_path / "log.jsonl"), name="gpu") as log:
+        driver = TrainDriver(
+            run, make_train_step(model, run, opt),
+            lambda: init_train_state(model, run, opt, seed=0),
+            make_data(cfg, run.shape, seed=0),
+            CheckpointManager(run.checkpoint_dir, keep=2), logger=log,
+            fault_injector=FaultInjector([3]), device=sm90,
+            state_template=lambda: train_state_template(model, run, opt))
+        state = driver.run_steps(4)
+    assert state.step == 4 and driver.restarts == 1
+    assert tree_leaves(state.params)[0].device.type == "cuda"
+    recs = [json.loads(line)
+            for line in (tmp_path / "log.jsonl").read_text().splitlines()]
+    assert [(r["step"], r["event"]) for r in recs if "event" in r] == \
+        [(0, "init_fresh"), (-1, "fault"), (2, "restored")]
+    assert all(torch.isfinite(torch.tensor(r["loss"]))
+               for r in recs if "loss" in r)

@@ -266,13 +266,20 @@ def test_int8_error_feedback_matches_reference():
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
-def test_train_cli_runs_on_cpu(arch, capsys):
-    assert tlaunch.main(["--device", "cpu", "--arch", arch, "--steps", "2",
-                         "--seq", "16", "--batch", "2"]) == 0
-    out = capsys.readouterr().out
-    losses = [float(line.split("loss ")[1].split()[0])
-              for line in out.splitlines() if " loss " in line]
-    assert len(losses) == 2 and np.isfinite(losses).all()
+def test_train_cli_runs_on_cpu(arch, capsys, tmp_path):
+    """The CLI trains through the driver, which logs through
+    ``MetricsLogger`` to stderr every 5 steps and at the last: a fresh
+    start, then finite losses at steps 5 and 6."""
+    assert tlaunch.main(["--device", "cpu", "--arch", arch, "--steps", "6",
+                         "--seq", "16", "--batch", "2",
+                         "--ckpt-dir", str(tmp_path)]) == 0
+    lines = [line for line in capsys.readouterr().err.splitlines()
+             if line.startswith(f"[train-{arch}] ")]
+    assert "event=init_fresh" in lines[0]
+    logged = {int(line.split("step=")[1].split()[0]):
+              float(line.split("loss=")[1].split()[0])
+              for line in lines if " loss=" in line}
+    assert sorted(logged) == [5, 6] and np.isfinite(list(logged.values())).all()
 
 
 def test_train_cli_defaults_to_cuda():

@@ -320,13 +320,14 @@ def test_serve_cli_tunes_the_launch_and_serves_with_it(monkeypatch, capsys,
 @pytest.mark.parametrize("arch,backend", [
     ("falcon-mamba-7b", "wallclock"), ("zamba2-2.7b", "shifted:hardware")])
 def test_train_cli_tunes_the_launch_and_trains_with_it(monkeypatch, capsys,
-                                                       arch, backend):
+                                                       tmp_path, arch,
+                                                       backend):
     from repro_torch.launch import train
 
     got = _tuned(monkeypatch, train)
     argv = ["--device", "cpu", "--arch", arch, "--steps", "2", "--seq",
             "32", "--batch", "2", "--tune-launch", "2",
-            "--measure-backend", backend]
+            "--measure-backend", backend, "--ckpt-dir", str(tmp_path)]
     assert train.main(argv) == 0
     out = capsys.readouterr().out
     assert "[train] tuned launch config (cameo, budget=2" in out

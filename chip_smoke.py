@@ -161,6 +161,24 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    restore timed); the train CLI run twice on one ``--ckpt-dir``
    (deepseek-v3-671b and whisper-large-v3 smoke configs), the second run
    resuming;
+4j. fleet replay and the data-parallel train path: ``make_sim2real_pair(
+   ..., fleet=True, num_devices=8)`` over llama3.2-1b at full width and
+   phase 4c's trace, for 2 replicas under each routing policy and 4
+   replicas, dense and paged: the router's plan against
+   ``FleetSimulator`` built apart, each replica's replay on the shared
+   deployment against a plain replay of its sub-trace on a fresh batcher
+   (schedule fields and tokens bit for bit), the pooled counters against
+   the replicas' reports and against ``intervene``, every resolution
+   ``cuda``, no graph captured inside a measured replay; then
+   ``transfer_tune("cameo", ...)`` over the fleet knobs (the fleet
+   replays' launches counted each just around its ``fleet_replay``, and
+   CAMEO's apart); the train loop under an NCCL process group of one rank
+   against the plain loop (bit for bit, counted), the train CLI
+   (llama3.2-1b, full config, 3 steps of 2 x 512) under
+   ``torch.distributed.run`` (its logged loss and gradient norm the plain
+   loop's, its step time), and its checkpoint restored through
+   ``remesh_state`` on the one-device mesh: the NCCL loop's state bit for
+   bit, and its next step gives the unbroken run's loss;
 5. timings: each kernel, its plain version and the one-call PyTorch
    yardstick where one exists, timed with CUDA events at the slices'
    shapes, beside the card's bound for the same work; RMSNorm also at the
@@ -181,8 +199,8 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    under its symbol), and the device's busy share.
 
 Prints the kernel table, the serving, training, sim-to-real,
-kernel-launch tuning, SSM, MoE, vlm / audio serving and every family's
-training summaries as JSON lines, and, as the last line,
+kernel-launch tuning, SSM, MoE, vlm / audio serving, every family's
+training, fleet and distributed summaries as JSON lines, and, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without that line.  Without a CUDA card, or
 outside a checkout, it exits non-zero before doing anything.
@@ -1248,13 +1266,13 @@ def _recorded_routes():
     inner = transformer.apply_moe
 
     def recorded(p, cfg, x, router_mode="softmax", group_size=512,
-                 dropless=False):
+                 dropless=False, group=None):
         tg = moe._group_size(x.shape[0] * x.shape[1], group_size)
         logits, _, idx = moe.route(p, x.reshape(-1, tg, x.shape[-1]),
                                    cfg.moe_top_k, router_mode)
         calls.append((logits.detach().cpu(), idx.cpu()))
         return inner(p, cfg, x, router_mode=router_mode,
-                     group_size=group_size, dropless=dropless)
+                     group_size=group_size, dropless=dropless, group=group)
     transformer.apply_moe = recorded
     try:
         yield calls
@@ -3730,6 +3748,326 @@ def _train_cli_resume(specs):
 
 
 # --------------------------------------------------------------------------
+# phase 4j: fleet replay over llama3.2-1b, and the data-parallel train CLI
+# --------------------------------------------------------------------------
+
+#: (name, overrides of the default fleet config: 2 replicas, round robin)
+FLEET_CONFIGS = (
+    ("2 round_robin", {}),
+    ("2 join_shortest_queue", {"fleet.routing": "join_shortest_queue"}),
+    ("2 power_of_two", {"fleet.routing": "power_of_two"}),
+    ("4 dense", {"fleet.num_replicas": 4}),
+    ("4 paged", {"fleet.num_replicas": 4, "pages.paging": "on"}),
+)
+FLEET_DEVICES = 8
+FLEET_KERNELS = ("rmsnorm", "flash_attention", "decode_attention",
+                 "paged_decode_attention")
+#: replay report fields that follow from the schedule alone
+FLEET_SCHEDULE = ("completed", "rejected", "ticks", "tokens",
+                  "mean_occupancy", "queue_depth_mean", "queue_depth_max",
+                  "page_pool_occupancy", "page_faults",
+                  "prefill_chunks_inflight", "rejected_too_long")
+#: pooled counters that read the clock
+FLEET_WALL = ("latency", "throughput", "prefill_decode_ratio",
+              "straggler_flagged")
+DP = dict(steps=3, seq=512, batch=2)
+
+
+def _completed_tokens(batcher, start, n):
+    return [(rs.request.uid, list(rs.generated))
+            for rs in batcher.completed[start:start + n]]
+
+
+def phase_fleet(torch, np, dev):
+    """Fleet replay of phase 4c's trace over llama3.2-1b at full width:
+    per config the router's plan, each replica's replay on the shared
+    deployment against a plain replay of its sub-trace on a fresh batcher
+    (schedule and tokens bit for bit), the plan against ``FleetSimulator``
+    built apart, the pooled counters recomputed from the replicas'
+    reports; then CAMEO over the fleet knobs.  Returns (summary, the fleet
+    replays' own launches, the CAMEO run's launches): the counts are set
+    to 0 just before each ``fleet_replay`` and read just after it, before
+    the check's own replays; CAMEO's run is counted apart."""
+    from repro_torch.configs.registry import get_model_config
+    from repro_torch.envs.replay_env import make_sim2real_pair
+    from repro_torch.kernels import cuda_lib, dispatch
+    from repro_torch.serving.replay import replay_trace
+    from repro_torch.tuner.runner import transfer_tune
+    from repro_torch.workloads import FleetPlan, ServingPlan
+    from repro_torch.workloads.sim import FleetSimulator, FleetSpec
+
+    cfg = get_model_config(ARCH)
+
+    def pair():
+        return make_sim2real_pair(SIM2REAL_SPEC, model_cfg=cfg, seed=0,
+                                  trace_seed=0, repeats=1, device="cuda",
+                                  fleet=True, num_devices=FLEET_DEVICES)
+
+    src, env = pair()
+    launches = {k: 0 for k in cuda_lib.LAUNCHES}
+    configs = {}
+    with dispatch.record_resolutions() as resolved:
+        for name, over in FLEET_CONFIGS:
+            cfg_ = dict(env.space.default_config(), **over)
+            check(env.infeasible_reason(cfg_) == "",
+                  f"fleet {name}: infeasible ({env.infeasible_reason(cfg_)})")
+            plan, fplan = ServingPlan.from_config(cfg_), \
+                FleetPlan.from_config(cfg_)
+            key = env._deploy_key(plan, cfg_)
+            shared = env._fresh_batcher(*key)
+            env._warm_deployment(shared, key[3])
+            shared.interleave = plan.interleave
+            cuda_lib.reset_launches()
+            route, reports = env.fleet_replay(shared, cfg_, plan)
+            torch.cuda.synchronize()
+            own = {k: n for k, n in cuda_lib.LAUNCHES.items() if n}
+            for k, n in own.items():
+                launches[k] += n
+            check(reports is not None, f"fleet {name}: plan infeasible")
+            apart = FleetSimulator(
+                env.cell, env.families, hardware=env.hardware,
+                max_ticks=env.max_ticks,
+                fleet=FleetSpec(num_devices=FLEET_DEVICES)).run(
+                    env.trace, plan, fplan, cfg_)
+            check(route.assignments == apart.assignments
+                  and route.routing_imbalance == apart.routing_imbalance,
+                  f"fleet {name}: the replay's routing differs from "
+                  f"FleetSimulator's")
+            subs = [st for st in env._subtraces(route.assignments)
+                    if st is not None]
+            check(len(subs) == len(reports),
+                  f"fleet {name}: {len(reports)} reports for {len(subs)} "
+                  f"sub-traces")
+            start = 0
+            for r, (st, rep) in enumerate(zip(subs, reports)):
+                fresh = env._fresh_batcher(*key)
+                env._warm_deployment(fresh, key[3])
+                fresh.interleave = plan.interleave
+                alone = replay_trace(fresh, st, admit_chunk=plan.admit_chunk,
+                                     ticks_per_s=env.ticks_per_s, seed=0,
+                                     max_ticks=env.max_ticks)
+                for f in FLEET_SCHEDULE:
+                    check(getattr(rep, f) == getattr(alone, f),
+                          f"fleet {name} replica {r}: {f} "
+                          f"{getattr(rep, f)} in the fleet, "
+                          f"{getattr(alone, f)} alone")
+                check(_completed_tokens(shared, start, rep.completed) ==
+                      _completed_tokens(fresh, 0, alone.completed),
+                      f"fleet {name} replica {r}: tokens differ from the "
+                      f"replay alone")
+                start += rep.completed
+            pooled, y = env._pool_fleet(reports, route)
+            lat = np.asarray([l for r in reports for l in r.latencies_ms])
+            check(pooled["latency"] == float(np.percentile(lat, 99)) == y
+                  and pooled["throughput"] == sum(r.completed
+                                                  for r in reports)
+                  / max(r.wall_s for r in reports)
+                  and pooled["queue_depth_max"] == max(r.queue_depth_max
+                                                       for r in reports),
+                  f"fleet {name}: pooled counters differ from the "
+                  f"replicas' reports")
+            counters, y2 = env.intervene(cfg_)
+            torch.cuda.synchronize()
+            for k, v in counters.items():
+                if k not in FLEET_WALL:
+                    check(v == pooled[k], f"fleet {name}: {k} {v} measured, "
+                          f"{pooled[k]} from the broken-out replay")
+            check(all(math.isfinite(counters[k]) for k in FLEET_WALL) and
+                  math.isfinite(y2) and y2 > 0,
+                  f"fleet {name}: measured {counters}, {y2}")
+            s_tick = [r.decode_s / r.ticks for r in reports]
+            configs[name] = {
+                "config": over, "assignments": [len(a) for a in
+                                                route.assignments],
+                "routing_imbalance": route.routing_imbalance,
+                "p99_ms": y2, "broken_out_p99_ms": y,
+                "decode_s_per_tick": s_tick,
+                "straggler_flagged": counters["straggler_flagged"],
+                "counters": counters, "launches": own}
+            log(f"[{CARD}] fleet {name}: requests per replica "
+                f"{configs[name]['assignments']}, imbalance "
+                f"{route.routing_imbalance:.3f}, p99 {y2:.1f} ms "
+                f"(broken out {y:.1f}), decode s/tick per replica "
+                f"{[round(t * 1e3, 3) for t in s_tick]} ms, straggler_flagged "
+                f"{counters['straggler_flagged']:.0f}; each replica equal "
+                f"to its sub-trace alone; the fleet replay's launches {own}")
+        check(env.measured_captures == 0, f"fleet: {env.measured_captures} "
+              f"decode graphs captured inside measured replays")
+        t0 = time.perf_counter()
+        src, tgt = pair()
+        cuda_lib.reset_launches()
+        res = transfer_tune("cameo", src, tgt, query_text=tgt.query_text,
+                            **SIM2REAL_TUNE)
+        torch.cuda.synchronize()
+        cameo_launches = dict(cuda_lib.LAUNCHES)
+        tune_s = time.perf_counter() - t0
+    _check_resolved(resolved, "fleet")
+    for k in FLEET_KERNELS:
+        check(launches[k] > 0, f"fleet: the fleet replays launched no {k}")
+    check(math.isfinite(res.best_y) and res.best_y > 0,
+          f"fleet: CAMEO's best_y {res.best_y}")
+    check(tgt.measured_captures == 0, f"fleet: {tgt.measured_captures} "
+          f"decode graphs captured inside the tuning run's measurements")
+    best = {k: v for k, v in res.best_config.items()
+            if k.startswith(("fleet.", "serving."))}
+    log(f"[{CARD}] fleet CAMEO (budget {SIM2REAL_TUNE['budget']}): best "
+        f"{best} -> p99 {res.best_y:.1f} ms in {tune_s:.1f} s; the fleet "
+        f"replays' launches {launches}, CAMEO's {cameo_launches}")
+    return {"spec": env.trace.spec, "requests": len(env.trace.requests),
+            "num_devices": FLEET_DEVICES, "configs": configs,
+            "cameo": {"best_config": res.best_config, "best_y_ms": res.best_y,
+                      "trace_best_y": res.trace_best_y, "tune_s": tune_s,
+                      "launches": cameo_launches},
+            "card": CARD}, launches, cameo_launches
+
+
+def _cli_logged(stderr, arch):
+    """The train CLI's ``[train-<arch>]`` lines: {step: {key: value}}."""
+    out = {}
+    for line in stderr.splitlines():
+        if line.startswith(f"[train-{arch}] ") and "loss=" in line:
+            kv = dict(f.split("=", 1) for f in line.split()[1:])
+            out[int(kv["step"])] = kv
+    return out
+
+
+def phase_distributed(torch, np, dev):
+    """The data-parallel train path on one card: the train loop under an
+    NCCL process group of one rank against the plain loop (counted); the
+    train CLI under ``torch.distributed.run``, its logged step against the
+    plain loop's; its checkpoint restored through ``remesh_state`` on the
+    one-device mesh, held bit for bit against the NCCL loop's state, and
+    its next step against the unbroken run's.  (The CLI is run once: the
+    plain CLI would write and compare a second 14.8 GB checkpoint for
+    what the in-process loops already hold.)  Returns (summary,
+    launches)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import get_model_config
+    from repro_torch.data.pipeline import make_data
+    from repro_torch.kernels import cuda_lib, dispatch
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.launch.train import make_run, train
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.elastic import remesh_state
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import (make_train_step,
+                                              train_state_template)
+    from repro_torch.utils.trees import flatten_with_paths
+
+    cfg = get_model_config(ARCH)
+    steps = DP["steps"]
+    unbroken = train(cfg, steps=steps + 1, seq=DP["seq"], batch=DP["batch"],
+                     device="cuda")
+    unbroken.state = None  # its losses are held; the state is not
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        cuda_lib.reset_launches()
+        with dispatch.record_resolutions() as resolved:
+            dp = train(cfg, steps=steps, seq=DP["seq"], batch=DP["batch"],
+                       device="cuda")
+            torch.cuda.synchronize()
+        launches = dict(cuda_lib.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    _check_resolved(resolved, "distributed")
+    for k in TRAIN_FAMILY_KERNELS:
+        check(launches[k] > 0, f"distributed: the NCCL step launched no {k}")
+    check(dp.losses == unbroken.losses[:steps] and
+          dp.grad_norms == unbroken.grad_norms[:steps],
+          f"distributed: NCCL world-1 losses {dp.losses} / grad norms "
+          f"{dp.grad_norms}, plain {unbroken.losses[:steps]} / "
+          f"{unbroken.grad_norms[:steps]}")
+    dp_step_s = dp.step_s
+    log(f"[{CARD}] distributed: the NCCL world-1 train loop equals the "
+        f"plain one bit for bit over {steps} steps (losses "
+        f"{unbroken.losses[:steps]}); launches {launches}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as root:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "repro_torch.launch.train",
+               "--arch", ARCH, "--full-config", "--steps", str(steps),
+               "--seq", str(DP["seq"]), "--batch", str(DP["batch"]),
+               "--ckpt-dir", root]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=str(ROOT), capture_output=True,
+                              text=True, timeout=600,
+                              env={**os.environ, "PYTHONPATH": str(SRC)})
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"distributed: the torchrun CLI exited "
+              f"{proc.returncode}: {proc.stderr[-3000:]}")
+        check("on 1 device(s)" in proc.stdout and
+              f"[train] finished at step {steps}" in proc.stdout,
+              f"distributed: the torchrun CLI printed {proc.stdout[-2000:]}")
+        logged = _cli_logged(proc.stderr, ARCH)
+        check(steps in logged, f"distributed: the torchrun CLI logged no "
+              f"step {steps}: {proc.stderr[-2000:]}")
+        got = logged[steps]
+        # the logger writes 6 significant digits
+        want = {"loss": f"{unbroken.losses[steps - 1]:.6g}",
+                "grad_norm": f"{unbroken.grad_norms[steps - 1]:.6g}"}
+        check({k: got[k] for k in want} == want,
+              f"distributed: the torchrun CLI logged {got} at step {steps}, "
+              f"the plain loop {want}")
+        log(f"[{CARD}] distributed: torchrun CLI rc 0 in {wall:.1f} s: "
+            f"step {steps} loss {got['loss']} grad_norm {got['grad_norm']} "
+            f"(the plain loop's) step_time_s {got['step_time_s']}")
+        run = make_run(cfg, seq=DP["seq"], batch=DP["batch"],
+                       steps=steps + 1)
+        model = build_model(cfg, run.parallel, device="cuda")
+        opt = make_optimizer(run.train)
+        template = train_state_template(model, run, opt)
+        t0 = time.perf_counter()
+        one = MeshSpec.of((1,), ("data",))
+        state = remesh_state(CheckpointManager(root), steps, template, run,
+                             one, device="cuda")
+        restore_s = time.perf_counter() - t0
+        a, b = (flatten_with_paths(s_) for s_ in (state, dp.state))
+        def same(x, y):
+            if torch.is_tensor(x) and torch.is_tensor(y):
+                return x.dtype == y.dtype and torch.equal(x, y)
+            return int(x) == int(y)
+        differ = sorted(k for k in a if not (k in b and same(a[k], b[k])))
+        check(a.keys() == b.keys() and not differ,
+              f"distributed: the torchrun CLI's checkpoint differs from the "
+              f"NCCL loop's state in {differ[:5]} "
+              f"(keys {sorted(a.keys() ^ b.keys())[:5]})")
+        n_leaves = len(a)
+        del a, b, dp
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        data = make_data(cfg, run.shape, seed=0)
+        step_fn = make_train_step(model, run, opt)
+        state, metrics = step_fn(state, data.batch_at(steps))
+        resumed = float(metrics["loss"])
+        resume_s = time.perf_counter() - t0
+        check(resumed == unbroken.losses[steps],
+              f"distributed: resumed through remesh_state, step "
+              f"{steps + 1} loss {resumed}; unbroken {unbroken.losses[steps]}")
+        del state
+    step_ms = {"nccl_world1": [t * 1e3 for t in dp_step_s],
+               "plain": [t * 1e3 for t in unbroken.step_s]}
+    log(f"[{CARD}] distributed: remesh_state onto the one-device mesh "
+        f"gives the NCCL loop's state bit for bit ({n_leaves} leaves, "
+        f"restored in {restore_s:.1f} s) and resumes to step {steps + 1}'s "
+        f"loss {resumed} (the unbroken run's; step {resume_s:.1f} s); the "
+        f"torchrun CLI's step {steps} time {got['step_time_s']} s; "
+        f"in-process step ms {step_ms}")
+    return {"arch": ARCH, "shape": DP, "losses": unbroken.losses,
+            "grad_norms": unbroken.grad_norms, "step_ms": step_ms,
+            "restore_s": restore_s, "resume_s": resume_s,
+            "resumed_loss": resumed, "checkpoint_leaves": n_leaves,
+            "cli": {"cmd": " ".join(cmd[1:]), "wall_s": wall,
+                    "logged": got},
+            "card": CARD}, launches
+
+
+# --------------------------------------------------------------------------
 # phase 5: timings
 # --------------------------------------------------------------------------
 
@@ -4621,6 +4959,17 @@ def main() -> int:
     train_families["phase_s"] = time.perf_counter() - t0
     log(f"[{CARD}] training every family done in "
         f"{train_families['phase_s']:.1f} s")
+
+    # 4j. fleet replay, and the data-parallel train path
+    t0 = time.perf_counter()
+    fleet, fleet_launches, fleet_cameo_launches = phase_fleet(torch, np,
+                                                              dev)
+    fleet["phase_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    distributed, distributed_launches = phase_distributed(torch, np, dev)
+    distributed["phase_s"] = time.perf_counter() - t1
+    log(f"[{CARD}] fleet replay ({fleet['phase_s']:.1f} s) and the "
+        f"data-parallel train path ({distributed['phase_s']:.1f} s) done")
     by_path = {name: {"serve": launches.get(name, 0),
                       "train": sum(t["launches"][name]
                                    for t in train_out.values()),
@@ -4629,7 +4978,10 @@ def main() -> int:
                       "ssm_serve": ssm_serve_launches[name],
                       "moe_serve": moe_serve_launches[name],
                       "vlm_audio_serve": vlm_audio_launches[name],
-                      "train_families": train_families_launches[name]}
+                      "train_families": train_families_launches[name],
+                      "fleet": fleet_launches[name],
+                      "fleet_cameo": fleet_cameo_launches[name],
+                      "distributed": distributed_launches[name]}
                for name in cuda_lib.LAUNCHES}
 
     # 5. timings
@@ -4654,7 +5006,8 @@ def main() -> int:
                  {"tune_launch": tune_launch}, {"ssm_serve": ssm_serve},
                  {"compiled_decode": compiled}, {"moe_serve": moe_serve},
                  {"vlm_audio_serve": vlm_audio},
-                 {"train_families": train_families}):
+                 {"train_families": train_families}, {"fleet": fleet},
+                 {"distributed": distributed}):
         print(json.dumps(_strict_json(line), allow_nan=False, default=str),
               flush=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")

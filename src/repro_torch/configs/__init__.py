@@ -1,1 +1,2 @@
-"""Architecture configs (llama3.2-1b, falcon-mamba-7b, zamba2-2.7b so far)."""
+"""Architecture configs, the registry of the ten archs and the shape
+cells."""

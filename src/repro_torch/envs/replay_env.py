@@ -31,9 +31,11 @@ configuration.
 = target) over the *identical* trace realization, with the simulator priced
 at the kernel dimensions of the very model the batcher runs.
 
-Not ported yet: fleet replay (``fleet=True``: sim-planned routing over
-replica batchers and the straggler monitor fed by real decode times) —
-ROADMAP queue 1, item 7.
+Fleet mode (``fleet=True``) puts a router in front: the analytic
+:class:`~repro_torch.workloads.sim.FleetSimulator` plans which replica
+takes each request, the trace is split into one sub-trace per replica, and
+each sub-trace replays on the deployed batcher; the straggler monitor is
+fed each replica's measured decode seconds per tick.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ from repro_torch.envs.serving_env import OBJECTIVES, ServingEnv
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving.paging import PagedPlan
-from repro_torch.workloads.sim import ServingPlan, serving_space
+from repro_torch.workloads.sim import (FleetPlan, FleetReport, ServingPlan,
+                                      serving_space)
 from repro_torch.workloads.traces import Trace, TraceWorkload, make_workload
 from repro_torch.utils.device import DeviceLike, resolve_device, synchronize
 
@@ -175,6 +178,8 @@ class ReplayServingEnv(PooledEnv):
     ``device`` (default ``cuda``; without a card that raises) is where the
     batcher runs; ``params`` replaces the seeded weights (the tests hand in
     the reference's through ``models.interop.params_from_jax``).
+    ``fleet=True`` adds the router and replica knobs (``fleet.*``) over a
+    fleet of ``num_devices`` devices.
     """
 
     def __init__(self, workload: Union[str, TraceWorkload, Trace],
@@ -186,8 +191,8 @@ class ReplayServingEnv(PooledEnv):
                  ticks_per_s: Optional[float] = None,
                  max_ticks: int = 100_000, model_seed: int = 0,
                  replay_seed: int = 0, warmup: int = 1, repeats: int = 1,
-                 fleet: bool = False, device: DeviceLike = None,
-                 params=None):
+                 fleet: bool = False, num_devices: int = 8,
+                 device: DeviceLike = None, params=None):
         from repro_torch.launch.tune import launch_workload_for
         from repro_torch.serving.replay import default_ticks_per_s
         from repro_torch.tuner.space import launch_families_for
@@ -195,11 +200,6 @@ class ReplayServingEnv(PooledEnv):
         if objective not in OBJECTIVES:
             raise ValueError(f"unknown serving objective {objective!r}; "
                              f"known: {sorted(OBJECTIVES)}")
-        if fleet:
-            raise NotImplementedError(
-                "fleet replay (sim-planned routing over replica batchers, "
-                "the straggler monitor fed by real decode times) is not "
-                "ported yet: ROADMAP queue 1, item 7")
         self.device = resolve_device(device)
         self.model_cfg = model_cfg or default_replay_model()
         if families is None:
@@ -236,15 +236,20 @@ class ReplayServingEnv(PooledEnv):
         self._model_seed = int(model_seed)
         self.model, self.run, self.params = _built_model(
             self.model_cfg, model_seed, self.device, params)
-        super().__init__(serving_space(self.families), REPLAY_COUNTER_NAMES,
-                         seed=seed)
+        self.fleet = bool(fleet)
+        self.num_devices = int(num_devices)
+        super().__init__(serving_space(self.families, fleet=self.fleet),
+                         REPLAY_FLEET_COUNTER_NAMES if self.fleet
+                         else REPLAY_COUNTER_NAMES, seed=seed)
         # the deployment key: members of a q-batch sharing these dims share
         # one (prefill, decode) step pair and its warm-up — num_slots stays
-        # out (it only changes the decode batch).
+        # out (it only changes the decode batch).  fleet.* router knobs
+        # never touch a step's shapes, so like the scheduler knobs they
+        # stay out: every replica of every fleet plan shares one deployment.
         self.batch_share_dims = tuple(
             ["serving.cache_len"]
             + [n for n in self.space.names
-               if "." in n and not n.startswith("serving.")])
+               if "." in n and not n.startswith(("serving.", "fleet."))])
 
     # measurements are deployment + wall-clock, not noise draws: reusing a
     # prior result for a repeated configuration is pure savings
@@ -264,7 +269,7 @@ class ReplayServingEnv(PooledEnv):
 
     def infeasible_reason(self, config: Dict[str, Any]) -> str:
         """"" when deployable; otherwise why not (``cache_len``/``pages``/
-        ``vmem``), decided analytically so undeployable configs
+        ``vmem``/``devices``), decided analytically so undeployable configs
         never reach the batcher.  The paged branch mirrors
         ``ServingSimulator.capacity_reason`` so the analytic gate and the
         real deployment agree."""
@@ -277,6 +282,9 @@ class ReplayServingEnv(PooledEnv):
                 return "pages"
         elif self.trace.max_context > plan.cache_len:
             return "cache_len"
+        if (self.fleet and FleetPlan.from_config(config).num_replicas
+                > self.num_devices):
+            return "devices"
         seq = paged.slot_capacity if paged.paging else plan.cache_len
         w = dataclasses.replace(self.cell, batch=plan.num_slots, seq_len=seq)
         _, _, feasible = LaunchGeometry(w, self.hardware).totals(
@@ -285,12 +293,16 @@ class ReplayServingEnv(PooledEnv):
 
     def _infeasible_counters(self) -> Dict[str, float]:
         n = float(len(self.trace.requests))
-        return {"queue_depth_mean": n, "queue_depth_max": n,
-                "occupancy_mean": 0.0, "prefill_decode_ratio": 0.0,
-                "slo_violation_rate": 1.0, "page_pool_occupancy": 0.0,
-                "page_faults": 0.0, "prefill_chunks_inflight": 0.0,
-                "rejected_rate": 1.0, "rejected_too_long": 0.0,
-                "latency": 0.0, "throughput": 0.0}
+        c = {"queue_depth_mean": n, "queue_depth_max": n,
+             "occupancy_mean": 0.0, "prefill_decode_ratio": 0.0,
+             "slo_violation_rate": 1.0, "page_pool_occupancy": 0.0,
+             "page_faults": 0.0, "prefill_chunks_inflight": 0.0,
+             "rejected_rate": 1.0, "rejected_too_long": 0.0,
+             "latency": 0.0, "throughput": 0.0}
+        if self.fleet:
+            c.update(routing_imbalance=1.0, replica_queue_depth_max=n,
+                     straggler_flagged=0.0)
+        return c
 
     # -- measurement ----------------------------------------------------
 
@@ -360,6 +372,17 @@ class ReplayServingEnv(PooledEnv):
         bad = float("-inf" if self.maximize else "inf")
         if self.infeasible_reason(config):
             return self._infeasible_counters(), bad
+        if self.fleet:
+            plan = ServingPlan.from_config(config)
+            num_slots, cache_len, paged, frozen = self._deploy_key(plan,
+                                                                   config)
+            batcher = self._fresh_batcher(num_slots, cache_len, paged, frozen)
+            self._warm_deployment(batcher, frozen)
+            batcher.interleave = plan.interleave
+            try:
+                return self._member_result(batcher, config, plan)
+            except DrainStall:
+                return self._infeasible_counters(), bad
         try:
             with obs_trace.span("measure", cat="env",
                                 track=obs_trace.TRACK_ENV,
@@ -375,10 +398,134 @@ class ReplayServingEnv(PooledEnv):
              else report.p99_latency_ms)
         return counters, y
 
+    # -- fleet replay (sim-planned routing, shared deployment) -----------
+
+    def _fleet_route(self, config: Dict[str, Any], plan: ServingPlan,
+                     fleet_plan: FleetPlan) -> FleetReport:
+        """Route the pinned trace with the analytic fleet simulator — the
+        router's decisions depend only on modeled backlogs, so the plan is
+        deterministic and shared between sim-side and replay-side envs."""
+        from repro_torch.workloads.sim import FleetSimulator, FleetSpec
+
+        sim = FleetSimulator(self.cell, self.families,
+                             hardware=self.hardware,
+                             max_ticks=self.max_ticks,
+                             fleet=FleetSpec(num_devices=self.num_devices))
+        return sim.run(self.trace, plan, fleet_plan, config)
+
+    def _subtraces(self, assignments: Tuple[Tuple[int, ...], ...]
+                   ) -> List[Optional[Trace]]:
+        """Split the pinned trace into one sub-trace per replica (``None``
+        for replicas the router left empty); uids and arrival times are
+        preserved, so per-request latency semantics carry over."""
+        reqs = self.trace.requests
+        out: List[Optional[Trace]] = []
+        for r, idxs in enumerate(assignments):
+            if not idxs:
+                out.append(None)
+                continue
+            out.append(Trace(kind=self.trace.kind,
+                             spec=f"{self.trace.spec}#r{r}",
+                             seed=self.trace.seed,
+                             requests=tuple(reqs[i] for i in idxs)))
+        return out
+
+    def _pool_fleet(self, reports: List[Any], plan_report: FleetReport
+                    ) -> Tuple[Dict[str, float], float]:
+        """Pool per-replica :class:`ReplayReport`s into one fleet
+        measurement.  Replicas run concurrently in a real fleet, so wall
+        time is the max over replicas; everything request-weighted pools.
+        The straggler monitor is fed each replica's measured decode
+        seconds per tick (synchronized with the device), not the plan's."""
+        import numpy as np
+
+        from repro_torch.runtime.straggler import StragglerMonitor
+
+        lat = [l for r in reports for l in r.latencies_ms]
+        arr = np.asarray(lat, np.float64)
+        completed = sum(r.completed for r in reports)
+        rejected = sum(r.rejected for r in reports)
+        ticks = sum(r.ticks for r in reports)
+        wall = max((r.wall_s for r in reports), default=1e-9)
+        prefill = sum(r.prefill_s for r in reports)
+        decode = sum(r.decode_s for r in reports)
+        monitor = StragglerMonitor(max(plan_report.num_replicas, 1))
+        step_times = {i: r.decode_s / r.ticks
+                      for i, r in enumerate(reports) if r.ticks > 0}
+        if step_times:
+            for _ in range(monitor.patience):
+                monitor.report(step_times)
+        p99 = float(np.percentile(arr, 99)) if arr.size else 0.0
+        counters = {
+            "queue_depth_mean": (sum(r.queue_depth_mean * r.ticks
+                                     for r in reports) / max(ticks, 1)),
+            "queue_depth_max": max((r.queue_depth_max for r in reports),
+                                   default=0.0),
+            "occupancy_mean": (sum(r.mean_occupancy * r.ticks
+                                   for r in reports) / max(ticks, 1)),
+            "prefill_decode_ratio": prefill / max(decode, 1e-9),
+            "slo_violation_rate": (float((arr > self.slo_ms).mean())
+                                   if arr.size else 0.0),
+            "page_pool_occupancy": (sum(r.page_pool_occupancy * r.ticks
+                                        for r in reports) / max(ticks, 1)),
+            "page_faults": float(sum(r.page_faults for r in reports)),
+            "prefill_chunks_inflight": (
+                sum(r.prefill_chunks_inflight * r.ticks
+                    for r in reports) / max(ticks, 1)),
+            "rejected_rate": rejected / max(rejected + completed, 1),
+            "rejected_too_long": float(sum(r.rejected_too_long
+                                           for r in reports)),
+            "latency": p99,
+            "throughput": completed / max(wall, 1e-9),
+            "routing_imbalance": plan_report.routing_imbalance,
+            "replica_queue_depth_max": plan_report.replica_queue_depth_max,
+            "straggler_flagged": float(len(monitor.flagged())),
+        }
+        y = counters["throughput"] if self.maximize else p99
+        return counters, y
+
+    def fleet_replay(self, batcher, config: Dict[str, Any],
+                     plan: ServingPlan):
+        """One fleet measurement's parts: (the router's plan, the
+        per-replica replay reports in replica order, empty replicas left
+        out), replayed on ``batcher``; ``None`` reports when the plan is
+        infeasible."""
+        from repro_torch.serving.replay import replay_trace
+
+        plan_report = self._fleet_route(config, plan,
+                                        FleetPlan.from_config(config))
+        if not plan_report.feasible:
+            return plan_report, None
+        reports = [replay_trace(batcher, st, admit_chunk=plan.admit_chunk,
+                                ticks_per_s=self.ticks_per_s,
+                                seed=self._replay_seed,
+                                max_ticks=self.max_ticks)
+                   for st in self._subtraces(plan_report.assignments)
+                   if st is not None]
+        return plan_report, reports
+
     def _member_result(self, batcher, config: Dict[str, Any],
                        plan: ServingPlan) -> Tuple[Dict[str, float], float]:
-        """(counters, y) of one member measured on a warmed deployment."""
+        """(counters, y) of one member measured on a warmed deployment —
+        plain replay, or (fleet mode) sim-planned routing followed by one
+        sub-trace replay per replica on the SAME shared batcher (replica
+        batchers are identical deployments, so sequential replay on one
+        instance is sound and the fleet wall time is the max over
+        replicas)."""
         from repro_torch.serving.replay import replay_trace
+
+        if self.fleet:
+            outs = []
+            with self._counting_captures(batcher):
+                for _ in range(self.repeats):
+                    plan_report, reports = self.fleet_replay(batcher, config,
+                                                             plan)
+                    if reports is None:
+                        return (self._infeasible_counters(),
+                                float("-inf" if self.maximize else "inf"))
+                    outs.append(self._pool_fleet(reports, plan_report))
+            outs.sort(key=lambda cy: cy[1])
+            return outs[len(outs) // 2]
 
         with self._counting_captures(batcher):
             reports = sorted(
@@ -534,15 +681,16 @@ def make_sim2real_pair(workload: Union[str, TraceWorkload, Trace],
                        objective: str = "latency", slo_us: float = 2_000.0,
                        slo_ms: float = 1_000.0,
                        hardware: Optional[HardwareSpec] = None,
-                       fleet: bool = False, device: DeviceLike = None,
-                       **replay_kw: Any
+                       fleet: bool = False, num_devices: int = 8,
+                       device: DeviceLike = None, **replay_kw: Any
                        ) -> Tuple[ServingEnv, ReplayServingEnv]:
     """(source, target) over the IDENTICAL trace realization: the simulator
     prices the trace analytically at the deployed model's kernel dimensions
     (cheap staging), the replay environment measures the real batcher on
     ``device`` (the deployment).  Identical configuration space; the
     paper's sim-to-real environment change with everything else held
-    fixed.  ``fleet=True`` raises until fleet replay is ported."""
+    fixed.  ``fleet=True`` gives both halves the router/replica knobs (same
+    ``fleet.*`` surface, same device budget)."""
     from repro_torch.launch.tune import launch_workload_for
     from repro_torch.tuner.space import launch_families_for
 
@@ -560,8 +708,10 @@ def make_sim2real_pair(workload: Union[str, TraceWorkload, Trace],
                                      else trace_seed)
     tgt = ReplayServingEnv(workload, model_cfg, families=families, cell=cell,
                            seed=seed + 2, objective=objective, slo_ms=slo_ms,
-                           hardware=hardware, fleet=fleet, device=device,
+                           hardware=hardware, fleet=fleet,
+                           num_devices=num_devices, device=device,
                            **replay_kw)
     src = ServingEnv(workload, cell, families, seed=seed + 1,
-                     objective=objective, slo_us=slo_us, hardware=hardware)
+                     objective=objective, slo_us=slo_us, hardware=hardware,
+                     fleet=fleet, num_devices=num_devices)
     return src, tgt

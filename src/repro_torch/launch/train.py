@@ -15,13 +15,32 @@ the reference CLI's, whose checkpoints hold a jax ``TrainState``), the
 metrics logged every 5 steps and at the last through
 :class:`~repro_torch.utils.logging.MetricsLogger` (to stderr, ``[train-<arch>]
 step=... loss=...``).  A second run with the same directory resumes from
-its latest checkpoint.  One device; no mesh.  The data and the training
-config are the reference's: ``make_data(cfg, shape, seed=0)`` and
+its latest checkpoint.  The data and the training config are the
+reference's: ``make_data(cfg, shape, seed=0)`` and
 ``TrainConfig(lr=1e-3, warmup_steps=10)``.
+
+Run as is, it trains on one device.  Under ``torch.distributed.run`` it
+trains data-parallel over every rank, as the reference's CLI runs over
+every device of a data mesh:
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m repro_torch.launch.train --arch llama3.2-1b --steps 50
+
+The process group is NCCL on the GPU and gloo with ``--device cpu``; the
+rendezvous is on this host.  The run goes on a ``("data",)`` mesh of the
+world size (:func:`~repro_torch.runtime.elastic.adjust_run_for_devices`,
+:func:`~repro_torch.launch.mesh.make_mesh`) with ``ParallelConfig()``, so
+every parameter is replicated; rank ``r`` steps on rows ``[r B/N,
+(r+1) B/N)`` of the global batch of ``make_data(..., num_shards=1)``,
+and the step sums the loss's statistics and the gradients over the ranks
+(:func:`~repro_torch.train.train_step.make_train_step`'s ``mesh``), so
+every rank computes what one process computes on the whole batch.  Rank 0
+writes the checkpoints; every rank restores.
 
 :func:`train` is the in-process loop without the driver that
 ``chip_smoke.py`` uses for per-step losses and times; it takes any config
-(full-width configs with their depth cut).
+(full-width configs with their depth cut), data-parallel over the process
+group when one is up.
 
 ``--tune-launch N`` closes the CAMEO loop before training (mirroring
 serve): a transfer-tuning run (analytic source, ``--measure-backend``
@@ -39,19 +58,25 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import torch
+import torch.distributed as dist
+
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.registry import (get_model_config, get_smoke_config,
                                           list_archs)
-from repro_torch.data.pipeline import make_data
+from repro_torch.data.pipeline import SyntheticLMData, make_data
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.tune import measure_backend_arg, tune_launch_config
 from repro_torch.models.model import build_model
-from repro_torch.runtime.driver import TrainDriver
+from repro_torch.runtime.driver import FaultInjector, TrainDriver
+from repro_torch.runtime.elastic import adjust_run_for_devices
 from repro_torch.train.optimizer import make_optimizer
-from repro_torch.train.train_step import (init_train_state, make_train_step,
+from repro_torch.train.train_step import (TrainState, init_train_state,
+                                          make_train_step,
                                           train_state_template)
 from repro_torch.utils.config import (MeshConfig, ModelConfig, ParallelConfig,
                                       RunConfig, ShapeConfig, TrainConfig)
-from repro_torch.utils.device import DeviceLike, synchronize
+from repro_torch.utils.device import DeviceLike, resolve_device, synchronize
 from repro_torch.utils.logging import MetricsLogger
 
 #: the CLI's checkpoint directory unless ``--ckpt-dir`` names one
@@ -71,10 +96,12 @@ class TrainResult:
 
 def make_run(cfg: ModelConfig, *, seq: int, batch: int, steps: int,
              checkpoint_dir: str = DEFAULT_CKPT_DIR) -> RunConfig:
-    """The reference CLI's run: one data shard, ``ParallelConfig()``,
-    ``TrainConfig(lr=1e-3, warmup_steps=10, total_steps=steps)``, a
-    checkpoint every 25 steps into ``checkpoint_dir`` and a log line every
-    5."""
+    """The reference CLI's run of a chosen global ``batch`` and ``seq``:
+    one data shard, ``ParallelConfig()``, ``TrainConfig(lr=1e-3,
+    warmup_steps=10, total_steps=steps)``, a checkpoint every 25 steps
+    into ``checkpoint_dir`` and a log line every 5.  (The run of an
+    assigned shape cell on the production mesh is
+    :func:`repro_torch.configs.registry.make_run`.)"""
     return RunConfig(
         model=cfg,
         shape=ShapeConfig("train_cli", seq, batch, "train"),
@@ -84,6 +111,46 @@ def make_run(cfg: ModelConfig, *, seq: int, batch: int, steps: int,
         checkpoint_dir=checkpoint_dir, checkpoint_every=25, log_every=5)
 
 
+class RankRows:
+    """Rank ``rank``'s rows of ``data``'s global batch: rows ``[rank B/N,
+    (rank+1) B/N)`` of ``batch_at(step)`` over ``world`` ranks."""
+
+    def __init__(self, data: SyntheticLMData, rank: int, world: int):
+        if data.shard_batch % world:
+            raise ValueError(f"global batch {data.shard_batch} does not "
+                             f"split over {world} ranks")
+        self.data, self.rank = data, rank
+        self.rows = data.shard_batch // world
+
+    def batch_at(self, step: int) -> Dict[str, Any]:
+        lo = self.rank * self.rows
+        return {k: v[lo:lo + self.rows]
+                for k, v in self.data.batch_at(step).items()}
+
+
+def data_parallel(run: RunConfig, device: torch.device):
+    """``(run, mesh)`` of ``run`` over the ranks of the process group: the
+    reference CLI's ``("data",)`` mesh of the world size through
+    :func:`adjust_run_for_devices`, and the mesh built on ``device``'s
+    type (its ``data_group()`` the group the step reduces over); without
+    a process group ``run`` itself on the one-device mesh."""
+    if not dist.is_initialized():
+        return run, make_mesh(run.mesh)
+    world = dist.get_world_size()
+    run = run.replace(mesh=MeshConfig(shape=(world,), axes=("data",)))
+    if world > 1:
+        run = adjust_run_for_devices(run, world)
+    run.validate()
+    return run, make_mesh(run.mesh, device.type)
+
+
+def rank_rows(data: SyntheticLMData, group):
+    """``data`` itself without a group; this rank's rows with one."""
+    if group is None:
+        return data
+    return RankRows(data, dist.get_rank(group), dist.get_world_size(group))
+
+
 def train(cfg: ModelConfig, *, steps: int, seq: int, batch: int,
           device: DeviceLike = None, seed: int = 0,
           log: Optional[Callable] = None,
@@ -91,17 +158,20 @@ def train(cfg: ModelConfig, *, steps: int, seq: int, batch: int,
           params: Optional[Dict] = None) -> TrainResult:
     """Train ``cfg`` for ``steps`` steps on the reference's synthetic data
     (seed 0), from ``params`` or parameters drawn from ``seed``, the step
-    built with ``launch_config`` (a tuned ``family.param`` config).  Each
-    step is timed on the host around a device synchronize."""
+    built with ``launch_config`` (a tuned ``family.param`` config); when a
+    process group is up, data-parallel over its ranks, ``batch`` the global
+    batch.  Each step is timed on the host around a device synchronize."""
     run = make_run(cfg, seq=seq, batch=batch, steps=steps)
     run.validate()
     model = build_model(cfg, run.parallel, device=device)
+    run, mesh = data_parallel(run, model.device)
+    group = mesh.data_group()
     optimizer = make_optimizer(run.train)
     step_fn = make_train_step(model, run, optimizer,
-                              launch_config=launch_config)
+                              launch_config=launch_config, mesh=mesh)
     state = init_train_state(model, run, optimizer, seed=seed, params=params)
     del params  # the masters are their copy in the param dtype
-    data = make_data(cfg, run.shape, seed=0)
+    data = rank_rows(make_data(cfg, run.shape, seed=0), group)
     out = TrainResult(run)
     for i in range(steps):
         batch_np = data.batch_at(i)
@@ -119,12 +189,112 @@ def train(cfg: ModelConfig, *, steps: int, seq: int, batch: int,
     return out
 
 
+class RankZeroCheckpoints:
+    """The driver's checkpoints under data parallelism, over ``ckpt``:
+    every rank holds the same state, so rank 0 alone writes, after a
+    barrier; every rank restores.  ``wait`` ends in a barrier once rank
+    0's write has committed, and ``latest_step`` checks that every rank
+    sees rank 0's restart point."""
+
+    def __init__(self, ckpt: CheckpointManager, group, device: torch.device):
+        self.ckpt, self.group, self.device = ckpt, group, device
+        self.rank = dist.get_rank(group)
+
+    def save(self, step: int, tree: Any, extra: Optional[Dict] = None,
+             blocking: bool = False) -> None:
+        dist.barrier(group=self.group)
+        if self.rank == 0:
+            self.ckpt.save(step, tree, extra=extra, blocking=blocking)
+
+    def wait(self) -> None:
+        if self.rank == 0:
+            self.ckpt.wait()
+        dist.barrier(group=self.group)
+
+    def latest_step(self) -> Optional[int]:
+        latest = self.ckpt.latest_step()
+        mine = torch.tensor([-1 if latest is None else latest],
+                            dtype=torch.int64, device=self.device)
+        first = mine.clone()
+        dist.broadcast(first, src=dist.get_global_rank(self.group, 0),
+                       group=self.group)
+        if int(first) != int(mine):
+            raise RuntimeError(f"rank {self.rank} restarts from step "
+                               f"{latest}, rank 0 from {int(first)}")
+        return latest
+
+    def restore(self, step: int, template: Any, device: DeviceLike = None):
+        return self.ckpt.restore(step, template, device=device)
+
+
+def drive(run: RunConfig, *, device: DeviceLike = None,
+          launch_config: Optional[Dict[str, Any]] = None,
+          fault_injector: Optional[FaultInjector] = None,
+          name: Optional[str] = None) -> TrainState:
+    """Train ``run`` for ``run.train.total_steps`` steps through the
+    fault-tolerant driver, checkpointing into ``run.checkpoint_dir``
+    (resuming from its latest checkpoint), data-parallel over the process
+    group when one is up; the final state."""
+    cfg = run.model
+    model = build_model(cfg, run.parallel, device=device)
+    run, mesh = data_parallel(run, model.device)
+    group = mesh.data_group()
+    optimizer = make_optimizer(run.train)
+    step_fn = make_train_step(model, run, optimizer,
+                              launch_config=launch_config, mesh=mesh)
+    ckpt = CheckpointManager(run.checkpoint_dir, keep=run.keep_checkpoints)
+    if group is not None:
+        ckpt = RankZeroCheckpoints(ckpt, group, model.device)
+    name = name or f"train-{cfg.name}"
+    if group is not None and dist.get_world_size(group) > 1:
+        name = f"{name}-rank{dist.get_rank(group)}"
+
+    def init_state():
+        return init_train_state(model, run, optimizer, seed=run.train.seed)
+
+    with MetricsLogger(name=name) as logger:
+        driver = TrainDriver(
+            run, step_fn, init_state,
+            rank_rows(make_data(cfg, run.shape, seed=0), group), ckpt,
+            logger=logger, fault_injector=fault_injector,
+            device=model.device,
+            state_template=lambda: train_state_template(model, run,
+                                                        optimizer))
+        return driver.run_steps(run.train.total_steps)
+
+
+def init_distributed(device: torch.device) -> bool:
+    """Under ``torch.distributed.run`` (its ``WORLD_SIZE`` set), join the
+    process group: NCCL for a CUDA ``device`` (this rank's card taken by
+    ``LOCAL_RANK``), gloo for the CPU; the rendezvous must be on this host.
+    False when not launched so."""
+    import socket
+
+    if "WORLD_SIZE" not in os.environ:
+        return False
+    addr = os.environ.get("MASTER_ADDR", "")
+    if addr not in ("localhost", "127.0.0.1", "::1", socket.gethostname(),
+                    socket.getfqdn()):
+        raise RuntimeError(f"the rendezvous address {addr!r} is not this "
+                           f"host; launch with torch.distributed.run "
+                           f"--standalone")
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl")
+    elif device.type == "cpu":
+        dist.init_process_group("gloo")
+    else:
+        raise ValueError(f"no process group for device {device}")
+    return True
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list_archs(), default="llama3.2-1b")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="the global batch (split over the ranks)")
     ap.add_argument("--full-config", action="store_true",
                     help="the full (not smoke) architecture config")
     ap.add_argument("--device", default=None,
@@ -146,38 +316,40 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "--tune-launch (1 = sequential)")
     args = ap.parse_args(argv)
 
+    device = resolve_device(args.device)
+    distributed = init_distributed(device)
+    try:
+        return _main(args, device)
+    finally:
+        if distributed:
+            dist.destroy_process_group()
+
+
+def _main(args, device: torch.device) -> int:
     cfg = (get_model_config(args.arch) if args.full_config
            else get_smoke_config(args.arch))
     run = make_run(cfg, seq=args.seq, batch=args.batch, steps=args.steps,
                    checkpoint_dir=args.ckpt_dir)
     run.validate()
-    model = build_model(cfg, run.parallel, device=args.device)
+    ndev = dist.get_world_size() if dist.is_initialized() else 1
     print(f"[train] {cfg.name}: {cfg.param_count() / 1e6:.1f}M params, "
           f"{cfg.num_layers} layers, batch {args.batch} x seq {args.seq} "
-          f"on {model.device}")
-    optimizer = make_optimizer(run.train)
+          f"on {ndev} device(s) ({device})")
 
     launch_config = None
     if args.tune_launch > 0:
-        launch_config = tune_launch_config(cfg, args.batch, args.seq,
-                                           args.tune_launch,
-                                           args.measure_backend, kind="train",
-                                           query_batch=args.query_batch,
-                                           device=args.device)
-    step_fn = make_train_step(model, run, optimizer,
-                              launch_config=launch_config)
-
-    def init_state():
-        return init_train_state(model, run, optimizer, seed=run.train.seed)
-
-    with MetricsLogger(name=f"train-{args.arch}") as logger:
-        driver = TrainDriver(
-            run, step_fn, init_state, make_data(cfg, run.shape, seed=0),
-            CheckpointManager(run.checkpoint_dir, keep=run.keep_checkpoints),
-            logger=logger, device=model.device,
-            state_template=lambda: train_state_template(model, run,
-                                                        optimizer))
-        state = driver.run_steps(args.steps)
+        # one config for every rank: rank 0 tunes, the others take its pick
+        picked = [None]
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            picked[0] = tune_launch_config(
+                cfg, args.batch, args.seq, args.tune_launch,
+                args.measure_backend, kind="train",
+                query_batch=args.query_batch, device=device)
+        if dist.is_initialized():
+            dist.broadcast_object_list(picked, src=0)
+        launch_config = picked[0]
+    state = drive(run, device=device, launch_config=launch_config,
+                  name=f"train-{args.arch}")
     print(f"[train] finished at step {int(state.step)}")
     return 0
 

@@ -18,6 +18,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Union
 import torch
 
 from repro_torch.models import encdec, transformer
+from repro_torch.sharding.specs import activation_sharding
 from repro_torch.utils.config import ModelConfig, ParallelConfig
 from repro_torch.utils.device import DeviceLike, resolve_device
 
@@ -69,8 +70,10 @@ def build_model(cfg: ModelConfig, par: Optional[ParallelConfig] = None, *,
 
     if cfg.family == "audio":
         def forward(params, tokens, *, frames=None, decode_state=None,
-                    decode=False, positions=None, **kw):
+                    decode=False, positions=None, mesh=None, **kw):
             enc_out = encdec.encode(params, cfg, par, frames)
+            if mesh is not None:
+                enc_out = activation_sharding(enc_out, par, mesh)
             logits, state = encdec.decode_forward(
                 params, cfg, par, tokens, enc_out, positions=positions,
                 decode_state=decode_state, decode=decode)
@@ -84,11 +87,12 @@ def build_model(cfg: ModelConfig, par: Optional[ParallelConfig] = None, *,
         return Model(cfg, init, forward, init_state, None, dev)
 
     def forward(params, tokens, *, vision_embeds=None, decode_state=None,
-                decode=False, positions=None, return_hidden=False, **kw):
+                decode=False, positions=None, return_hidden=False, mesh=None,
+                **kw):
         return transformer.forward(
             params, cfg, par, tokens, positions=positions,
             vision_embeds=vision_embeds, decode_state=decode_state,
-            decode=decode, return_hidden=return_hidden)
+            decode=decode, return_hidden=return_hidden, mesh=mesh)
 
     def init_state(batch, max_len):
         return transformer.init_decode_state(cfg, batch, max_len, dtype, dev)

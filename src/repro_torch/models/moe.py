@@ -16,6 +16,12 @@ weights.
 The step is graph-safe: the one-hot masks are comparisons with an
 ``arange`` (no ``F.one_hot``, which reads its input's range on the host),
 and the capacity and group size come from shapes alone.
+
+In a data-parallel train step (``apply_moe``'s ``group``) each rank routes
+its own tokens, in the routing groups one process would form over the
+whole batch, and the aux loss's mean router probabilities and expert loads
+are averaged over the ranks (with autograd) before their product, as
+they are means over the global batch in the reference.
 """
 
 from __future__ import annotations
@@ -127,15 +133,28 @@ def route(p: Dict, tokens: torch.Tensor, k: int, router_mode: str
 
 def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor,
               router_mode: str = "softmax", group_size: int = 512,
-              dropless: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+              dropless: bool = False, group=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D).  Returns (out, aux_loss).
 
     ``dropless`` forces capacity = group size (no token dropped), as on
-    the decode path."""
+    the decode path.  With ``group`` (a data-parallel process group) ``x``
+    is this rank's share of the group's batch."""
     b, s, d = x.shape
     e, k = cfg.moe_num_experts, cfg.moe_top_k
     t = b * s
     tg = _group_size(t, group_size)
+    world = 1
+    if group is not None:
+        import torch.distributed as dist
+
+        world = dist.get_world_size(group)
+        if _group_size(t * world, group_size) != tg:
+            raise ValueError(
+                f"{t} tokens a rank route in groups of {tg}, the batch of "
+                f"{world} ranks in groups of "
+                f"{_group_size(t * world, group_size)}: a rank's token "
+                f"count must be a multiple of the global routing group")
     g = t // tg
     tokens = x.reshape(g, tg, d)
 
@@ -169,6 +188,11 @@ def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     # load-balance auxiliary loss (Switch-style): E * sum_e f_e * p_e
     me = torch.softmax(logits, dim=-1).mean(dim=(0, 1))  # mean router prob
     ce = onehot.to(torch.float32).sum(2).mean(dim=(0, 1)) / k
+    if group is not None:  # means over the global batch
+        from torch.distributed.nn.functional import all_reduce
+
+        me = all_reduce(me, group=group) / world
+        ce = all_reduce(ce, group=group) / world
     aux = e * torch.sum(me * ce)
     return out.reshape(b, s, d), aux
 

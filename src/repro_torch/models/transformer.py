@@ -46,6 +46,7 @@ from repro_torch.models.layers import (
     init_rmsnorm, lm_logits,
 )
 from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.sharding.specs import activation_sharding
 from repro_torch.utils.config import ModelConfig, ParallelConfig
 
 
@@ -235,9 +236,10 @@ def _restack(cache, layers: List) -> Any:
 # --------------------------------------------------------------------------
 
 def _apply_sublayer(sub_p, cfg, par, kind, h, positions, shared_p,
-                    vision_kv, cache, decode):
+                    vision_kv, cache, decode, group=None):
     """Returns (h, new_cache, aux): aux is a MoE layer's load-balance loss,
-    None for the other kinds.  ``cache`` may be present in decode (one
+    None for the other kinds (``group``: the data-parallel group its
+    statistics are averaged over).  ``cache`` may be present in decode (one
     token, the recurrent step) and in prefill (the whole prompt, filling
     the KV cache and computing the final recurrent state).  A ``cross``
     sublayer attends over ``vision_kv`` between its self-attention and its
@@ -287,7 +289,8 @@ def _apply_sublayer(sub_p, cfg, par, kind, h, positions, shared_p,
     if kind == "moe":
         # dropless at decode: dropping a token would corrupt a live request
         y, aux = apply_moe(sub_p["moe"], cfg, hm, router_mode=cfg.moe_router,
-                           group_size=par.moe_group_size, dropless=decode)
+                           group_size=par.moe_group_size, dropless=decode,
+                           group=group)
         h = h + y
     else:
         h = h + apply_mlp(sub_p["mlp"], hm, cfg.mlp_type)
@@ -316,14 +319,25 @@ def forward(
     decode_state: Optional[Dict] = None,
     decode: bool = False,
     return_hidden: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
-    """Returns (logits, new_decode_state, aux_loss)."""
+    """Returns (logits, new_decode_state, aux_loss).
+
+    ``mesh``: the mesh a data-parallel train step executes on
+    (:class:`~repro_torch.launch.mesh.MeshSpec`); the activations are held
+    to :func:`~repro_torch.sharding.specs.activation_sharding` where the
+    reference constrains them, and the MoE statistics are averaged over
+    its data group."""
     pat = block_pattern(cfg)
     nsb = num_superblocks(cfg)
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
     h = embed_tokens(params["embed"], tokens, cfg.d_model)
+    group = None
+    if mesh is not None:
+        group = mesh.data_group()
+        h = activation_sharding(h, par, mesh)
     shared_p = params.get("shared_attn")
     use_cache = decode_state is not None
     layers = _unstack(params["blocks"], nsb)
@@ -335,7 +349,9 @@ def forward(
             cache = _layer(decode_state[key], layer) if use_cache else None
             h, nc, a = _apply_sublayer(layers[layer][key], cfg, par, kind, h,
                                        positions, shared_p, vision_embeds,
-                                       cache, decode)
+                                       cache, decode, group)
+            if mesh is not None:
+                h = activation_sharding(h, par, mesh)
             if use_cache:
                 new_layers[key].append(nc)
             if a is not None:
@@ -357,14 +373,14 @@ def forward(
 
 def mtp_logits(params: Dict, cfg: ModelConfig, par: ParallelConfig,
                h: torch.Tensor, tokens: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor, group=None) -> torch.Tensor:
     """Predict token t+2 from hidden t combined with the embedding of token
-    t+1 (``tokens``)."""
+    t+1 (``tokens``); ``group`` as :func:`forward`'s mesh's data group."""
     mtp = params["mtp"]
     emb_next = embed_tokens(params["embed"], tokens, cfg.d_model)
     hh = torch.cat([h, emb_next], dim=-1) @ mtp["proj"]
     kind = "moe" if "moe" in mtp["block"] else "dense"
     hh, _, _ = _apply_sublayer(mtp["block"], cfg, par, kind, hh, positions,
-                               None, None, None, False)
+                               None, None, None, False, group)
     hh = apply_rmsnorm(mtp["norm"], hh, cfg.norm_eps)
     return lm_logits(params["embed"], hh)

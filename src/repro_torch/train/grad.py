@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -10,26 +10,81 @@ from repro_torch.utils.trees import tree_map
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
-                       z_loss: float = 0.0
+                       z_loss: float = 0.0, group=None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Token-level CE with optional z-loss.  logits (B, S, V), targets
-    (B, S); a negative target is masked out."""
+    (B, S); a negative target is masked out.
+
+    With ``group`` (a data-parallel process group) the rows are this
+    rank's share of a global batch: the masked sums and the mask's count
+    are summed over the group, the returned loss is this rank's share of
+    the global mean (its sum over the global count; the shares add up to
+    the loss over the whole batch) and the metrics are the global
+    values."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
                         targets.clamp(min=0).long()[..., None])[..., 0]
     nll = lse - gold
     mask = (targets >= 0).to(torch.float32)
-    denom = torch.clamp(mask.sum(), min=1.0)
-    loss = (nll * mask).sum() / denom
-    metrics = {"ce_loss": loss}
+    sums = {"ce_loss": (nll * mask).sum(), "count": mask.sum()}
     if z_loss > 0.0:
-        zl = z_loss * (torch.square(lse) * mask).sum() / denom
-        loss = loss + zl
-        metrics["z_loss"] = zl
+        sums["z_loss"] = (torch.square(lse) * mask).sum()
     hit = (logits.argmax(-1) == targets).to(torch.float32)
-    metrics["accuracy"] = (hit * mask).sum() / denom
+    sums["accuracy"] = (hit * mask).sum()
+    totals = sums
+    if group is not None:
+        totals = all_reduce_sum({k: v.detach() for k, v in sums.items()},
+                                group)
+    denom = torch.clamp(totals["count"], min=1.0)
+    loss = sums["ce_loss"] / denom
+    metrics = {"ce_loss": totals["ce_loss"] / denom}
+    if z_loss > 0.0:
+        loss = loss + z_loss * sums["z_loss"] / denom
+        metrics["z_loss"] = z_loss * totals["z_loss"] / denom
+    metrics["accuracy"] = totals["accuracy"] / denom
     return loss, metrics
+
+
+def all_reduce_sum(tensors: Dict[str, torch.Tensor], group
+                   ) -> Dict[str, torch.Tensor]:
+    """The sums over ``group`` of a dict of 0-d tensors, in one
+    collective."""
+    import torch.distributed as dist
+
+    keys = list(tensors)
+    buf = torch.stack([tensors[k].to(torch.float32) for k in keys])
+    dist.all_reduce(buf, group=group)
+    return dict(zip(keys, buf.unbind()))
+
+
+#: elements a gradient bucket holds before a new one starts (256 MB of
+#: fp32)
+GRAD_BUCKET = 1 << 26
+
+
+def all_reduce_grads(grads: List[torch.Tensor], group,
+                     bucket: int = GRAD_BUCKET) -> None:
+    """Sum fp32 gradients over ``group`` in place: consecutive leaves
+    packed into flat buckets of up to ``bucket`` elements (a larger leaf
+    alone), one all-reduce a bucket."""
+    import torch.distributed as dist
+
+    start = 0
+    while start < len(grads):
+        end, n = start, 0
+        while end < len(grads) and (end == start
+                                    or n + grads[end].numel() <= bucket):
+            n += grads[end].numel()
+            end += 1
+        part = grads[start:end]
+        flat = torch.cat([g.reshape(-1) for g in part])
+        dist.all_reduce(flat, group=group)
+        off = 0
+        for g in part:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+        start = end
 
 
 def compress_int8_ef(grads, error_buf):

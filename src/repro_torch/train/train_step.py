@@ -19,7 +19,17 @@ batch) -> (state, metrics)`` with:
   from the batch into the forward as they are: fp32 inputs meet the bf16
   compute copy and promote where they meet a weight, as jax promotes them;
 - the launch configuration installed with ``exclusive=True`` around the
-  step body, so a step is a function of its ``launch_config`` alone.
+  step body, so a step is a function of its ``launch_config`` alone;
+- data parallelism over an executing mesh (``mesh``, its data group):
+  each rank steps on its rows of the global batch with a replica of the
+  state.  The loss's sums and counts, the MoE statistics (the forward's
+  ``mesh``, down to :func:`repro_torch.models.moe.apply_moe`'s ``group``)
+  and the gradients are summed over the group, so every rank computes the
+  step of one process on the whole batch, and the forward holds its
+  activations to the mesh (tensor-parallel layouts raise): each rank
+  differentiates its share of the global loss and the shares' gradients
+  are summed in buckets (``grad.all_reduce_grads``), before ``int8_ef``
+  compression, as the reference compresses the global loss's gradient.
 
 The reference's ``remat`` is dropped: the CLI trains with
 ``ParallelConfig()`` (``remat="none"``), and the kernels' recompute
@@ -40,7 +50,8 @@ from repro_torch.models.layers import lm_logits
 from repro_torch.models.model import Model, build_model, torch_dtype
 from repro_torch.models.transformer import mtp_logits
 from repro_torch.train.grad import (
-    compress_int8_ef, cross_entropy_loss, init_error_buffer)
+    all_reduce_grads, all_reduce_sum, compress_int8_ef, cross_entropy_loss,
+    init_error_buffer)
 from repro_torch.train.optimizer import (
     Optimizer, clip_by_global_norm, make_schedule)
 from repro_torch.utils.config import RunConfig
@@ -78,15 +89,37 @@ def train_state_template(model: Model, run: RunConfig,
     return init_train_state(meta, run, optimizer)
 
 
+def metric_names(cfg, tc) -> Tuple[str, ...]:
+    """The keys of the metrics a train step returns, from the configs
+    alone (the output template of
+    :func:`repro_torch.launch.build.build_step`)."""
+    names = ["ce_loss", "accuracy", "loss", "grad_norm", "lr"]
+    if tc.z_loss > 0.0:
+        names.append("z_loss")
+    if cfg.is_moe:
+        names.append("moe_aux")
+    if cfg.mtp_depth > 0:
+        names.append("mtp_loss")
+    return tuple(sorted(names))
+
+
 def _unflatten(tree, leaves):
     it = iter(leaves)
     return tree_map(lambda _: next(it), tree)
 
 
 def make_train_step(model: Model, run: RunConfig, optimizer: Optimizer,
-                    launch_config: Optional[Dict] = None
+                    launch_config: Optional[Dict] = None, *, mesh=None
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
+    """``train_step(state, batch)``; with ``mesh`` (the
+    :class:`~repro_torch.launch.mesh.MeshSpec` the run executes on) a
+    data-parallel step over its data group's ranks, ``batch`` this rank's
+    rows."""
+    import torch.distributed as dist
+
     cfg = model.cfg
+    group = mesh.data_group() if mesh is not None else None
+    world = dist.get_world_size(group) if group is not None else 1
     tc = run.train
     par = run.parallel
     compute_dtype = torch_dtype(tc.compute_dtype)
@@ -95,7 +128,7 @@ def make_train_step(model: Model, run: RunConfig, optimizer: Optimizer,
 
     def loss_fn(params_c, batch):
         inputs, targets = batch["inputs"], batch["targets"]
-        fkw = {}
+        fkw = {} if mesh is None else {"mesh": mesh}
         if cfg.family == "vlm":
             fkw["vision_embeds"] = batch["vision_embeds"]
         if cfg.family == "audio":
@@ -106,19 +139,26 @@ def make_train_step(model: Model, run: RunConfig, optimizer: Optimizer,
             logits = lm_logits(params_c["embed"], h)
         else:
             logits, _, aux = model.forward(params_c, inputs, **fkw)
-        loss, metrics = cross_entropy_loss(logits, targets, z_loss=tc.z_loss)
+        loss, metrics = cross_entropy_loss(logits, targets, z_loss=tc.z_loss,
+                                           group=group)
         if cfg.is_moe:
-            loss = loss + tc.moe_aux_loss * aux
+            # every rank holds the global aux loss: its share is 1/world
+            loss = loss + tc.moe_aux_loss * (aux / world if group is not None
+                                             else aux)
             metrics["moe_aux"] = aux
         if cfg.mtp_depth > 0:
             positions = torch.arange(inputs.shape[1], device=inputs.device)
-            lg2 = mtp_logits(params_c, cfg, par, h, targets, positions)
+            lg2 = mtp_logits(params_c, cfg, par, h, targets, positions,
+                             group=group)
             mtp_tgt = torch.cat([targets[:, 1:],
                                  torch.full_like(targets[:, :1], -1)], dim=1)
-            mtp_loss, _ = cross_entropy_loss(lg2, mtp_tgt)
+            mtp_loss, mtp_metrics = cross_entropy_loss(lg2, mtp_tgt,
+                                                       group=group)
             loss = loss + 0.3 * mtp_loss
-            metrics["mtp_loss"] = mtp_loss
-        metrics["loss"] = loss
+            metrics["mtp_loss"] = mtp_metrics["ce_loss"]
+        metrics["loss"] = (loss if group is None else
+                           all_reduce_sum({"loss": loss.detach()},
+                                          group)["loss"])
         return loss, metrics
 
     def grads_of(params, batch):
@@ -136,8 +176,11 @@ def make_train_step(model: Model, run: RunConfig, optimizer: Optimizer,
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
-        grads = _unflatten(params, [g.to(torch.float32) for g in grads])
-        return grads, {k: v.detach() for k, v in metrics.items()}
+        grads = [g.to(torch.float32) for g in grads]
+        if group is not None:
+            all_reduce_grads(grads, group)
+        return (_unflatten(params, grads),
+                {k: v.detach() for k, v in metrics.items()})
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         batch = {k: torch.as_tensor(v, device=model.device)

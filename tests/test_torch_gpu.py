@@ -698,3 +698,60 @@ def test_driver_restarts_on_the_card(sm90, tmp_path):
         [(0, "init_fresh"), (-1, "fault"), (2, "restored")]
     assert all(torch.isfinite(torch.tensor(r["loss"]))
                for r in recs if "loss" in r)
+
+
+# --------------------------------------------------------------------------
+# the data-parallel train step and fleet replay on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_nccl_world_one_step_equals_the_plain_step(sm90):
+    """The train loop under an NCCL process group of one rank (the loss's
+    sums, the MoE statistics and the gradients all-reduced) gives the
+    plain loop's losses, gradient norms and parameters bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.train import train
+    from repro_torch.utils.trees import flatten_with_paths
+
+    cfg = get_smoke_config("deepseek-v3-671b")
+    kw = dict(steps=2, seq=256, batch=2, device=sm90)
+    plain = train(cfg, **kw)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        dp = train(cfg, **kw)
+    finally:
+        dist.destroy_process_group()
+    assert dp.losses == plain.losses and dp.grad_norms == plain.grad_norms
+    a, b = (flatten_with_paths(r.state.params) for r in (dp, plain))
+    assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.gpu
+def test_fleet_intervention_runs_on_the_card(sm90):
+    """``ReplayServingEnv(fleet=True)`` on ``cuda``: two replicas routed
+    by join-shortest-queue, every resolution the CUDA kernels, a finite
+    p99, no decode graph captured inside the measured replays."""
+    import math
+
+    from repro_torch.envs.replay_env import (ReplayServingEnv,
+                                             default_replay_model)
+    from repro_torch.kernels import dispatch
+
+    # head dim 16: the narrowest the prefill kernel is built for
+    model_cfg = default_replay_model().replace(d_model=64, d_ff=128,
+                                               head_dim=16)
+    env = ReplayServingEnv("poisson:rate=2000,horizon=0.01,mean_prompt=5,"
+                           "mean_output=3,max_len=12", model_cfg, seed=0,
+                           repeats=1, fleet=True, num_devices=4, device=sm90)
+    cfg = dict(env.space.default_config(),
+               **{"fleet.routing": "join_shortest_queue"})
+    with dispatch.record_resolutions() as res:
+        counters, y = env.intervene(cfg)
+    assert math.isfinite(y) and y > 0
+    assert {r.mode for r in res} == {"cuda"}
+    assert {"rmsnorm", "flash_attention"} <= {r.family for r in res}
+    assert counters["routing_imbalance"] >= 1.0
+    assert env.measured_captures == 0

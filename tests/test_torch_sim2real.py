@@ -209,9 +209,16 @@ def test_transfer_tune_sim_source_replay_target(weights):
     assert tgt.replay(res.best_config).completed > 0
 
 
-def test_fleet_replay_and_wallclock_name_what_they_wait_for():
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        ReplayServingEnv(SPEC, device="cpu", fleet=True)
+def test_fleet_replay_and_wallclock_name_what_they_wait_for(weights):
+    # fleet replay is ported: it routes, replays each replica and pools
+    env = _env(weights, fleet=True, num_devices=4)
+    assert tuple(env.counter_names) == REPLAY_FLEET_COUNTER_NAMES
+    cfg = dict(env.space.default_config(), **{"fleet.num_replicas": 2})
+    counters, y = env.intervene(cfg)
+    assert np.isfinite(y) and y > 0
+    assert set(env.counter_names) <= set(counters)
+    cfg["fleet.num_replicas"] = 8
+    assert env.infeasible_reason(cfg) == "devices"
     # the wall-clock backend is ported: it builds, here on the CPU
     backend = measure_mod.make_backend("wallclock", KernelWorkload(),
                                        ["rmsnorm"], device="cpu")

@@ -179,6 +179,20 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    loop's, its step time), and its checkpoint restored through
    ``remesh_state`` on the one-device mesh: the NCCL loop's state bit for
    bit, and its next step gives the unbroken run's loss;
+4k. the dry run against the card: ``repro_torch.launch.dryrun``'s
+   ``dryrun_cell`` on three llama3.2-1b cells under the plan the port
+   executes (``tp=1,fsdp=1`` on a data-only mesh: ``decode_32k`` and
+   ``prefill_32k`` at ``16x1``, ``train_4k`` at ``128x1``), then one data
+   rank's real step on the card from seeded weights (8 slots over a
+   32768-row cache, 2 x 32768, 2 x 4096): the dry run's kernel scopes by
+   family equal the step's launches and its ``<name>_bwd`` scopes the
+   recompute backwards, its argument bytes equal the real arguments'
+   exactly; its peak beside ``max_memory_allocated``, the step's device
+   time (CUDA events) against the roofline bound at the H100's constants,
+   the dry run's seconds, the eager decode step's host p50 with the
+   scopes against a bare call in turns and one scope call's host ns
+   against the direct call, and one ``CompiledPerfEnv``
+   intervention timed (run before phase 4, on the emptied card);
 5. timings: each kernel, its plain version and the one-call PyTorch
    yardstick where one exists, timed with CUDA events at the slices'
    shapes, beside the card's bound for the same work; RMSNorm also at the
@@ -200,7 +214,8 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
 
 Prints the kernel table, the serving, training, sim-to-real,
 kernel-launch tuning, SSM, MoE, vlm / audio serving, every family's
-training, fleet and distributed summaries as JSON lines, and, as the last line,
+training, fleet, distributed and dry-run summaries as JSON lines, and, as
+the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without that line.  Without a CUDA card, or
 outside a checkout, it exits non-zero before doing anything.
@@ -209,6 +224,7 @@ outside a checkout, it exits non-zero before doing anything.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -4074,6 +4090,258 @@ def phase_distributed(torch, np, dev):
 SM_HZ = 1.98e9  # H100 SXM boost clock, for the spin kernel's length
 
 
+# --------------------------------------------------------------------------
+# phase 4k: the dry run against the card
+# --------------------------------------------------------------------------
+
+#: (shape, mesh) of phase 4k's llama3.2-1b cells under the plan the port
+#: executes (data-only mesh, ``tp=1,fsdp=1``): one data rank's step is the
+#: card's program; train at 2 x 4096 rows (128 data ranks): the dry run
+#: puts 4 x 4096 at a 77.9 GiB peak (77.97 measured alone), which the
+#: allocator's fragmentation after phase 3 does not leave room for
+DRYRUN_CELLS = (("decode_32k", "16x1"), ("prefill_32k", "16x1"),
+                ("train_4k", "128x1"))
+DRYRUN_PLAN = "tp=1,fsdp=1"
+
+
+def _rank_inputs(torch, dev, run, model):
+    """The real arguments of one data rank's step of ``run`` (already cut
+    to the rank's batch) on the card, seeded: a decode state with every
+    slot at the cache's last row."""
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.serve_step import (ServeState, make_decode_step,
+                                              make_prefill_step)
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, s = run.shape.global_batch, run.shape.seq_len
+    vocab = run.model.vocab_size
+
+    def tokens(*shape):
+        return torch.randint(0, vocab, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    kind = run.shape.kind
+    if kind == "train":
+        opt = make_optimizer(run.train)
+        state = init_train_state(model, run, opt, seed=0)
+        return make_train_step(model, run, opt), [
+            state, {"inputs": tokens(b, s), "targets": tokens(b, s)}]
+    params = model.init(0)
+    if kind == "prefill":
+        return make_prefill_step(model, run), [params,
+                                               {"tokens": tokens(b, s)}]
+    state = ServeState(model.init_decode_state(b, s),
+                       torch.full((b,), s - 1, dtype=torch.int32,
+                                  device=dev), {})
+    return make_decode_step(model, run), [params, state, tokens(b, 1)]
+
+
+def _tensor_bytes(tree):
+    from repro_torch.launch.hlo_analysis import tensors
+
+    return sum(t.numel() * t.element_size() for t in tensors(tree))
+
+
+def _scope_host_cost(torch, np, step, args, rounds=8, steps=10):
+    """Host p50 (ms, synchronised) of an eager step with the kernel
+    scopes as they are against ``ops._scoped`` swapped for a bare call,
+    in turns (``rounds`` of ``steps`` each, the order flipped every
+    round): what the scopes cost a step when no counter listens, beside
+    the spread of the rounds' own p50s."""
+    from repro_torch.kernels import ops
+
+    scoped = ops._scoped
+
+    def bare(name, body, *a, **k):
+        return body(*a, **k)
+
+    times = {"scoped": [], "bare": []}
+    rounds_p50 = {"scoped": [], "bare": []}
+    try:
+        for r in range(rounds):
+            for variant in (("scoped", "bare") if r % 2 == 0
+                            else ("bare", "scoped")):
+                ops._scoped = scoped if variant == "scoped" else bare
+                got = []
+                for _ in range(steps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step(*args)
+                    torch.cuda.synchronize()
+                    got.append(time.perf_counter() - t0)
+                times[variant] += got
+                rounds_p50[variant].append(float(np.median(got)) * 1e3)
+    finally:
+        ops._scoped = scoped
+    out = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
+    out["rounds_p50"] = rounds_p50
+    return out
+
+
+def _scope_call_ns(calls=200000, rounds=5):
+    """Host ns of one ``ops._scoped`` call with no counter listening,
+    against the direct call it wraps (the best of ``rounds`` runs of
+    ``calls`` each, in turns): the scopes' cost, resolved below the step's
+    own spread."""
+    from repro_torch.kernels import ops
+
+    def body(*a, **k):
+        return None
+
+    best = {"scoped": math.inf, "direct": math.inf}
+    for _ in range(rounds):
+        for variant in best:
+            t0 = time.perf_counter()
+            if variant == "scoped":
+                for _ in range(calls):
+                    ops._scoped("rmsnorm", body, 1, x=2)
+            else:
+                for _ in range(calls):
+                    body(1, x=2)
+            best[variant] = min(best[variant],
+                                (time.perf_counter() - t0) / calls * 1e9)
+    return best
+
+
+def phase_dryrun(torch, np, dev):
+    """4k. ``dryrun_cell`` on three llama3.2-1b cells (``DRYRUN_CELLS``)
+    under the plan the port executes, then one data rank's real step on
+    the card from seeded weights: (a) the dry run's kernel scopes by family
+    equal the step's launches, its ``<name>_bwd`` scopes the recompute
+    backwards; (b) its argument bytes equal the real arguments' exactly;
+    (c) its peak beside ``max_memory_allocated`` over the step; (d) the
+    step's device time (CUDA events) against the roofline bound at the
+    H100's constants.  Then one ``CompiledPerfEnv`` intervention, timed.
+    Returns (summary, launches)."""
+    import tempfile
+
+    from repro_torch.kernels import cuda_lib, ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import roofline_from_record
+    from repro_torch.models.model import build_model
+    from repro_torch.tuner.compiled_env import CompiledPerfEnv
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cuda_lib.reset_launches()
+    summary = {}
+    for shape, mesh_kv in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.dryrun_cell(ARCH, shape, par_kv=DRYRUN_PLAN,
+                                 mesh_kv=mesh_kv, save=False)
+        dry_s = time.perf_counter() - t0
+        check(rec["model_axis"] == "none",
+              f"{shape}: the dry run derived a model axis on a data-only "
+              f"mesh")
+        run = dryrun.cell_run(ARCH, shape, par_kv=DRYRUN_PLAN,
+                              mesh_kv=mesh_kv)
+        dsize = run.mesh.shape[0]
+        b = run.shape.global_batch
+        rank_run = run.replace(shape=dataclasses.replace(
+            run.shape, global_batch=b // dsize if b % dsize == 0 else b))
+        model = build_model(rank_run.model, rank_run.parallel, device=dev)
+        step, args = _rank_inputs(torch, dev, rank_run, model)
+        real_args = _tensor_bytes(args)
+        step(*args)  # warm-up
+        torch.cuda.synchronize()
+        before = dict(cuda_lib.LAUNCHES)
+        ops.reset_recomputes()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        step(*args)
+        end.record()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launched = {k: cuda_lib.LAUNCHES[k] - before[k]
+                    for k in cuda_lib.LAUNCHES
+                    if cuda_lib.LAUNCHES[k] != before[k]}
+        recomputed = {f"{k}_bwd": v for k, v in ops.RECOMPUTES.items() if v}
+        times = [start.elapsed_time(end)]
+        for _ in range(2):
+            start.record()
+            step(*args)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        step_ms = float(np.median(times))
+        scopes = rec["kernel_scopes"]
+        fwd = {k: v for k, v in scopes.items() if not k.endswith("_bwd")}
+        bwd = {k: v for k, v in scopes.items() if k.endswith("_bwd")}
+        check(fwd == launched,
+              f"{shape}: dry-run kernel scopes {fwd} != the step's "
+              f"launches {launched}")
+        check(bwd == recomputed,
+              f"{shape}: dry-run backward scopes {bwd} != the recompute "
+              f"backwards {recomputed}")
+        predicted_args = rec["memory_analysis"]["argument_bytes"]
+        check(predicted_args == real_args,
+              f"{shape}: predicted argument bytes {predicted_args} != the "
+              f"real arguments' {real_args}")
+        row = roofline_from_record(rec)
+        bound_ms = max(row.compute_s, row.memory_s) * 1e3
+        predicted_peak = rec["memory_analysis"]["peak_bytes"]
+        summary[shape] = {
+            "mesh": mesh_kv, "rank_batch": rank_run.shape.global_batch,
+            "seq": run.shape.seq_len, "dryrun_s": dry_s,
+            "kernel_scopes": scopes, "launches": launched,
+            "recomputes": recomputed, "argument_bytes": real_args,
+            "predicted_peak_bytes": predicted_peak, "max_allocated": peak,
+            "peak_ratio": predicted_peak / peak,
+            "step_ms": step_ms, "step_ms_runs": times,
+            "compute_ms": row.compute_s * 1e3,
+            "memory_ms": row.memory_s * 1e3, "bound_ms": bound_ms,
+            "bound_by": "compute" if row.compute_s >= row.memory_s
+            else "memory",
+            "step_over_bound": step_ms / bound_ms,
+            "flops_per_chip": rec["hlo_analysis"]["flops_per_chip"],
+            "bytes_per_chip": rec["hlo_analysis"]["bytes_per_chip"],
+            "matmul_flops": rec["matmul_flops"]}
+        rows = rank_run.shape.global_batch
+        log(f"[{CARD}] 4k {ARCH} {shape} ({mesh_kv}, rank {rows} x "
+            f"{run.shape.seq_len}): dry run {dry_s:.2f} s; "
+            f"scopes {scopes} = launches {launched} + recomputes "
+            f"{recomputed}; argument bytes {real_args} predicted exactly; "
+            f"peak predicted {predicted_peak / 2**30:.2f} GiB vs allocated "
+            f"{peak / 2**30:.2f} GiB (ratio {predicted_peak / peak:.3f}); "
+            f"step {step_ms:.3f} ms vs roofline {bound_ms:.3f} ms "
+            f"({summary[shape]['bound_by']}-bound, ratio "
+            f"{step_ms / bound_ms:.2f})")
+        if rank_run.shape.kind == "decode":
+            host = _scope_host_cost(torch, np, step, args)
+            summary[shape]["scope_host_p50_ms"] = host
+            call = _scope_call_ns()
+            added_us = (call["scoped"] - call["direct"]) * sum(
+                scopes.values()) / 1e3
+            summary[shape]["scope_call_ns"] = call
+            summary[shape]["scope_us_a_step"] = added_us
+            log(f"[{CARD}] 4k eager decode step host p50 with the kernel "
+                f"scopes {host['scoped']:.3f} ms, bare {host['bare']:.3f} "
+                f"ms; the rounds' p50s {host['rounds_p50']}; a scope call "
+                f"{call['scoped']:.1f} ns against the direct call's "
+                f"{call['direct']:.1f} ns: {added_us:.2f} us for the "
+                f"step's {sum(scopes.values())} scopes")
+        del step, args, model
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as cache:
+        env = CompiledPerfEnv(ARCH, "decode_32k", cache_dir=cache)
+        t0 = time.perf_counter()
+        counters, y = env.intervene(env.space.default_config())
+        summary["compiled_env"] = {"intervene_s": time.perf_counter() - t0,
+                                   "step_bound_s": y, "counters": counters}
+        check(math.isfinite(y) and y > 0,
+              f"CompiledPerfEnv scored the default plan {y}")
+    launches = dict(cuda_lib.LAUNCHES)
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{CARD}] 4k CompiledPerfEnv intervention (decode_32k, default "
+        f"plan on 16x16) {summary['compiled_env']['intervene_s']:.2f} s, "
+        f"bound {y * 1e3:.4f} ms; phase {summary['phase_s']:.1f} s")
+    return summary, launches
+
+
 def _time_ms(torch, fn, flush, reps=30, warmup=5):
     """Median device time of one call of ``fn`` over ``reps`` runs.
 
@@ -4896,6 +5164,10 @@ def main() -> int:
         f"agree (max |err| / max |g|: {grad_errs}) "
         f"({time.perf_counter() - t0:.1f} s)")
 
+    # 4k. the dry run against the card, before the phases that keep
+    # models and caches alive
+    dryrun, dryrun_launches = phase_dryrun(torch, np, dev)
+
     # 4. the serving slice
     t0 = time.perf_counter()
     slice_out, launches, ctx, served = phase_slice(torch, np, dev)
@@ -4970,6 +5242,7 @@ def main() -> int:
     distributed["phase_s"] = time.perf_counter() - t1
     log(f"[{CARD}] fleet replay ({fleet['phase_s']:.1f} s) and the "
         f"data-parallel train path ({distributed['phase_s']:.1f} s) done")
+
     by_path = {name: {"serve": launches.get(name, 0),
                       "train": sum(t["launches"][name]
                                    for t in train_out.values()),
@@ -4981,7 +5254,8 @@ def main() -> int:
                       "train_families": train_families_launches[name],
                       "fleet": fleet_launches[name],
                       "fleet_cameo": fleet_cameo_launches[name],
-                      "distributed": distributed_launches[name]}
+                      "distributed": distributed_launches[name],
+                      "dryrun": dryrun_launches[name]}
                for name in cuda_lib.LAUNCHES}
 
     # 5. timings
@@ -5007,7 +5281,7 @@ def main() -> int:
                  {"compiled_decode": compiled}, {"moe_serve": moe_serve},
                  {"vlm_audio_serve": vlm_audio},
                  {"train_families": train_families}, {"fleet": fleet},
-                 {"distributed": distributed}):
+                 {"distributed": distributed}, {"dryrun": dryrun}):
         print(json.dumps(_strict_json(line), allow_nan=False, default=str),
               flush=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")

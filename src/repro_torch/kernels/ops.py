@@ -20,7 +20,11 @@ is the one place where the plain version runs on CUDA tensors on the main
 path — exactly as in the reference — and :data:`RECOMPUTES` counts it.
 Without the wrapper a kernel's output would carry no autograd history and
 everything upstream of it would get gradient only through the residual
-stream.
+stream.  The SSD's backward differentiates the scalar <y, dy>
+(``ssd_ref(..., cotangent=dy)``) instead of ``y``: its two output
+products are linear, and contracting them with dy first leaves the
+backward no product whose value it does not read (the reference's XLA
+prunes them from its compiled backward).
 
 The continuation variants (``selective_scan(..., return_state=True)``,
 ``ssd(..., init_state=..., return_state=...)``), which serving's prefill
@@ -41,12 +45,25 @@ is instantiated for one dtype, so :func:`flash_attention` and
 :func:`rmsnorm` cast the operands to the widest of their dtypes before
 dispatch (fp32 operands launch the fp32 instance) and return ``q``'s /
 ``x``'s dtype.
+
+Kernel scopes.  Each public entry point runs its body inside a named
+kernel scope (:func:`_scoped`), and the recompute backward runs in
+``<name>_bwd`` — the counterpart of the reference's ``KERNEL_SCOPE``
+named scope (``repro/kernels/ops.py:42-51``).  The cost analysis of
+:mod:`repro_torch.launch.hlo_analysis` listens to the scopes while it
+traces a step: the ops inside one count as one kernel, their FLOPs in
+full and only the scope's boundary bytes.  With no listener a scope is
+one attribute read on the host: no device op, no host read, so the
+captured decode step is unchanged.  The per-step decode variants
+(``selective_scan_step``, ``ssd_step``) take no scope, as in the
+reference, which has no kernel for them either.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict
+import threading
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -71,32 +88,64 @@ def reset_recomputes() -> None:
         RECOMPUTES[name] = 0
 
 
+class _ScopeListener(threading.local):
+    #: the listening cost counter on this thread, or None
+    counter = None
+
+
+#: the cost counter that listens to the kernel scopes on this thread
+#: (:class:`repro_torch.launch.hlo_analysis.OpCounter` while it traces a
+#: step); ``KERNEL_SCOPE.counter`` is None when nothing listens
+KERNEL_SCOPE = _ScopeListener()
+
+
+def _scoped(name: str, body: Callable, *args, **kwargs):
+    """``body(*args, **kwargs)`` inside the kernel scope ``name``: handed to
+    the listening counter, if there is one (it sees the scope's tensor
+    arguments and results as its boundary), else called as it is."""
+    counter = KERNEL_SCOPE.counter
+    if counter is None:
+        return body(*args, **kwargs)
+    return counter.scoped(name, body, args, kwargs)
+
+
 class _Recompute(torch.autograd.Function):
     """``forward(*inputs)`` now, ``plain(*inputs)`` recomputed and
-    differentiated in the backward; only the inputs are saved."""
+    differentiated in the backward; only the inputs are saved.  With
+    ``dot`` (``dot(dy, *inputs)``: the scalar <plain(*inputs), dy>) the
+    backward differentiates that instead, and forms no output whose value
+    the gradient does not read."""
 
     @staticmethod
-    def forward(ctx, name: str, forward: Callable, plain: Callable, *inputs):
-        ctx.name, ctx.plain = name, plain
+    def forward(ctx, name: str, forward: Callable, plain: Callable,
+                dot: Optional[Callable], *inputs):
+        ctx.name, ctx.plain, ctx.dot = name, plain, dot
         ctx.save_for_backward(*inputs)
         return forward(*inputs)
 
     @staticmethod
     def backward(ctx, dy):
-        needs = ctx.needs_input_grad[3:]
+        needs = ctx.needs_input_grad[4:]
         inputs = [t.detach().requires_grad_(need)
                   for t, need in zip(ctx.saved_tensors, needs)]
+        wanted = [t for t, need in zip(inputs, needs) if need]
+
+        def plain_grads(dy, *xs):  # xs: ``inputs``, the scope's boundary
+            with torch.enable_grad():
+                if ctx.dot is not None:
+                    return torch.autograd.grad(ctx.dot(dy, *xs), wanted,
+                                               allow_unused=True)
+                y = ctx.plain(*xs)
+            return torch.autograd.grad(y, wanted, dy, allow_unused=True)
+
         # the profiler range lets a trace attribute the recompute's device
         # time (a no-op when no profiler runs)
         with torch.profiler.record_function(f"recompute_bwd.{ctx.name}"):
-            with torch.enable_grad():
-                y = ctx.plain(*inputs)
-            wanted = [t for t, need in zip(inputs, needs) if need]
-            grads = iter(torch.autograd.grad(y, wanted, dy,
-                                             allow_unused=True))
+            grads = iter(_scoped(f"{ctx.name}_bwd", plain_grads, dy,
+                                 *inputs))
         RECOMPUTES[ctx.name] += 1
-        return (None, None, None) + tuple(next(grads) if need else None
-                                          for need in needs)
+        return (None, None, None, None) + tuple(
+            next(grads) if need else None for need in needs)
 
 
 def _no_grad_asked(name: str, *inputs) -> None:
@@ -109,12 +158,15 @@ def _no_grad_asked(name: str, *inputs) -> None:
             f"under torch.no_grad()); an input requires grad")
 
 
-def recompute(name: str, forward: Callable, plain: Callable, *inputs):
-    """``forward(*inputs)``, differentiable through ``plain`` when grad is
-    on and any input requires it."""
+def recompute(name: str, forward: Callable, plain: Callable, *inputs,
+              dot: Optional[Callable] = None):
+    """``forward(*inputs)`` in the kernel scope ``name``, differentiable
+    through ``plain`` (or ``dot``, :class:`_Recompute`'s) when grad is on
+    and any input requires it."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        return _Recompute.apply(name, forward, plain, *inputs)
-    return forward(*inputs)
+        return _scoped(name, _Recompute.apply, name, forward, plain, dot,
+                       *inputs)
+    return _scoped(name, forward, *inputs)
 
 
 def _widest(*tensors: torch.Tensor) -> torch.dtype:
@@ -151,14 +203,14 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, sliding_window=0,
                      logit_softcap=0.0, scale=None, kv_block=None):
     res = dispatch.resolve("flash_attention", device=q.device,
                            kv_block=kv_block)
+    kw = dict(sliding_window=sliding_window, logit_softcap=logit_softcap,
+              scale=scale)
     if res.mode == dispatch.REF:
-        return _attn_ref.decode_attention_ref(
-            q, k_cache, v_cache, cache_len, sliding_window=sliding_window,
-            logit_softcap=logit_softcap, scale=scale)
+        return _scoped("decode_attention", _attn_ref.decode_attention_ref,
+                       q, k_cache, v_cache, cache_len, **kw)
     fn = dispatch.kernel_fn("flash_attention", variant="decode")
-    return fn(q, k_cache, v_cache, cache_len, sliding_window=sliding_window,
-              logit_softcap=logit_softcap, scale=scale,
-              kv_block=res.launch["kv_block"])
+    return _scoped("decode_attention", fn, q, k_cache, v_cache, cache_len,
+                   kv_block=res.launch["kv_block"], **kw)
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, cache_len, *,
@@ -167,13 +219,11 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, cache_len, *,
     options shape the pool the caller built, not this call; resolving the
     family still records the decision for the dispatch audit."""
     res = dispatch.resolve("paged_attention", device=q.device)
-    if res.mode == dispatch.REF:
-        return _paged_ref.paged_decode_attention_ref(
-            q, k_pages, v_pages, page_table, cache_len,
-            logit_softcap=logit_softcap, scale=scale)
-    fn = dispatch.kernel_fn("paged_attention")
-    return fn(q, k_pages, v_pages, page_table, cache_len,
-              logit_softcap=logit_softcap, scale=scale)
+    fn = (_paged_ref.paged_decode_attention_ref if res.mode == dispatch.REF
+          else dispatch.kernel_fn("paged_attention"))
+    return _scoped("paged_decode_attention", fn, q, k_pages, v_pages,
+                   page_table, cache_len, logit_softcap=logit_softcap,
+                   scale=scale)
 
 
 # --------------------------------------------------------------------------
@@ -196,7 +246,7 @@ def selective_scan(x, dt, A, Bmat, Cmat, D, *, chunk=None, c_block=None,
     inputs = (x, dt, A, Bmat, Cmat, D)
     if return_state:  # serving's prefill: y and the final state
         _no_grad_asked("selective_scan", *inputs)
-        return fwd(*inputs, return_state=True)
+        return _scoped("selective_scan", fwd, *inputs, return_state=True)
     return recompute("selective_scan", fwd, plain, *inputs)
 
 
@@ -223,8 +273,13 @@ def ssd(x, dt, A, Bmat, Cmat, D, *, chunk=None, init_state=None,
     inputs = (x, dt, A, Bmat, Cmat, D)
     if init_state is not None or return_state:  # a carried state
         _no_grad_asked("ssd", *inputs, init_state)
-        return fwd(*inputs, init_state=init_state, return_state=return_state)
-    return recompute("ssd", fwd, plain, *inputs)
+        return _scoped("ssd", fwd, *inputs, init_state=init_state,
+                       return_state=return_state)
+
+    def dot(dy, *a):
+        return _ssd_ref.ssd_ref(*a, chunk=chunk, cotangent=dy)
+
+    return recompute("ssd", fwd, plain, *inputs, dot=dot)
 
 
 def ssd_step(state, x_t, dt_t, A, B_t, C_t, D):

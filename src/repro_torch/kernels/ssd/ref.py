@@ -43,9 +43,17 @@ def ssd_ref(
     chunk: int = 64,
     init_state: Optional[torch.Tensor] = None,  # (B, H, N, P)
     return_state: bool = False,
+    cotangent: Optional[torch.Tensor] = None,  # (B, L, H, P)
 ):
     """Returns y: (B, L, H, P) in x's dtype (and the final state (B, H, N,
-    P) fp32 if requested)."""
+    P) fp32 if requested).
+
+    With ``cotangent`` (dy, y's shape) it returns instead the fp32 scalar
+    <y, dy>, whose gradient is y's vector-Jacobian product with dy, without
+    forming y: the two output products contract with dy first (dy xdtᵀ
+    against the masked scores, Cᵀ dy against the entering states), so the
+    backward computes each product it needs once and none whose value
+    nothing reads (the recompute backward of ``ops.ssd``)."""
     b, l, h, p = x.shape
     g, n = Bmat.shape[2], Bmat.shape[3]
     rep = h // g
@@ -73,7 +81,14 @@ def ssd_ref(
     # 1) intra-chunk (quadratic) term
     L_mat = torch.exp(_segsum(log_a.permute(0, 1, 3, 2)))  # (b, nc, h, c, c)
     scores = torch.einsum("bzchn,bzshn->bzhcs", Ch, Bh)
-    y_diag = torch.einsum("bzhcs,bzshp->bzchp", scores * L_mat, xdt)
+    dyc = None
+    if cotangent is not None:
+        dyc = F.pad(cotangent.to(f32), (0, 0, 0, 0, 0, pad)).reshape(
+            b, nc, chunk, h, p)
+        y_diag = ((scores * L_mat)
+                  * torch.einsum("bzchp,bzshp->bzhcs", dyc, xdt)).sum()
+    else:
+        y_diag = torch.einsum("bzhcs,bzshp->bzchp", scores * L_mat, xdt)
 
     # 2) chunk-final states: S_z = sum_s a(end..s) * B_s x_s^T
     cum = torch.cumsum(log_a, dim=2)
@@ -92,6 +107,12 @@ def ssd_ref(
 
     # 4) inter-chunk output: C_t^T (a(chunk start..t) * entering state)
     a_start = torch.exp(cum)
+    if dyc is not None:
+        y_off = (prev * torch.einsum("bzchn,bzchp->bzhnp",
+                                     Ch * a_start[..., None], dyc)).sum()
+        return y_diag + y_off + (
+            x[:, :orig_l].to(f32) * D.to(f32)[None, None, :, None]
+            * cotangent.to(f32)).sum()
     y_off = torch.einsum("bzchn,bzhnp->bzchp", Ch * a_start[..., None], prev)
 
     y = (y_diag + y_off).reshape(b, l, h, p)[:, :orig_l]

@@ -10,25 +10,91 @@ the arguments the step consumes (``donate_argnums``).  The outputs'
 placements come from the outputs' structure, known without running the
 step: the train state and its metrics; the decode state and the last
 position's logits.
+
+``lower_step(run, mesh)`` (the reference's ``:123-138``, which jits and
+lowers) returns ``(bundle, traced)``: :class:`TracedStep`, one call of
+the step on ``meta`` tensors under the cost counter of
+:mod:`repro_torch.launch.hlo_analysis`, with ``cost_analysis()``,
+``memory_analysis()`` and ``as_text()``.  Nothing is allocated.
+
+What is traced: the program of one rank on the data axes.  Every
+argument but the parameters (the batch; the decode state) is cut to one
+data rank's block wherever its placement splits it over the data axes (a
+batch of 1 row stays whole), and the step is built on a one-device
+``("data",)`` mesh without a device mesh, so no collective runs and
+``activation_sharding`` does not raise.  The parameters and the
+optimizer state stay whole: the rank all-gathers an FSDP shard before
+use.
+
+What is derived, not traced (``model_axis: "derived"`` in a dry-run
+record): what the mesh's model axis and FSDP / EP add, which the port
+does not execute (``ROADMAP.md`` queue 1, item 7), from the placements of
+``bundle.in_shardings``:
+
+- argument bytes per chip: each leaf's block under its placements
+  (:func:`repro_torch.launch.mesh.local_shard`'s shapes), exact;
+- FLOPs, bytes and live bytes: the counter's split rules
+  (:mod:`repro_torch.launch.hlo_analysis`): what reads a parameter or an
+  activation split over the model axis counts divided by the axis' size,
+  and a partial sum is whole again; a non-matmul op reading an FSDP- or
+  EP-split leaf itself (the cast to the compute dtype, the optimizer's
+  update) counts divided by the data axes' size;
+- the collectives the placements imply (operand bytes, as the reference
+  counts them):
+
+  - data parallelism, a train step over data axes of size > 1: the
+    gradient all-reduce of every parameter the data axes replicate, in
+    fp32, packed into buckets as ``train/grad.py::all_reduce_grads``
+    packs them, and the loss's sums (``cross_entropy_loss``'s 3 or 4
+    fp32 sums, the loss itself, the MTP head's 3), each once a
+    microbatch; a MoE router's statistics, two all-reduces of E fp32 in
+    the forward and one in the backward a routed layer (none in the
+    backward of the MTP head's, whose aux loss the train loss leaves out);
+  - FSDP: an all-gather of each data-split parameter's block per use, a
+    use a layer slice in the forward and again in the backward (a train
+    step, each microbatch; serving, once), in the compute dtype; a
+    reduce-scatter of its fp32 gradient a layer slice and microbatch;
+  - TP: a forward matmul reading a row-parallel weight split over the
+    model axis (``attn/wo``, ``cross/wo``, ``mlp/w_down``,
+    ``shared/w_down``, ``mixer/w_out``, ``mixer/w_bcdt``) gives an
+    all-reduce of its
+    partial sums (its result), and in a train step a second one of the
+    same bytes for the backward (the matching column-parallel input
+    gradient): two a layer, forward and backward;
+  - EP: a forward matmul reading an expert down projection whose expert
+    dim is split gives the two token all-to-alls of the layer (dispatch
+    and combine, each of the ``(G, E, C, D)`` expert tensor), two more
+    for the backward of a train step.
+
+Sequence parallelism (``sp``) is not derived: a forward that asks for it
+raises in the trace (``activation_sharding``), as it does on the card.
+The memory analysis is per chip: the arguments' blocks (exact), the
+traced peak of temporaries under the split rules, the outputs (the
+donated arguments' blocks and the new results), the donated arguments.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Callable, NamedTuple, Tuple
+import re
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Tuple
 
+import torch
 
 from repro_torch.configs.registry import input_specs, serve_state_template
-from repro_torch.launch.mesh import (MeshSpec, batch_shardings,
+from repro_torch.launch import hlo_analysis
+from repro_torch.launch.mesh import (MeshSpec, batch_shardings, local_shard,
                                      params_shardings, serve_shardings,
                                      state_shardings)
-from repro_torch.models.model import build_model
+from repro_torch.models.model import build_model, torch_dtype
 from repro_torch.sharding.specs import P, data_axes_of, to_placements
+from repro_torch.train.grad import bucket_ranges
 from repro_torch.train.optimizer import make_optimizer
 from repro_torch.train.serve_step import make_decode_step, make_prefill_step
 from repro_torch.train.train_step import (make_train_step, metric_names,
                                           train_state_template)
-from repro_torch.utils.config import RunConfig
+from repro_torch.utils.config import MeshConfig, RunConfig
 
 
 class StepBundle(NamedTuple):
@@ -105,3 +171,197 @@ def _logits_sharding(shape: Tuple[int, ...], mesh: MeshSpec):
     if msize > 1 and shape[-1] % msize == 0:
         spec[-1] = "model"
     return to_placements(P(*spec), mesh.axis_names)
+
+
+# --------------------------------------------------------------------------
+# lower_step: the traced step and what the mesh adds to it
+# --------------------------------------------------------------------------
+
+_ROW = re.compile(r"(attn|cross)/wo$|mlp/w_down$|shared/w_down$"
+                  r"|mixer/w_out$|mixer/w_bcdt$")
+_EXPERT = re.compile(r"moe/w_down$")
+_ROUTER = re.compile(r"moe/router$")
+#: fp32 sums a data-parallel train step all-reduces a microbatch besides
+#: the gradients: ``cross_entropy_loss``'s (ce_loss, count, accuracy,
+#: [z_loss]) and the loss metric; the MTP head's cross-entropy
+_LOSS_SUMS, _MTP_SUMS = 3, 3
+
+
+class MemoryAnalysis(NamedTuple):
+    """Bytes per chip, the fields of XLA's memory analysis."""
+    argument_size_in_bytes: int
+    output_size_in_bytes: int
+    temp_size_in_bytes: int
+    alias_size_in_bytes: int
+    peak_memory_in_bytes: int
+
+
+class TracedStep:
+    """One traced call of a step (:func:`lower_step`): the counter's
+    record, with the reference's compiled-step accessors."""
+
+    def __init__(self, counter: hlo_analysis.OpCounter,
+                 memory: MemoryAnalysis, model_axis: str):
+        self.counter = counter
+        self.memory = memory
+        #: "derived" when the model axis or FSDP / EP add to the traced
+        #: program, "none" when the traced program is the chip's
+        self.model_axis = model_axis
+
+    def cost_analysis(self) -> hlo_analysis.OpCosts:
+        return self.counter.costs()
+
+    def memory_analysis(self) -> MemoryAnalysis:
+        return self.memory
+
+    def as_text(self) -> str:
+        return self.counter.as_text()
+
+
+def _leaves(arg, plc, path: str = "") -> Iterator[Tuple[str, Any, Any]]:
+    """``(path, leaf, placements)`` of an argument tree beside its tree of
+    placements (a leaf's placements are one tuple, not a subtree)."""
+    if isinstance(arg, dict):
+        for k in sorted(arg):
+            yield from _leaves(arg[k], plc[k], f"{path}{k}/")
+    elif isinstance(arg, (list, tuple)):
+        names = arg._fields if hasattr(arg, "_fields") else range(len(arg))
+        for name, a, p in zip(names, arg, plc):
+            yield from _leaves(a, p, f"{path}{name}/")
+    elif arg is not None:
+        yield path[:-1], arg, plc
+
+
+def _spec_of(placements, mesh: MeshSpec):
+    """The :class:`PartitionSpec` of DTensor placements over ``mesh``."""
+    from torch.distributed.tensor import Shard
+
+    by_dim: Dict[int, list] = {}
+    for axis, pl in zip(mesh.axis_names, placements):
+        if isinstance(pl, Shard):
+            by_dim.setdefault(pl.dim, []).append(axis)
+    ndim = 1 + max(by_dim, default=-1)
+    return P(*(tuple(by_dim[d]) if d in by_dim else None
+               for d in range(ndim)))
+
+
+def _split(spec, mesh: MeshSpec, axes) -> int:
+    return math.prod(mesh.shape[a] for entry in spec if entry is not None
+                     for a in ((entry,) if isinstance(entry, str) else entry)
+                     if a in axes)
+
+
+def _block(t: torch.Tensor, spec, mesh: MeshSpec) -> torch.Tensor:
+    """Rank 0's block of ``t`` under ``spec`` (a view)."""
+    return local_shard(t, spec, mesh, {a: 0 for a in mesh.axis_names})
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def lower_step(run: RunConfig, mesh: MeshSpec):
+    """The step of ``run`` on ``mesh``, traced once on ``meta`` tensors:
+    ``(bundle, traced)`` (see the module docstring for what is traced and
+    what is derived)."""
+    bundle = build_step(run, mesh)
+    train = bundle.kind == "train"
+    daxes = data_axes_of(mesh.axis_names)
+    dsize = math.prod(mesh.shape[a] for a in daxes)
+    msize = mesh.shape.get("model", 1)
+    n_micro = run.parallel.microbatch if train else 1
+    compute = torch_dtype(run.train.compute_dtype if train
+                          else run.model.dtype)
+
+    # one data rank's program: its rows of the batch (and of the decode
+    # state) where they split, on the one-device mesh
+    b = run.shape.global_batch
+    rank = build_step(run.replace(
+        shape=dataclasses.replace(run.shape, global_batch=b // dsize
+                                  if b % dsize == 0 else b),
+        mesh=MeshConfig(shape=(1,), axes=("data",))),
+        MeshSpec.of((1,), ("data",)))
+
+    counter = hlo_analysis.OpCounter(train=train, data_size=dsize)
+    arg_bytes = alias_bytes = 0
+    for i, (arg, plc) in enumerate(zip(bundle.abstract_args,
+                                       bundle.in_shardings)):
+        for _, leaf, pl in _leaves(arg, plc):
+            if isinstance(leaf, torch.Tensor):
+                nbytes = _nbytes(_block(leaf, _spec_of(pl, mesh), mesh))
+                arg_bytes += nbytes
+                alias_bytes += nbytes if i in bundle.donate_argnums else 0
+    # the parameter-like leaves (argument 0) as traced, with their specs
+    params = [(path, leaf, _spec_of(pl, mesh)) for path, leaf, pl in
+              _leaves(rank.abstract_args[0], bundle.in_shardings[0])
+              if isinstance(leaf, torch.Tensor)]
+
+    derived = msize > 1
+    for path, leaf, spec in params:
+        model = _split(spec, mesh, ("model",))
+        data = _split(spec, mesh, daxes)
+        derived |= data > 1
+        role = None
+        if _ROW.search(path) and model > 1:
+            role = "row"
+        elif _EXPERT.search(path) and leaf.ndim >= 3 and _split(
+                P(*spec[leaf.ndim - 3:leaf.ndim - 2]), mesh,
+                mesh.axis_names) > 1:  # the expert dim of (E, F, D)
+            role = "expert"
+        elif _ROUTER.search(path):
+            role = "router"
+        counter.add_param(leaf, hlo_analysis.ParamInfo(path, model, data,
+                                                       role))
+
+    out = hlo_analysis.trace(rank.fn, rank.abstract_args, train=train,
+                             counter=counter)
+    out_bytes = alias_bytes + counter.result_bytes(out)
+    del out
+    _step_collectives(counter, run, mesh, params, train, dsize, n_micro,
+                      compute)
+    temp = counter.peak_live_bytes
+    memory = MemoryAnalysis(arg_bytes, out_bytes, temp, alias_bytes,
+                            arg_bytes + temp)
+    return bundle, TracedStep(counter, memory,
+                              "derived" if derived else "none")
+
+
+def _step_collectives(counter, run: RunConfig, mesh: MeshSpec, params,
+                      train: bool, dsize: int, n_micro: int,
+                      compute: torch.dtype) -> None:
+    """The step-level collectives of data parallelism and FSDP (the
+    module docstring's rules), after the traced ones."""
+    grads = params
+    if train:  # the state's parameters, not its optimizer slots
+        grads = [(p.removeprefix("params/"), leaf, spec)
+                 for p, leaf, spec in params if p.startswith("params/")]
+    itemsize = torch.empty((), dtype=compute).element_size()
+    replicated = []
+    for path, leaf, spec in grads:
+        data = _split(spec, mesh, data_axes_of(mesh.axis_names))
+        model = _split(spec, mesh, ("model",))
+        if data == 1:
+            replicated.append(leaf.numel() // model)
+            continue
+        slices = leaf.shape[0] if "blocks/" in path else 1
+        block = leaf.numel() // (model * data * slices)
+        uses = (2 if train else 1) * n_micro
+        counter.add_collective("all-gather", block * itemsize,
+                               f"fsdp {path}", slices * uses)
+        if train:
+            counter.add_collective("reduce-scatter", block * data * 4,
+                                   f"fsdp gradient {path}",
+                                   slices * n_micro)
+    if not train or dsize == 1:
+        return
+    cfg, tc = run.model, run.train
+    sums = [_LOSS_SUMS + (tc.z_loss > 0.0), 1]
+    if cfg.mtp_depth > 0:
+        sums.append(_MTP_SUMS)
+    for _ in range(n_micro):
+        for start, end in bucket_ranges(replicated):
+            counter.add_collective("all-reduce",
+                                   4 * sum(replicated[start:end]),
+                                   "dp gradient bucket")
+        for n in sums:
+            counter.add_collective("all-reduce", 4 * n, "dp loss sums")

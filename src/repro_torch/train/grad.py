@@ -70,13 +70,7 @@ def all_reduce_grads(grads: List[torch.Tensor], group,
     alone), one all-reduce a bucket."""
     import torch.distributed as dist
 
-    start = 0
-    while start < len(grads):
-        end, n = start, 0
-        while end < len(grads) and (end == start
-                                    or n + grads[end].numel() <= bucket):
-            n += grads[end].numel()
-            end += 1
+    for start, end in bucket_ranges([g.numel() for g in grads], bucket):
         part = grads[start:end]
         flat = torch.cat([g.reshape(-1) for g in part])
         dist.all_reduce(flat, group=group)
@@ -84,7 +78,24 @@ def all_reduce_grads(grads: List[torch.Tensor], group,
         for g in part:
             g.copy_(flat[off:off + g.numel()].view_as(g))
             off += g.numel()
+
+
+def bucket_ranges(sizes: List[int], bucket: int = GRAD_BUCKET
+                  ) -> List[Tuple[int, int]]:
+    """The ``[start, end)`` leaf ranges :func:`all_reduce_grads` packs
+    leaves of ``sizes`` elements into: consecutive leaves up to ``bucket``
+    elements, a larger leaf alone."""
+    out = []
+    start = 0
+    while start < len(sizes):
+        end, n = start, 0
+        while end < len(sizes) and (end == start
+                                    or n + sizes[end] <= bucket):
+            n += sizes[end]
+            end += 1
+        out.append((start, end))
         start = end
+    return out
 
 
 def compress_int8_ef(grads, error_buf):

@@ -1,0 +1,449 @@
+"""The port's dry-run group on the CPU: the op counter
+(``launch/hlo_analysis.py``), ``lower_step``'s derived rules
+(``launch/build.py``), ``launch/dryrun.py``, ``launch/roofline.py`` and
+``tuner/compiled_env.py``.
+
+- Kernel scopes: entered once per op call, by family; inside a scope the
+  ops' FLOPs count and only the scope's boundary bytes (the counterpart of
+  ``test_hlo_analysis.py::test_kernel_scope_elides_interior_bytes_keeps_flops``).
+- The derived rules, each on a hand count: a model-split parameter's
+  products and what they feed divided by the axis, a row-parallel
+  product's all-reduce; FSDP's all-gathers and reduce-scatters, TP's
+  activation all-reduces, EP's all-to-alls on small meshes; argument
+  bytes per chip.
+- Data parallelism: the all-reduce bytes the dry run derives for a train
+  step over two data ranks equal what two gloo ranks hand to
+  ``torch.distributed.all_reduce`` in the same step (llama3.2-1b, and
+  deepseek-v3-671b with its MoE statistics and MTP loss).
+- ``roofline_from_record`` on a fixed record; ``CompiledPerfEnv`` (inf for
+  a rejected plan and past the card's memory, finite otherwise, cached;
+  counters and space as the reference's); ``dryrun.main`` writes one
+  record a cell with the reference's keys and reports a failing cell.
+
+Only smoke cells are traced, and one production cell, llama3.2-1b
+``decode_32k`` (under a second on this host).
+"""
+
+import dataclasses
+import json
+import math
+import os
+
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+from repro_torch.configs.registry import get_smoke_config, make_run
+from repro_torch.kernels import ops
+from repro_torch.launch import dryrun, roofline
+from repro_torch.launch.build import lower_step
+from repro_torch.launch.hlo_analysis import OpCounter, ParamInfo, trace
+from repro_torch.launch.mesh import MeshSpec
+from repro_torch.models import moe
+from repro_torch.utils.config import MeshConfig, TrainConfig
+from repro_torch.utils.hardware import H100_SXM
+
+torch.set_num_threads(1)
+
+F32 = 4
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _smoke(arch, shape, mesh=None, **par):
+    run = make_run(arch, shape, smoke=True)
+    if par:
+        run = run.replace(parallel=run.parallel.replace(**par))
+    if mesh is not None:
+        run = run.replace(mesh=MeshConfig(shape=tuple(mesh.values()),
+                                          axes=tuple(mesh)))
+    return run
+
+
+def _lower(run):
+    return lower_step(run, MeshSpec.of(run.mesh.shape, run.mesh.axes))
+
+
+def _by_what(traced, kind, prefix):
+    return [c for c in traced.counter.collectives
+            if c.kind == kind and c.what.startswith(prefix)]
+
+
+# --------------------------------------------------------------------------
+# the counter and the kernel scopes
+# --------------------------------------------------------------------------
+
+def test_kernel_scope_elides_interior_bytes_keeps_flops():
+    q = _meta(64, 32)
+
+    def body(q):
+        return torch.exp(q @ q.t())
+
+    def step(q):
+        e = ops._scoped("flash_attention", body, q)
+        return e + e
+
+    counter = OpCounter()
+    trace(step, (q,), train=False, counter=counter)
+    c = counter.costs()
+    assert c.flops == 2 * 64 * 64 * 32 + 2 * 64 * 64
+    assert c.matmul_flops == 2 * 64 * 64 * 32
+    # the scope reads q once and writes e once; the add reads e twice and
+    # writes its result; the s -> e interior round trip is elided
+    assert c.bytes_accessed == 64 * 32 * F32 + 64 * 64 * F32 \
+        + 3 * 64 * 64 * F32
+    assert c.kernel_scopes == {"flash_attention": 1}
+
+
+def test_no_listener_means_the_scope_calls_through():
+    assert ops.KERNEL_SCOPE.counter is None
+    calls = []
+    out = ops._scoped("rmsnorm", lambda *a, **k: calls.append((a, k)) or 7,
+                      1, x=2)
+    assert out == 7 and calls == [((1,), {"x": 2})]
+    counter = OpCounter()
+    with counter:
+        assert ops.KERNEL_SCOPE.counter is counter
+    assert ops.KERNEL_SCOPE.counter is None
+
+
+@pytest.mark.parametrize("arch,shape,want", [
+    ("llama3.2-1b", "prefill_smoke", {"rmsnorm": 5, "flash_attention": 2}),
+    ("llama3.2-1b", "decode_smoke", {"rmsnorm": 5, "decode_attention": 2}),
+    ("falcon-mamba-7b", "train_smoke",
+     {"rmsnorm": 3, "selective_scan": 2, "rmsnorm_bwd": 3,
+      "selective_scan_bwd": 2}),
+    ("zamba2-2.7b", "prefill_smoke",
+     {"rmsnorm": 9, "ssd": 4, "flash_attention": 2}),
+])
+def test_kernel_scopes_by_family_equal_the_op_calls(arch, shape, want,
+                                                     monkeypatch):
+    calls = {}
+    for name in ("rmsnorm", "flash_attention", "decode_attention",
+                 "selective_scan", "ssd"):
+        def counted(*a, _name=name, _fn=getattr(ops, name), **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(ops, name, counted)
+    ops.reset_recomputes()
+    _, traced = _lower(_smoke(arch, shape))
+    scopes = traced.cost_analysis().kernel_scopes
+    assert scopes == want
+    assert {k: v for k, v in scopes.items() if "_bwd" not in k} == calls
+    assert {f"{k}_bwd": v for k, v in ops.RECOMPUTES.items() if v} == \
+        {k: v for k, v in scopes.items() if k.endswith("_bwd")}
+
+
+def test_model_split_parameter_divides_its_products():
+    """x (8, 16) @ W (16, 32) with W split 4 ways over the model axis:
+    the product and the elementwise op on it count a quarter; a
+    row-parallel W2 (32, 16) divides its product too, its result is
+    whole again (all-reduced: one all-reduce of its bytes), and what
+    reads that result counts in full."""
+    x, w, w2 = _meta(8, 16), _meta(16, 32), _meta(32, 16)
+
+    def step(x, w, w2):
+        h = torch.relu(x @ w)
+        return (h @ w2) * 2.0
+
+    counter = OpCounter()
+    counter.add_param(w, ParamInfo("mlp/w_up", model=4))
+    counter.add_param(w2, ParamInfo("mlp/w_down", model=4, role="row"))
+    trace(step, (x, w, w2), train=False, counter=counter)
+    c = counter.costs()
+    mm1, mm2 = 2 * 8 * 16 * 32, 2 * 8 * 32 * 16
+    assert c.matmul_flops == mm1 / 4 + mm2 / 4
+    assert c.flops == mm1 / 4 + 8 * 32 / 4 + mm2 / 4 + 8 * 16
+    assert c.collective_bytes == {"all-reduce": 8 * 16 * F32}
+    assert c.collective_count == {"all-reduce": 1}
+    # live: h (split) and x @ w (split) a quarter each, the product whole
+    assert c.peak_live_bytes >= 8 * 16 * F32
+
+
+def test_fsdp_and_tp_rules_hand_count():
+    """llama3.2-1b smoke, train, data 2 x model 2, tp=2, fsdp=2: every
+    rule on a hand count."""
+    run = _smoke("llama3.2-1b", "train_smoke", {"data": 2, "model": 2},
+                 tp=2, fsdp=2)
+    bundle, traced = _lower(run)
+    cfg, n = run.model, run.model.num_layers
+    rows = run.shape.global_batch // 2 * run.shape.seq_len
+    # TP: wo and w_down a layer, forward and backward, each (rows, D) in
+    # the compute dtype (bf16)
+    tp = _by_what(traced, "all-reduce", "tp partial sum")
+    assert len(tp) == 2 * n * 2
+    assert {c.nbytes for c in tp} == {rows * cfg.d_model * 2}
+    # FSDP: the stacked weights split over data (and model) gather their
+    # block a layer slice, twice a step; the gradient reduce-scatters once
+    params = dict(_param_specs(bundle, traced))
+    gathers = _by_what(traced, "all-gather", "fsdp")
+    scatters = _by_what(traced, "reduce-scatter", "fsdp")
+    want_g, want_s = 0, 0
+    for path, (leaf, data, model) in params.items():
+        if data == 1:
+            continue
+        slices = leaf.shape[0] if "blocks/" in path else 1
+        want_g += 2 * leaf.numel() // (data * model) * 2
+        want_s += leaf.numel() // model * F32
+        assert sum(1 for c in gathers if c.what == f"fsdp {path}") == \
+            2 * slices
+    assert sum(c.nbytes for c in gathers) == want_g
+    assert sum(c.nbytes for c in scatters) == want_s
+    assert traced.model_axis == "derived"
+    # data parallelism: only the parameters the data axes replicate (the
+    # norms) all-reduce their gradient, beside the loss's sums
+    dp = sum(c.nbytes for c in _by_what(traced, "all-reduce", "dp gradient"))
+    assert dp == F32 * sum(leaf.numel() // model for leaf, data, model in
+                           params.values() if data == 1)
+    # every argument leaf's block, exact
+    mem = traced.memory_analysis()
+    assert mem.argument_size_in_bytes == _arg_bytes(bundle, run)
+
+
+def _param_specs(bundle, traced):
+    from repro_torch.launch.build import _leaves, _spec_of, _split
+    mesh = MeshSpec.of((2, 2), ("data", "model"))
+    for path, leaf, pl in _leaves(bundle.abstract_args[0],
+                                  bundle.in_shardings[0]):
+        if isinstance(leaf, torch.Tensor) and path.startswith("params/"):
+            spec = _spec_of(pl, mesh)
+            yield (path.removeprefix("params/"),
+                   (leaf, _split(spec, mesh, ("data",)),
+                    _split(spec, mesh, ("model",))))
+
+
+def _arg_bytes(bundle, run):
+    """Each leaf's bytes over the mesh axes its placements shard."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.launch.build import _leaves
+    sizes = dict(zip(run.mesh.axes, run.mesh.shape))
+    total = 0
+    for arg, plc in zip(bundle.abstract_args, bundle.in_shardings):
+        for _, leaf, pl in _leaves(arg, plc):
+            if isinstance(leaf, torch.Tensor):
+                split = math.prod(sizes[a] for a, p in zip(run.mesh.axes, pl)
+                                  if isinstance(p, Shard))
+                total += leaf.numel() * leaf.element_size() // split
+    return total
+
+
+def test_tp_divides_the_step():
+    """tp=2 over a model axis of 2 takes about half the FLOPs a chip of
+    the unsplit step does: every matmul but the embedding's reads a split
+    weight or a split activation."""
+    whole = _lower(_smoke("llama3.2-1b", "prefill_smoke"))[1]
+    split = _lower(_smoke("llama3.2-1b", "prefill_smoke",
+                          {"data": 1, "model": 2}, tp=2))[1]
+    ratio = split.cost_analysis().matmul_flops / \
+        whole.cost_analysis().matmul_flops
+    assert ratio == pytest.approx(0.5, abs=1e-9)
+    assert whole.model_axis == "none" and split.model_axis == "derived"
+
+
+def test_ep_all_to_all_hand_count():
+    """deepseek-v3-671b smoke, experts over the data axes (2): each MoE
+    layer's down projection gives dispatch and combine all-to-alls of the
+    (G, E, C, D) expert tensor, twice in a train step."""
+    run = _smoke("deepseek-v3-671b", "train_smoke", {"data": 2, "model": 1},
+                 moe_expert_axis="data")
+    cfg = run.model
+    _, traced = _lower(run)
+    t = run.shape.global_batch // 2 * run.shape.seq_len
+    tg = moe._group_size(t, run.parallel.moe_group_size)
+    cap = moe.capacity(cfg, tg, dropless=False)
+    expert = (t // tg) * cfg.moe_num_experts * cap * cfg.d_model * 2
+    a2a = _by_what(traced, "all-to-all", "ep")
+    routed = cfg.num_layers + cfg.mtp_depth  # every layer routes in smoke
+    assert len(a2a) == routed * 2 * 2
+    assert {c.nbytes for c in a2a} == {expert}
+    # the router statistics: two all-reduces of E fp32 forward, one back
+    # where the aux loss enters the loss (not the MTP head's)
+    stats = _by_what(traced, "all-reduce", "moe statistics")
+    assert len(stats) == 3 * routed - cfg.mtp_depth
+    assert {c.nbytes for c in stats} == {cfg.moe_num_experts * F32}
+
+
+def test_production_decode_cell_arguments_and_scopes():
+    run = make_run("llama3.2-1b", "decode_32k")
+    bundle, traced = _lower(run)
+    assert traced.memory_analysis().argument_size_in_bytes == \
+        _arg_bytes(bundle, run)
+    # one data rank's 8 slots: the scopes of one decode step
+    assert traced.cost_analysis().kernel_scopes == {
+        "rmsnorm": 2 * run.model.num_layers + 1,
+        "decode_attention": run.model.num_layers}
+
+
+# --------------------------------------------------------------------------
+# data parallelism: the derived all-reduces against two gloo ranks
+# --------------------------------------------------------------------------
+
+#: (arch, global batch, seq): deepseek's 2 x 512 fill a routing group a rank
+DP_CASES = (("llama3.2-1b", 4, 32), ("deepseek-v3-671b", 2, 512))
+
+
+def _dp_run(arch, batch, seq):
+    from repro_torch.launch import train as tlaunch
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    run = tlaunch.make_run(cfg, seq=seq, batch=batch, steps=1)
+    return run.replace(train=TrainConfig(total_steps=1,
+                                         compute_dtype="float32"))
+
+
+def _dp_rank(rank, root):
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import make_data
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import init_train_state, \
+        make_train_step
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(root, "store"), 2), rank=rank, world_size=2)
+    handed = []
+    real = dist.all_reduce
+
+    def recording(tensor, *a, **k):
+        handed.append(tensor.numel() * tensor.element_size())
+        return real(tensor, *a, **k)
+
+    dist.all_reduce = recording
+    try:
+        out = {}
+        for arch, b, s in DP_CASES:
+            run = _dp_run(arch, b, s)
+            model = build_model(run.model, run.parallel, device="cpu")
+            run, mesh = tlaunch.data_parallel(run, model.device)
+            opt = make_optimizer(run.train)
+            step = make_train_step(model, run, opt, mesh=mesh)
+            state = init_train_state(model, run, opt, seed=0)
+            data = tlaunch.rank_rows(make_data(run.model, run.shape, seed=0),
+                                     mesh.data_group())
+            handed.clear()
+            step(state, data.batch_at(0))
+            out[arch] = (list(handed), run)
+        torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    finally:
+        dist.all_reduce = real
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def dp_ranks(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("dryrun_dp"))
+    mp.spawn(_dp_rank, args=(root,), nprocs=2, join=True)
+    return [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+            for r in range(2)]
+
+
+@pytest.mark.parametrize("arch", [c[0] for c in DP_CASES])
+def test_dp_all_reduce_bytes_equal_what_two_gloo_ranks_hand_over(dp_ranks,
+                                                                  arch):
+    handed, run = dp_ranks[0][arch]
+    assert dp_ranks[1][arch][0] == handed
+    _, traced = lower_step(run, MeshSpec.of((2,), ("data",)))
+    derived = [c.nbytes for c in traced.counter.collectives
+               if c.kind == "all-reduce"]
+    assert sorted(derived) == sorted(handed) and sum(handed) > 0
+    assert traced.model_axis == "none"
+
+
+# --------------------------------------------------------------------------
+# roofline, CompiledPerfEnv, dryrun.main
+# --------------------------------------------------------------------------
+
+RECORD = {
+    "arch": "llama3.2-1b", "shape": "decode_32k", "kind": "decode",
+    "chips": 256,
+    "hlo_analysis": {"flops_per_chip": 989e9, "bytes_per_chip": 6.7e9,
+                     "total_collective_bytes_per_chip": 4.5e8},
+}
+
+
+def test_roofline_from_record_hand_computed():
+    row = roofline.roofline_from_record(RECORD)
+    assert row.compute_s == pytest.approx(1e-3)   # 989e9 / 989e12
+    assert row.memory_s == pytest.approx(2e-3)    # 6.7e9 / 3.35e12
+    assert row.collective_s == pytest.approx(1e-3)  # 4.5e8 / 450e9
+    assert row.dominant == "memory" and row.step_time_s == pytest.approx(2e-3)
+    n = get_smoke_config("llama3.2-1b")  # noqa: F841 (the config loads)
+    mf = roofline.model_flops_for("llama3.2-1b", "decode", 128, 32768)
+    assert row.model_flops == mf
+    assert row.useful_ratio == pytest.approx(mf / (989e9 * 256))
+    assert row.roofline_frac == pytest.approx(mf / 989e12 / 256 / 2e-3)
+    assert "llama3.2-1b" in roofline.format_table([row])
+
+
+def test_compiled_env(tmp_path):
+    import repro.tuner.compiled_env as ref_env
+    from repro.configs.registry import get_model_config as ref_config
+    from repro.tuner.space import framework_space as ref_space
+    from repro_torch.configs.registry import get_model_config
+    from repro_torch.tuner.compiled_env import (CompiledPerfEnv,
+                                                make_aligned_source)
+    from repro_torch.tuner.space import framework_space
+
+    assert CompiledPerfEnv.counter_names == \
+        ref_env.CompiledPerfEnv.counter_names
+    for arch in ("llama3.2-1b", "deepseek-v3-671b", "falcon-mamba-7b"):
+        for kind in ("train", "prefill", "decode"):
+            mine = framework_space(get_model_config(arch), kind).options
+            ref = ref_space(ref_config(arch), kind).options
+            assert [(o.name, tuple(o.values), o.default) for o in mine] == \
+                [(o.name, tuple(o.values), o.default) for o in ref]
+    assert [o.name for o in make_aligned_source().space.options] == \
+        [o.name for o in ref_env.make_aligned_source().space.options]
+
+    env = CompiledPerfEnv("llama3.2-1b", "decode_32k",
+                          cache_dir=str(tmp_path))
+    config = env.space.default_config()
+    counters, y = env.intervene(config)
+    assert set(counters) == set(env.counter_names)
+    assert 0 < y < math.inf
+    assert y == max(counters["compute_s"], counters["memory_s"],
+                    counters["collective_s"])
+    assert len(os.listdir(tmp_path)) == 1
+    assert env.intervene(config) == (counters, y)  # from the cache
+    # tp beyond the model axis: run.validate() rejects the plan
+    assert env.intervene({**config, "tp": 32})[1] == math.inf
+    small = CompiledPerfEnv("llama3.2-1b", "decode_32k",
+                            cache_dir=str(tmp_path),
+                            hardware=dataclasses.replace(
+                                H100_SXM, hbm_capacity=2**20))
+    assert small.intervene(config)[1] == math.inf  # past the card's memory
+
+
+#: the reference's record keys (``repro/launch/dryrun.py:89-118``), with
+#: ``xla_cost_analysis`` as ``op_cost_analysis``
+REF_KEYS = {"arch", "shape", "kind", "mesh", "chips", "parallel", "status",
+            "lower_s", "compile_s", "memory_analysis", "hlo_analysis",
+            "collective_schedule_head"}
+
+
+def test_dryrun_main_writes_a_record_a_cell(tmp_path, monkeypatch):
+    monkeypatch.setattr(dryrun, "ARTIFACT_DIR", str(tmp_path))
+    monkeypatch.setattr(roofline, "ARTIFACT_DIR", str(tmp_path))
+    assert dryrun.main(["--arch", "llama3.2-1b", "--shape", "decode_32k",
+                        "--tag", "t"]) == 0
+    (name,) = os.listdir(tmp_path)
+    assert name == "llama3.2-1b__decode_32k__pod__t.json"
+    rec = json.loads((tmp_path / name).read_text())
+    assert REF_KEYS | {"op_cost_analysis", "matmul_flops", "kernel_scopes",
+                       "model_axis"} == set(rec)
+    assert set(rec["memory_analysis"]) == {
+        "argument_bytes", "output_bytes", "temp_bytes", "peak_bytes",
+        "alias_bytes"}
+    assert rec["chips"] == 256 and rec["model_axis"] == "derived"
+    assert roofline.load_records("*__t.json")[0] == rec
+
+    # the sweep: one cell that traces and one that fails, exit code 1
+    monkeypatch.setattr(dryrun, "list_archs", lambda: ["llama3.2-1b"])
+    monkeypatch.setattr(dryrun, "arch_shapes",
+                        lambda arch: {"decode_32k": None, "nope": None})
+    assert dryrun.main(["--all", "--tag", "sweep"]) == 1
+    assert os.path.exists(tmp_path / "llama3.2-1b__decode_32k__pod__sweep"
+                                     ".json")

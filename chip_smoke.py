@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
 1. device: the card's name and power limit; TF32 off for fp32 products
    and convolutions;
 2. build: compile the CUDA kernels from ``src/repro_torch/csrc``; print
-   each kernel's registers and spills (``-Xptxas -v``);
+   each kernel's registers, spills and static shared memory (``-Xptxas
+   -v``, read by ``repro_torch.analysis.kernels.ptxas_usage``);
 3. kernels vs plain: every kernel against its plain PyTorch version on the
    card, fp32 and bf16, at the slices' shapes and at edge shapes — RMSNorm
    at widths 64-8192 (the training rows of zamba2-2.7b and falcon-mamba-7b,
@@ -193,6 +194,21 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    scopes against a bare call in turns and one scope call's host ns
    against the direct call, and one ``CompiledPerfEnv``
    intervention timed (run before phase 4, on the emptied card);
+4l. the static analysis against the card (``phase_analysis``, run right
+   after 4k): the analysis's sm_90 limits (opt-in shared bytes a block,
+   registers an SM, threads a block) against
+   ``torch.cuda.get_device_properties`` where this torch exposes them;
+   ``python -m repro_torch.analysis --gate --ptxas <build>/ptxas.log
+   src/repro_torch`` as a subprocess, exit 0; every config of every
+   family's launch domain (87 in all), in fp32 and bf16, at the shape of
+   the registry's set with the most shared bytes, launched twice under
+   ``torch.profiler`` with its outputs NaN-filled first: each kernel
+   event's grid, block and shared bytes equal to the analysis's launch
+   record and its registers to the ptxas report (names matched through
+   ``cu++filt``, which must spell every ptxas symbol as the analysis's
+   ``instance_name`` does), no NaN left, the plain version's values within
+   phase 3's tolerances, the two launches bit for bit; a record with its
+   shared bytes off by 16 must fail the same holder;
 5. timings: each kernel, its plain version and the one-call PyTorch
    yardstick where one exists, timed with CUDA events at the slices'
    shapes, beside the card's bound for the same work; RMSNorm also at the
@@ -214,8 +230,8 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
 
 Prints the kernel table, the serving, training, sim-to-real,
 kernel-launch tuning, SSM, MoE, vlm / audio serving, every family's
-training, fleet, distributed and dry-run summaries as JSON lines, and, as
-the last line,
+training, fleet, distributed, dry-run and analysis summaries as JSON
+lines, and, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without that line.  Without a CUDA card, or
 outside a checkout, it exits non-zero before doing anything.
@@ -4342,6 +4358,400 @@ def phase_dryrun(torch, np, dev):
     return summary, launches
 
 
+# --------------------------------------------------------------------------
+# phase 4l: the static analysis against the card
+# --------------------------------------------------------------------------
+
+#: the perturbation of the control: a record whose shared bytes are off by
+#: this many must fail the holder
+CONTROL_SMEM_OFFSET = 16
+#: profiled windows a group of launches may take before a lost kernel
+#: record fails the phase (the trace drops records at random; phase 4f)
+PROFILE_ATTEMPTS = 3
+
+
+def _device_limits(torch):
+    """4l.1: the analysis's sm_90 limits against the card's properties,
+    each where this torch exposes it."""
+    from repro_torch.utils import hardware
+
+    props = torch.cuda.get_device_properties(0)
+    held, lacking = {}, []
+    for field, want in (
+            ("shared_memory_per_block_optin", hardware.H100_SMEM_PER_BLOCK),
+            ("regs_per_multiprocessor", hardware.REGISTERS_PER_SM),
+            ("max_threads_per_block", hardware.MAX_BLOCK_THREADS)):
+        have = getattr(props, field, None)
+        if have is None:
+            lacking.append(field)
+            continue
+        check(int(have) == want, f"4l: the card's {field} is {have}; the "
+              f"analysis holds launches to {want}")
+        held[field] = int(have)
+    log(f"[{CARD}] 4l limits held against the card: {held}; not exposed by "
+        f"torch {torch.__version__} (not checked): {lacking}")
+    return held, lacking
+
+
+def _demangled(symbols):
+    """``{symbol: demangled name}`` by the toolkit's ``cu++filt``."""
+    from repro_torch.kernels import cuda_lib
+
+    filt = Path(cuda_lib.nvcc_path()).parent / "cu++filt"
+    out = subprocess.run([str(filt)], input="\n".join(symbols) + "\n",
+                         capture_output=True, text=True, check=True,
+                         timeout=120).stdout.splitlines()
+    check(len(out) == len(symbols), f"4l: cu++filt gave {len(out)} names "
+          f"for {len(symbols)} symbols")
+    return dict(zip(symbols, out))
+
+
+def _analysis_gate(ptxas_log):
+    """4l.2: the port's gate with the build's ptxas report, as a
+    subprocess; it must exit 0."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--gate", "--format",
+         "json", "--ptxas", str(ptxas_log), "src/repro_torch"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC)),
+        capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f"4l: python -m repro_torch.analysis --gate "
+          f"--ptxas exited {res.returncode}:\n{res.stdout[-4000:]}\n"
+          f"{res.stderr[-4000:]}")
+    doc = json.loads(res.stdout)
+    summary = doc["summary"]
+    warnings = [f"{f['rule']}: {f['message']}" for f in doc["findings"]]
+    log(f"4l gate: exit 0, {summary['configs_checked']} launch configs "
+        f"checked, {summary['files_scanned']} files, "
+        f"{len(doc['suppressed'])} suppressed, warnings {warnings} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"configs_checked": summary["configs_checked"],
+            "warnings": warnings, "gate_s": time.perf_counter() - t0}
+
+
+@contextlib.contextmanager
+def _nan_outputs(torch):
+    """Every float tensor the wrappers allocate with ``torch.empty``,
+    ``torch.empty_like`` or ``Tensor.new_empty`` underneath starts as NaN,
+    so an output element no block writes stays NaN."""
+    saved = (torch.empty, torch.empty_like, torch.Tensor.new_empty)
+
+    def poisoned(fn):
+        def call(*args, **kwargs):
+            t = fn(*args, **kwargs)
+            if t.is_cuda and t.is_floating_point():
+                t.fill_(float("nan"))
+            return t
+        return call
+
+    torch.empty, torch.empty_like = poisoned(saved[0]), poisoned(saved[1])
+    torch.Tensor.new_empty = poisoned(saved[2])
+    try:
+        yield
+    finally:
+        torch.empty, torch.empty_like, torch.Tensor.new_empty = saved
+
+
+def _attention_case(torch, dev, shape, dtype, cfg, seed):
+    """The prefill (and, where the shape is decoded, the split decode) at
+    ``shape``: (kernel call, plain call) pairs, in launch order."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        decode_attention_cuda, flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_blockwise_ref, decode_attention_ref)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, hkv, g = shape["batch"], shape["kv_heads"], shape["g"]
+    d, dv, sq, skv = shape["d"], shape["dv"], shape["sq"], shape["skv"]
+    q = _rand(torch, gen, (b, sq, hkv * g, d), dtype, dev)
+    k = _rand(torch, gen, (b, skv, hkv, d), dtype, dev)
+    v = _rand(torch, gen, (b, skv, hkv, dv), dtype, dev)
+    kw = dict(causal=shape["causal"])
+    calls = [(lambda: flash_attention_cuda(q, k, v, q_block=cfg["q_block"],
+                                           kv_block=cfg["kv_block"], **kw),
+              lambda: attention_blockwise_ref(q, k, v, kv_block=64, **kw))]
+    if shape["decode"]:
+        qd = _rand(torch, gen, (b, 1, hkv * g, d), dtype, dev)
+        lens = torch.tensor([skv, skv // 2 + 1][:b], dtype=torch.int32,
+                            device=dev)
+        calls.append((lambda: decode_attention_cuda(
+            qd, k, v, lens, kv_block=cfg["kv_block"]),
+            lambda: decode_attention_ref(qd, k, v, lens)))
+    return calls
+
+
+def _paged_case(torch, dev, shape, dtype, cfg, seed):
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_decode_attention_cuda)
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_decode_attention_ref)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, hkv, g, d = shape["batch"], shape["kv_heads"], shape["g"], shape["d"]
+    ps, n_pages = cfg["page_size"], cfg["pages_per_slot_max"]
+    pool = b * n_pages + 1
+    kp = _rand(torch, gen, (pool, ps, hkv, d), dtype, dev)
+    vp = _rand(torch, gen, (pool, ps, hkv, d), dtype, dev)
+    table = (torch.randperm(pool - 1, generator=gen, device=dev)[
+        :b * n_pages] + 1).view(b, n_pages).to(torch.int32)
+    cap = ps * n_pages
+    lens = torch.tensor([cap - 3, cap // 2 + 1][:b], dtype=torch.int32,
+                        device=dev)
+    q = _rand(torch, gen, (b, 1, hkv * g, d), dtype, dev)
+    return [(lambda: paged_decode_attention_cuda(q, kp, vp, table, lens),
+             lambda: paged_decode_attention_ref(q, kp, vp, table, lens))]
+
+
+def _scan_case(torch, dev, shape, dtype, cfg, seed):
+    from repro_torch.kernels.mamba_scan.kernel import selective_scan_cuda
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_chunked_ref
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = scan_inputs(torch, gen, shape["batch"], shape["len"],
+                    shape["channels"], shape["n"], 0.1, dtype, dev)
+    rs = shape["return_state"]
+    return [(lambda: selective_scan_cuda(*a, chunk=cfg["chunk"],
+                                         c_block=cfg["c_block"],
+                                         return_state=rs),
+             lambda: selective_scan_chunked_ref(*a, chunk=64,
+                                                return_state=rs))]
+
+
+def _ssd_case(torch, dev, shape, dtype, cfg, seed):
+    from repro_torch.kernels.ssd.kernel import ssd_cuda
+    from repro_torch.kernels.ssd.ref import ssd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, l, h = shape["batch"], shape["len"], shape["heads"]
+    p, g, n = shape["p"], shape["groups"], shape["n"]
+    a = list(ssd_inputs(torch, gen, b, l, h, p, g, n, 0.1, dtype, dev))
+    # a model's dt: fp32, from its fp32 dt_bias (what the records assume)
+    a[1] = torch.rand((b, l, h), generator=gen, device=dev) * 0.1
+    kw = dict(return_state=True) if shape["states"] else {}
+    if shape["states"]:
+        kw["init_state"] = _rand(torch, gen, (b, h, n, p), torch.float32,
+                                 dev)
+    return [(lambda: ssd_cuda(*a, chunk=cfg["chunk"], **kw),
+             lambda: ssd_ref(*a, chunk=64, **kw))]
+
+
+def _rmsnorm_case(torch, dev, shape, dtype, cfg, seed):
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = _rand(torch, gen, (shape["rows"], shape["dim"]), dtype, dev)
+    w = _rand(torch, gen, (shape["dim"],), dtype, dev)
+    return [(lambda: rmsnorm_cuda(x, w, row_block=cfg["row_block"]),
+             lambda: rmsnorm_ref(x, w))]
+
+
+#: each registered family's calls at one shape, dtype and launch config;
+#: a family registered without one fails the phase
+FAMILY_CASES = {"flash_attention": _attention_case,
+                "paged_attention": _paged_case, "mamba_scan": _scan_case,
+                "ssd": _ssd_case, "rmsnorm": _rmsnorm_case}
+
+
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _kernel_events(prof):
+    """The profiled kernel events of the port's kernels, in launch order:
+    ``(canonical name, args)``."""
+    import tempfile
+
+    from repro_torch.analysis.kernels import canonical_name
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_4l_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    return [(canonical_name(e["name"]), e.get("args", {}))
+            for e in kernels
+            if canonical_name(e["name"]).startswith("repro::")]
+
+
+def _hold_launch(event, record, registers):
+    """What differs between one profiled launch and the analysis's record
+    of it (empty when they agree): name, grid, block, shared bytes, and
+    registers against ptxas.  A field the event lacks is a difference."""
+    name, args = event
+    diffs = []
+    if name != record.kernel:
+        diffs.append(f"kernel {name} != {record.kernel}")
+    for key, want in (("grid", list(record.grid)),
+                      ("block", list(record.block)),
+                      ("shared memory", record.smem),
+                      ("registers per thread", registers)):
+        if key not in args:
+            diffs.append(f"no {key!r} in the profiler's record")
+        elif args[key] != want:
+            diffs.append(f"{key} {args[key]} != {want}")
+    return diffs
+
+
+def _largest_shape(records_fn, shapes, dtype, configs, extra):
+    """The shape of the set whose launches take the most shared bytes (the
+    most threads on a tie) over every config."""
+    def weight(shape):
+        return max((r.smem, r.threads) for cfg in configs
+                   for r in records_fn(shape, dtype, **cfg, **extra))
+    return max(shapes, key=weight)
+
+
+def _check_outputs(torch, what, dn, first, second, plain, errs):
+    """A kernel call's outputs: no NaN left where the plain version has
+    none (the grid covers the output), the plain version's values within
+    phase 3's tolerances, and a second launch bit for bit."""
+    for i, (o, o2, r) in enumerate(zip(first, second, plain)):
+        tag = f"{what} output {i}"
+        left = torch.isnan(o) & ~torch.isnan(r)
+        check(not bool(left.any()), f"4l {tag}: {int(left.sum())} of "
+              f"{o.numel()} elements never written (still NaN)")
+        _compare(torch, f"4l {tag}", o, r, dn, errs, True)
+        check(torch.equal(o, o2), f"4l {tag}: two launches differ, max "
+              f"{float((o.float() - o2.float()).abs().max()):.3e}")
+
+
+def phase_analysis(torch, dev, lib_path):
+    """4l. the static analysis against the card: (1) its sm_90 limits
+    against the device's properties; (2) ``python -m repro_torch.analysis
+    --gate --ptxas <build>/ptxas.log src/repro_torch`` exits 0; (3) every
+    config of every family's launch domain launched at the shape of the set
+    with the most shared bytes (each dtype) under ``torch.profiler``: each
+    kernel event's grid, block and shared bytes equal the analysis's
+    record and its registers the ptxas report (names matched through
+    ``cu++filt``, which must spell every ptxas symbol as
+    ``instance_name`` does), every output covered (NaN-filled first),
+    within phase 3's tolerances of the plain version and bit for bit across
+    two launches; (4) a record with its shared bytes off by 16 must fail
+    the same holder."""
+    import inspect
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.analysis import kernels as analysis
+    from repro_torch.kernels import cuda_lib, dispatch
+
+    t_phase = time.perf_counter()
+    summary = {}
+    summary["limits"], summary["limits_not_exposed"] = _device_limits(torch)
+    ptxas_log = lib_path.parent / "ptxas.log"
+    summary["gate"] = _analysis_gate(ptxas_log)
+
+    usage = analysis.ptxas_usage(ptxas_log.read_text())
+    filt = _demangled(sorted(usage))
+    for sym, text in filt.items():
+        check(analysis.canonical_name(text) == analysis.instance_name(sym),
+              f"4l: cu++filt spells {sym} as {text!r}; instance_name gives "
+              f"{analysis.instance_name(sym)!r}")
+    by_name = {analysis.canonical_name(filt[s]): u for s, u in usage.items()}
+    summary["ptxas"] = {n: {"registers": u.registers,
+                            "spill_stores": u.spill_stores,
+                            "spill_loads": u.spill_loads,
+                            "static_smem": u.smem}
+                        for n, u in sorted(by_name.items())}
+    log(f"[{CARD}] 4l ptxas by instance (registers / spill stores + loads "
+        f"/ static smem): " + "; ".join(
+            f"{n} {u.registers}r/{u.spill_stores}+{u.spill_loads}B/"
+            f"{u.smem}B" for n, u in sorted(by_name.items())))
+
+    cfgs = analysis.model_configs()
+    missing = set(dispatch.families()) - set(FAMILY_CASES)
+    check(not missing, f"4l: no launch case for families {sorted(missing)}")
+    errs, launched, largest = [], 0, {}
+    cuda_lib.reset_launches()
+    held = None
+    for family in dispatch.families():
+        _, shapes_fn, records_fn = analysis.launch_plan(family)
+        extra = ({"sm_count": cuda_lib.sm_count(dev)}
+                 if "sm_count" in inspect.signature(records_fn).parameters
+                 else {})
+        configs = analysis.option_configs(family)
+        shapes = shapes_fn(cfgs)
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            shape = _largest_shape(records_fn, shapes, dtype, configs, extra)
+            cases = []
+            for i, cfg in enumerate(configs):
+                records = records_fn(shape, dtype, **cfg, **extra)
+                calls = FAMILY_CASES[family](torch, dev, shape, dtype, cfg, i)
+                check(len(calls) == len(records), f"4l {family}: "
+                      f"{len(calls)} calls for {len(records)} records")
+                cases.append((cfg, records, calls,
+                              [_outputs(plain()) for _, plain in calls]))
+            expected = [r for _, records, _, _ in cases for r in records
+                        for _ in range(2)]
+            for attempt in range(1, PROFILE_ATTEMPTS + 1):
+                with _nan_outputs(torch), profile(activities=[
+                        ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    outs = [[(_outputs(kernel()), _outputs(kernel()))
+                             for kernel, _ in calls]
+                            for _, _, calls, _ in cases]
+                    torch.cuda.synchronize()
+                events = _kernel_events(prof)
+                if len(events) == len(expected):
+                    break
+                log(f"4l {family} {dn}: {len(events)} kernel records for "
+                    f"{len(expected)} launches (attempt {attempt})")
+            check(len(events) == len(expected), f"4l {family} {dn}: the "
+                  f"profiler recorded {len(events)} of {len(expected)} "
+                  f"launches in {PROFILE_ATTEMPTS} windows")
+            # the launches: each call twice, the calls in their records'
+            # order
+            order = [(cfg, r) for cfg, records, _, _ in cases
+                     for r in records for _ in range(2)]
+            for event, (cfg, rec) in zip(events, order):
+                u = by_name.get(rec.kernel)
+                check(u is not None and u.smem == rec.static_smem,
+                      f"4l: {rec.kernel}: static shared bytes "
+                      f"{rec.static_smem} against the ptxas report's "
+                      f"{u.smem if u else 'missing entry'}")
+                diffs = _hold_launch(event, rec, u.registers)
+                check(not diffs, f"4l {family} {dn} {cfg} at {shape}: the "
+                      f"launch differs from its record: {diffs}")
+                held = held or (event, rec, u.registers)
+            for (cfg, records, calls, plains), pairs in zip(cases, outs):
+                for j, ((first, second), plain) in enumerate(zip(pairs,
+                                                                 plains)):
+                    _check_outputs(torch, f"{family} {dn} {cfg} call {j}",
+                                   dn, first, second, plain, errs)
+            launched += len(events)
+            rec = max((r for _, rs, _, _ in cases for r in rs),
+                      key=lambda r: r.smem)
+            largest[f"{family} {dn}"] = {
+                "kernel": rec.kernel, "smem": rec.smem,
+                "static_smem": rec.static_smem, "threads": rec.threads,
+                "shape": shape, "configs": len(configs)}
+            log(f"4l {family} {dn}: {len(configs)} configs at {shape}, "
+                f"{len(events)} launches held to their records; most shared "
+                f"bytes {rec.smem} ({rec.kernel}) of "
+                f"{cuda_lib.SMEM_LIMIT}")
+    launches = dict(cuda_lib.LAUNCHES)
+    # 4. the control: the same holder must reject a record off by 16 bytes
+    event, rec, regs = held
+    off = dataclasses.replace(rec, dynamic_smem=rec.dynamic_smem
+                              + CONTROL_SMEM_OFFSET)
+    control = _hold_launch(event, off, regs)
+    check(any(d.startswith("shared memory") for d in control),
+          f"4l control: a record with {CONTROL_SMEM_OFFSET} more shared "
+          f"bytes passed the holder")
+    summary.update(launches_held=launched, largest_smem=largest,
+                   smem_limit=cuda_lib.SMEM_LIMIT, control=control,
+                   max_abs_err=max(errs),
+                   phase_s=time.perf_counter() - t_phase)
+    log(f"[{CARD}] 4l analysis against the card: {launched} launches of "
+        f"{sum(len(analysis.option_configs(f)) for f in dispatch.families())}"
+        f" configs x 2 dtypes held to their records; control rejected "
+        f"({control}); phase {summary['phase_s']:.1f} s")
+    return summary, launches
+
+
 def _time_ms(torch, fn, flush, reps=30, warmup=5):
     """Median device time of one call of ``fn`` over ``reps`` runs.
 
@@ -5044,25 +5454,6 @@ def phase_profile_train(torch, np, dev, arch, family=None):
 
 # --------------------------------------------------------------------------
 
-def ptxas_usage(text):
-    """{kernel symbol: (registers, spill store bytes, spill load bytes)}
-    from ``nvcc -Xptxas -v`` output."""
-    usage, fn, spill = {}, None, (0, 0)
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            fn, spill = m.group(1), (0, 0)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            spill = (int(m.group(1)), int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and fn:
-            usage[fn] = (int(m.group(1)),) + spill
-            fn = None
-    return usage
-
-
 def tensor_core_instructions(lib_path, kernel_substring):
     """HMMA instructions per kernel whose mangled name holds
     ``kernel_substring``, read from the library's SASS with the toolkit's
@@ -5117,6 +5508,7 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 2. build
+    from repro_torch.analysis.kernels import instance_name, ptxas_usage
     from repro_torch.kernels import cuda_lib
 
     t0 = time.perf_counter()
@@ -5126,15 +5518,17 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     usage = ptxas_usage((lib_path.parent / "ptxas.log").read_text())
     scan = {}
-    for fn, (regs, st, ld) in usage.items():
+    for fn, u in usage.items():
+        regs, st, ld = u.registers, u.spill_stores, u.spill_loads
         m = re.search(r"selective_scan_kernelI(.*)Li(\d+)EE", fn)
         if m:
             io = {"ff": "f32", "f13__nv_bfloat16": "f32>bf16"}.get(
                 m.group(1), "bf16")
             scan[f"{io} L{m.group(2)}"] = f"{regs}r/{st}+{ld}B"
         else:
-            log(f"ptxas: {fn[:90]}: {regs} registers, spill {st} bytes "
-                f"stored, {ld} loaded")
+            log(f"ptxas: {instance_name(fn) or fn[:90]}: {regs} registers, "
+                f"spill {st} bytes stored, {ld} loaded, {u.smem} bytes of "
+                f"static shared memory")
     log(f"ptxas, selective_scan_kernel (dtype, lanes: registers / spill "
         f"stores + loads): {scan}")
     hmma = tensor_core_instructions(lib_path, "flash_attention_mma_kernel")
@@ -5167,6 +5561,9 @@ def main() -> int:
     # 4k. the dry run against the card, before the phases that keep
     # models and caches alive
     dryrun, dryrun_launches = phase_dryrun(torch, np, dev)
+
+    # 4l. the static analysis against the card
+    analysis_out, analysis_launches = phase_analysis(torch, dev, lib_path)
 
     # 4. the serving slice
     t0 = time.perf_counter()
@@ -5255,7 +5652,8 @@ def main() -> int:
                       "fleet": fleet_launches[name],
                       "fleet_cameo": fleet_cameo_launches[name],
                       "distributed": distributed_launches[name],
-                      "dryrun": dryrun_launches[name]}
+                      "dryrun": dryrun_launches[name],
+                      "analysis": analysis_launches[name]}
                for name in cuda_lib.LAUNCHES}
 
     # 5. timings
@@ -5281,7 +5679,8 @@ def main() -> int:
                  {"compiled_decode": compiled}, {"moe_serve": moe_serve},
                  {"vlm_audio_serve": vlm_audio},
                  {"train_families": train_families}, {"fleet": fleet},
-                 {"distributed": distributed}, {"dryrun": dryrun}):
+                 {"distributed": distributed}, {"dryrun": dryrun},
+                 {"analysis": analysis_out}):
         print(json.dumps(_strict_json(line), allow_nan=False, default=str),
               flush=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -55,13 +55,15 @@ from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
 import numpy as np
 import torch
 
+from repro_torch.utils.hardware import H100_SMEM_PER_BLOCK
+
 MEASURE_BACKEND_ENV = "REPRO_MEASURE_BACKEND"
 ANALYTIC = "analytic"
 WALLCLOCK = "wallclock"
 SHIFTED_PREFIX = "shifted:"
 
 LANE = 128                        # tile edge the geometry's utilization uses
-SMEM_LIMIT_BYTES = 232448         # opt-in shared memory of one H100 block
+SMEM_LIMIT_BYTES = H100_SMEM_PER_BLOCK  # opt-in shared memory of one H100 block
 TENSOR_FLOPS_PER_US = 989e6       # H100 SXM bf16 dense tensor cores
 CUDA_CORE_FLOPS_PER_US = 67e6     # H100 SXM fp32 on the CUDA cores
 HBM_BYTES_PER_US = 3.35e6         # H100 SXM HBM3, 3.35 TB/s

@@ -32,9 +32,12 @@ import subprocess
 import threading
 from pathlib import Path
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import torch
+
+from repro_torch.utils.hardware import H100_SMEM_PER_BLOCK
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 #: ``src/repro_torch/kernels`` -> the checkout root
@@ -63,9 +66,11 @@ LAUNCHES: Dict[str, int] = {
 PREFILL_INSTANCES: Dict[Tuple[int, int, bool, bool], int] = {}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the C++ type of each dtype, as kernel instances' names spell it
+CTYPE_NAMES = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
 
-#: dynamic shared memory one block may use on sm_90 (227 KB)
-SMEM_LIMIT = 227 * 1024
+#: shared memory one block may use on sm_90 (227 KB, opted into)
+SMEM_LIMIT = H100_SMEM_PER_BLOCK
 
 _c_int, _c_float, _ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _SIGNATURES = {
@@ -107,6 +112,53 @@ _ssd_scratch: Dict[torch.device,
                    Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
 _epochs: Dict[torch.device, int] = {}
 _sm_counts: Dict[torch.device, int] = {}
+
+
+@dataclass(frozen=True)
+class Tile:
+    """A box of one tensor that a block writes: ``(lo, hi)`` per axis of
+    the tensor ``tensor`` (the C entry point's name for it)."""
+    tensor: str
+    box: Tuple[Tuple[int, int], ...]
+
+    def overlaps(self, other: "Tile") -> bool:
+        return self.tensor == other.tensor and all(
+            lo < o_hi and o_lo < hi
+            for (lo, hi), (o_lo, o_hi) in zip(self.box, other.box))
+
+
+@dataclass(frozen=True)
+class LaunchRecord:
+    """One C launch of a kernel, derived from shapes, dtype and launch
+    config alone (nothing is launched to build it): the launch plan that
+    ``kernels/<family>/kernel.py::launch_records`` gives and that the
+    static analysis (:mod:`repro_torch.analysis.kernels`) and the chip
+    smoke test hold against the card.
+
+    ``kernel`` is the instance's name as ``cu++filt`` and the profiler
+    print it, up to its argument list (``repro::rmsnorm_kernel<float, 4,
+    true>``).  ``in_order`` lists the grid dimensions whose blocks are
+    combined in order (the split decode's last-block combine through its
+    ticket counters, the tensor-core SSD's chain): blocks that differ only
+    there may write one tile.  ``writes`` maps a block index to the tiles
+    it writes, a mirror of the kernel's own indexing."""
+    kernel: str
+    grid: Tuple[int, int, int]
+    block: Tuple[int, int, int]
+    dynamic_smem: int
+    static_smem: int = 0
+    in_order: Tuple[int, ...] = ()
+    writes: Optional[Callable[[Tuple[int, int, int]], Tuple[Tile, ...]]] = \
+        field(default=None, compare=False)
+
+    @property
+    def threads(self) -> int:
+        return self.block[0] * self.block[1] * self.block[2]
+
+    @property
+    def smem(self) -> int:
+        """Static plus dynamic shared bytes of one block."""
+        return self.static_smem + self.dynamic_smem
 
 
 def reset_launches() -> None:

@@ -79,6 +79,10 @@ class KernelFamily:
     ``kernel``/``ref`` are lazy ``"module:attr"`` references so importing
     the registry never imports kernel modules.  ``variants`` holds secondary
     entry points that share the family's launch surface (decode attention).
+    ``consumers`` names (as ``"module:attr"``) what takes launch options
+    that shape the serving stack rather than the kernel call — the static
+    analysis counts their parameters beside the implementations' when it
+    checks that every option lands somewhere (``kernel-option-unused``).
     """
 
     name: str
@@ -86,6 +90,7 @@ class KernelFamily:
     ref: str
     launch_options: Tuple[Option, ...] = ()
     variants: Tuple[Tuple[str, Tuple[str, str]], ...] = ()  # (name, (kernel, ref))
+    consumers: Tuple[str, ...] = ()
 
     def option(self, name: str) -> Option:
         for o in self.launch_options:
@@ -474,7 +479,9 @@ register_family(KernelFamily(
 
 # As in the reference, the paged family's options shape the KV pool and the
 # batcher's chunked admission, not the kernel call: the kernel reads its
-# geometry off the pool tensors it is handed.
+# geometry off the pool tensors it is handed.  The reference suppresses the
+# static analysis's unused-option finding inline here; the port names the
+# plan that takes them instead, which the analysis checks.
 register_family(KernelFamily(
     name="paged_attention",
     kernel="repro_torch.kernels.paged_attention.kernel:paged_decode_attention_cuda",
@@ -484,6 +491,7 @@ register_family(KernelFamily(
         Option("pages_per_slot_max", (4, 8, 16, 32), default=8),
         Option("prefill_chunk", (0, 64, 128, 256), default=0),
     ),
+    consumers=("repro_torch.serving.paging:PagedPlan",),
 ))
 
 register_family(KernelFamily(

@@ -25,18 +25,26 @@
 Block sizes outside the kernels' domains (the reference's TPU-sized
 ``ParallelConfig.attn_*_block`` defaults) are snapped down into them, as
 the Pallas kernels clamp theirs to the sequence length.
+
+:func:`launch_records` gives, from shapes alone, the launches a prefill and
+a decode at those shapes make (:class:`cuda_lib.LaunchRecord`), with their
+shared memory sized by the mirrors of the C++ (:func:`prefill_smem_bytes`,
+:func:`decode_smem_bytes`); :func:`launch_shapes` the shapes the
+registry's archs give these kernels.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import cuda_lib, dispatch
+from repro_torch.kernels.cuda_lib import LaunchRecord, Tile
 from repro_torch.kernels.flash_attention.ref import (
     attention_blockwise_ref, decode_attention_ref)
+from repro_torch.utils.hardware import H100_SM_COUNT
 
 #: (Q/K head dim, V head dim) pairs the prefill kernel is instantiated for:
 #: equal dims (80: zamba2-2.7b's and h2o-danube-1.8b's attention) and the
@@ -71,6 +79,144 @@ def plan_decode_splits(capacity: int, kv_block: int, batch: int,
     want = -(-DECODE_BLOCKS_PER_SM * sm_count // groups)
     per = -(-n_tiles // max(1, min(n_tiles, want)))
     return -(-n_tiles // per), per * kv_block
+
+
+#: threads of a decode block (``kDecodeThreads``), the stages of its K/V
+#: ring (``kDecodeStages``) and its static shared bytes: ``last_block``, an
+#: int, padded to the 16-byte alignment of the dynamic region (ptxas
+#: reports 16)
+DECODE_THREADS = 128
+DECODE_STAGES = 2
+DECODE_STATIC_SMEM = 16
+#: stages of the tensor-core prefill's K/V ring (``kStages``)
+MMA_STAGES = 2
+
+
+def prefill_smem_bytes(d: int, dv: int, kv_block: int, itemsize: int) -> int:
+    """Shared bytes of one prefill block: the fp32 SIMT kernel's K and V
+    tiles, ``kv_block * (D + Dv)`` floats (``launch_simt_hd``), or the
+    tensor-core kernel's ring, ``MmaTile<D, Dv, kv_block>::smem_bytes()``:
+    two stages of K rows padded to D + 8 and V rows padded to Dv rounded up
+    to 16, plus 8, in bf16."""
+    if itemsize == 4:
+        return kv_block * (d + dv) * 4
+    dvp = -(-dv // 16) * 16
+    return MMA_STAGES * kv_block * ((d + 8) + (dvp + 8)) * 2
+
+
+def decode_smem_bytes(kv_block: int, d: int, g: int, itemsize: int) -> int:
+    """Dynamic shared bytes of one decode block
+    (``decode_smem_bytes<T>`` in ``decode_attention.cuh``): the two-stage
+    K/V ring in the cache's type, K rows padded by 16 bytes, then the fp32
+    Q, accumulator, probabilities and the m, l, alpha of ``g`` heads."""
+    kv = DECODE_STAGES * kv_block * ((d + 16 // itemsize) + d) * itemsize
+    floats = 2 * g * d + g * kv_block + 3 * g
+    return kv + floats * 4
+
+
+def decode_record(dtype: torch.dtype, paged: bool, batch: int, kv_heads: int,
+                  g: int, d: int, capacity: int, kv_block: int,
+                  sm_count: int) -> LaunchRecord:
+    """The split decode's launch (dense or paged): grid (Hkv, B, n_split)
+    of :func:`plan_decode_splits`; each block writes its split's partial,
+    and whichever block of a (slot, kv head) comes last writes the group's
+    output, so the split axis is combined in order."""
+    n_split, _ = plan_decode_splits(capacity, kv_block, batch, kv_heads,
+                                    sm_count)
+
+    def writes(idx):
+        hk, b, split = idx
+        bh = b * kv_heads + hk
+        return (Tile("o", ((b, b + 1), (0, 1), (hk * g, (hk + 1) * g),
+                           (0, d))),
+                Tile("partial", ((bh, bh + 1), (split, split + 1))),
+                Tile("counters", ((bh, bh + 1),)))
+
+    return LaunchRecord(
+        f"repro::decode_attention_kernel<{cuda_lib.CTYPE_NAMES[dtype]}, "
+        f"{str(paged).lower()}>", (kv_heads, batch, n_split),
+        (DECODE_THREADS, 1, 1),
+        decode_smem_bytes(kv_block, d, g, dtype.itemsize),
+        DECODE_STATIC_SMEM, in_order=(2,), writes=writes)
+
+
+def prefill_record(dtype: torch.dtype, batch: int, sq: int, heads: int,
+                   d: int, dv: int, q_block: int,
+                   kv_block: int) -> LaunchRecord:
+    """The prefill's launch: fp32 takes the SIMT kernel, grid (q tiles, Hq,
+    B) of ``q_block`` threads; bf16 the tensor-core kernel, grid (Hq, B, q
+    tiles) of ``2 * q_block`` threads, its q tiles taken backwards."""
+    qb, kb = _block("q_block", q_block), _block("kv_block", kv_block)
+    tiles = -(-sq // qb)
+
+    def rows(b, h, tile):
+        return (Tile("o", ((b, b + 1), (tile * qb, min((tile + 1) * qb, sq)),
+                           (h, h + 1), (0, dv))),)
+
+    if dtype == torch.float32:
+        return LaunchRecord(
+            f"repro::flash_attention_kernel<float, {d}, {dv}>",
+            (tiles, heads, batch), (qb, 1, 1),
+            prefill_smem_bytes(d, dv, kb, 4),
+            writes=lambda idx: rows(idx[2], idx[1], idx[0]))
+    return LaunchRecord(
+        f"repro::flash_attention_mma_kernel<{d}, {dv}, {kb}>",
+        (heads, batch, tiles), (2 * qb, 1, 1),
+        prefill_smem_bytes(d, dv, kb, 2),
+        writes=lambda idx: rows(idx[1], idx[0], tiles - 1 - idx[2]))
+
+
+#: batch, kv heads and rows of the shapes :func:`launch_shapes` gives:
+#: small, ragged against every block size, with more than one block on
+#: every grid axis
+SHAPE_BATCH, SHAPE_KV_HEADS, SHAPE_ROWS, SHAPE_CROSS_ROWS = 2, 2, 80, 100
+
+
+def launch_shapes(cfgs: Iterable[Any]) -> List[Dict[str, Any]]:
+    """The attention shapes the model configs ``cfgs`` give the kernels:
+    every (q/k dim, v dim, G) of their self-attention (MLA's prefill: its
+    192 / 128 with one query head a key head; causal, decoded by the split
+    decode where the dims agree and MLA's plain decode does not take it),
+    their cross-attention (vlm) and their encoder's (audio), non-causal,
+    at :data:`SHAPE_BATCH` slots of :data:`SHAPE_KV_HEADS` kv heads."""
+    out: Dict[Tuple, Dict[str, Any]] = {}
+
+    def add(d, dv, g, causal, skv, decode):
+        key = (d, dv, g, causal, skv, decode)
+        out.setdefault(key, dict(
+            d=d, dv=dv, g=g, causal=causal, decode=decode,
+            batch=SHAPE_BATCH, kv_heads=SHAPE_KV_HEADS, sq=SHAPE_ROWS,
+            skv=skv))
+
+    for c in cfgs:
+        if c.attn_type == "mla":
+            add(c.qk_nope_head_dim + c.qk_rope_head_dim, c.v_head_dim, 1,
+                True, SHAPE_ROWS, False)
+            continue
+        if c.is_attention_free:
+            continue
+        d, g = c.head_dim, c.num_heads // c.num_kv_heads
+        add(d, d, g, True, SHAPE_ROWS, d % 8 == 0)
+        if c.cross_attn_period or c.encoder_layers:
+            add(d, d, g, False, SHAPE_CROSS_ROWS, False)
+        if c.encoder_layers:
+            add(d, d, g, False, SHAPE_ROWS, False)
+    return [out[k] for k in sorted(out)]
+
+
+def launch_records(shape: Dict[str, Any], dtype: torch.dtype, *,
+                   q_block: int = 64, kv_block: int = 64,
+                   sm_count: int = H100_SM_COUNT) -> List[LaunchRecord]:
+    """The launches of one prefill at ``shape`` and, where the shape is
+    decoded by the split decode, of one decode step over ``skv`` rows."""
+    b, hkv = shape["batch"], shape["kv_heads"]
+    out = [prefill_record(dtype, b, shape["sq"], hkv * shape["g"],
+                          shape["d"], shape["dv"], q_block, kv_block)]
+    if shape["decode"]:
+        out.append(decode_record(dtype, False, b, hkv, shape["g"], shape["d"],
+                                 shape["skv"], _block("kv_block", kv_block),
+                                 sm_count))
+    return out
 
 
 def launch_split_decode(entry: str, q: torch.Tensor, capacity: int,

@@ -22,17 +22,19 @@ options keep their names: ``chunk`` is the steps staged per pass and
 ``c_block`` the most channels a block takes; both snap down into the
 family's domains (the reference's TPU-sized ``ssm_chunk`` of 256 becomes
 64), and the planner then takes fewer channels a block while the grid is
-short of blocks.  Neither changes the result.
+short of blocks.  Neither changes the result.  :func:`launch_records`
+gives the launch a plan makes.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import NamedTuple
+from typing import Any, Dict, Iterable, List, NamedTuple
 
 import torch
 
 from repro_torch.kernels import cuda_lib, dispatch
+from repro_torch.kernels.cuda_lib import LaunchRecord, Tile
 from repro_torch.kernels.mamba_scan.ref import selective_scan_chunked_ref
 
 #: states a lane holds (``kStates`` in the kernel; the fastest of 1, 2, 4
@@ -139,6 +141,54 @@ def plan_scan(b: int, l: int, c: int, n: int, itemsize: int,
            > cuda_lib.SMEM_LIMIT // 2 and chunk > least):
         chunk //= 2
     return make_plan(b, c, n, itemsize, channels, chunk)
+
+
+#: batch and sequence of the shapes :func:`launch_shapes` gives (ragged
+#: against every chunk)
+SHAPE_BATCH, SHAPE_LEN = 2, 80
+
+
+def launch_shapes(cfgs: Iterable[Any]) -> List[Dict[str, Any]]:
+    """The Mamba-1 scans of the model configs ``cfgs``: their state size N
+    over their inner width, with the final state (serving's prefill), at
+    :data:`SHAPE_BATCH` x :data:`SHAPE_LEN`."""
+    dims = sorted({(c.ssm_state, c.ssm_expand * c.d_model) for c in cfgs
+                   if c.family in ("ssm", "hybrid") and not c.ssm_num_heads})
+    return [dict(batch=SHAPE_BATCH, len=SHAPE_LEN, channels=ch, n=n,
+                 return_state=True) for n, ch in dims]
+
+
+def plan_record(plan: ScanPlan, dtype: torch.dtype, b: int, l: int, c: int,
+                n: int, return_state: bool) -> LaunchRecord:
+    """The launch of ``plan`` on x, dt of (b, l, c) stored as ``dtype``:
+    grid (channel blocks, B); block (cx, b) writes y[b, :, its channels]
+    and, with ``return_state``, their final state."""
+    cpb = plan.channels
+
+    def writes(idx):
+        c0, b0 = idx[0] * cpb, idx[1]
+        cs = (c0, min(c0 + cpb, c))
+        tiles = (Tile("y", ((b0, b0 + 1), (0, l), cs)),)
+        if return_state:
+            tiles += (Tile("h_out", ((b0, b0 + 1), cs, (0, n))),)
+        return tiles
+
+    name = cuda_lib.CTYPE_NAMES[dtype]
+    return LaunchRecord(
+        f"repro::scan::selective_scan_kernel<{name}, {name}, {plan.lanes}>",
+        (-(-c // cpb), b, 1), (plan.threads, 1, 1), plan.smem,
+        writes=writes)
+
+
+def launch_records(shape: Dict[str, Any], dtype: torch.dtype, *,
+                   chunk: int = 64, c_block: int = 64) -> List[LaunchRecord]:
+    """The launch of one scan at ``shape``, x, dt, B and C stored as
+    ``dtype``: :func:`plan_scan`'s plan."""
+    b, l, c, n = (shape["batch"], shape["len"], shape["channels"],
+                  shape["n"])
+    plan = plan_scan(b, l, c, n, dtype.itemsize, chunk,
+                     c_block)
+    return [plan_record(plan, dtype, b, l, c, n, shape["return_state"])]
 
 
 def storage_size(x: torch.Tensor, dt: torch.Tensor, Bmat: torch.Tensor,

@@ -14,20 +14,47 @@ dense decode (``plan_decode_splits`` in
 ``n_pages * page_size``), so paged and dense decode of equal capacity run
 the same arithmetic in the same order and agree bit for bit on the same
 rows.
+
+The family's launch options shape the pool (``page_size`` rows a page,
+``pages_per_slot_max`` pages a slot) and the batcher's admission
+(``prefill_chunk``), not the call: :func:`launch_records` gives the decode
+over a pool of that geometry.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Iterable, List, Optional
 
 import torch
 
 from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.cuda_lib import LaunchRecord
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.kernel import launch_split_decode
 from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
+from repro_torch.utils.hardware import H100_SM_COUNT
 
 #: K/V rows staged in shared memory per step
 KV_TILE = 64
+
+
+def launch_shapes(cfgs: Iterable[Any]) -> List[Dict[str, Any]]:
+    """The decode shapes of the model configs ``cfgs`` (those the split
+    decode takes: :func:`flash_attention.kernel.launch_shapes`'s decoded
+    ones)."""
+    return [s for s in flash_kernel.launch_shapes(cfgs) if s["decode"]]
+
+
+def launch_records(shape: Dict[str, Any], dtype: torch.dtype, *,
+                   page_size: int = 64, pages_per_slot_max: int = 8,
+                   prefill_chunk: int = 0,
+                   sm_count: int = H100_SM_COUNT) -> List[LaunchRecord]:
+    """The launch of one paged decode step at ``shape`` over tables of
+    ``pages_per_slot_max`` pages of ``page_size`` rows (``prefill_chunk``
+    changes only the batcher's admission)."""
+    return [flash_kernel.decode_record(
+        dtype, True, shape["batch"], shape["kv_heads"], shape["g"],
+        shape["d"], page_size * pages_per_slot_max, KV_TILE, sm_count)]
 
 
 def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,

@@ -9,17 +9,18 @@ over device memory: each lane holds its share of the row in registers
 and for unaligned tensors), with every load of the row, the residual and
 the weight in flight at once.  :func:`plan_rmsnorm` decides from the shapes
 alone how many warps share a row (more when rows are few) and how many
-slots each lane holds.
+slots each lane holds; :func:`launch_records` gives the launch it makes.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import NamedTuple, Optional
+from typing import Any, Dict, Iterable, List, NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import cuda_lib, dispatch
+from repro_torch.kernels.cuda_lib import LaunchRecord, Tile
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 #: slots a lane holds (16-byte vectors, or elements), as ``rmsnorm.cu``
@@ -33,6 +34,13 @@ MAX_SLOTS_PER_WARP_ROW = 8
 #: while the call has fewer warps than this (~8 per SM on 132 SMs), a row
 #: takes more warps, as long as every lane keeps at least one slot
 TARGET_WARPS = 1024
+#: warps of one block (``kMaxRmsWarps``): its static ``partial`` holds one
+#: fp32 sum a warp
+MAX_BLOCK_WARPS = 8
+STATIC_SMEM = MAX_BLOCK_WARPS * 4
+#: rows of the shapes :func:`launch_shapes` gives: a training call's, so
+#: that one warp takes a row of the narrower widths and ``row_block`` bites
+SHAPE_ROWS = 1024
 
 
 class RmsPlan(NamedTuple):
@@ -79,6 +87,37 @@ def plan_rmsnorm(rows: int, dim: int, itemsize: int, vectorized: bool,
             f"({max_width(itemsize, vectorized)} elements of {itemsize} "
             f"bytes{'' if vectorized else ', element by element'})")
     return RmsPlan(wpr, row_block if wpr == 1 else 1, slots, vectorized)
+
+
+def launch_shapes(cfgs: Iterable[Any]) -> List[Dict[str, Any]]:
+    """The norm widths of the model configs ``cfgs`` (each model width) at
+    :data:`SHAPE_ROWS` rows."""
+    return [dict(rows=SHAPE_ROWS, dim=d)
+            for d in sorted({c.d_model for c in cfgs})]
+
+
+def launch_records(shape: Dict[str, Any], dtype: torch.dtype, *,
+                   row_block: int = 4) -> List[LaunchRecord]:
+    """The launch of one call on ``rows`` x ``dim`` contiguous, aligned
+    tensors: :func:`plan_rmsnorm`'s plan, ``rows_per_block`` rows of
+    ``warps_per_row`` warps a block."""
+    rows, dim = shape["rows"], shape["dim"]
+    itemsize = dtype.itemsize
+    row_block = dispatch.snap_down(
+        row_block, dispatch.get_family("rmsnorm").option("row_block").values)
+    plan = plan_rmsnorm(rows, dim, itemsize, dim % (16 // itemsize) == 0,
+                        row_block)
+    rpb = plan.rows_per_block
+
+    def writes(idx):
+        return (Tile("y", ((idx[0] * rpb, min((idx[0] + 1) * rpb, rows)),
+                           (0, dim))),)
+
+    return [LaunchRecord(
+        f"repro::rmsnorm_kernel<{cuda_lib.CTYPE_NAMES[dtype]}, {plan.slots}, "
+        f"{str(plan.vectorized).lower()}>", (-(-rows // rpb), 1, 1),
+        (32 * plan.warps_per_row * rpb, 1, 1), 0, STATIC_SMEM,
+        writes=writes)]
 
 
 def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-5,

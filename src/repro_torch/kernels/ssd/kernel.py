@@ -33,22 +33,42 @@ at the end.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Iterable, List, Optional
 
 import torch
 
 from repro_torch.kernels import cuda_lib, dispatch
+from repro_torch.kernels.cuda_lib import LaunchRecord, Tile
 from repro_torch.kernels.ssd.ref import ssd_ref
 
 #: head widths P the tensor-core route is instantiated for
 MMA_HEAD_DIMS = (16, 32, 64, 80, 128)
 #: the tensor-core route's largest state size N (one 16-row slab per warp)
 MMA_MAX_STATE = 64
+#: threads of a block: the SIMT route's (``kSsdThreads``), and the
+#: tensor-core route's eight warps, four for each of its two chunks
+#: (``kSsdMmaThreads``, ``kChunksPerBlock``); the latter's static shared
+#: bytes (``ticket_s``, an int, padded to the 16-byte alignment of the
+#: dynamic region: ptxas reports 16)
+SIMT_THREADS = 256
+MMA_THREADS = 256
+MMA_CHUNKS_PER_BLOCK = 2
+MMA_STATIC_SMEM = 16
 
 
 def smem_bytes(n: int, p: int, q: int) -> int:
     """Shared memory of one block of the SIMT route (``ssd_smem``)."""
     return (n * p + q * p + 2 * q * (n + 1) + q * q + 3 * q) * 4
+
+
+def mma_smem_bytes(n: int, p: int, q: int) -> int:
+    """Shared memory of one block of the tensor-core route
+    (``ssd_mma_smem``): each of its two chunks' padded bf16 tiles — x [Q][P
+    + 8], B and C [Q][N + 8], the entering state's high and low parts [N][P
+    + 8] — and 64 floats each of cum and dt, then the first chunk's own
+    state, N x P fp32."""
+    chunk = (q * (p + 8) + 2 * q * (n + 8) + 2 * n * (p + 8)) * 2 + 2 * 64 * 4
+    return MMA_CHUNKS_PER_BLOCK * chunk + n * p * 4
 
 
 def ssd_route(x: torch.Tensor, Bmat: torch.Tensor, Cmat: torch.Tensor,
@@ -62,6 +82,77 @@ def ssd_route(x: torch.Tensor, Bmat: torch.Tensor, Cmat: torch.Tensor,
           and n % 16 == 0 and 0 < n <= MMA_MAX_STATE
           and p in MMA_HEAD_DIMS and q % 16 == 0)
     return "mma" if ok else "simt"
+
+
+#: batch and sequence of the shapes :func:`launch_shapes` gives (ragged
+#: against every chunk)
+SHAPE_BATCH, SHAPE_LEN = 2, 80
+
+
+def launch_shapes(cfgs: Iterable[Any]) -> List[Dict[str, Any]]:
+    """The Mamba-2 SSDs of the model configs ``cfgs``: their heads, head
+    width P, groups (one) and state size N, with the initial and final
+    states (serving's prefill), at :data:`SHAPE_BATCH` x
+    :data:`SHAPE_LEN`."""
+    dims = sorted({(c.ssm_num_heads, c.ssm_expand * c.d_model
+                    // c.ssm_num_heads, c.ssm_state) for c in cfgs
+                   if c.family in ("ssm", "hybrid") and c.ssm_num_heads})
+    return [dict(batch=SHAPE_BATCH, len=SHAPE_LEN, heads=h, p=p, groups=1,
+                 n=n, states=True) for h, p, n in dims]
+
+
+def launch_records(shape: Dict[str, Any], dtype: torch.dtype, *,
+                   chunk: int = 64) -> List[LaunchRecord]:
+    """The launch of one call at ``shape`` with x, B and C stored as
+    ``dtype`` and dt in fp32 (a model's dt comes from its fp32
+    ``dt_bias``), on the route :func:`ssd_route` picks.  SIMT: grid (H, B),
+    block (h, b) walks its pair's chunks.  Tensor cores: one block per
+    two chunks of a pair; the block that draws ticket t takes the pair's
+    block t / (B H) of pair t % (B H) and hands its state on through the
+    pair's slot (block % 2) and flag, in order."""
+    b, l, h, p, n = (shape["batch"], shape["len"], shape["heads"],
+                     shape["p"], shape["n"])
+    q = dispatch.snap_down(chunk,
+                           dispatch.get_family("ssd").option("chunk").values)
+    meta = [torch.empty(s, dtype=dtype, device="meta")
+            for s in ((b, l, h, p), (b, l, shape["groups"], n))]
+    states = shape["states"]
+    name = cuda_lib.CTYPE_NAMES[dtype]
+    if ssd_route(meta[0], meta[1], meta[1], q) == "simt":
+        def simt_writes(idx):
+            hh, bb = idx[0], idx[1]
+            tiles = (Tile("y", ((bb, bb + 1), (0, l), (hh, hh + 1), (0, p))),)
+            if states:
+                tiles += (Tile("state_out", ((bb, bb + 1), (hh, hh + 1))),)
+            return tiles
+
+        return [LaunchRecord(
+            f"repro::ssd_kernel<{name}, float, {name}>", (h, b, 1),
+            (SIMT_THREADS, 1, 1), smem_bytes(n, p, q), writes=simt_writes)]
+    bh = b * h
+    n_chunks = -(-l // q)
+    n_blocks = -(-n_chunks // MMA_CHUNKS_PER_BLOCK)
+
+    def mma_writes(idx):
+        kb, pair = divmod(idx[0], bh)
+        bb, hh = divmod(pair, h)
+        t0 = kb * MMA_CHUNKS_PER_BLOCK * q
+        tiles = (Tile("flags", ((pair, pair + 1), (kb, kb + 1))),)
+        if t0 < l:
+            tiles += (Tile("y", ((bb, bb + 1),
+                                 (t0, min(t0 + MMA_CHUNKS_PER_BLOCK * q, l)),
+                                 (hh, hh + 1), (0, p))),)
+        if kb + 1 < n_blocks:
+            tiles += (Tile("states", ((pair, pair + 1),
+                                      (kb % 2, kb % 2 + 1))),)
+        elif states:
+            tiles += (Tile("state_out", ((bb, bb + 1), (hh, hh + 1))),)
+        return tiles
+
+    return [LaunchRecord(
+        f"repro::ssd_mma_kernel<{p}, float>", (n_blocks * bh, 1, 1),
+        (MMA_THREADS, 1, 1), mma_smem_bytes(n, p, q), MMA_STATIC_SMEM,
+        in_order=(0,), writes=mma_writes)]
 
 
 def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -58,6 +58,16 @@ TPU_V4_LIKE = HardwareSpec(
     dci_bandwidth=25e9,
 )
 
+#: the shared memory one H100 block may opt into (227 KB of the SM's 256
+#: KB): the one copy of this limit — ``cuda_lib.SMEM_LIMIT``,
+#: ``envs.measure.SMEM_LIMIT_BYTES`` and the static analysis read it here
+H100_SMEM_PER_BLOCK = 232448
+#: the H100 SXM's streaming multiprocessors
+H100_SM_COUNT = 132
+#: threads one block may hold, and 32-bit registers one SM holds (sm_90)
+MAX_BLOCK_THREADS = 1024
+REGISTERS_PER_SM = 65536
+
 # NVIDIA's data sheet, SXM part, dense bf16: 989 TFLOP/s; 3.35 TB/s of HBM3;
 # NVLink 900 GB/s a card, 450 GB/s each way; one 400 Gb/s NDR InfiniBand
 # link a card across hosts
@@ -68,7 +78,7 @@ H100_SXM = HardwareSpec(
     hbm_capacity=80 * 2**30,
     ici_bandwidth=450e9,
     dci_bandwidth=50e9,
-    vmem_bytes=232448,
+    vmem_bytes=H100_SMEM_PER_BLOCK,
 )
 
 HARDWARE = {h.name: h for h in (TPU_V5E, TPU_V4_LIKE, H100_SXM)}

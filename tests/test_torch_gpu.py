@@ -755,3 +755,31 @@ def test_fleet_intervention_runs_on_the_card(sm90):
     assert {"rmsnorm", "flash_attention"} <= {r.family for r in res}
     assert counters["routing_imbalance"] >= 1.0
     assert env.measured_captures == 0
+
+
+@pytest.mark.gpu
+def test_analysis_gate_with_the_builds_ptxas_report(sm90):
+    """``python -m repro_torch.analysis --gate --ptxas`` over the port with
+    the ``ptxas.log`` of the kernels just built: exit 0 (registers x
+    threads of every launch record within an SM, every record's instance
+    in the report), every launch config checked."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels import cuda_lib
+
+    root = Path(__file__).resolve().parents[1]
+    log = cuda_lib.build().parent / "ptxas.log"
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--gate", "--format",
+         "json", "--ptxas", str(log), "src/repro_torch"], cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")),
+        capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+    doc = json.loads(res.stdout)
+    assert doc["summary"]["configs_checked"] == 87
+    assert not [f for f in doc["findings"]
+                if f["rule"] == "kernel-unanalyzable"], doc["findings"]

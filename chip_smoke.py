@@ -180,6 +180,25 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    loop's, its step time), and its checkpoint restored through
    ``remesh_state`` on the one-device mesh: the NCCL loop's state bit for
    bit, and its next step gives the unbroken run's loss;
+4m. the sharded train step (``phase_sharded``, run after 4j): four
+   thread-ranks of the ``threaded`` process group of
+   ``torch.testing._internal.distributed.multi_threaded_pg`` on the one
+   card, a (2, 2) ``("data", "model")`` mesh; llama3.2-1b at full width
+   and depth, fp32, tp=2 and fsdp=2, 3 steps of 4 x 512 against the
+   one-process loop run first (losses within 1e-5 relative, every
+   parameter within 1e-5 + 1e-5|p|); falcon-mamba-7b (8 layers) and
+   zamba2-2.7b (12 layers) at tp=2, deepseek-v3-671b (1 layer + MTP, 12
+   experts, Adafactor) at tp=2 and fsdp=2 with its experts on the model
+   axis and on the data axis, 2 steps in the model dtype against the
+   one-process loop (phase 4i's ``STEP_TOL`` and 1e-4 relative on every
+   rank's losses and grad norms); in every run each rank's step-1
+   gradient of every leaf the model axis leaves whole (norms, ``w_dkv``,
+   the router, Mamba-2's ``w_B`` / ``w_C`` / ``A_log`` ...) against its
+   block of one process's (1e-5 in fp32, 5e-2 in bf16, relative in
+   norm), each rank's step-1 collective bytes by kind equal the dry run's
+   derivation, every
+   resolution is ``cuda`` and the kernels launch at the ranks' local
+   shapes (prefill at 16 / 4 heads for llama3.2-1b);
 4k. the dry run against the card: ``repro_torch.launch.dryrun``'s
    ``dryrun_cell`` on three llama3.2-1b cells under the plan the port
    executes (``tp=1,fsdp=1`` on a data-only mesh: ``decode_32k`` and
@@ -230,8 +249,8 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
 
 Prints the kernel table, the serving, training, sim-to-real,
 kernel-launch tuning, SSM, MoE, vlm / audio serving, every family's
-training, fleet, distributed, dry-run and analysis summaries as JSON
-lines, and, as the last line,
+training, fleet, distributed, sharded, dry-run and analysis summaries as
+JSON lines, and, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without that line.  Without a CUDA card, or
 outside a checkout, it exits non-zero before doing anything.
@@ -241,6 +260,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1297,14 +1317,13 @@ def _recorded_routes():
     calls = []
     inner = transformer.apply_moe
 
-    def recorded(p, cfg, x, router_mode="softmax", group_size=512,
-                 dropless=False, group=None):
+    def recorded(p, cfg, x, router_mode="softmax", group_size=512, **kw):
         tg = moe._group_size(x.shape[0] * x.shape[1], group_size)
         logits, _, idx = moe.route(p, x.reshape(-1, tg, x.shape[-1]),
                                    cfg.moe_top_k, router_mode)
         calls.append((logits.detach().cpu(), idx.cpu()))
         return inner(p, cfg, x, router_mode=router_mode,
-                     group_size=group_size, dropless=dropless, group=group)
+                     group_size=group_size, **kw)
     transformer.apply_moe = recorded
     try:
         yield calls
@@ -4100,6 +4119,510 @@ def phase_distributed(torch, np, dev):
 
 
 # --------------------------------------------------------------------------
+# phase 4m: the sharded train step — tensor parallelism, FSDP and expert
+# placements on a (2, 2) ("data", "model") mesh of four thread-ranks on
+# the one card, against the one-process loop
+# --------------------------------------------------------------------------
+
+SHARDED_WORLD = 4
+#: llama3.2-1b at full width and depth, fp32 model and compute
+SHARDED_DENSE = dict(arch="llama3.2-1b", par=dict(tp=2, fsdp=2), steps=3,
+                     batch=4, seq=512)
+#: (arch, cuts, placements, batch, seq, optimizer) in the model dtype:
+#: PR 22's cuts (the train slice's 8 and 12 layers; deepseek's 1 layer +
+#: MTP with 12 experts), two rows so that each data coordinate steps on
+#: one.  The four ranks hold one model's state on the one card beside
+#: four ranks' activations and gathered blocks, so deepseek (its vocab
+#: 1.85 B of its 3.5 B parameters) trains under Adafactor: factored second
+#: moments, 4 bytes of state a parameter beside the masters instead of 8
+#: (under AdamW its ranks peaked at 76.8 GB and then ran out of memory,
+#: with an earlier run's graph still held: a leak since fixed)
+SHARDED_FAMILIES = (
+    ("falcon-mamba-7b", dict(num_layers=8), dict(tp=2), 2, 1024, "adamw"),
+    ("zamba2-2.7b", dict(num_layers=12), dict(tp=2), 2, 1024, "adamw"),
+    ("deepseek-v3-671b", dict(num_layers=1, moe_num_experts=12),
+     dict(tp=2, fsdp=2), 2, 512, "adafactor"),
+    ("deepseek-v3-671b", dict(num_layers=1, moe_num_experts=12),
+     dict(tp=2, fsdp=2, moe_expert_axis="data"), 2, 512, "adafactor"),
+)
+SHARDED_FAMILY_STEPS = 2
+#: the kernels each model's sharded step must launch, and the local shapes
+#: they must see: (kernel, query heads, KV heads) for prefill, (kernel,
+#: channels) for the scan, (kernel, heads) for the SSD
+SHARDED_KERNELS = {
+    "llama3.2-1b": {("flash_attention", 16, 4)},
+    "falcon-mamba-7b": {("selective_scan", 4096)},
+    "zamba2-2.7b": {("ssd", 40), ("flash_attention", 16, 16)},
+    "deepseek-v3-671b": {("flash_attention", 64, 64)},
+}
+SHARDED_PARAM_TOL = 1e-5  # the CPU tests' (atol and rtol)
+SHARDED_LOSS_RTOL = 1e-5
+#: the model-dtype runs' losses and grad norms against one process's,
+#: relative, beside phase 4i's ``STEP_TOL`` (the readings were 7.3e-6 and
+#: 3.5e-5; a dropped all-reduce moves them by more than 1e-2)
+SHARDED_STEP_RTOL = 1e-4
+#: the step-1 gradient of every leaf the model axis leaves whole (the
+#: weights that feed split heads or channels: norms, MLA's ``w_dq`` /
+#: ``w_dkv``, the router, Mamba-2's ``w_B`` / ``w_C`` / ``A_log`` ...),
+#: each rank's block against the same block of one process's, in
+#: ``||g - g1|| / ||g1||``: the CPU tests' 1e-5 in fp32; in bf16 the
+#: ranks' partial sums are rounded before they are reduced (at most 1.1e-2
+#: on an H100, zamba2's ``A_log``), while a gradient that misses one model
+#: rank's part (``w_B`` / ``w_C`` / ``conv_bc_*``, ``w_dkv``, the router
+#: without their input-gradient all-reduce) is off by a fifth of its norm
+#: or more
+SHARDED_GRAD_RTOL = {"float32": 1e-5, "bfloat16": 5e-2}
+
+
+def _threaded_ranks(torch, world, fn):
+    """``fn(rank)`` on ``world`` threads, each a rank of the ``"threaded"``
+    process group of ``torch.testing._internal.distributed.
+    multi_threaded_pg`` on this card (its collectives copy device tensors in
+    place on the card); the results by rank.  A failing rank wakes the
+    others and fails the phase."""
+    import threading
+    import traceback
+
+    import torch.distributed as dist
+    from torch.testing._internal.distributed import multi_threaded_pg as mtpg
+
+    isolate = getattr(torch._C._distributed_c10d,
+                      "_set_thread_isolation_mode", None)
+    if isolate is not None:
+        isolate(True)
+    if not hasattr(mtpg.ThreadLocalWorld, "comms"):
+        # this torch's destroy_process_group reads ``_world.comms``, which
+        # its threaded world does not keep: an empty list a thread
+        mtpg.ThreadLocalWorld.comms = property(
+            lambda self: vars(self._get_world()).setdefault("comms", []))
+    mtpg._install_threaded_pg()
+    store = dist.HashStore()
+    out, errors = [None] * world, []
+
+    def worker(rank):
+        try:
+            torch.cuda.set_device(0)
+            dist.init_process_group("threaded", rank=rank, world_size=world,
+                                    store=store)
+            try:
+                out[rank] = fn(rank)
+            finally:
+                dist.destroy_process_group()
+        except BaseException as e:  # noqa: BLE001 -- reported below
+            errors.append(f"rank {rank}: {traceback.format_exc()}")
+            mtpg.ProcessLocalGroup.exception_handle(e)
+
+    threads = [threading.Thread(target=worker, args=(r,), daemon=True)
+               for r in range(world)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+    finally:
+        mtpg.ProcessLocalGroup.reset()
+        mtpg._uninstall_threaded_pg()
+        if isolate is not None:
+            isolate(False)
+    stuck = [i for i, t in enumerate(threads) if t.is_alive()]
+    check(not stuck and not errors,
+          f"sharded: ranks {stuck} did not finish; "
+          f"{errors[0][-3000:] if errors else ''}")
+    return out
+
+
+@contextlib.contextmanager
+def _local_shapes():
+    """Record the heads / channels each prefill, scan and SSD call sees
+    (all threads): yields the set of (kernel, heads...) tuples."""
+    from repro_torch.kernels import ops
+
+    seen = set()
+    real = {n: getattr(ops, n) for n in
+            ("flash_attention", "selective_scan", "ssd")}
+
+    def flash(q, k, v, *a, **kw):
+        seen.add(("flash_attention", q.shape[2], k.shape[2]))
+        return real["flash_attention"](q, k, v, *a, **kw)
+
+    def scan(u, *a, **kw):
+        seen.add(("selective_scan", u.shape[-1]))
+        return real["selective_scan"](u, *a, **kw)
+
+    def ssd(x, *a, **kw):
+        seen.add(("ssd", x.shape[2]))
+        return real["ssd"](x, *a, **kw)
+
+    ops.flash_attention, ops.selective_scan, ops.ssd = flash, scan, ssd
+    try:
+        yield seen
+    finally:
+        for n, f in real.items():
+            setattr(ops, n, f)
+
+
+def _model_whole(cfg, par):
+    """``{path: spec}`` of the parameters that the rules leave whole on
+    the model axis of the (2, 2) ``("data", "model")`` mesh under ``par``
+    (a ``ParallelConfig``): each one's gradient sums every model rank's
+    part."""
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.specs import param_specs
+    from repro_torch.utils.trees import flatten_with_paths
+
+    def axes(entry):
+        return () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+
+    meta = build_model(cfg, par, device="meta").init(0)
+    specs = flatten_with_paths(param_specs(
+        meta, cfg, par, MeshSpec.of((2, 2), ("data", "model"))))
+    return {k: spec for k, spec in sorted(specs.items())
+            if not any("model" in axes(e) for e in spec)}
+
+
+@contextlib.contextmanager
+def _step1_grads(torch, paths):
+    """The first step's gradients of ``paths`` (after every reduction,
+    before clipping) on the host, by rank (-1 without a process group):
+    yields the dict the train step's calls of ``clip_by_global_norm`` fill
+    (every thread of the threaded world)."""
+    import torch.distributed as dist
+
+    import repro_torch.train.train_step as ts
+    from repro_torch.utils.trees import flatten_with_paths
+
+    seen = {}
+    clip = ts.clip_by_global_norm
+
+    def spy(grads, max_norm, layout=None):
+        rank = dist.get_rank() if dist.is_initialized() else -1
+        if rank not in seen and paths:
+            flat = flatten_with_paths(grads)
+            seen[rank] = {k: flat[k].detach().to("cpu", torch.float32,
+                                                 copy=True) for k in paths}
+        return clip(grads, max_norm, layout)
+
+    ts.clip_by_global_norm = spy
+    try:
+        yield seen
+    finally:
+        ts.clip_by_global_norm = clip
+
+
+def _hold_grads(torch, what, ranks, one, specs, tol):
+    """Each rank's step-1 gradients of the leaves ``specs`` names against
+    the rank's blocks of one process's (``local_shard`` at the rank's
+    coordinates of the (2, 2) mesh): the worst ``||g - g1|| / ||g1||``
+    and its leaf, checked against ``tol``."""
+    from repro_torch.launch.mesh import MeshSpec, coords_of, local_shard
+
+    mesh = MeshSpec.of((2, 2), ("data", "model"))
+    worst, at = 0.0, None
+    for i, r in enumerate(ranks):
+        check(set(r["grads"]) == set(specs),
+              f"{what}: rank {i} recorded {sorted(r['grads'])}")
+        for k, spec in specs.items():
+            want = local_shard(one["grads"][k], spec, mesh,
+                               coords_of(i, mesh))
+            ref = float(torch.linalg.vector_norm(want))
+            err = float(torch.linalg.vector_norm(r["grads"][k] - want))
+            rel = err / ref if ref > 0 else err
+            if rel >= worst:
+                worst, at = rel, k
+            check(rel <= tol, f"{what}: rank {i}'s step-1 gradient of {k} "
+                  f"is {rel:.3e} of one process's norm {ref:.3e} from it "
+                  f"(tolerance {tol})")
+    return worst, at
+
+
+def _one_process(torch, dev, cfg, run, steps, grad_paths=()):
+    """The one-process loop on the emptied card: losses, grad norms, the
+    first step's gradients of ``grad_paths`` and the final parameters on
+    the host."""
+    from repro_torch.launch.train import train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with _step1_grads(torch, grad_paths) as grads:
+        res = train(cfg, steps=steps, seq=run.shape.seq_len,
+                    batch=run.shape.global_batch, device=dev, seed=0,
+                    run=run)
+    torch.cuda.synchronize()
+    params = {k: v.detach().to("cpu", copy=True)
+              for k, v in _flat(res.state.params)}
+    out = {"losses": res.losses, "grad_norms": res.grad_norms,
+           "step_ms": [t * 1e3 for t in res.step_s], "params": params,
+           "grads": grads.get(-1, {}),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_run(torch, dev, cfg, run, steps, kernels, what,
+                 whole_params=False, grad_paths=()):
+    """``run`` on four thread-ranks: each rank's losses, step times,
+    resolutions, step-1 collective bytes and step-1 gradients of
+    ``grad_paths`` (leaves the mesh leaves whole); with ``whole_params``
+    rank 0's whole parameters on the host; the launches by family, the
+    local shapes seen, the derived collectives of the dry run for the
+    same run and mesh."""
+    from repro_torch.kernels import cuda_lib, dispatch
+    from repro_torch.launch.build import lower_step
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.launch.train import gather_state, train
+    from repro_torch.sharding import collectives
+
+    def rank_fn(rank):
+        counted = {}
+
+        def log_step(i, metrics, step_s):
+            if i == 0:
+                counted.update(collectives.bytes_by_kind())
+
+        collectives.reset_counts()
+        with dispatch.record_resolutions() as resolved:
+            res = train(cfg, steps=steps, seq=run.shape.seq_len,
+                        batch=run.shape.global_batch, device=dev, seed=0,
+                        log=log_step, run=run)
+            torch.cuda.synchronize()
+        modes = sorted({(r.family, r.mode) for r in resolved})
+        state_bytes = _tensor_bytes(res.state)
+        params = None
+        if whole_params:  # the optimizer state goes first
+            state = res.state._replace(opt_state=None, error_buf=None)
+            res.state = None
+            whole = gather_state(state, res.run, res.mesh,
+                                 host=rank == 0)
+            params = dict(_flat(whole.params)) if rank == 0 else None
+            del state, whole
+        out = {"losses": res.losses, "grad_norms": res.grad_norms,
+               "step_ms": [t * 1e3 for t in res.step_s], "modes": modes,
+               "counted": counted, "params": params,
+               "state_gb": state_bytes / 1e9, "run": res.run}
+        del res
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    with _local_shapes() as shapes, _step1_grads(torch,
+                                                  grad_paths) as grads:
+        ranks = _threaded_ranks(torch, SHARDED_WORLD, rank_fn)
+    for i, r in enumerate(ranks):
+        r["grads"] = grads.get(i, {})
+    launches = dict(cuda_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()  # what the rank threads left in cycles
+    torch.cuda.empty_cache()
+    placed = ranks[0]["run"]
+    for r in ranks:
+        bad = [m for m in r["modes"] if m[1] != "cuda"]
+        check(r["modes"] and not bad, f"{what}: resolutions {r['modes']}")
+    for name, *_ in kernels:
+        check(launches.get(name, 0) > 0,
+              f"{what}: the sharded step launched no {name}: {launches}")
+    check(kernels <= shapes, f"{what}: the kernels saw {sorted(shapes)}, "
+          f"want {sorted(kernels)} among them")
+    _, traced = lower_step(placed, MeshSpec.of(placed.mesh.shape,
+                                               placed.mesh.axes))
+    derived = {k: int(v) for k, v in
+               traced.cost_analysis().collective_bytes.items()}
+    for i, r in enumerate(ranks):
+        check(r["counted"] == derived,
+              f"{what}: rank {i}'s step-1 collective bytes {r['counted']}, "
+              f"the dry run derives {derived}")
+    return ranks, {"launches": {k: v for k, v in launches.items() if v},
+                   "local_shapes": sorted(shapes), "derived": derived,
+                   "peak_gb": peak / 1e9, "launch_counts": launches}
+
+
+def phase_sharded(torch, np, dev):
+    """Phase 4m: the train step under tensor parallelism, FSDP and the
+    expert placements, four thread-ranks on the card.  Returns (summary,
+    launches of the sharded runs by family)."""
+    from repro_torch.configs.registry import get_model_config
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.train import make_run
+    from repro_torch.utils.config import ParallelConfig, TrainConfig
+
+    launches = {name: 0 for name in cuda_lib.LAUNCHES}
+    out = {"ranks": f"{SHARDED_WORLD} thread-ranks of the 'threaded' "
+                    f"process group on cuda:0",
+           "card": CARD, "note": "the four ranks share one card: step "
+                                 "times are not a multi-card speed"}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["held_before_gb"] = torch.cuda.memory_allocated() / 1e9
+    log(f"sharded: {out['ranks']} (torch.testing._internal.distributed."
+        f"multi_threaded_pg), a ('data', 'model') mesh of (2, 2); "
+        f"{out['held_before_gb']:.1f} GB held by the earlier phases")
+    kinds = set()
+
+    # -- llama3.2-1b, fp32, tp=2 + fsdp=2, against one process ----------
+    d = SHARDED_DENSE
+    cfg = get_model_config(d["arch"]).replace(dtype="float32")
+    run = make_run(cfg, seq=d["seq"], batch=d["batch"], steps=d["steps"],
+                   parallel=ParallelConfig(**d["par"]))
+    run = run.replace(train=TrainConfig(lr=1e-3, warmup_steps=10,
+                                        total_steps=d["steps"],
+                                        compute_dtype="float32"))
+    t0 = time.perf_counter()
+    paths = _model_whole(cfg, run.parallel)
+    one = _one_process(torch, dev, cfg, run.replace(
+        parallel=ParallelConfig()), d["steps"], list(paths))
+    ranks, info = _sharded_run(torch, dev, cfg, run, d["steps"],
+                               SHARDED_KERNELS[d["arch"]], "sharded dense",
+                               whole_params=True, grad_paths=list(paths))
+    gworst, gat = _hold_grads(torch, "sharded dense", ranks, one, paths,
+                              SHARDED_GRAD_RTOL["float32"])
+    for i, r in enumerate(ranks):
+        rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                   one["losses"])]
+        check(max(rel) <= SHARDED_LOSS_RTOL,
+              f"sharded dense: rank {i} losses {r['losses']}, one process "
+              f"{one['losses']}")
+    got = ranks[0]["params"]
+    check(set(got) == set(one["params"]), "sharded dense: parameter paths")
+    worst, outside, n = 0.0, 0, 0
+    for k, want in one["params"].items():
+        err = (got[k] - want).abs()
+        tol = SHARDED_PARAM_TOL + SHARDED_PARAM_TOL * want.abs()
+        outside += int((err > tol).sum())
+        worst = max(worst, float((err - tol).max()))
+        n += want.numel()
+    log(f"[{CARD}] sharded dense {d['arch']} fp32 tp=2 fsdp=2, {d['steps']} "
+        f"steps of {d['batch']} x {d['seq']}: losses {ranks[0]['losses']} "
+        f"(one process {one['losses']}); parameters outside "
+        f"{SHARDED_PARAM_TOL} + {SHARDED_PARAM_TOL}|p|: {outside} of {n} "
+        f"(worst excess {worst:.3e}); step-1 gradients of the {len(paths)} "
+        f"leaves the model axis leaves whole within {gworst:.3e} of one "
+        f"process's (worst "
+        f"{gat}); collectives {ranks[0]['counted']} = "
+        f"derived; kernel shapes {info['local_shapes']}; launches "
+        f"{info['launches']}; peak {info['peak_gb']:.1f} GB for the four "
+        f"ranks (one process {one['peak_gb']:.1f} GB), state a rank "
+        f"{ranks[0]['state_gb']:.2f} GB; step ms by rank "
+        f"{[r['step_ms'] for r in ranks]} (one process {one['step_ms']})")
+    check(outside == 0, f"sharded dense: {outside} of {n} parameters "
+          f"outside the CPU tests' tolerance (worst excess {worst:.3e})")
+    kinds |= set(ranks[0]["counted"])
+    out["dense"] = {"arch": d["arch"], "placements": d["par"],
+                    "losses": ranks[0]["losses"],
+                    "losses_one_process": one["losses"],
+                    "grad_norms": ranks[0]["grad_norms"],
+                    "params_outside_tol": outside,
+                    "model_whole_grad_rel": gworst,
+                    "model_whole_grad_worst_leaf": gat,
+                    "model_whole_leaves": len(paths),
+                    "collective_bytes": ranks[0]["counted"],
+                    "step_ms": [r["step_ms"] for r in ranks],
+                    "step_ms_one_process": one["step_ms"],
+                    "state_gb_per_rank": ranks[0]["state_gb"],
+                    "phase_s": time.perf_counter() - t0,
+                    **{k: v for k, v in info.items()
+                       if k != "launch_counts"}}
+    for k, v in info["launch_counts"].items():
+        launches[k] += v
+    del one, ranks, got
+
+    # -- the other families in the model dtype ------------------------
+    out["families"] = []
+    ones = {}  # one process's run of a (arch, cuts, batch, seq), once
+    for arch, cuts, par, batch, seq, optimizer in SHARDED_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = get_model_config(arch).replace(**cuts)
+        run = make_run(cfg, seq=seq, batch=batch,
+                       steps=SHARDED_FAMILY_STEPS,
+                       parallel=ParallelConfig(**par))
+        run = run.replace(train=dataclasses.replace(run.train,
+                                                    optimizer=optimizer))
+        what = f"sharded {arch} {par} {optimizer}"
+        key = (arch, tuple(sorted(cuts.items())), batch, seq, optimizer)
+        paths = _model_whole(cfg, run.parallel)
+        if key not in ones:  # the leaves of every placement that shares it
+            shared = sorted({k for a, c, p, b, q, o in SHARDED_FAMILIES
+                             if (a, tuple(sorted(c.items())), b, q, o) == key
+                             for k in _model_whole(
+                                 cfg, ParallelConfig(**p))})
+            ones = {key: _one_process(torch, dev, cfg, run.replace(
+                parallel=ParallelConfig()), SHARDED_FAMILY_STEPS, shared)}
+        one = ones[key]
+        ranks, info = _sharded_run(torch, dev, cfg, run,
+                                   SHARDED_FAMILY_STEPS,
+                                   SHARDED_KERNELS[arch], what,
+                                   grad_paths=list(paths))
+        got = ranks[0]
+        for i, r in enumerate(ranks):
+            for j, (lk, lr_) in enumerate(zip(r["losses"], one["losses"])):
+                check(abs(lk - lr_) <= STEP_TOL["loss_rtol"] * abs(lr_)
+                      and abs(lk - lr_) <= SHARDED_STEP_RTOL * abs(lr_),
+                      f"{what}: rank {i} step {j} loss {lk}, one process "
+                      f"{lr_}")
+            for j, (gk, gr) in enumerate(zip(r["grad_norms"],
+                                             one["grad_norms"])):
+                check(abs(gk - gr) <= STEP_TOL["grad_norm_rtol"] * abs(gr)
+                      and abs(gk - gr) <= SHARDED_STEP_RTOL * abs(gr),
+                      f"{what}: rank {i} step {j} grad norm {gk}, one "
+                      f"process {gr}")
+        loss_rel = max(abs(a - b) / abs(b) for r in ranks
+                       for a, b in zip(r["losses"], one["losses"]))
+        gnorm_rel = max(abs(a - b) / abs(b) for r in ranks
+                        for a, b in zip(r["grad_norms"], one["grad_norms"]))
+        gworst, gat = _hold_grads(torch, what, ranks, one, paths,
+                                  SHARDED_GRAD_RTOL[cfg.dtype])
+        kinds |= set(got["counted"])
+        log(f"[{CARD}] {what} ({cfg.num_layers} layers, {batch} x {seq}, "
+            f"{cfg.dtype}): losses {got['losses']} (one process "
+            f"{one['losses']}), grad norms {got['grad_norms']} "
+            f"({one['grad_norms']}), relative {loss_rel:.3e} / "
+            f"{gnorm_rel:.3e}; step-1 gradients of the {len(paths)} "
+            f"leaves the model axis leaves whole within "
+            f"{gworst:.3e} of one process's (worst "
+            f"{gat}); collectives {got['counted']} = "
+            f"derived; kernel shapes {info['local_shapes']}; peak "
+            f"{info['peak_gb']:.1f} GB for the four ranks (one process "
+            f"{one['peak_gb']:.1f} GB), state a rank "
+            f"{got['state_gb']:.2f} GB; step ms by rank "
+            f"{[r['step_ms'] for r in ranks]} (one process "
+            f"{one['step_ms']})")
+        out["families"].append({
+            "arch": arch, "cuts": cuts, "placements": par,
+            "optimizer": optimizer,
+            "losses": got["losses"], "losses_one_process": one["losses"],
+            "grad_norms": got["grad_norms"],
+            "grad_norms_one_process": one["grad_norms"],
+            "loss_rel": loss_rel, "grad_norm_rel": gnorm_rel,
+            "model_whole_grad_rel": gworst,
+            "model_whole_grad_worst_leaf": gat,
+            "model_whole_leaves": len(paths),
+            "collective_bytes": got["counted"],
+            "step_ms": [r["step_ms"] for r in ranks],
+            "step_ms_one_process": one["step_ms"],
+            "state_gb_per_rank": got["state_gb"],
+            "tolerance": dict(STEP_TOL, rtol=SHARDED_STEP_RTOL,
+                              model_whole_grad_rtol=SHARDED_GRAD_RTOL[
+                                  cfg.dtype]),
+            "phase_s": time.perf_counter() - t0,
+            **{k: v for k, v in info.items() if k != "launch_counts"}})
+        for k, v in info["launch_counts"].items():
+            launches[k] += v
+        del one, ranks, got
+        torch.cuda.empty_cache()
+    missing = [k for k in ("all-reduce", "all-gather", "reduce-scatter",
+                           "all-to-all") if k not in kinds]
+    out["collective_kinds_on_card"] = sorted(kinds)
+    out["collective_kinds_not_run"] = missing
+    log(f"sharded: collective kinds run on the card {sorted(kinds)}; not "
+        f"run: {missing or 'none'}")
+    check(not missing, f"sharded: no {missing} ran on the card")
+    return out, launches
+
+
+# --------------------------------------------------------------------------
 # phase 5: timings
 # --------------------------------------------------------------------------
 
@@ -5590,7 +6113,7 @@ def main() -> int:
     tune_launch["phase_s"] = time.perf_counter() - t0
     log(f"kernel-launch tuning done in {tune_launch['phase_s']:.1f} s")
 
-    # 4e. SSM serving: falcon-mamba-7b and zamba2-2.7b at full size
+    # 4e. SSM serving: falcon-mamba-7b and zamba2-2.7b at full width
     t0 = time.perf_counter()
     ssm_serve, ssm_serve_launches, compiled = phase_ssm_serve(torch, np,
                                                               dev)
@@ -5640,6 +6163,12 @@ def main() -> int:
     log(f"[{CARD}] fleet replay ({fleet['phase_s']:.1f} s) and the "
         f"data-parallel train path ({distributed['phase_s']:.1f} s) done")
 
+    # 4m. the sharded train step: tp, fsdp and the expert placements
+    t0 = time.perf_counter()
+    sharded, sharded_launches = phase_sharded(torch, np, dev)
+    sharded["phase_s"] = time.perf_counter() - t0
+    log(f"[{CARD}] sharded train step done in {sharded['phase_s']:.1f} s")
+
     by_path = {name: {"serve": launches.get(name, 0),
                       "train": sum(t["launches"][name]
                                    for t in train_out.values()),
@@ -5652,6 +6181,7 @@ def main() -> int:
                       "fleet": fleet_launches[name],
                       "fleet_cameo": fleet_cameo_launches[name],
                       "distributed": distributed_launches[name],
+                      "sharded": sharded_launches[name],
                       "dryrun": dryrun_launches[name],
                       "analysis": analysis_launches[name]}
                for name in cuda_lib.LAUNCHES}
@@ -5679,7 +6209,8 @@ def main() -> int:
                  {"compiled_decode": compiled}, {"moe_serve": moe_serve},
                  {"vlm_audio_serve": vlm_audio},
                  {"train_families": train_families}, {"fleet": fleet},
-                 {"distributed": distributed}, {"dryrun": dryrun},
+                 {"distributed": distributed}, {"sharded": sharded},
+                 {"dryrun": dryrun},
                  {"analysis": analysis_out}):
         print(json.dumps(_strict_json(line), allow_nan=False, default=str),
               flush=True)

@@ -30,8 +30,9 @@ Properties, as in the reference:
   the restore template; a missing leaf raises ``KeyError``, a mismatch
   ``ValueError``.
 
-The reference's ``shardings`` (cross-mesh restore) is dropped: the port
-runs on one device until sharding is ported.
+The reference's ``shardings`` (cross-mesh restore) is dropped: a
+checkpoint holds whole leaves, and a sharded run's ranks cut their blocks
+from them (:func:`repro_torch.runtime.elastic.remesh_state`).
 """
 
 from __future__ import annotations
@@ -100,11 +101,14 @@ class CheckpointManager:
     # -- save --------------------------------------------------------------
 
     def save(self, step: int, tree: Any, extra: Optional[Dict] = None,
-             blocking: bool = False) -> None:
+             blocking: bool = False, copied: bool = False) -> None:
         """Snapshot ``tree`` at ``step`` (copied to host before this
-        returns) and persist it, in the background unless ``blocking``."""
+        returns) and persist it, in the background unless ``blocking``.
+        ``copied``: the tree's tensors are host copies that nothing else
+        holds, written as they are (a sharded save's gathered leaves)."""
         self.wait()  # one outstanding save at a time
-        host = {k: _snapshot(v) for k, v in flatten_with_paths(tree).items()}
+        host = {k: v if copied and isinstance(v, torch.Tensor)
+                else _snapshot(v) for k, v in flatten_with_paths(tree).items()}
         meta = {
             "step": int(step),
             "leaves": {k: {"shape": list(v.shape), "dtype": _dtype_name(v)}

@@ -21,15 +21,16 @@ What is traced: the program of one rank on the data axes.  Every
 argument but the parameters (the batch; the decode state) is cut to one
 data rank's block wherever its placement splits it over the data axes (a
 batch of 1 row stays whole), and the step is built on a one-device
-``("data",)`` mesh without a device mesh, so no collective runs and
+``("data",)`` mesh without process groups, so no collective runs and
 ``activation_sharding`` does not raise.  The parameters and the
 optimizer state stay whole: the rank all-gathers an FSDP shard before
 use.
 
 What is derived, not traced (``model_axis: "derived"`` in a dry-run
-record): what the mesh's model axis and FSDP / EP add, which the port
-does not execute (``ROADMAP.md`` queue 1, item 7), from the placements of
-``bundle.in_shardings``:
+record): what the mesh's model axis and FSDP / EP add, from the
+placements of ``bundle.in_shardings``, by rules that mirror what the
+sharded step executes (:mod:`repro_torch.sharding.layout`; tracing a
+rank's sharded program instead is ``ROADMAP.md`` queue 1, item 7):
 
 - argument bytes per chip: each leaf's block under its placements
   (:func:`repro_torch.launch.mesh.local_shard`'s shapes), exact;
@@ -52,19 +53,30 @@ does not execute (``ROADMAP.md`` queue 1, item 7), from the placements of
     backward of the MTP head's, whose aux loss the train loss leaves out);
   - FSDP: an all-gather of each data-split parameter's block per use, a
     use a layer slice in the forward and again in the backward (a train
-    step, each microbatch; serving, once), in the compute dtype; a
-    reduce-scatter of its fp32 gradient a layer slice and microbatch;
+    step, each microbatch; serving, once; no backward gather where no
+    op saves the gathered weight: an untied embedding's lookup, a
+    router widened to fp32), in the compute dtype; a reduce-scatter of
+    its fp32 gradient a layer slice and microbatch; an expert block
+    split over the data axes (EP) is neither gathered nor reduced;
   - TP: a forward matmul reading a row-parallel weight split over the
     model axis (``attn/wo``, ``cross/wo``, ``mlp/w_down``,
     ``shared/w_down``, ``mixer/w_out``, ``mixer/w_bcdt``) gives an
-    all-reduce of its
-    partial sums (its result), and in a train step a second one of the
-    same bytes for the backward (the matching column-parallel input
-    gradient): two a layer, forward and backward;
+    all-reduce of its partial sums (its result); in a train step's
+    backward an all-reduce of each input gradient where a tensor every
+    model rank holds enters the split (the attention, MLP and mixer
+    inputs, MLA's ``c_q`` / ``c_kv`` / rope key, Mamba-1's ``w_bcdt``
+    sums, Mamba-2's ``dt`` / ``A`` / ``B`` and ``C``, the MoE tokens and
+    gates, the head's input); the vocab split's embedding all-reduce and
+    (train) logits all-gather, Mamba-2's norm statistics both ways, and
+    the MoE combine's all-reduce where no split shared expert carries it
+    (``_tp_collectives``);
   - EP: a forward matmul reading an expert down projection whose expert
-    dim is split gives the two token all-to-alls of the layer (dispatch
-    and combine, each of the ``(G, E, C, D)`` expert tensor), two more
-    for the backward of a train step.
+    dim is split over the data axes gives the two token all-to-alls of
+    the layer (dispatch and combine, each of the ``(G, E, C, D)`` expert
+    tensor), two more for the backward of a train step;
+  - the optimizer's statistics over split leaves (the global norm, the
+    ``int8_ef`` scales, Adafactor's factored means;
+    ``_optimizer_collectives``).
 
 Sequence parallelism (``sp``) is not derived: a forward that asks for it
 raises in the trace (``activation_sharding``), as it does on the card.
@@ -180,6 +192,7 @@ def _logits_sharding(shape: Tuple[int, ...], mesh: MeshSpec):
 _ROW = re.compile(r"(attn|cross)/wo$|mlp/w_down$|shared/w_down$"
                   r"|mixer/w_out$|mixer/w_bcdt$")
 _EXPERT = re.compile(r"moe/w_down$")
+_EXPERTS = re.compile(r"moe/w_(gate|up|down)$")
 _ROUTER = re.compile(r"moe/router$")
 #: fp32 sums a data-parallel train step all-reduces a microbatch besides
 #: the gradients: ``cross_entropy_loss``'s (ce_loss, count, accuracy,
@@ -306,7 +319,7 @@ def lower_step(run: RunConfig, mesh: MeshSpec):
             role = "row"
         elif _EXPERT.search(path) and leaf.ndim >= 3 and _split(
                 P(*spec[leaf.ndim - 3:leaf.ndim - 2]), mesh,
-                mesh.axis_names) > 1:  # the expert dim of (E, F, D)
+                daxes) > 1:  # the expert dim of (E, F, D), over the data
             role = "expert"
         elif _ROUTER.search(path):
             role = "router"
@@ -319,6 +332,9 @@ def lower_step(run: RunConfig, mesh: MeshSpec):
     del out
     _step_collectives(counter, run, mesh, params, train, dsize, n_micro,
                       compute)
+    if msize > 1:
+        _tp_collectives(counter, run, mesh, params, train, n_micro, compute,
+                        rank.abstract_args)
     temp = counter.peak_live_bytes
     memory = MemoryAnalysis(arg_bytes, out_bytes, temp, alias_bytes,
                             arg_bytes + temp)
@@ -337,21 +353,27 @@ def _step_collectives(counter, run: RunConfig, mesh: MeshSpec, params,
                  for p, leaf, spec in params if p.startswith("params/")]
     itemsize = torch.empty((), dtype=compute).element_size()
     replicated = []
+    daxes = data_axes_of(mesh.axis_names)
     for path, leaf, spec in grads:
-        data = _split(spec, mesh, data_axes_of(mesh.axis_names))
+        data = _split(spec, mesh, daxes)
         model = _split(spec, mesh, ("model",))
         if data == 1:
             replicated.append(leaf.numel() // model)
             continue
+        if _EXPERTS.search(path) and leaf.ndim >= 3 and _split(
+                P(spec[leaf.ndim - 3]), mesh, daxes) > 1:
+            continue  # an expert block: its gradient is whole
         slices = leaf.shape[0] if "blocks/" in path else 1
         block = leaf.numel() // (model * data * slices)
-        uses = (2 if train else 1) * n_micro
+        uses = (1 + (train and _regathered(path, run, compute))) * n_micro
         counter.add_collective("all-gather", block * itemsize,
                                f"fsdp {path}", slices * uses)
         if train:
             counter.add_collective("reduce-scatter", block * data * 4,
                                    f"fsdp gradient {path}",
                                    slices * n_micro)
+    if train:
+        _optimizer_collectives(counter, run, mesh, grads)
     if not train or dsize == 1:
         return
     cfg, tc = run.model, run.train
@@ -365,3 +387,199 @@ def _step_collectives(counter, run: RunConfig, mesh: MeshSpec, params,
                                    "dp gradient bucket")
         for n in sums:
             counter.add_collective("all-reduce", 4 * n, "dp loss sums")
+
+
+def _regathered(path: str, run: RunConfig, compute: torch.dtype) -> bool:
+    """Whether the backward all-gathers an FSDP weight again: it does
+    where an op saved the gathered weight itself for its backward, not
+    for the embedding lookup of an untied head (which saves the indices)
+    and not for a router widened to fp32 from a narrower compute dtype
+    (the product saves the widened copy)."""
+    if path == "embed/embedding" and not run.model.tie_embeddings:
+        return False
+    return not (path.endswith("moe/router") and compute != torch.float32)
+
+
+def _optimizer_collectives(counter, run: RunConfig, mesh: MeshSpec,
+                           grads) -> None:
+    """The statistics the optimizer sums over the blocks of split leaves
+    (:mod:`repro_torch.train.optimizer`): the global norm's sum of squares,
+    one fp32 all-reduce a group of axes that splits some leaf (the model
+    axis, the data axes, both); under ``int8_ef`` each split leaf's
+    maximum; under Adafactor each split leaf's factored means (``vr``
+    over a split last dim, ``vc`` and ``vr``'s mean over a split
+    second-to-last) and its update's mean square."""
+    daxes = data_axes_of(mesh.axis_names)
+    groups = set()
+    for path, leaf, spec in grads:
+        spec = P(*(tuple(spec) + (None,) * (leaf.ndim - len(spec))))
+        model = _split(spec, mesh, ("model",)) > 1
+        data = _split(spec, mesh, daxes) > 1
+        if not (model or data):
+            continue
+        groups.add((model, data))
+        if run.parallel.grad_compression == "int8_ef":
+            counter.add_collective("all-reduce", 4, f"int8 scale {path}")
+        if run.train.optimizer != "adafactor":
+            continue
+        local = list(_block(leaf, spec, mesh).shape)
+        numel = math.prod(local)
+        if leaf.ndim >= 2:
+            last = _split(P(spec[-1]), mesh, mesh.axis_names) > 1
+            second = _split(P(spec[-2]), mesh, mesh.axis_names) > 1
+            if last:
+                counter.add_collective("all-reduce", 4 * numel // local[-1],
+                                       f"adafactor vr {path}")
+            if second:
+                counter.add_collective("all-reduce", 4 * numel // local[-2],
+                                       f"adafactor vc {path}")
+                counter.add_collective(
+                    "all-reduce", 4 * numel // (local[-1] * local[-2]),
+                    f"adafactor vr mean {path}")
+        counter.add_collective("all-reduce", 4, f"adafactor rms {path}")
+    for _ in groups:
+        counter.add_collective("all-reduce", 4, "global norm")
+
+
+def _mdim(specs: Dict[str, Any], path: str, scanned: bool):
+    """The dim of ``path``'s layer view the model axis splits, or None."""
+    spec = specs.get(path)
+    if spec is None:
+        return None
+    parts = list(spec)[1:] if scanned else list(spec)
+    for d, entry in enumerate(parts):
+        if entry is not None and "model" in (
+                (entry,) if isinstance(entry, str) else entry):
+            return d
+    return None
+
+
+def _tp_collectives(counter, run: RunConfig, mesh: MeshSpec, params,
+                    train: bool, n_micro: int, compute: torch.dtype,
+                    args) -> None:
+    """What the model axis adds besides the row-parallel products'
+    all-reduces (which the counter records as the forward reads a
+    row-split weight), as the port's sharded forward executes it
+    (:mod:`repro_torch.sharding.layout`): the input-gradient all-reduce
+    where a tensor every model rank holds enters split heads, channels or
+    experts (a train step's backward; ``collectives.enter``), the vocab
+    split's embedding all-reduce and logits all-gather, Mamba-1's
+    ``w_bcdt`` backward and Mamba-2's norm statistics, the MoE combine's
+    all-reduce when no split shared expert carries it.  ``rows``: the
+    tokens of one data rank's microbatch."""
+    from repro_torch.models.ssm import _dt_rank
+    from repro_torch.models.transformer import block_pattern, num_superblocks
+
+    cfg = run.model
+    specs = {p.removeprefix("params/"): spec for p, _, spec in params}
+    tokens = (args[1]["inputs"] if train else args[-1] if isinstance(
+        args[-1], torch.Tensor) else args[1]["tokens"])
+    rows = tokens.shape[0] * tokens.shape[1] // n_micro
+    c = torch.empty((), dtype=compute).element_size()
+    d = cfg.d_model
+    tp = mesh.shape["model"]
+    fwd: list = []  # (bytes, what) once a microbatch
+    bwd: list = []
+
+    def ar(where, nbytes, what):
+        where.append((nbytes, what))
+
+    def dense_mlp(prefix, scanned):
+        if _mdim(specs, f"{prefix}w_up", scanned) == 1:
+            ar(bwd, rows * d * c, f"tp partial sum {prefix}w_down (input)")
+
+    def gqa(prefix, scanned):
+        if _mdim(specs, f"{prefix}wq", scanned) == 1:
+            ar(bwd, rows * d * c, f"tp partial sum {prefix}wo (input)")
+
+    def mla(prefix, scanned):
+        if _mdim(specs, f"{prefix}w_uq", scanned) == 1:
+            for width, name in ((cfg.q_lora_rank, "c_q"),
+                                (cfg.kv_lora_rank, "c_kv"),
+                                (cfg.qk_rope_head_dim, "k_pe")):
+                ar(bwd, rows * width * c, f"tp latent {prefix}{name}")
+
+    def moe(prefix, scanned):
+        k = cfg.moe_top_k
+        model_experts = _mdim(specs, f"{prefix}w_gate", scanned) == 0
+        shared = (cfg.moe_num_shared > 0 and _mdim(
+            specs, f"{prefix}shared/w_up", scanned) == 1)
+        if model_experts or shared:
+            ar(bwd, rows * d * c, f"tp moe tokens {prefix}")
+        if model_experts:
+            ar(bwd, rows * k * 4, f"tp moe gates {prefix}")
+            if not shared:
+                ar(fwd, rows * d * c, f"tp moe combine {prefix}")
+        if _mdim(specs, f"{prefix}w_gate", scanned) == 2:
+            from repro_torch.models import moe as moe_mod
+
+            tg = moe_mod._group_size(rows, run.parallel.moe_group_size)
+            cap = moe_mod.capacity(cfg, tg,
+                                   dropless=run.shape.kind == "decode")
+            nbytes = (rows // tg) * cfg.moe_num_experts * cap * d * c
+            ar(fwd, nbytes, f"tp expert ffn {prefix}")
+            ar(bwd, nbytes, f"tp expert ffn {prefix}")
+
+    def attention_block(prefix, scanned, kind):
+        (mla if cfg.attn_type == "mla" else gqa)(f"{prefix}attn/", scanned)
+        if kind == "moe":
+            moe(f"{prefix}moe/", scanned)
+        else:
+            dense_mlp(f"{prefix}mlp/", scanned)
+
+    def mamba1(prefix, scanned):
+        if _mdim(specs, f"{prefix}w_x", scanned) == 1:
+            ar(bwd, rows * d * c, f"tp partial sum {prefix}w_out (input)")
+            ar(bwd, rows * (_dt_rank(cfg) + 2 * cfg.ssm_state) * c,
+               f"tp partial sum {prefix}w_bcdt (backward)")
+
+    def mamba2(prefix, scanned):
+        if _mdim(specs, f"{prefix}w_x", scanned) == 1:
+            h = cfg.ssm_num_heads
+            ar(bwd, rows * d * c, f"tp partial sum {prefix}w_out (input)")
+            ar(bwd, rows * h * c, f"tp mamba2 dt {prefix}")
+            ar(bwd, h * c, f"tp mamba2 A {prefix}")
+            ar(bwd, rows * 2 * cfg.ssm_state * c, f"tp mamba2 B/C {prefix}")
+            ar(fwd, rows * 4, f"tp mamba2 norm {prefix}")
+            ar(bwd, rows * 4, f"tp mamba2 norm {prefix}")
+
+    def vocab(uses):
+        embed_split = _mdim(specs, "embed/embedding", False) == 0
+        head_split = (_mdim(specs, "embed/lm_head", False) == 1
+                      if "embed/lm_head" in specs else embed_split)
+        for _ in range(uses):
+            if embed_split:
+                ar(fwd, rows * d * c, "tp vocab embedding")
+            if head_split and train:
+                ar(bwd, rows * d * c, "tp vocab head (input)")
+                counter.add_collective(
+                    "all-gather", rows * cfg.vocab_size // tp * c,
+                    "tp vocab logits", n_micro)
+
+    if cfg.family == "audio":
+        return  # the audio family raises on a model axis
+    pat = block_pattern(cfg)
+    for _ in range(num_superblocks(cfg)):
+        for i, kind in enumerate(pat):
+            prefix = f"blocks/sub{i}/"
+            if kind == "mamba1":
+                mamba1(f"{prefix}mixer/", True)
+            elif kind in ("mamba2", "mamba2_shared_attn"):
+                mamba2(f"{prefix}mixer/", True)
+                if kind == "mamba2_shared_attn":
+                    gqa("shared_attn/attn/", False)
+                    dense_mlp("shared_attn/mlp/", False)
+            else:
+                attention_block(prefix, True, kind)
+    uses = 1
+    if cfg.mtp_depth > 0:
+        uses = 2
+        if _mdim(specs, "mtp/proj", False) == 1:
+            ar(bwd, rows * 2 * d * c, "tp mtp proj (input)")
+            counter.add_collective("all-gather", rows * d // tp * c,
+                                   "tp mtp proj", n_micro)
+        attention_block("mtp/block/",
+                        False, "moe" if cfg.is_moe else "dense")
+    vocab(uses)
+    for nbytes, what in fwd + (bwd if train else []):
+        counter.add_collective("all-reduce", nbytes, what, n_micro)

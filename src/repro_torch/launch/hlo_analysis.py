@@ -380,8 +380,10 @@ class OpCounter(TorchDispatchMode):
         (one all-reduce of the router's mean probabilities)."""
         twins = 2 if self.train else 1
         if info.role == "row" and info.model > 1:
+            # the backward's all-reduce is where the input enters the
+            # split (``lower_step``'s model-axis rules)
             self.add_collective("all-reduce", _nbytes(outs[0]),
-                                f"tp partial sum {info.path}", twins)
+                                f"tp partial sum {info.path}")
         elif info.role == "expert":  # the down projection: (G, E, C, D)
             self.add_collective("all-to-all", _nbytes(outs[0]),
                                 f"ep dispatch / combine {info.path}",

@@ -5,17 +5,18 @@
 sizes), which is all the placement rules of
 :mod:`repro_torch.sharding.specs` read; :func:`make_production_mesh` is
 such a description, so importing this module touches no device and no
-process group.  :func:`make_mesh` builds the mesh a run executes on: a
-``torch.distributed`` device mesh over every rank when a process group is
-up, the one-device description when none is.
+process group.  :func:`make_mesh` builds the mesh a run executes on: the
+process groups of its data and model axes over every rank when a process
+group is up, the one-device description when none is.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
+from repro_torch.sharding.collectives import Axis
 from repro_torch.sharding.specs import (
     PartitionSpec, batch_specs, data_axes_of, param_specs,
     serve_state_specs, to_placements, train_state_specs)
@@ -26,32 +27,57 @@ from repro_torch.utils.trees import tree_map
 @dataclass(frozen=True)
 class MeshSpec:
     """A mesh: ``axis_names`` and ``shape`` (axis name -> size, in the
-    axes' order), and, on an executing mesh, the
-    ``torch.distributed`` ``DeviceMesh`` over its ranks."""
+    axes' order), and, on an executing mesh, this process's ``rank`` and
+    its process ``groups`` (``"data"``: the data axes, ``"model"``, and
+    ``"world"``, each a :class:`~repro_torch.sharding.collectives.Axis`).
+    A description has neither."""
     axis_names: Tuple[str, ...]
     shape: Mapping[str, int]
-    device_mesh: Any = field(default=None, compare=False)
+    groups: Optional[Mapping[str, Axis]] = field(default=None,
+                                                 compare=False)
+    rank: Optional[int] = field(default=None, compare=False)
 
     @classmethod
-    def of(cls, shape: Tuple[int, ...], axes: Tuple[str, ...],
-           device_mesh: Any = None) -> "MeshSpec":
+    def of(cls, shape: Tuple[int, ...], axes: Tuple[str, ...]
+           ) -> "MeshSpec":
         if len(shape) != len(axes):
             raise ValueError(f"mesh shape {shape} and axes {axes} differ "
                              f"in length")
-        return cls(tuple(axes), dict(zip(axes, shape)), device_mesh)
+        return cls(tuple(axes), dict(zip(axes, shape)))
+
+    def size(self, axes) -> int:
+        return math.prod(self.shape.get(a, 1) for a in axes)
+
+    def axis(self, name: str) -> Optional[Axis]:
+        """The process group over ``name``'s axes (``"data"``: every data
+        axis, flattened row-major; ``"model"``; ``"world"``) on an
+        executing mesh; None on a description whose axes are all of size
+        1.  A description with such an axis above 1 raises: it has no
+        process group to reduce over, and a step on it is not the step of
+        one process."""
+        axes = {"data": data_axes_of(self.axis_names),
+                "model": tuple(a for a in self.axis_names if a == "model"),
+                "world": self.axis_names}[name]
+        if self.groups is None:
+            if self.size(axes) > 1:
+                raise RuntimeError(
+                    f"the mesh {dict(self.shape)} has no process group "
+                    f"over {axes} (size {self.size(axes)}): build it with "
+                    f"make_mesh under an initialized torch.distributed")
+            return None
+        return self.groups[name]
 
     def data_group(self):
-        """The process group over the data axis of an executing mesh, which
-        a data-parallel step's reductions run over; None on a mesh without
-        ranks (the one-device description)."""
-        if self.device_mesh is None:
-            return None
-        daxes = data_axes_of(self.axis_names)
-        if len(daxes) != 1:
-            raise NotImplementedError(
-                f"a data-parallel step over the axes {daxes}: the train CLI "
-                f"runs on one ('data',) axis")
-        return self.device_mesh.get_group(daxes[0])
+        """The process group over the data axes of an executing mesh, which
+        the step's data reductions run over; None on a description of
+        size 1 (see :meth:`axis`)."""
+        ax = self.axis("data")
+        return None if ax is None else ax.group
+
+    def model_group(self):
+        """The process group over the model axis, as :meth:`data_group`."""
+        ax = self.axis("model")
+        return None if ax is None else ax.group
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
@@ -62,13 +88,13 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
     return MeshSpec.of((16, 16), ("data", "model"))
 
 
-def make_mesh(cfg: MeshConfig, device_type: Optional[str] = None
-              ) -> MeshSpec:
-    """The mesh of ``cfg`` over the ranks of the process group, built with
-    ``init_device_mesh`` on ``device_type`` (``"cuda"`` unless given);
-    without a process group, the one-device description.  Raises when the
-    mesh's device count differs from the ranks (or, without a group, from
-    one)."""
+def make_mesh(cfg: MeshConfig) -> MeshSpec:
+    """The mesh of ``cfg`` over the ranks of the process group (rank ``r``
+    at :func:`coords_of`), with a process group over its data axes and
+    one over its model axis for each rank (``dist.new_group``, every rank
+    creating every group in the same order); without a process group, the
+    one-device description.  Raises when the mesh's device count differs
+    from the ranks (or, without a group, from one)."""
     import torch.distributed as dist
 
     n = cfg.num_devices
@@ -82,11 +108,38 @@ def make_mesh(cfg: MeshConfig, device_type: Optional[str] = None
     if world != n:
         raise RuntimeError(f"mesh {cfg.shape} needs {n} devices, the "
                            f"process group has {world}")
-    from torch.distributed.device_mesh import init_device_mesh
+    desc = MeshSpec.of(cfg.shape, cfg.axes)
+    rank = dist.get_rank()
+    daxes = data_axes_of(desc.axis_names)
+    groups = {"data": _axis_group(desc, daxes, rank),
+              "model": _axis_group(desc, ("model",) if "model" in
+                                   desc.axis_names else (), rank),
+              "world": Axis(dist.group.WORLD, ",".join(desc.axis_names),
+                            world, rank)}
+    return MeshSpec(desc.axis_names, desc.shape, groups, rank)
 
-    dm = init_device_mesh(device_type or "cuda", tuple(cfg.shape),
-                          mesh_dim_names=tuple(cfg.axes))
-    return MeshSpec.of(cfg.shape, cfg.axes, dm)
+
+def _axis_group(mesh: MeshSpec, axes: Tuple[str, ...], rank: int) -> Axis:
+    """This rank's group over ``axes``: the ranks whose other coordinates
+    are its own, in row-major order over ``axes``.  Every rank creates the
+    group of every coordinate of the other axes, in the same order, as
+    ``dist.new_group`` requires."""
+    import itertools
+
+    import torch.distributed as dist
+
+    others = [a for a in mesh.axis_names if a not in axes]
+    world = mesh.size(mesh.axis_names)
+    found = None
+    for fixed in itertools.product(*(range(mesh.shape[a]) for a in others)):
+        ranks = [r for r in range(world)
+                 if all(coords_of(r, mesh)[a] == c
+                        for a, c in zip(others, fixed))]
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            found = Axis(group, ",".join(axes) or "none", len(ranks),
+                         ranks.index(rank))
+    return found
 
 
 def _placements(specs, mesh: MeshSpec):

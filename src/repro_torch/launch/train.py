@@ -27,15 +27,22 @@ every device of a data mesh:
         -m repro_torch.launch.train --arch llama3.2-1b --steps 50
 
 The process group is NCCL on the GPU and gloo with ``--device cpu``; the
-rendezvous is on this host.  The run goes on a ``("data",)`` mesh of the
-world size (:func:`~repro_torch.runtime.elastic.adjust_run_for_devices`,
-:func:`~repro_torch.launch.mesh.make_mesh`) with ``ParallelConfig()``, so
-every parameter is replicated; rank ``r`` steps on rows ``[r B/N,
-(r+1) B/N)`` of the global batch of ``make_data(..., num_shards=1)``,
-and the step sums the loss's statistics and the gradients over the ranks
-(:func:`~repro_torch.train.train_step.make_train_step`'s ``mesh``), so
-every rank computes what one process computes on the whole batch.  Rank 0
-writes the checkpoints; every rank restores.
+rendezvous is on this host.  The CLI trains with ``ParallelConfig()``, so
+its run goes on a ``("data", "model")`` mesh of the world size with a
+model axis of 1 (:func:`data_parallel`) and every parameter is
+replicated.  :func:`drive` and :func:`train` take a run's
+``ParallelConfig`` (tp, fsdp, ``moe_expert_axis``): the mesh keeps
+``run.parallel.tp`` (:func:`~repro_torch.runtime.elastic.
+adjust_run_for_devices`), or is ``run.mesh`` itself when that matches the
+world (the ``("pod", "data", "model")`` mesh), and each rank holds its
+blocks of the state under the rules' placements.  The ranks of data
+coordinate ``d`` of ``D`` step on rows ``[d B/D, (d+1) B/D)`` of the
+global batch of ``make_data(..., num_shards=1)``, and the step
+(:func:`~repro_torch.train.train_step.make_train_step`'s ``mesh``) sums
+what the ranks share, so every rank computes what one process computes on
+the whole batch.  Rank 0 writes the checkpoints (each leaf gathered
+whole, the reference's layout); every rank restores its blocks
+(:func:`~repro_torch.runtime.elastic.remesh_state`).
 
 :func:`train` is the in-process loop without the driver that
 ``chip_smoke.py`` uses for per-step losses and times; it takes any config
@@ -69,7 +76,7 @@ from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.tune import measure_backend_arg, tune_launch_config
 from repro_torch.models.model import build_model
 from repro_torch.runtime.driver import FaultInjector, TrainDriver
-from repro_torch.runtime.elastic import adjust_run_for_devices
+from repro_torch.runtime.elastic import adjust_run_for_devices, remesh_state
 from repro_torch.train.optimizer import make_optimizer
 from repro_torch.train.train_step import (TrainState, init_train_state,
                                           make_train_step,
@@ -77,6 +84,7 @@ from repro_torch.train.train_step import (TrainState, init_train_state,
 from repro_torch.utils.config import (MeshConfig, ModelConfig, ParallelConfig,
                                       RunConfig, ShapeConfig, TrainConfig)
 from repro_torch.utils.device import DeviceLike, resolve_device, synchronize
+from repro_torch.utils.trees import tree_map
 from repro_torch.utils.logging import MetricsLogger
 
 #: the CLI's checkpoint directory unless ``--ckpt-dir`` names one
@@ -91,13 +99,16 @@ class TrainResult:
     losses: List[float] = field(default_factory=list)
     grad_norms: List[float] = field(default_factory=list)
     step_s: List[float] = field(default_factory=list)  # host wall, synced
-    state: object = None
+    state: object = None  # this rank's blocks on a sharded mesh
+    mesh: object = None
 
 
 def make_run(cfg: ModelConfig, *, seq: int, batch: int, steps: int,
-             checkpoint_dir: str = DEFAULT_CKPT_DIR) -> RunConfig:
+             checkpoint_dir: str = DEFAULT_CKPT_DIR,
+             parallel: Optional[ParallelConfig] = None) -> RunConfig:
     """The reference CLI's run of a chosen global ``batch`` and ``seq``:
-    one data shard, ``ParallelConfig()``, ``TrainConfig(lr=1e-3,
+    one data shard, ``parallel`` (``ParallelConfig()`` unless given),
+    ``TrainConfig(lr=1e-3,
     warmup_steps=10, total_steps=steps)``, a checkpoint every 25 steps
     into ``checkpoint_dir`` and a log line every 5.  (The run of an
     assigned shape cell on the production mesh is
@@ -106,7 +117,7 @@ def make_run(cfg: ModelConfig, *, seq: int, batch: int, steps: int,
         model=cfg,
         shape=ShapeConfig("train_cli", seq, batch, "train"),
         mesh=MeshConfig(shape=(1,), axes=("data",)),
-        parallel=ParallelConfig(),
+        parallel=parallel or ParallelConfig(),
         train=TrainConfig(lr=1e-3, warmup_steps=10, total_steps=steps),
         checkpoint_dir=checkpoint_dir, checkpoint_every=25, log_every=5)
 
@@ -129,23 +140,25 @@ class RankRows:
 
 
 def data_parallel(run: RunConfig, device: torch.device):
-    """``(run, mesh)`` of ``run`` over the ranks of the process group: the
-    reference CLI's ``("data",)`` mesh of the world size through
-    :func:`adjust_run_for_devices`, and the mesh built on ``device``'s
-    type (its ``data_group()`` the group the step reduces over); without
-    a process group ``run`` itself on the one-device mesh."""
+    """``(run, mesh)`` of ``run`` over the ranks of the process group:
+    ``run.mesh`` when it has as many devices as the world, else the
+    reference's placement through :func:`adjust_run_for_devices` (a
+    ``("data", "model")`` mesh keeping ``run.parallel.tp``), and the mesh
+    with its process groups (:func:`make_mesh`); without a process group
+    ``run`` itself on the one-device mesh."""
     if not dist.is_initialized():
+        run.validate()
         return run, make_mesh(run.mesh)
     world = dist.get_world_size()
-    run = run.replace(mesh=MeshConfig(shape=(world,), axes=("data",)))
-    if world > 1:
+    if run.mesh.num_devices != world:
         run = adjust_run_for_devices(run, world)
     run.validate()
-    return run, make_mesh(run.mesh, device.type)
+    return run, make_mesh(run.mesh)
 
 
 def rank_rows(data: SyntheticLMData, group):
-    """``data`` itself without a group; this rank's rows with one."""
+    """``data`` itself without a group; with the data axes' group, the rows
+    of this rank's data coordinate (its rank in the group)."""
     if group is None:
         return data
     return RankRows(data, dist.get_rank(group), dist.get_world_size(group))
@@ -155,24 +168,35 @@ def train(cfg: ModelConfig, *, steps: int, seq: int, batch: int,
           device: DeviceLike = None, seed: int = 0,
           log: Optional[Callable] = None,
           launch_config: Optional[Dict[str, Any]] = None,
-          params: Optional[Dict] = None) -> TrainResult:
+          params: Optional[Dict] = None,
+          run: Optional[RunConfig] = None) -> TrainResult:
     """Train ``cfg`` for ``steps`` steps on the reference's synthetic data
-    (seed 0), from ``params`` or parameters drawn from ``seed``, the step
-    built with ``launch_config`` (a tuned ``family.param`` config); when a
-    process group is up, data-parallel over its ranks, ``batch`` the global
-    batch.  Each step is timed on the host around a device synchronize."""
-    run = make_run(cfg, seq=seq, batch=batch, steps=steps)
-    run.validate()
+    (seed 0), from ``params`` (whole) or parameters drawn from ``seed``,
+    the step built with ``launch_config`` (a tuned ``family.param``
+    config).  ``run`` (default: :func:`make_run`) gives the placements and
+    the optimizer, and must be of ``cfg``, ``seq`` and ``batch``.  When a
+    process group is up, sharded over its ranks (:func:`data_parallel`),
+    ``batch`` the global batch.  Each step is timed on the host around a
+    device synchronize."""
+    if run is None:
+        run = make_run(cfg, seq=seq, batch=batch, steps=steps)
+    elif (run.model, run.shape.seq_len, run.shape.global_batch) != (
+            cfg, seq, batch):
+        raise ValueError(
+            f"train: the run is of {run.model.name} at "
+            f"{run.shape.global_batch} x {run.shape.seq_len}, the call of "
+            f"{cfg.name} at {batch} x {seq}")
     model = build_model(cfg, run.parallel, device=device)
     run, mesh = data_parallel(run, model.device)
     group = mesh.data_group()
     optimizer = make_optimizer(run.train)
     step_fn = make_train_step(model, run, optimizer,
                               launch_config=launch_config, mesh=mesh)
-    state = init_train_state(model, run, optimizer, seed=seed, params=params)
+    state = init_train_state(model, run, optimizer, seed=seed, params=params,
+                             mesh=mesh)
     del params  # the masters are their copy in the param dtype
     data = rank_rows(make_data(cfg, run.shape, seed=0), group)
-    out = TrainResult(run)
+    out = TrainResult(run, mesh=mesh)
     for i in range(steps):
         batch_np = data.batch_at(i)
         # repro: ignore[wall-clock] -- train-CLI step time, as the reference's driver logs it
@@ -190,41 +214,74 @@ def train(cfg: ModelConfig, *, steps: int, seq: int, batch: int,
 
 
 class RankZeroCheckpoints:
-    """The driver's checkpoints under data parallelism, over ``ckpt``:
-    every rank holds the same state, so rank 0 alone writes, after a
-    barrier; every rank restores.  ``wait`` ends in a barrier once rank
-    0's write has committed, and ``latest_step`` checks that every rank
-    sees rank 0's restart point."""
+    """The driver's checkpoints over the ranks of ``mesh``, in the
+    reference's layout of whole leaves: a save gathers each leaf's blocks
+    (``train_state_specs`` of ``run``), and rank 0 alone copies them to
+    the host and writes, after a barrier; every rank restores its blocks
+    through :func:`~repro_torch.runtime.elastic.remesh_state`.  ``wait``
+    ends in a barrier once rank 0's write has committed, and
+    ``latest_step`` checks that every rank sees rank 0's restart point."""
 
-    def __init__(self, ckpt: CheckpointManager, group, device: torch.device):
-        self.ckpt, self.group, self.device = ckpt, group, device
-        self.rank = dist.get_rank(group)
+    def __init__(self, ckpt: CheckpointManager, mesh, run: RunConfig,
+                 device: torch.device):
+        self.ckpt, self.mesh, self.run, self.device = ckpt, mesh, run, device
+        self.rank = mesh.rank
 
     def save(self, step: int, tree: Any, extra: Optional[Dict] = None,
              blocking: bool = False) -> None:
-        dist.barrier(group=self.group)
-        if self.rank == 0:
-            self.ckpt.save(step, tree, extra=extra, blocking=blocking)
+        if self.rank == 0:  # the last write ends before the next copy
+            self.ckpt.wait()
+        dist.barrier()
+        whole = gather_state(tree, self.run, self.mesh, host=self.rank == 0)
+        if self.rank == 0:  # the gather's host copies are the snapshot
+            self.ckpt.save(step, whole, extra=extra, blocking=blocking,
+                           copied=True)
 
     def wait(self) -> None:
         if self.rank == 0:
             self.ckpt.wait()
-        dist.barrier(group=self.group)
+        dist.barrier()
 
     def latest_step(self) -> Optional[int]:
         latest = self.ckpt.latest_step()
         mine = torch.tensor([-1 if latest is None else latest],
                             dtype=torch.int64, device=self.device)
         first = mine.clone()
-        dist.broadcast(first, src=dist.get_global_rank(self.group, 0),
-                       group=self.group)
+        dist.broadcast(first, src=0)
         if int(first) != int(mine):
             raise RuntimeError(f"rank {self.rank} restarts from step "
                                f"{latest}, rank 0 from {int(first)}")
         return latest
 
     def restore(self, step: int, template: Any, device: DeviceLike = None):
-        return self.ckpt.restore(step, template, device=device)
+        return remesh_state(self.ckpt, step, template, self.run, self.mesh,
+                            rank=self.rank, device=device)
+
+
+def gather_state(state: TrainState, run: RunConfig, mesh,
+                 host: bool = True) -> TrainState:
+    """The whole train state from every rank's blocks under the
+    placements of ``run`` on ``mesh`` (``train_state_specs``): each leaf
+    that an axis splits all-gathered on its device, and with ``host`` every
+    leaf copied to the host before the next, one host copy a leaf that
+    nothing else holds (without ``host`` the rank takes part in the
+    gathers and keeps nothing)."""
+    from repro_torch.sharding.layout import Layout
+    from repro_torch.sharding.specs import train_state_specs
+
+    meta = build_model(run.model, run.parallel, device="meta")
+    specs = train_state_specs(
+        train_state_template(meta, run, make_optimizer(run.train)),
+        run.model, run.parallel, mesh)
+    layout = Layout({}, mesh)
+
+    def one(leaf, spec):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        whole = layout.gather_whole(leaf, spec)
+        return whole.to("cpu", copy=True) if host else None
+
+    return tree_map(one, state, specs)
 
 
 def drive(run: RunConfig, *, device: DeviceLike = None,
@@ -233,8 +290,9 @@ def drive(run: RunConfig, *, device: DeviceLike = None,
           name: Optional[str] = None) -> TrainState:
     """Train ``run`` for ``run.train.total_steps`` steps through the
     fault-tolerant driver, checkpointing into ``run.checkpoint_dir``
-    (resuming from its latest checkpoint), data-parallel over the process
-    group when one is up; the final state."""
+    (resuming from its latest checkpoint), sharded over the process group
+    under ``run.parallel``'s placements when one is up (see
+    :func:`data_parallel`); the final state (this rank's blocks)."""
     cfg = run.model
     model = build_model(cfg, run.parallel, device=device)
     run, mesh = data_parallel(run, model.device)
@@ -243,14 +301,15 @@ def drive(run: RunConfig, *, device: DeviceLike = None,
     step_fn = make_train_step(model, run, optimizer,
                               launch_config=launch_config, mesh=mesh)
     ckpt = CheckpointManager(run.checkpoint_dir, keep=run.keep_checkpoints)
-    if group is not None:
-        ckpt = RankZeroCheckpoints(ckpt, group, model.device)
+    if mesh.groups is not None:
+        ckpt = RankZeroCheckpoints(ckpt, mesh, run, model.device)
     name = name or f"train-{cfg.name}"
-    if group is not None and dist.get_world_size(group) > 1:
-        name = f"{name}-rank{dist.get_rank(group)}"
+    if mesh.groups is not None and dist.get_world_size() > 1:
+        name = f"{name}-rank{mesh.rank}"
 
     def init_state():
-        return init_train_state(model, run, optimizer, seed=run.train.seed)
+        return init_train_state(model, run, optimizer, seed=run.train.seed,
+                                mesh=mesh)
 
     with MetricsLogger(name=name) as logger:
         driver = TrainDriver(

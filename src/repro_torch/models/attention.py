@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dense_init, mm
+from repro_torch.sharding.layout import LOCAL, Scope
 from repro_torch.utils.config import ModelConfig, ParallelConfig
 
 
@@ -92,12 +93,21 @@ def apply_gqa(
     positions: torch.Tensor,  # (S,) at prefill, (B, 1) at decode
     cache=None,
     decode: bool = False,
+    sc: Scope = LOCAL,
 ):
+    """Under a model split of ``wq`` / ``wk`` / ``wv`` (columns) and ``wo``
+    (rows) each rank attends with its query and KV heads (``sc``)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
-    k = (x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+    heads, kv_heads = _local_heads(
+        sc, ("wq", "wk", "wv", "wo"),
+        (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads, cfg.num_heads),
+        hd)
+    if heads != cfg.num_heads:
+        x = sc.enter(x)
+    q = (x @ p["wq"]).reshape(b, s, heads, hd)
+    k = (x @ p["wk"]).reshape(b, s, kv_heads, hd)
+    v = (x @ p["wv"]).reshape(b, s, kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -167,8 +177,27 @@ def apply_gqa(
                 cache.k.copy_(k[:, tok])
                 cache.v.copy_(v[:, tok])
             new_cache = KVCache(cache.k, cache.v, cache.length + s)
-    out = o.reshape(b, s, cfg.num_heads * hd) @ p["wo"]
-    return out, new_cache
+    out = o.reshape(b, s, heads * hd) @ p["wo"]
+    return (sc.leave(out) if heads != cfg.num_heads else out), new_cache
+
+
+def _local_heads(sc: Scope, names, heads, width: int):
+    """The heads this model rank computes of each weight in ``names``
+    (``heads[i]`` of ``width`` each; the last weight row-split, the others
+    column-split): all of them when no weight is split, a 1/tp share of
+    each when every one is.  A split that cuts through a head, or splits
+    some of them only, raises with the shapes."""
+    dims = [sc.model_dim(n) for n in names]
+    if all(d is None for d in dims):
+        return heads[0], heads[1]
+    tp = sc.model.size
+    want = [1] * (len(names) - 1) + [0]
+    if dims != want or any(h % tp for h in heads):
+        raise ValueError(
+            f"attention at {sc.prefix}: {list(zip(names, heads))} heads of "
+            f"{width} split on dims {dims} over {tp} model ranks: a split "
+            f"must give every rank whole heads of every weight")
+    return heads[0] // tp, heads[1] // tp
 
 
 def _scatter_time_(cache: torch.Tensor, new: torch.Tensor,
@@ -254,6 +283,7 @@ def apply_mla(
     positions: torch.Tensor,  # (S,) at prefill, (B, 1) at decode
     cache=None,
     decode: bool = False,
+    sc: Scope = LOCAL,
 ):
     """Prefill: the full keys and values are expanded from the latent and
     attended by ``ops.flash_attention`` with q/k of width ``dn + dr`` and
@@ -261,18 +291,28 @@ def apply_mla(
     0.  Decode: the reference's absorbed attention over the compressed
     cache (``q_nope . W_uk`` against ``c_kv``, ``q_pe`` against ``k_pe``,
     ``o_lat . W_uv``) in plain PyTorch, as the reference has no kernel for
-    it; the new row is written in place."""
+    it; the new row is written in place.
+
+    Under a model split of the head projections (``w_uq`` / ``w_uk`` /
+    ``w_uv`` by head, ``wo`` by rows) each rank computes its heads from
+    the latents every rank holds whole: ``c_q``, ``c_kv`` and the rope
+    key enter the split heads through ``sc.enter``, so the gradients of
+    ``w_dq`` and ``w_dkv`` sum every head's share."""
     b, s, _ = x.shape
-    h, dn, dr, dv = (cfg.num_heads, cfg.qk_nope_head_dim,
-                     cfg.qk_rope_head_dim, cfg.v_head_dim)
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    h, _ = _local_heads(sc, ("w_uq", "w_uk", "w_uv", "wo"),
+                        (cfg.num_heads,) * 4, dn + dr)
+    split = h != cfg.num_heads
+    enter = sc.enter if split else (lambda t: t)
     rank = cfg.kv_lora_rank
 
-    q = ((x @ p["w_dq"]) @ p["w_uq"]).reshape(b, s, h, dn + dr)
+    q = (enter(x @ p["w_dq"]) @ p["w_uq"]).reshape(b, s, h, dn + dr)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
 
     ckv_full = x @ p["w_dkv"]
-    c_kv, k_pe_flat = ckv_full[..., :rank], ckv_full[..., rank:]
+    c_kv, k_pe_flat = (enter(ckv_full[..., :rank]),
+                       enter(ckv_full[..., rank:]))
     k_pe = apply_rope(k_pe_flat[:, :, None, :], positions,
                       cfg.rope_theta)[:, :, 0, :]
 
@@ -309,7 +349,7 @@ def apply_mla(
             cache.k_pe[:, :s] = k_pe
             new_cache = MLACache(cache.c_kv, cache.k_pe, cache.length + s)
     out = o.reshape(b, s, h * dv) @ p["wo"]
-    return out, new_cache
+    return (sc.leave(out) if split else out), new_cache
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,

@@ -10,6 +10,14 @@ apply functions take (params, activations).  Weights keep the reference's
 ``jax.random`` cannot be reproduced; parity tests import the reference's
 parameters instead (:mod:`repro_torch.models.interop`).  ``lead`` prepends
 axes (the stacked layer axis) to a parameter's shape.
+
+Tensor parallelism: the apply functions take a
+:class:`~repro_torch.sharding.layout.Scope` (``sc``; the unsharded model
+by default), which says per weight which dim the model axis splits.  A
+column-split product takes its input through ``sc.enter`` (the input
+gradient's partial sums all-reduced), a row-split one gives partial sums
+that ``sc.leave`` all-reduces; the embedding and the head split the
+vocab.
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.sharding import collectives
+from repro_torch.sharding.layout import LOCAL, Scope
 
 
 def _trunc_normal(shape: Tuple[int, ...], gen: Optional[torch.Generator],
@@ -112,14 +122,27 @@ def init_mlp(gen, d_model: int, d_ff: int, mlp_type: str, dtype, device,
     }
 
 
-def apply_mlp(p: Dict, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+def apply_mlp(p: Dict, x: torch.Tensor, mlp_type: str,
+              sc: Scope = LOCAL, reduce: bool = True) -> torch.Tensor:
+    """The MLP of ``x``; under a model split of ``w_up`` (column) and
+    ``w_down`` (row) the hidden width is this rank's, and with ``reduce``
+    False the caller takes ``x`` through ``sc.enter`` and the partial
+    output through ``sc.leave`` itself."""
+    split = sc.model_dim("w_up") == 1
+    if split != (sc.model_dim("w_down") == 0):
+        raise ValueError(f"mlp at {sc.prefix}: w_up split on "
+                         f"{sc.model_dim('w_up')}, w_down on "
+                         f"{sc.model_dim('w_down')}")
+    if split and reduce:
+        x = sc.enter(x)
     if mlp_type == "swiglu":
         h = F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"])
     elif mlp_type == "relu2":
         h = torch.square(F.relu(mm(x, p["w_up"])))
     else:  # gelu — jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(mm(x, p["w_up"]), approximate="tanh")
-    return mm(h, p["w_down"])
+    out = mm(h, p["w_down"])
+    return sc.leave(out) if split and reduce else out
 
 
 # -- Embedding + LM head ---------------------------------------------------
@@ -141,12 +164,31 @@ def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
     return torch.tensor(math.sqrt(d_model), dtype=dtype).item()
 
 
-def embed_tokens(p: Dict, tokens: torch.Tensor, d_model: int) -> torch.Tensor:
+def embed_tokens(p: Dict, tokens: torch.Tensor, d_model: int,
+                 sc: Scope = LOCAL) -> torch.Tensor:
+    """The scaled embedding rows of ``tokens``.  With the vocab split over
+    the model axis each rank looks up the tokens its rows hold (the
+    others give zeros) and the rows are all-reduced."""
     emb = p["embedding"]
-    return F.embedding(tokens, emb) * _embed_scale(d_model, emb.dtype)
+    scale = _embed_scale(d_model, emb.dtype)
+    if sc.model_dim("embedding") != 0:
+        return F.embedding(tokens, emb) * scale
+    rows = emb.shape[0]
+    local = tokens - sc.model.rank * rows
+    inside = ((local >= 0) & (local < rows))[..., None]
+    e = F.embedding(local.clamp(0, rows - 1), emb) * scale
+    return sc.leave(torch.where(inside, e, torch.zeros_like(e)))
 
 
-def lm_logits(p: Dict, h: torch.Tensor) -> torch.Tensor:
+def lm_logits(p: Dict, h: torch.Tensor, sc: Scope = LOCAL) -> torch.Tensor:
+    """Logits of ``h``; with the vocab split over the model axis, the
+    rank's vocab block all-gathered (its gradient sliced back: every model
+    rank computes the loss of the whole logits)."""
     if "lm_head" in p:
-        return h @ p["lm_head"]
-    return h @ p["embedding"].T
+        w, split = p["lm_head"], sc.model_dim("lm_head") == 1
+    else:
+        w, split = p["embedding"].T, sc.model_dim("embedding") == 0
+    if not split:
+        return h @ w
+    return collectives.gather(sc.enter(h) @ w, sc.model, -1,
+                              backward="slice")

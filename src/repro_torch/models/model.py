@@ -70,10 +70,10 @@ def build_model(cfg: ModelConfig, par: Optional[ParallelConfig] = None, *,
 
     if cfg.family == "audio":
         def forward(params, tokens, *, frames=None, decode_state=None,
-                    decode=False, positions=None, mesh=None, **kw):
+                    decode=False, positions=None, layout=None, **kw):
             enc_out = encdec.encode(params, cfg, par, frames)
-            if mesh is not None:
-                enc_out = activation_sharding(enc_out, par, mesh)
+            if layout is not None:
+                enc_out = activation_sharding(enc_out, par, layout.mesh)
             logits, state = encdec.decode_forward(
                 params, cfg, par, tokens, enc_out, positions=positions,
                 decode_state=decode_state, decode=decode)
@@ -87,12 +87,12 @@ def build_model(cfg: ModelConfig, par: Optional[ParallelConfig] = None, *,
         return Model(cfg, init, forward, init_state, None, dev)
 
     def forward(params, tokens, *, vision_embeds=None, decode_state=None,
-                decode=False, positions=None, return_hidden=False, mesh=None,
-                **kw):
+                decode=False, positions=None, return_hidden=False,
+                layout=None, **kw):
         return transformer.forward(
             params, cfg, par, tokens, positions=positions,
             vision_embeds=vision_embeds, decode_state=decode_state,
-            decode=decode, return_hidden=return_hidden, mesh=mesh)
+            decode=decode, return_hidden=return_hidden, layout=layout)
 
     def init_state(batch, max_len):
         return transformer.init_decode_state(cfg, batch, max_len, dtype, dev)

@@ -17,11 +17,24 @@ The step is graph-safe: the one-hot masks are comparisons with an
 ``arange`` (no ``F.one_hot``, which reads its input's range on the host),
 and the capacity and group size come from shapes alone.
 
-In a data-parallel train step (``apply_moe``'s ``group``) each rank routes
-its own tokens, in the routing groups one process would form over the
-whole batch, and the aux loss's mean router probabilities and expert loads
-are averaged over the ranks (with autograd) before their product, as
-they are means over the global batch in the reference.
+In a sharded train step (``apply_moe``'s ``sc``, a
+:class:`~repro_torch.sharding.layout.Scope`) each data rank routes its own
+tokens, in the routing groups one process would form over the whole
+batch, and the aux loss's mean router probabilities and expert loads are
+averaged over the data ranks (with autograd) before their product, as
+they are means over the global batch in the reference.  The expert dim of
+the expert weights says where the experts run:
+
+- split over the model axis (``moe_expert_axis="model"``): every model
+  rank routes the same tokens and runs its experts on them; the tokens
+  and the gate weights enter the split (``sc.enter``) and the partial
+  combine (with the shared expert's, when its hidden width is split too)
+  is all-reduced;
+- split over the data axes (``"data"``): the ``(G, E, C, D)`` dispatch
+  goes to the experts' ranks by an all-to-all, and the experts' outputs
+  come back by a second one (the backward's two run the other way);
+  under a model split of the experts' hidden width the experts are
+  column / row products as the dense MLP's.
 """
 
 from __future__ import annotations
@@ -32,6 +45,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import apply_mlp, dense_init, init_mlp
+from repro_torch.sharding import collectives
+from repro_torch.sharding.layout import LOCAL, Scope
 from repro_torch.utils.config import ModelConfig
 
 #: experts drawn at a time by :func:`_stack_init`, so the fp32 draw of a
@@ -133,28 +148,25 @@ def route(p: Dict, tokens: torch.Tensor, k: int, router_mode: str
 
 def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor,
               router_mode: str = "softmax", group_size: int = 512,
-              dropless: bool = False, group=None
+              dropless: bool = False, sc: Scope = LOCAL
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D).  Returns (out, aux_loss).
 
     ``dropless`` forces capacity = group size (no token dropped), as on
-    the decode path.  With ``group`` (a data-parallel process group) ``x``
-    is this rank's share of the group's batch."""
+    the decode path.  Under a sharded step (``sc`` with data ranks) ``x``
+    is this data rank's share of the global batch."""
     b, s, d = x.shape
     e, k = cfg.moe_num_experts, cfg.moe_top_k
     t = b * s
     tg = _group_size(t, group_size)
-    world = 1
-    if group is not None:
-        import torch.distributed as dist
-
-        world = dist.get_world_size(group)
-        if _group_size(t * world, group_size) != tg:
-            raise ValueError(
-                f"{t} tokens a rank route in groups of {tg}, the batch of "
-                f"{world} ranks in groups of "
-                f"{_group_size(t * world, group_size)}: a rank's token "
-                f"count must be a multiple of the global routing group")
+    data = sc.data
+    world = data.size if data is not None else 1
+    if world > 1 and _group_size(t * world, group_size) != tg:
+        raise ValueError(
+            f"{t} tokens a rank route in groups of {tg}, the batch of "
+            f"{world} ranks in groups of "
+            f"{_group_size(t * world, group_size)}: a rank's token "
+            f"count must be a multiple of the global routing group")
     g = t // tg
     tokens = x.reshape(g, tg, d)
 
@@ -169,30 +181,62 @@ def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     slots = torch.arange(cap, device=x.device)
     slot = (pos[..., None] == slots).to(torch.float32)  # (G, Tg, k, C)
     mask = onehot.to(torch.float32) * keep[..., None].to(torch.float32)
+
+    model_experts = sc.model_dim("w_gate") == 0
+    data_experts = sc.data_dim("w_gate") == 0
+    shared_split = (cfg.moe_num_shared > 0
+                    and sc["shared"].model_dim("w_up") == 1)
+    xin = tokens
+    if model_experts:  # this model rank's experts, on every token
+        mask = sc.local(mask, -1, e)
+        xin, gate = sc.enter(tokens), sc.enter(gate)
+    elif shared_split:
+        xin = sc.enter(tokens)
     # (G, Tg, E, C) dispatch / combine tensors
     dispatch = torch.einsum("gtke,gtkc->gtec", mask, slot).to(x.dtype)
     combine = torch.einsum("gtke,gtkc,gtk->gtec", mask, slot,
                            gate.to(torch.float32))
 
     # route -> expert compute -> unroute
-    expert_in = torch.einsum("gtec,gtd->gecd", dispatch, tokens)
+    expert_in = torch.einsum("gtec,gtd->gecd", dispatch,
+                             xin if model_experts else tokens)
+    if data_experts:  # to the experts' ranks: (n, G, E/n, C, D)
+        expert_in = collectives.all_to_all(
+            expert_in.unflatten(1, (world, -1)).transpose(0, 1), data)
+        expert_in = expert_in.flatten(0, 1)  # (n G, E/n, C, D)
+    ffn_split = sc.model_dim("w_gate") == 2
+    if ffn_split:
+        expert_in = sc.enter(expert_in)
     h_gate = torch.einsum("gecd,edf->gecf", expert_in, p["w_gate"])
     h_up = torch.einsum("gecd,edf->gecf", expert_in, p["w_up"])
     h = F.silu(h_gate) * h_up
     expert_out = torch.einsum("gecf,efd->gecd", h, p["w_down"])
+    if ffn_split:
+        expert_out = sc.leave(expert_out)
+    if data_experts:  # back to the tokens' ranks: (G, E, C, D)
+        expert_out = collectives.all_to_all(
+            expert_out.unflatten(0, (world, -1)), data)
+        expert_out = expert_out.transpose(0, 1).flatten(1, 2)
     out = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), expert_out)
 
+    partial = model_experts  # ``out`` is this rank's experts' share
     if cfg.moe_num_shared > 0:
-        out = out + apply_mlp(p["shared"], tokens, "swiglu")
+        shared = apply_mlp(p["shared"], xin if shared_split else tokens,
+                           "swiglu", sc["shared"], reduce=False)
+        if shared_split == partial:  # one all-reduce sums both shares
+            out = out + shared
+        elif shared_split:
+            out = out + sc.leave(shared)
+        else:
+            out, partial = sc.leave(out) + shared, False
+    if partial:
+        out = sc.leave(out)
 
     # load-balance auxiliary loss (Switch-style): E * sum_e f_e * p_e
     me = torch.softmax(logits, dim=-1).mean(dim=(0, 1))  # mean router prob
     ce = onehot.to(torch.float32).sum(2).mean(dim=(0, 1)) / k
-    if group is not None:  # means over the global batch
-        from torch.distributed.nn.functional import all_reduce
-
-        me = all_reduce(me, group=group) / world
-        ce = all_reduce(ce, group=group) / world
+    if data is not None:  # means over the global batch
+        me = collectives.all_reduce(me, data) / world
+        ce = collectives.all_reduce(ce, data) / world
     aux = e * torch.sum(me * ce)
     return out.reshape(b, s, d), aux
-

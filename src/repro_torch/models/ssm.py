@@ -12,6 +12,15 @@ taps (:func:`_causal_conv_seq`): ``F.conv1d`` in fp32 would go through
 cuDNN, which computes in TF32 by default.  Initializers draw the
 reference's distributions from a ``torch.Generator`` (not the same
 numbers; parity tests import the reference's parameters).
+
+Tensor parallelism (a :class:`~repro_torch.sharding.layout.Scope`
+``sc``) splits ``d_inner`` — Mamba-1's channels, Mamba-2's heads — over
+the model axis: the scan and the SSD run on the rank's share.  What every
+rank computes whole and feeds the split channels (Mamba-1's ``w_bcdt``
+sums, Mamba-2's ``B`` / ``C`` / ``dt`` / ``A``) enters through
+``sc.enter`` or an all-reduce both ways, so the replicated weights'
+gradients sum every channel's share; Mamba-2's gated norm all-reduces its
+sums of squares over the whole ``d_inner``.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.layout import LOCAL, Scope
 from repro_torch.utils.config import ModelConfig
 
 
@@ -107,11 +117,30 @@ def init_mamba1(gen, cfg: ModelConfig, dtype, device,
     }
 
 
+def _split(sc: Scope, cols, rows, vecs) -> bool:
+    """Whether the model axis splits the mixer's channels: ``cols`` on
+    their last dim, ``rows`` on their first, ``vecs`` on their first, all
+    of them or none."""
+    dims = ([sc.model_dim(n) for n in cols], [sc.model_dim(n) for n in rows],
+            [sc.model_dim(n) for n in vecs])
+    whole = all(d is None for part in dims for d in part)
+    if whole:
+        return False
+    if dims != ([1] * len(cols), [0] * len(rows), [0] * len(vecs)):
+        raise ValueError(f"mixer at {sc.prefix}: {cols}, {rows}, {vecs} "
+                         f"split on {dims}: the channels split all or none")
+    return True
+
+
 def apply_mamba1(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                  state: Optional[MambaState] = None, decode: bool = False,
-                 return_state: bool = False
+                 return_state: bool = False, sc: Scope = LOCAL
                  ) -> Tuple[torch.Tensor, Optional[MambaState]]:
     n, rank = cfg.ssm_state, _dt_rank(cfg)
+    split = _split(sc, ("w_x", "w_z", "conv_w", "w_dt"),
+                   ("w_bcdt", "w_out", "A_log"), ("conv_b", "dt_bias", "D"))
+    if split:
+        x = sc.enter(x)
     xi = x @ p["w_x"]
     z = x @ p["w_z"]
     A = -torch.exp(p["A_log"])
@@ -122,17 +151,22 @@ def apply_mamba1(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                                             p["conv_w"], p["conv_b"])
         u = F.silu(y_t)  # (B, C)
         xdbc = u @ p["w_bcdt"]
+        if split:
+            xdbc = sc.all_reduce(xdbc)
         dt_low, Bc, Cc = (xdbc[..., :rank], xdbc[..., rank:rank + n],
                           xdbc[..., rank + n:])
         dt = F.softplus(dt_low @ p["w_dt"] + p["dt_bias"][None, :])
         ssm_state, y = ops.selective_scan_step(state.ssm, u, dt, A, Bc, Cc,
                                                p["D"])
         y = y * F.silu(z[:, 0])
-        return (y @ p["w_out"])[:, None, :], MambaState(conv_state,
-                                                        ssm_state)
+        out = y @ p["w_out"]
+        out = sc.leave(out) if split else out
+        return out[:, None, :], MambaState(conv_state, ssm_state)
 
     u = F.silu(_causal_conv_seq(xi, p["conv_w"], p["conv_b"]))
     xdbc = u @ p["w_bcdt"]
+    if split:  # partial sums over the channels; every consumer is split
+        xdbc = sc.all_reduce(xdbc)
     dt_low, Bc, Cc = (xdbc[..., :rank], xdbc[..., rank:rank + n],
                       xdbc[..., rank + n:])
     dt = F.softplus(dt_low @ p["w_dt"] + p["dt_bias"][None, None, :])
@@ -145,7 +179,8 @@ def apply_mamba1(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         y = ops.selective_scan(u, dt, A, Bc, Cc, p["D"], chunk=cfg.ssm_chunk)
     y = y * F.silu(z)
-    return y @ p["w_out"], new_state
+    out = y @ p["w_out"]
+    return (sc.leave(out) if split else out), new_state
 
 
 def init_mamba1_state(cfg: ModelConfig, batch: int, dtype, device,
@@ -199,16 +234,25 @@ def init_mamba2(gen, cfg: ModelConfig, dtype, device,
 
 def apply_mamba2(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                  state: Optional[MambaState] = None, decode: bool = False,
-                 return_state: bool = False
+                 return_state: bool = False, sc: Scope = LOCAL
                  ) -> Tuple[torch.Tensor, Optional[MambaState]]:
-    d_inner, heads, head_dim, g = _m2_dims(cfg)
+    d_whole, heads_whole, head_dim, g = _m2_dims(cfg)
     n = cfg.ssm_state
     b, s, _ = x.shape
-    z = x @ p["w_z"]
-    xi = x @ p["w_x"]
+    split = _split(sc, ("w_z", "w_x", "conv_x_w"), ("w_out",),
+                   ("conv_x_b", "dt_bias", "D", "norm_scale"))
+    xe = sc.enter(x) if split else x
+    z = xe @ p["w_z"]
+    xi = xe @ p["w_x"]
     bc = torch.cat([x @ p["w_B"], x @ p["w_C"]], dim=-1)
     dt_raw = x @ p["w_dtp"]
     A = -torch.exp(p["A_log"])
+    d_inner, heads = d_whole, heads_whole
+    if split:  # the heads of this rank; B / C enter below, after the conv
+        heads = p["D"].shape[-1]
+        d_inner = heads * head_dim
+        dt_raw = sc.local(sc.enter(dt_raw), -1, heads_whole)
+        A = sc.local(sc.enter(A), 0, heads_whole)
 
     if decode:
         assert state is not None and s == 1
@@ -224,12 +268,16 @@ def apply_mamba2(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         dt = F.softplus(dt_raw[:, 0] + p["dt_bias"][None, :])  # (B, H)
         ssm_state, y = ops.ssd_step(state.ssm, x_t, dt, A, Bt, Ct, p["D"])
         y = _gated_rmsnorm(y.reshape(b, d_inner), z[:, 0], p["norm_scale"],
-                           cfg.norm_eps)
-        return ((y @ p["w_out"])[:, None, :],
+                           cfg.norm_eps, sc if split else None, d_whole)
+        out = y @ p["w_out"]
+        out = sc.leave(out) if split else out
+        return (out[:, None, :],
                 MambaState(torch.cat([cs_x, cs_bc], -1), ssm_state))
 
     xs_ = F.silu(_causal_conv_seq(xi, p["conv_x_w"], p["conv_x_b"]))
     bcs = F.silu(_causal_conv_seq(bc, p["conv_bc_w"], p["conv_bc_b"]))
+    if split:
+        bcs = sc.enter(bcs)
     xs_ = xs_.reshape(b, s, heads, head_dim)
     Bs = bcs[..., :g * n].reshape(b, s, g, n)
     Cs = bcs[..., g * n:].reshape(b, s, g, n)
@@ -243,14 +291,23 @@ def apply_mamba2(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         y = ops.ssd(xs_, dt, A, Bs, Cs, p["D"], chunk=cfg.ssm_chunk)
     y = _gated_rmsnorm(y.reshape(b, s, d_inner), z, p["norm_scale"],
-                       cfg.norm_eps)
-    return y @ p["w_out"], new_state
+                       cfg.norm_eps, sc if split else None, d_whole)
+    out = y @ p["w_out"]
+    return (sc.leave(out) if split else out), new_state
 
 
 def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                   eps: float) -> torch.Tensor:
+                   eps: float, sc: Optional[Scope] = None,
+                   width: int = 0) -> torch.Tensor:
+    """The reference's norm over the whole ``d_inner``; with ``sc`` the
+    channels are this rank's share of ``width`` and the sums of squares
+    are all-reduced over the model axis."""
     yf = y.to(torch.float32) * F.silu(z.to(torch.float32))
-    var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+    if sc is None:
+        var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+    else:
+        var = sc.all_reduce(torch.sum(torch.square(yf), dim=-1,
+                                      keepdim=True)) / width
     return (yf * torch.rsqrt(var + eps)
             * scale.to(torch.float32)).to(y.dtype)
 

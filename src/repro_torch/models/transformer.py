@@ -46,6 +46,7 @@ from repro_torch.models.layers import (
     init_rmsnorm, lm_logits,
 )
 from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.sharding.layout import LOCAL, Scope
 from repro_torch.sharding.specs import activation_sharding
 from repro_torch.utils.config import ModelConfig, ParallelConfig
 
@@ -236,10 +237,12 @@ def _restack(cache, layers: List) -> Any:
 # --------------------------------------------------------------------------
 
 def _apply_sublayer(sub_p, cfg, par, kind, h, positions, shared_p,
-                    vision_kv, cache, decode, group=None):
+                    vision_kv, cache, decode, sc: Scope = LOCAL,
+                    shared_sc: Scope = LOCAL):
     """Returns (h, new_cache, aux): aux is a MoE layer's load-balance loss,
-    None for the other kinds (``group``: the data-parallel group its
-    statistics are averaged over).  ``cache`` may be present in decode (one
+    None for the other kinds (``sc``: the sublayer's scope, whose data
+    ranks its statistics are averaged over; ``shared_sc``: the hybrid's
+    shared block's).  ``cache`` may be present in decode (one
     token, the recurrent step) and in prefill (the whole prompt, filling
     the KV cache and computing the final recurrent state).  A ``cross``
     sublayer attends over ``vision_kv`` between its self-attention and its
@@ -250,14 +253,16 @@ def _apply_sublayer(sub_p, cfg, par, kind, h, positions, shared_p,
                                  apply_rmsnorm(sub_p["norm"], h, cfg.norm_eps),
                                  state=cache if decode else None,
                                  decode=decode,
-                                 return_state=use_cache and not decode)
+                                 return_state=use_cache and not decode,
+                                 sc=sc["mixer"])
         return h + y, st, None
     if kind in ("mamba2", "mamba2_shared_attn"):
         y, st = ssm.apply_mamba2(sub_p["mixer"], cfg,
                                  apply_rmsnorm(sub_p["norm"], h, cfg.norm_eps),
                                  state=cache["mixer"] if decode else None,
                                  decode=decode,
-                                 return_state=use_cache and not decode)
+                                 return_state=use_cache and not decode,
+                                 sc=sc["mixer"])
         h = h + y
         new_cache = {"mixer": st} if use_cache else None
         if kind == "mamba2_shared_attn":
@@ -265,12 +270,12 @@ def _apply_sublayer(sub_p, cfg, par, kind, h, positions, shared_p,
                 shared_p["attn"], cfg, par,
                 apply_rmsnorm(shared_p["norm"], h, cfg.norm_eps), positions,
                 cache=cache["shared_kv"] if use_cache else None,
-                decode=decode)
+                decode=decode, sc=shared_sc["attn"])
             h = h + y2
             h = h + apply_mlp(
                 shared_p["mlp"],
                 apply_rmsnorm(shared_p["mlp_norm"], h, cfg.norm_eps),
-                cfg.mlp_type)
+                cfg.mlp_type, shared_sc["mlp"])
             if use_cache:
                 new_cache["shared_kv"] = kv
         return h, new_cache, None
@@ -278,7 +283,7 @@ def _apply_sublayer(sub_p, cfg, par, kind, h, positions, shared_p,
     hn = apply_rmsnorm(sub_p["attn_norm"], h, cfg.norm_eps)
     apply_attn = attn.apply_mla if cfg.attn_type == "mla" else attn.apply_gqa
     y, kv = apply_attn(sub_p["attn"], cfg, par, hn, positions, cache=cache,
-                       decode=decode)
+                       decode=decode, sc=sc["attn"])
     h = h + y
     if kind == "cross":
         hc = apply_rmsnorm(sub_p["cross_norm"], h, cfg.norm_eps)
@@ -290,10 +295,10 @@ def _apply_sublayer(sub_p, cfg, par, kind, h, positions, shared_p,
         # dropless at decode: dropping a token would corrupt a live request
         y, aux = apply_moe(sub_p["moe"], cfg, hm, router_mode=cfg.moe_router,
                            group_size=par.moe_group_size, dropless=decode,
-                           group=group)
+                           sc=sc["moe"])
         h = h + y
     else:
-        h = h + apply_mlp(sub_p["mlp"], hm, cfg.mlp_type)
+        h = h + apply_mlp(sub_p["mlp"], hm, cfg.mlp_type, sc["mlp"])
     return h, kv, aux
 
 
@@ -319,25 +324,27 @@ def forward(
     decode_state: Optional[Dict] = None,
     decode: bool = False,
     return_hidden: bool = False,
-    mesh=None,
+    layout=None,
 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Returns (logits, new_decode_state, aux_loss).
 
-    ``mesh``: the mesh a data-parallel train step executes on
-    (:class:`~repro_torch.launch.mesh.MeshSpec`); the activations are held
-    to :func:`~repro_torch.sharding.specs.activation_sharding` where the
+    ``layout``: the :class:`~repro_torch.sharding.layout.Layout` a
+    sharded train step executes on, ``params`` this rank's blocks with
+    every leaf but the stacked ``blocks/`` ones already gathered over
+    FSDP (:meth:`Layout.gather`; the layers' slices are gathered here).
+    The activations are held to
+    :func:`~repro_torch.sharding.specs.activation_sharding` where the
     reference constrains them, and the MoE statistics are averaged over
-    its data group."""
+    its data ranks."""
     pat = block_pattern(cfg)
     nsb = num_superblocks(cfg)
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
-    h = embed_tokens(params["embed"], tokens, cfg.d_model)
-    group = None
-    if mesh is not None:
-        group = mesh.data_group()
-        h = activation_sharding(h, par, mesh)
+    top = Scope(layout)
+    h = embed_tokens(params["embed"], tokens, cfg.d_model, top["embed"])
+    if layout is not None:
+        h = activation_sharding(h, par, layout.mesh)
     shared_p = params.get("shared_attn")
     use_cache = decode_state is not None
     layers = _unstack(params["blocks"], nsb)
@@ -347,11 +354,15 @@ def forward(
         for i, kind in enumerate(pat):
             key = f"sub{i}"
             cache = _layer(decode_state[key], layer) if use_cache else None
-            h, nc, a = _apply_sublayer(layers[layer][key], cfg, par, kind, h,
-                                       positions, shared_p, vision_embeds,
-                                       cache, decode, group)
-            if mesh is not None:
-                h = activation_sharding(h, par, mesh)
+            sub_p = layers[layer][key]
+            if layout is not None:
+                sub_p = layout.gather(sub_p, f"blocks/{key}/")
+            h, nc, a = _apply_sublayer(
+                sub_p, cfg, par, kind, h, positions, shared_p, vision_embeds,
+                cache, decode, Scope(layout, f"blocks/{key}/", scanned=True),
+                top["shared_attn"])
+            if layout is not None:
+                h = activation_sharding(h, par, layout.mesh)
             if use_cache:
                 new_layers[key].append(nc)
             if a is not None:
@@ -364,7 +375,7 @@ def forward(
     h = apply_rmsnorm(params["final_norm"], h, cfg.norm_eps)
     if return_hidden:
         return h, new_state, aux
-    return lm_logits(params["embed"], h), new_state, aux
+    return lm_logits(params["embed"], h, top["embed"]), new_state, aux
 
 
 # --------------------------------------------------------------------------
@@ -373,14 +384,26 @@ def forward(
 
 def mtp_logits(params: Dict, cfg: ModelConfig, par: ParallelConfig,
                h: torch.Tensor, tokens: torch.Tensor,
-               positions: torch.Tensor, group=None) -> torch.Tensor:
+               positions: torch.Tensor, layout=None) -> torch.Tensor:
     """Predict token t+2 from hidden t combined with the embedding of token
-    t+1 (``tokens``); ``group`` as :func:`forward`'s mesh's data group."""
+    t+1 (``tokens``); ``layout`` as :func:`forward`'s.  ``mtp/proj`` is
+    column-split over the model axis by the rules, so under a split its
+    product is all-gathered back to the whole ``d_model``."""
+    from repro_torch.sharding import collectives
+
+    top = Scope(layout)
     mtp = params["mtp"]
-    emb_next = embed_tokens(params["embed"], tokens, cfg.d_model)
-    hh = torch.cat([h, emb_next], dim=-1) @ mtp["proj"]
+    emb_next = embed_tokens(params["embed"], tokens, cfg.d_model,
+                            top["embed"])
+    x = torch.cat([h, emb_next], dim=-1)
+    if top["mtp"].model_dim("proj") == 1:
+        sc = top["mtp"]
+        hh = collectives.gather(sc.enter(x) @ mtp["proj"], sc.model, -1,
+                                backward="slice")
+    else:
+        hh = x @ mtp["proj"]
     kind = "moe" if "moe" in mtp["block"] else "dense"
     hh, _, _ = _apply_sublayer(mtp["block"], cfg, par, kind, hh, positions,
-                               None, None, None, False, group)
+                               None, None, None, False, top["mtp"]["block"])
     hh = apply_rmsnorm(mtp["norm"], hh, cfg.norm_eps)
-    return lm_logits(params["embed"], hh)
+    return lm_logits(params["embed"], hh, top["embed"])

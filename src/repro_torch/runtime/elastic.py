@@ -42,18 +42,16 @@ def remesh_state(ckpt, step: int, state_template: Any, run: RunConfig,
     blocks one rank holds under ``new_mesh``'s placements of ``run``'s
     rules: a tree like ``state_template`` (a ``TrainState`` of ``meta``
     tensors) whose tensors are that rank's local shards, on ``device``.
-    ``rank`` defaults to this process's rank in the mesh's process group,
-    and to 0 on a mesh without one; on a one-device mesh the blocks are
-    the whole state."""
-    import torch.distributed as dist
-
+    ``rank`` defaults to this process's rank on an executing mesh, and to
+    0 on a description; on a one-device mesh the blocks are the whole
+    state."""
     from repro_torch.launch.mesh import coords_of, local_shard
     from repro_torch.sharding.specs import train_state_specs
     from repro_torch.utils.device import resolve_device
     from repro_torch.utils.trees import tree_map
 
     if rank is None:
-        rank = (dist.get_rank() if new_mesh.device_mesh is not None else 0)
+        rank = new_mesh.rank if new_mesh.rank is not None else 0
     coords = coords_of(rank, new_mesh)
     dev = resolve_device(device)
     specs = train_state_specs(state_template, run.model, run.parallel,

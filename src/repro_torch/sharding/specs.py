@@ -92,20 +92,20 @@ def data_axes_of(mesh_axes: Tuple[str, ...]) -> Tuple[str, ...]:
 def activation_sharding(h, par: ParallelConfig, mesh):
     """The reference's constraint on (B, S, D) activations, on the mesh
     the forward executes on: batch over the data axes, sequence over
-    "model" under ``par.sp``.  When every rank holds its own batch rows
-    and the whole model (every axis but the data axes of size 1, no
-    ``sp``), the constraint is what the layout already is, and ``h`` is
-    returned as it is.  Any other axis above 1, or ``sp``, needs
-    tensor-parallel execution, which the port does not have: that
-    raises."""
+    "model" under ``par.sp``.  Without ``sp`` every rank of a data
+    coordinate holds its rows whole, over the data axes and the model axis
+    alike (the tensor-parallel products all-reduce back to that layout),
+    so the constraint is what the layout already is and ``h`` is returned
+    as it is.  ``sp``, and an axis above 1 that is not "pod", "data" or
+    "model", raise: sequence parallelism is not executed."""
     axes, sizes = _mesh_sizes(mesh)
-    split = {a: sizes[a] for a in axes
-             if a not in data_axes_of(axes) and sizes[a] > 1}
-    if split or par.sp:
+    other = {a: sizes[a] for a in axes
+             if a not in ("pod", "data", "model") and sizes[a] > 1}
+    if other or par.sp:
         raise NotImplementedError(
-            f"activation sharding over {split} (sp={par.sp}) needs "
-            f"tensor-parallel execution: ROADMAP queue 1, item 7 (sharded "
-            f"execution beyond data parallelism)")
+            f"activation sharding over {other} (sp={par.sp}) needs "
+            f"sequence-parallel execution: ROADMAP queue 1, item 7 "
+            f"(sequence parallelism)")
     return h
 
 

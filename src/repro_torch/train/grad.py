@@ -6,6 +6,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from repro_torch.sharding import collectives
 from repro_torch.utils.trees import tree_map
 
 
@@ -15,7 +16,8 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     """Token-level CE with optional z-loss.  logits (B, S, V), targets
     (B, S); a negative target is masked out.
 
-    With ``group`` (a data-parallel process group) the rows are this
+    With ``group`` (the data axes'
+    :class:`~repro_torch.sharding.collectives.Axis`) the rows are this
     rank's share of a global batch: the masked sums and the mask's count
     are summed over the group, the returned loss is this rank's share of
     the global mean (its sum over the global count; the shares add up to
@@ -48,14 +50,12 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
 
 def all_reduce_sum(tensors: Dict[str, torch.Tensor], group
                    ) -> Dict[str, torch.Tensor]:
-    """The sums over ``group`` of a dict of 0-d tensors, in one
-    collective."""
-    import torch.distributed as dist
-
+    """The sums over ``group`` (an
+    :class:`~repro_torch.sharding.collectives.Axis`) of a dict of 0-d
+    tensors, in one collective."""
     keys = list(tensors)
     buf = torch.stack([tensors[k].to(torch.float32) for k in keys])
-    dist.all_reduce(buf, group=group)
-    return dict(zip(keys, buf.unbind()))
+    return dict(zip(keys, collectives.sum_(buf, group).unbind()))
 
 
 #: elements a gradient bucket holds before a new one starts (256 MB of
@@ -65,15 +65,14 @@ GRAD_BUCKET = 1 << 26
 
 def all_reduce_grads(grads: List[torch.Tensor], group,
                      bucket: int = GRAD_BUCKET) -> None:
-    """Sum fp32 gradients over ``group`` in place: consecutive leaves
-    packed into flat buckets of up to ``bucket`` elements (a larger leaf
-    alone), one all-reduce a bucket."""
-    import torch.distributed as dist
-
+    """Sum fp32 gradients over ``group`` (an
+    :class:`~repro_torch.sharding.collectives.Axis`) in place: consecutive
+    leaves packed into flat buckets of up to ``bucket`` elements (a larger
+    leaf alone), one all-reduce a bucket."""
     for start, end in bucket_ranges([g.numel() for g in grads], bucket):
         part = grads[start:end]
-        flat = torch.cat([g.reshape(-1) for g in part])
-        dist.all_reduce(flat, group=group)
+        flat = collectives.sum_(torch.cat([g.reshape(-1) for g in part]),
+                                group)
         off = 0
         for g in part:
             g.copy_(flat[off:off + g.numel()].view_as(g))
@@ -98,18 +97,25 @@ def bucket_ranges(sizes: List[int], bucket: int = GRAD_BUCKET
     return out
 
 
-def compress_int8_ef(grads, error_buf):
+def compress_int8_ef(grads, error_buf, split=None, path: str = ""):
     """Int8 quantization with error feedback: returns (the dequantized
     gradients to apply, the new error buffer), trees like ``grads``.  The
     reference keeps the int8 form for the wire; on one device only the
-    quantization error dynamics matter, and they are exact here."""
+    quantization error dynamics matter, and they are exact here.  On
+    sharded leaves ``split(path)`` gives the group over the axes that
+    split leaf ``path`` (:meth:`~repro_torch.sharding.layout.Layout.
+    split_axes`), and the scale is the whole leaf's maximum."""
     if isinstance(grads, dict):
-        pairs = {k: compress_int8_ef(g, error_buf[k])
+        pairs = {k: compress_int8_ef(g, error_buf[k], split,
+                                     f"{path}{k}/")
                  for k, g in grads.items()}
         return ({k: p[0] for k, p in pairs.items()},
                 {k: p[1] for k, p in pairs.items()})
     gf = grads.to(torch.float32) + error_buf
-    scale = torch.clamp(gf.abs().max(), min=1e-12) / 127.0
+    peak = gf.abs().max()
+    if split is not None:
+        peak = collectives.all_reduce_max(peak, split(path[:-1]))
+    scale = torch.clamp(peak, min=1e-12) / 127.0
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
     deq = q.to(torch.float32) * scale
     return deq, gf - deq

@@ -20,16 +20,20 @@ batch) -> (state, metrics)`` with:
   compute copy and promote where they meet a weight, as jax promotes them;
 - the launch configuration installed with ``exclusive=True`` around the
   step body, so a step is a function of its ``launch_config`` alone;
-- data parallelism over an executing mesh (``mesh``, its data group):
-  each rank steps on its rows of the global batch with a replica of the
-  state.  The loss's sums and counts, the MoE statistics (the forward's
-  ``mesh``, down to :func:`repro_torch.models.moe.apply_moe`'s ``group``)
-  and the gradients are summed over the group, so every rank computes the
-  step of one process on the whole batch, and the forward holds its
-  activations to the mesh (tensor-parallel layouts raise): each rank
-  differentiates its share of the global loss and the shares' gradients
-  are summed in buckets (``grad.all_reduce_grads``), before ``int8_ef``
-  compression, as the reference compresses the global loss's gradient.
+- sharded execution over an executing mesh (``mesh``): each rank holds
+  its block of every leaf under the rules' placements and steps on the
+  rows of its data coordinate (the model ranks of one data coordinate
+  take the same rows).  The forward runs on a
+  :class:`~repro_torch.sharding.layout.Layout`: tensor-parallel products,
+  FSDP blocks gathered before use (their gradients reduce-scattered),
+  experts on their ranks.  The loss's sums and counts, the MoE statistics
+  and the gradients of the leaves the data axes replicate are summed over
+  the data ranks, so every rank computes the step of one process on the
+  whole batch: each rank differentiates its share of the global loss and
+  the shares' gradients are summed in buckets
+  (``grad.all_reduce_grads``), before ``int8_ef`` compression, as the
+  reference compresses the global loss's gradient; the optimizer's
+  statistics sum the blocks of each leaf.
 
 The reference's ``remat`` is dropped: the CLI trains with
 ``ParallelConfig()`` (``remat="none"``), and the kernels' recompute
@@ -46,16 +50,19 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import dispatch
+from repro_torch.launch.mesh import MeshSpec
 from repro_torch.models.layers import lm_logits
 from repro_torch.models.model import Model, build_model, torch_dtype
 from repro_torch.models.transformer import mtp_logits
+from repro_torch.sharding.layout import Layout, Scope, shard_params
 from repro_torch.train.grad import (
     all_reduce_grads, all_reduce_sum, compress_int8_ef, cross_entropy_loss,
     init_error_buffer)
 from repro_torch.train.optimizer import (
     Optimizer, clip_by_global_norm, make_schedule)
 from repro_torch.utils.config import RunConfig
-from repro_torch.utils.trees import tree_cast, tree_leaves, tree_map
+from repro_torch.utils.trees import (tree_cast, tree_leaves, tree_map,
+                                     tree_map_with_path)
 
 
 class TrainState(NamedTuple):
@@ -66,13 +73,17 @@ class TrainState(NamedTuple):
 
 
 def init_train_state(model: Model, run: RunConfig, optimizer: Optimizer,
-                     seed: int = 0, params: Optional[Dict] = None
-                     ) -> TrainState:
+                     seed: int = 0, params: Optional[Dict] = None,
+                     mesh=None) -> TrainState:
     """Master parameters (drawn from ``seed``, or the given ``params``,
     e.g. imported from the reference) in ``param_dtype``, fresh optimizer
-    state and step 0."""
+    state and step 0.  On an executing ``mesh`` every leaf is this rank's
+    block (:func:`~repro_torch.sharding.layout.shard_params`)."""
     if params is None:
         params = model.init(seed)
+    if mesh is not None and mesh.groups is not None:
+        # cut before the cast: the whole masters never exist
+        params = shard_params(params, run, mesh, mesh.rank)
     params = tree_cast(params, torch_dtype(run.train.param_dtype))
     opt_state = optimizer.init(params)
     err = (init_error_buffer(params)
@@ -113,22 +124,34 @@ def make_train_step(model: Model, run: RunConfig, optimizer: Optimizer,
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
     """``train_step(state, batch)``; with ``mesh`` (the
     :class:`~repro_torch.launch.mesh.MeshSpec` the run executes on) a
-    data-parallel step over its data group's ranks, ``batch`` this rank's
-    rows."""
-    import torch.distributed as dist
-
+    sharded step: ``state`` holds this rank's blocks under the rules'
+    placements (:func:`init_train_state` with the mesh) and ``batch`` the
+    rows of this rank's data coordinate.  Without ``mesh``, the step of
+    one process (the one-device description).  The mesh's process groups
+    are looked up at the first call, so a step may be built on a
+    description (the dry run's bundle); stepping on a description with an
+    axis above 1 raises."""
+    if mesh is None:
+        mesh = MeshSpec.of((1,), ("data",))
     cfg = model.cfg
-    group = mesh.data_group() if mesh is not None else None
-    world = dist.get_world_size(group) if group is not None else 1
     tc = run.train
     par = run.parallel
     compute_dtype = torch_dtype(tc.compute_dtype)
     n_micro = par.microbatch
     dispatch.split_launch_config(launch_config or {})  # eager validation
+    bound: Dict[str, Any] = {}
 
-    def loss_fn(params_c, batch):
+    def layout_of() -> Layout:
+        if "layout" not in bound:
+            shapes = build_model(cfg, par, device="meta").init(0)
+            bound["layout"] = Layout.of(shapes, run, mesh)
+        return bound["layout"]
+
+    def loss_fn(params_c, batch, layout):
         inputs, targets = batch["inputs"], batch["targets"]
-        fkw = {} if mesh is None else {"mesh": mesh}
+        group = layout.data
+        world = group.size if group is not None else 1
+        fkw = {"layout": layout}
         if cfg.family == "vlm":
             fkw["vision_embeds"] = batch["vision_embeds"]
         if cfg.family == "audio":
@@ -136,7 +159,7 @@ def make_train_step(model: Model, run: RunConfig, optimizer: Optimizer,
         if cfg.mtp_depth > 0:
             h, _, aux = model.forward(params_c, inputs, return_hidden=True,
                                       **fkw)
-            logits = lm_logits(params_c["embed"], h)
+            logits = lm_logits(params_c["embed"], h, Scope(layout)["embed"])
         else:
             logits, _, aux = model.forward(params_c, inputs, **fkw)
         loss, metrics = cross_entropy_loss(logits, targets, z_loss=tc.z_loss,
@@ -149,7 +172,7 @@ def make_train_step(model: Model, run: RunConfig, optimizer: Optimizer,
         if cfg.mtp_depth > 0:
             positions = torch.arange(inputs.shape[1], device=inputs.device)
             lg2 = mtp_logits(params_c, cfg, par, h, targets, positions,
-                             group=group)
+                             layout=layout)
             mtp_tgt = torch.cat([targets[:, 1:],
                                  torch.full_like(targets[:, :1], -1)], dim=1)
             mtp_loss, mtp_metrics = cross_entropy_loss(lg2, mtp_tgt,
@@ -161,7 +184,7 @@ def make_train_step(model: Model, run: RunConfig, optimizer: Optimizer,
                                           group)["loss"])
         return loss, metrics
 
-    def grads_of(params, batch):
+    def grads_of(params, batch, layout):
         if par.grad_compression in ("bf16", "int8_ef"):
             # differentiate w.r.t. the bf16 copies (the reference's
             # half-size all-reduce), then widen
@@ -171,18 +194,35 @@ def make_train_step(model: Model, run: RunConfig, optimizer: Optimizer,
         else:
             wrt = tree_map(lambda p: p.detach().requires_grad_(), params)
             params_c = tree_cast(wrt, compute_dtype)
-        loss, metrics = loss_fn(params_c, batch)
-        leaves = tree_leaves(wrt)
+        # every FSDP block but the stacked layers' (gathered a layer slice
+        # at a time in the forward), gathered once
+        params_c = {k: v if k == "blocks" else layout.gather(v, f"{k}/")
+                    for k, v in params_c.items()}
+        try:
+            with layout.saved_tensors():
+                loss, metrics = loss_fn(params_c, batch, layout)
+        finally:
+            layout.release()
+        del params_c
+        paths: list = []
+        tree_map_with_path(lambda path, _: paths.append(path), wrt)
+        leaves = tree_leaves(wrt)  # in the order of ``paths``
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
         grads = [g.to(torch.float32) for g in grads]
+        group = layout.data
         if group is not None:
-            all_reduce_grads(grads, group)
+            # FSDP gradients were reduce-scattered in the backward and an
+            # expert block's gradient is whole: the rest sum over the
+            # data ranks
+            all_reduce_grads([g for path, g in zip(paths, grads)
+                              if layout.data_replicated(path)], group)
         return (_unflatten(params, grads),
                 {k: v.detach() for k, v in metrics.items()})
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        layout = layout_of()
         batch = {k: torch.as_tensor(v, device=model.device)
                  for k, v in batch.items()}
         with dispatch.use_launch_config(launch_config, exclusive=True):
@@ -191,20 +231,22 @@ def make_train_step(model: Model, run: RunConfig, optimizer: Optimizer,
                 for i in range(n_micro):
                     mb = {k: v.chunk(n_micro, dim=0)[i]
                           for k, v in batch.items()}
-                    g, metrics = grads_of(state.params, mb)
+                    g, metrics = grads_of(state.params, mb, layout)
                     grads = g if grads is None else tree_map(
                         torch.add, grads, g)
                 grads = tree_map(lambda g: g / n_micro, grads)
             else:
-                grads, metrics = grads_of(state.params, batch)
+                grads, metrics = grads_of(state.params, batch, layout)
 
             new_err = state.error_buf
             if par.grad_compression == "int8_ef":
-                grads, new_err = compress_int8_ef(grads, state.error_buf)
+                grads, new_err = compress_int8_ef(grads, state.error_buf,
+                                                  layout.split_axes)
 
-            grads, gnorm = clip_by_global_norm(grads, tc.grad_clip)
-            new_params, new_opt = optimizer.update(grads, state.opt_state,
-                                                   state.params, state.step)
+            grads, gnorm = clip_by_global_norm(grads, tc.grad_clip, layout)
+            new_params, new_opt = optimizer.update(
+                grads, state.opt_state, state.params, state.step,
+                layout=layout)
         metrics = dict(metrics)
         metrics["grad_norm"] = gnorm
         metrics["lr"] = make_schedule(tc)(state.step)

@@ -251,26 +251,30 @@ def test_to_placements():
 
 
 def test_activation_sharding_passes_only_what_data_parallelism_is():
+    """The data axes and the model axis hold (B, S, D) activations as the
+    constraint asks; sequence parallelism (``sp``) and any other axis
+    raise, naming the ROADMAP item."""
     h = torch.zeros(4, 8, 16)
     par = tconfig.ParallelConfig()
     for mesh in (tmesh.MeshSpec.of((1,), ("data",)),
                  tmesh.MeshSpec.of((2,), ("data",)),
-                 tmesh.MeshSpec.of((2, 4, 1), ("pod", "data", "model"))):
+                 tmesh.MeshSpec.of((2, 4, 1), ("pod", "data", "model")),
+                 tmesh.make_production_mesh(),
+                 tmesh.MeshSpec.of((4,), ("model",))):
         assert TS.activation_sharding(h, par, mesh) is h
-    for mesh in (tmesh.make_production_mesh(),
-                 tmesh.MeshSpec.of((4,), ("model",)),
-                 tmesh.MeshSpec.of((2, 2), ("data", "seq"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TS.activation_sharding(h, par, mesh)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TS.activation_sharding(h, par,
+                               tmesh.MeshSpec.of((2, 2), ("data", "seq")))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TS.activation_sharding(h, par.replace(sp=True),
                                tmesh.MeshSpec.of((2, 1), ("data", "model")))
 
 
 def test_the_train_forward_holds_its_activations_to_the_mesh():
-    """The guard runs on the executing path: a train step on a mesh with
-    a model axis above 1 raises in its forward, and on the one-device
-    mesh it steps as without one."""
+    """The guards run on the executing path: a train step on a mesh
+    description with an axis above 1 raises (it has no process group to
+    reduce over), as does the vlm or audio family on a model axis and a
+    step under ``sp``; on the one-device mesh it steps as without one."""
     from repro_torch.data.pipeline import make_data
     from repro_torch.launch.train import make_run
     from repro_torch.models.model import build_model
@@ -291,8 +295,22 @@ def test_the_train_forward_holds_its_activations_to_the_mesh():
     assert losses[0] == losses[1]
     step = make_train_step(model, run, opt,
                            mesh=tmesh.MeshSpec.of((1, 2), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="no process group"):
         step(init_train_state(model, run, opt, seed=0), batch)
+    sp = run.replace(parallel=run.parallel.replace(sp=True))
+    step = make_train_step(build_model(cfg, sp.parallel, device="cpu"), sp,
+                           opt, mesh=tmesh.MeshSpec.of((1,), ("data",)))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        step(init_train_state(model, sp, opt, seed=0), batch)
+    for arch in ("llama-3.2-vision-11b", "whisper-large-v3"):
+        cfg = TR.get_smoke_config(arch).replace(dtype="float32")
+        arun = make_run(cfg, seq=16, batch=2, steps=1)
+        amodel = build_model(cfg, arun.parallel, device="cpu")
+        step = make_train_step(amodel, arun, opt, mesh=tmesh.MeshSpec.of(
+            (1, 2), ("data", "model")))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            step(init_train_state(amodel, arun, opt, seed=0),
+                 make_data(cfg, arun.shape, seed=0).batch_at(0))
 
 
 # --------------------------------------------------------------------------
@@ -306,10 +324,14 @@ def test_mesh_description_and_make_mesh_without_a_process_group():
     m = tmesh.make_production_mesh(multi_pod=True)
     assert m.axis_names == ("pod", "data", "model")
     assert dict(m.shape) == {"pod": 2, "data": 16, "model": 16}
-    assert m.device_mesh is None
+    assert m.groups is None
     one = tmesh.make_mesh(tconfig.MeshConfig((1,), ("data",)))
     assert one == tmesh.MeshSpec.of((1,), ("data",))
-    assert one.device_mesh is None
+    assert one.groups is None and one.data_group() is None
+    with pytest.raises(RuntimeError, match="no process group"):
+        m.data_group()
+    with pytest.raises(RuntimeError, match="no process group"):
+        m.model_group()
     with pytest.raises(RuntimeError, match="needs 2 devices"):
         tmesh.make_mesh(tconfig.MeshConfig((2,), ("data",)))
     assert tmesh.coords_of(5, tmesh.MeshSpec.of((2, 4), ("data", "model"))) \

@@ -1,0 +1,181 @@
+"""Sharded train steps of the port against one process, on the CPU: the
+machinery the tensor-parallel and FSDP / EP test files share.
+
+A case is ``(id, arch, global batch, seq, ParallelConfig kwargs, mesh,
+optimizer)``; ``mesh`` is ``(shape, axes)`` or None for the mesh
+``launch.train.data_parallel`` gives (``("data", "model")`` keeping
+``tp``).  :func:`spawn` runs every case of a list on ``world`` gloo ranks
+(``torch.multiprocessing.spawn``, a ``FileStore``, no network), smoke
+configs in fp32 (model and compute), :data:`STEPS` steps each through the
+train CLI's loop; each rank records its metrics, the step-1 gradients
+gathered whole (the train step's gradients after every reduction, before
+clipping), the final parameters gathered whole, and the operand bytes by
+kind its collectives sent in step 1 (``sharding.collectives``).
+:func:`one_process` is the same loop in this process without a process
+group.
+"""
+
+import os
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+from repro_torch.configs.registry import get_smoke_config
+from repro_torch.launch import train as tlaunch
+from repro_torch.utils.config import MeshConfig, ParallelConfig, TrainConfig
+from repro_torch.utils.trees import flatten_with_paths
+
+STEPS = 3
+LOSS_RTOL = 1e-6
+GRAD_RTOL = 1e-5   # ||grad - one process's|| / ||one process's||, a leaf
+PARAM_TOL = 1e-5   # atol and rtol
+
+
+def make_run(arch, batch, seq, par, mesh=None, optimizer="adamw",
+             ckpt_dir="unused", steps=STEPS):
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    run = tlaunch.make_run(cfg, seq=seq, batch=batch, steps=steps,
+                           checkpoint_dir=ckpt_dir,
+                           parallel=ParallelConfig(**par))
+    run = run.replace(train=TrainConfig(
+        lr=1e-3, warmup_steps=10, total_steps=steps,
+        compute_dtype="float32", optimizer=optimizer))
+    if mesh is not None:
+        run = run.replace(mesh=MeshConfig(*mesh))
+    return run
+
+
+def _whole(flat, layout):
+    if layout is None or layout.mesh.groups is None:
+        return {k: v.detach().clone() for k, v in flat.items()}
+    return {k: layout.gather_whole(v, layout.specs[k]).clone()
+            for k, v in flat.items()}
+
+
+def loop(run, params=None):
+    """The train CLI's loop (``launch.train``'s pieces): sharded over the
+    process group when one is up.  Returns (run as placed, metrics a step,
+    step-1 gradients, final parameters, step-1 collective bytes by
+    kind), the trees whole and keyed by path."""
+    import repro_torch.train.train_step as ts
+    from repro_torch.data.pipeline import make_data
+    from repro_torch.launch.train import gather_state
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import collectives
+    from repro_torch.train.optimizer import make_optimizer
+
+    model = build_model(run.model, run.parallel, device="cpu")
+    run, mesh = tlaunch.data_parallel(run, model.device)
+    opt = make_optimizer(run.train)
+    seen = {}
+    clip = ts.clip_by_global_norm
+
+    def spy(grads, max_norm, layout=None):
+        if "grads" not in seen:  # gathered whole after step 1's counts
+            seen["grads"] = ({k: v.detach().clone() for k, v in
+                              flatten_with_paths(grads).items()}, layout)
+        return clip(grads, max_norm, layout)
+
+    ts.clip_by_global_norm = spy
+    try:
+        step = ts.make_train_step(model, run, opt, mesh=mesh)
+        state = ts.init_train_state(model, run, opt, seed=0, params=params,
+                                    mesh=mesh)
+        data = tlaunch.rank_rows(make_data(run.model, run.shape, seed=0),
+                                 mesh.data_group())
+        logged, counted = [], {}
+        for i in range(STEPS):
+            collectives.reset_counts()
+            state, metrics = step(state, data.batch_at(i))
+            logged.append({k: float(v) for k, v in metrics.items()})
+            if i == 0 and mesh.groups is not None:
+                counted = collectives.bytes_by_kind()
+            if i == 0:
+                seen["grads"] = _whole(*seen["grads"])
+    finally:
+        ts.clip_by_global_norm = clip
+    if mesh.groups is not None:
+        state = gather_state(state, run, mesh)
+    params = {k: v.detach().clone()
+              for k, v in flatten_with_paths(state.params).items()}
+    return run, logged, seen["grads"], params, counted
+
+
+def _rank(rank, root, world, cases, extra):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(root, f"store{world}"), world), rank=rank,
+        world_size=world)
+    try:
+        out = {}
+        for cid, arch, b, s, par, mesh, optimizer in cases:
+            out[cid] = loop(make_run(arch, b, s, par, mesh, optimizer))
+        if extra is not None:
+            out.update(extra(rank, root))
+        torch.save(out, os.path.join(root, f"w{world}_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(root, world, cases, extra=None):
+    """Every case on ``world`` gloo ranks; ``extra(rank, root)`` (a
+    module-level function) adds what it returns to a rank's record.  The
+    records, one a rank."""
+    mp.spawn(_rank, args=(root, world, cases, extra), nprocs=world,
+             join=True)
+    return [torch.load(os.path.join(root, f"w{world}_rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def one_process(case, params=None):
+    """The case's loop in this process: its placements without a split
+    (``tp`` and ``fsdp`` 1; an expert axis and gradient compression as
+    they are)."""
+    _, arch, b, s, par, _, optimizer = case
+    return loop(make_run(arch, b, s, dict(par, tp=1, fsdp=1), None,
+                         optimizer), params)
+
+
+def close_params(got, want, tol=PARAM_TOL):
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                   rtol=tol, atol=tol, err_msg=k)
+
+
+def hold(records, case, must_check=(), param_tol=PARAM_TOL):
+    """Every rank of ``records`` against one process: metrics within
+    :data:`LOSS_RTOL`, each leaf's step-1 gradient within
+    :data:`GRAD_RTOL` (``must_check``: paths that must be among the
+    leaves), final parameters within ``param_tol``; and the bytes its
+    collectives sent in step 1 against the dry run's derivation for the
+    same run and mesh (``launch.build.lower_step``)."""
+    from repro_torch.launch.build import lower_step
+    from repro_torch.launch.mesh import MeshSpec
+
+    _, logged, grads, params, _ = one_process(case)
+    names = sorted(logged[0])
+    assert {"loss", "ce_loss", "accuracy", "grad_norm"} <= set(names)
+    assert set(must_check) <= set(grads), sorted(set(must_check) - set(grads))
+    run = records[0][case[0]][0]
+    _, traced = lower_step(run, MeshSpec.of(run.mesh.shape, run.mesh.axes))
+    derived = {k: int(v) for k, v in
+               traced.cost_analysis().collective_bytes.items()}
+    for rec in records:
+        _, got_logged, got_grads, got_params, counted = rec[case[0]]
+        for k in names:
+            want = [m[k] for m in logged]
+            assert np.isfinite(want).all(), k
+            np.testing.assert_allclose([m[k] for m in got_logged], want,
+                                       rtol=LOSS_RTOL, atol=0, err_msg=k)
+        assert set(got_grads) == set(grads)
+        for k, g in grads.items():
+            err = float((got_grads[k] - g).norm())
+            assert err <= GRAD_RTOL * float(g.norm()) + 1e-12, (k, err)
+        close_params(got_params, params, param_tol)
+        assert counted == derived, (counted, derived)
+        assert sum(counted.values()) > 0
+    return records

@@ -183,22 +183,31 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
 4m. the sharded train step (``phase_sharded``, run after 4j): four
    thread-ranks of the ``threaded`` process group of
    ``torch.testing._internal.distributed.multi_threaded_pg`` on the one
-   card, a (2, 2) ``("data", "model")`` mesh; llama3.2-1b at full width
-   and depth, fp32, tp=2 and fsdp=2, 3 steps of 4 x 512 against the
+   card, a (2, 2) ``("data", "model")`` mesh ((1, 4) at tp=4);
+   llama3.2-1b at full width and depth, fp32, tp=2 and fsdp=2, with and
+   without sequence parallelism (``sp``), 3 steps of 4 x 512 against the
    one-process loop run first (losses within 1e-5 relative, every
    parameter within 1e-5 + 1e-5|p|); falcon-mamba-7b (8 layers) and
    zamba2-2.7b (12 layers) at tp=2, deepseek-v3-671b (1 layer + MTP, 12
    experts, Adafactor) at tp=2 and fsdp=2 with its experts on the model
-   axis and on the data axis, 2 steps in the model dtype against the
-   one-process loop (phase 4i's ``STEP_TOL`` and 1e-4 relative on every
-   rank's losses and grad norms); in every run each rank's step-1
+   axis (with and without ``sp``) and on the data axis,
+   llama-3.2-vision-11b (one super-block, 5 of 40 layers, Adafactor) at
+   tp=2 with and without ``sp``, whisper-large-v3 (4 + 4 layers) at
+   tp=4 with and without ``sp`` (equal losses bit for bit: ``sp`` cuts
+   no audio activation), their stub inputs in the model dtype, 2 steps
+   in the model dtype against the one-process loop (phase 4i's
+   ``STEP_TOL`` and 1e-4 relative on every rank's losses and grad
+   norms); in every run each rank's step-1
    gradient of every leaf the model axis leaves whole (norms, ``w_dkv``,
    the router, Mamba-2's ``w_B`` / ``w_C`` / ``A_log`` ...) against its
    block of one process's (1e-5 in fp32, 5e-2 in bf16, relative in
    norm), each rank's step-1 collective bytes by kind equal the dry run's
    derivation, every
    resolution is ``cuda`` and the kernels launch at the ranks' local
-   shapes (prefill at 16 / 4 heads for llama3.2-1b);
+   shapes (prefill at 16 / 4 heads for llama3.2-1b, the vision cross
+   attention at 16 / 4 heads over 1600 patch rows, whisper's encoder at
+   5 / 5 heads, non-causal, over 1500 frames), RMSNorm at the stream's
+   rows (``B S / 2`` under ``sp``);
 4k. the dry run against the card: ``repro_torch.launch.dryrun``'s
    ``dryrun_cell`` on three llama3.2-1b cells under the plan the port
    executes (``tp=1,fsdp=1`` on a data-only mesh: ``decode_32k`` and
@@ -4119,15 +4128,18 @@ def phase_distributed(torch, np, dev):
 
 
 # --------------------------------------------------------------------------
-# phase 4m: the sharded train step — tensor parallelism, FSDP and expert
-# placements on a (2, 2) ("data", "model") mesh of four thread-ranks on
-# the one card, against the one-process loop
+# phase 4m: the sharded train step — tensor parallelism, sequence
+# parallelism, FSDP and expert placements on a (2, 2) ("data", "model")
+# mesh (whisper's tp=4: (1, 4)) of four thread-ranks on the one card,
+# against the one-process loop
 # --------------------------------------------------------------------------
 
 SHARDED_WORLD = 4
-#: llama3.2-1b at full width and depth, fp32 model and compute
-SHARDED_DENSE = dict(arch="llama3.2-1b", par=dict(tp=2, fsdp=2), steps=3,
-                     batch=4, seq=512)
+#: llama3.2-1b at full width and depth, fp32 model and compute, under each
+#: plan of ``plans`` (the second sequence-parallel) against one process
+SHARDED_DENSE = dict(arch="llama3.2-1b",
+                     plans=(dict(tp=2, fsdp=2), dict(tp=2, fsdp=2, sp=True)),
+                     steps=3, batch=4, seq=512)
 #: (arch, cuts, placements, batch, seq, optimizer) in the model dtype:
 #: PR 22's cuts (the train slice's 8 and 12 layers; deepseek's 1 layer +
 #: MTP with 12 experts), two rows so that each data coordinate steps on
@@ -4144,16 +4156,50 @@ SHARDED_FAMILIES = (
      dict(tp=2, fsdp=2), 2, 512, "adafactor"),
     ("deepseek-v3-671b", dict(num_layers=1, moe_num_experts=12),
      dict(tp=2, fsdp=2, moe_expert_axis="data"), 2, 512, "adafactor"),
+    ("deepseek-v3-671b", dict(num_layers=1, moe_num_experts=12),
+     dict(tp=2, fsdp=2, sp=True), 2, 512, "adafactor"),
+    # the vlm and audio families on a model axis, at published widths;
+    # whisper with the train CLI's fp32 frames (its encoder runs in fp32),
+    # the vision model with its stub embeddings in the model dtype
+    # (``SHARDED_MODEL_DTYPE_STUBS``):
+    # llama-3.2-vision-11b one super-block (5 of 40 layers: 4 self, 1
+    # gated cross over 1600 patch rows), Adafactor as deepseek (its vocab
+    # and head are 1.05 B of its 2.2 B parameters; two data copies of the
+    # state beside the one-process run's); whisper-large-v3 4 + 4 layers
+    # at its default tp=4 (5 of 20 heads a rank, a (1, 4) mesh), where
+    # ``sp`` cuts nothing (the reference constrains no audio activation)
+    ("llama-3.2-vision-11b", dict(num_layers=5), dict(tp=2), 2, 1024,
+     "adafactor"),
+    ("llama-3.2-vision-11b", dict(num_layers=5), dict(tp=2, sp=True), 2,
+     1024, "adafactor"),
+    ("whisper-large-v3", dict(num_layers=4, encoder_layers=4), dict(tp=4),
+     2, 448, "adamw"),
+    ("whisper-large-v3", dict(num_layers=4, encoder_layers=4),
+     dict(tp=4, sp=True), 2, 448, "adamw"),
 )
 SHARDED_FAMILY_STEPS = 2
+#: the families whose runs feed their stub inputs in the model dtype, not
+#: the train CLI's fp32 (``_model_dtype_stubs``): the vision model's
+#: embeddings move no collective at tp=2 (its cross K/V are each rank's
+#: heads), and with fp32 ones the step-1 gradient of ``cross_gate`` (one
+#: scalar summing 8.4 M products that nearly cancel) reads 0.10 of one
+#: process's under either split on an H100, against 5.9e-5 with fp32
+#: compute: the ranks' rounding, amplified, where the hold
+#: (``SHARDED_GRAD_RTOL``) cannot tell rounding from a fault
+SHARDED_MODEL_DTYPE_STUBS = ("vlm",)
 #: the kernels each model's sharded step must launch, and the local shapes
-#: they must see: (kernel, query heads, KV heads) for prefill, (kernel,
-#: channels) for the scan, (kernel, heads) for the SSD
+#: they must see: (kernel, query heads, KV heads) for prefill, also with
+#: (..., KV rows, causal), (kernel, channels) for the scan, (kernel, heads)
+#: for the SSD
 SHARDED_KERNELS = {
     "llama3.2-1b": {("flash_attention", 16, 4)},
     "falcon-mamba-7b": {("selective_scan", 4096)},
     "zamba2-2.7b": {("ssd", 40), ("flash_attention", 16, 16)},
     "deepseek-v3-671b": {("flash_attention", 64, 64)},
+    "llama-3.2-vision-11b": {("flash_attention", 16, 4, 1024, True),
+                             ("flash_attention", 16, 4, 1600, False)},
+    "whisper-large-v3": {("flash_attention", 5, 5, 1500, False),
+                         ("flash_attention", 5, 5, 448, True)},
 }
 SHARDED_PARAM_TOL = 1e-5  # the CPU tests' (atol and rtol)
 SHARDED_LOSS_RTOL = 1e-5
@@ -4233,17 +4279,24 @@ def _threaded_ranks(torch, world, fn):
 
 @contextlib.contextmanager
 def _local_shapes():
-    """Record the heads / channels each prefill, scan and SSD call sees
-    (all threads): yields the set of (kernel, heads...) tuples."""
+    """Record the heads / channels each prefill, scan and SSD call sees,
+    and the rows of each RMSNorm call (all threads): yields the set of
+    (kernel, heads...) and ("rmsnorm", rows) tuples."""
     from repro_torch.kernels import ops
 
     seen = set()
     real = {n: getattr(ops, n) for n in
-            ("flash_attention", "selective_scan", "ssd")}
+            ("flash_attention", "selective_scan", "ssd", "rmsnorm")}
 
     def flash(q, k, v, *a, **kw):
         seen.add(("flash_attention", q.shape[2], k.shape[2]))
+        seen.add(("flash_attention", q.shape[2], k.shape[2], k.shape[1],
+                  kw.get("causal", True)))
         return real["flash_attention"](q, k, v, *a, **kw)
+
+    def rmsnorm(x, *a, **kw):
+        seen.add(("rmsnorm", x.numel() // x.shape[-1]))
+        return real["rmsnorm"](x, *a, **kw)
 
     def scan(u, *a, **kw):
         seen.add(("selective_scan", u.shape[-1]))
@@ -4254,6 +4307,7 @@ def _local_shapes():
         return real["ssd"](x, *a, **kw)
 
     ops.flash_attention, ops.selective_scan, ops.ssd = flash, scan, ssd
+    ops.rmsnorm = rmsnorm
     try:
         yield seen
     finally:
@@ -4261,12 +4315,49 @@ def _local_shapes():
             setattr(ops, n, f)
 
 
+def _sharded_mesh(par):
+    """The ``MeshSpec`` the four ranks place ``par`` on: ``("data",
+    "model")`` keeping ``tp``."""
+    from repro_torch.launch.mesh import MeshSpec
+
+    tp = par.tp
+    return MeshSpec.of((SHARDED_WORLD // tp, tp), ("data", "model"))
+
+
+@contextlib.contextmanager
+def _model_dtype_stubs(torch, cfg):
+    """The train CLI's data with the stub inputs (``vision_embeds`` /
+    ``frames``, fp32 from ``make_data``) in the model dtype, for the
+    families ``SHARDED_MODEL_DTYPE_STUBS`` names; other families' data as
+    it is."""
+    import repro_torch.launch.train as tl
+    from repro_torch.models.model import torch_dtype
+
+    real = tl.make_data
+    dtype = torch_dtype(cfg.dtype)
+
+    class Stubs:
+        def __init__(self, data):
+            self.data, self.shard_batch = data, data.shard_batch
+
+        def batch_at(self, step):
+            return {k: torch.from_numpy(v).to(dtype)
+                    if k in ("vision_embeds", "frames") else v
+                    for k, v in self.data.batch_at(step).items()}
+
+    if cfg.family in SHARDED_MODEL_DTYPE_STUBS:
+        tl.make_data = lambda *a, **k: Stubs(real(*a, **k))
+    try:
+        yield
+    finally:
+        tl.make_data = real
+
+
 def _model_whole(cfg, par):
     """``{path: spec}`` of the parameters that the rules leave whole on
-    the model axis of the (2, 2) ``("data", "model")`` mesh under ``par``
-    (a ``ParallelConfig``): each one's gradient sums every model rank's
-    part."""
-    from repro_torch.launch.mesh import MeshSpec
+    the model axis of the four ranks' mesh under ``par`` (a
+    ``ParallelConfig``; :func:`_sharded_mesh`): each one's gradient sums
+    every model rank's part."""
     from repro_torch.models.model import build_model
     from repro_torch.sharding.specs import param_specs
     from repro_torch.utils.trees import flatten_with_paths
@@ -4276,8 +4367,8 @@ def _model_whole(cfg, par):
             entry if isinstance(entry, tuple) else (entry,))
 
     meta = build_model(cfg, par, device="meta").init(0)
-    specs = flatten_with_paths(param_specs(
-        meta, cfg, par, MeshSpec.of((2, 2), ("data", "model"))))
+    specs = flatten_with_paths(param_specs(meta, cfg, par,
+                                           _sharded_mesh(par)))
     return {k: spec for k, spec in sorted(specs.items())
             if not any("model" in axes(e) for e in spec)}
 
@@ -4311,14 +4402,14 @@ def _step1_grads(torch, paths):
         ts.clip_by_global_norm = clip
 
 
-def _hold_grads(torch, what, ranks, one, specs, tol):
+def _hold_grads(torch, what, ranks, one, specs, tol, par):
     """Each rank's step-1 gradients of the leaves ``specs`` names against
     the rank's blocks of one process's (``local_shard`` at the rank's
-    coordinates of the (2, 2) mesh): the worst ``||g - g1|| / ||g1||``
-    and its leaf, checked against ``tol``."""
-    from repro_torch.launch.mesh import MeshSpec, coords_of, local_shard
+    coordinates of ``par``'s mesh, :func:`_sharded_mesh`): the worst
+    ``||g - g1|| / ||g1||`` and its leaf, checked against ``tol``."""
+    from repro_torch.launch.mesh import coords_of, local_shard
 
-    mesh = MeshSpec.of((2, 2), ("data", "model"))
+    mesh = _sharded_mesh(par)
     worst, at = 0.0, None
     for i, r in enumerate(ranks):
         check(set(r["grads"]) == set(specs),
@@ -4370,6 +4461,7 @@ def _sharded_run(torch, dev, cfg, run, steps, kernels, what,
     rank 0's whole parameters on the host; the launches by family, the
     local shapes seen, the derived collectives of the dry run for the
     same run and mesh."""
+    import repro_torch.launch.train as tl
     from repro_torch.kernels import cuda_lib, dispatch
     from repro_torch.launch.build import lower_step
     from repro_torch.launch.mesh import MeshSpec
@@ -4427,23 +4519,59 @@ def _sharded_run(torch, dev, cfg, run, steps, kernels, what,
               f"{what}: the sharded step launched no {name}: {launches}")
     check(kernels <= shapes, f"{what}: the kernels saw {sorted(shapes)}, "
           f"want {sorted(kernels)} among them")
+    # the derivation at the dtype of the stub inputs the step received
+    # (the train CLI's data: fp32 vision_embeds / frames)
+    batch = tl.make_data(placed.model, placed.shape).batch_at(0)
+    stub = next((torch.as_tensor(batch[k]).dtype
+                 for k in ("frames", "vision_embeds") if k in batch), None)
     _, traced = lower_step(placed, MeshSpec.of(placed.mesh.shape,
-                                               placed.mesh.axes))
+                                               placed.mesh.axes),
+                           stub_dtype=stub)
     derived = {k: int(v) for k, v in
                traced.cost_analysis().collective_bytes.items()}
     for i, r in enumerate(ranks):
         check(r["counted"] == derived,
               f"{what}: rank {i}'s step-1 collective bytes {r['counted']}, "
               f"the dry run derives {derived}")
+    norms = {t for t in shapes if t[0] == "rmsnorm"}
     return ranks, {"launches": {k: v for k, v in launches.items() if v},
-                   "local_shapes": sorted(shapes), "derived": derived,
-                   "peak_gb": peak / 1e9, "launch_counts": launches}
+                   "local_shapes": sorted(shapes - norms, key=str),
+                   "norm_rows": sorted(norms), "derived": derived,
+                   "peak_gb": peak / 1e9, "launch_counts": launches,
+                   "dryrun_peak_gb_per_rank":
+                       traced.memory_analysis().peak_memory_in_bytes / 1e9}
+
+
+def _norm_rows(what, info, run, placed):
+    """The rows RMSNorm launched at in a sharded run: under the sequence
+    split the stream's sequence block, ``B S / m`` of a data rank's ``B``
+    rows (and the MTP head's whole ``B S``), else ``B S`` (and the audio
+    encoder's ``B T``); checked."""
+    from repro_torch.sharding.specs import sequence_blocks
+
+    cfg = run.model
+    mesh = _sharded_mesh(placed.parallel)
+    b = placed.shape.global_batch // mesh.shape["data"]
+    rows = b * placed.shape.seq_len
+    blocks = sequence_blocks(placed.parallel, mesh, placed.shape.seq_len,
+                             cfg.family)
+    seen = sorted(r for k, r in info["norm_rows"])
+    want = {rows // blocks} | ({rows} if cfg.mtp_depth > 0 else set()) | (
+        {b * cfg.encoder_seq} if cfg.family == "audio" else set())
+    check(seen and set(seen) <= want and rows // blocks in seen,
+          f"{what}: RMSNorm launched at {seen} rows, want {sorted(want)}")
+    return seen
+
+
+def _collective_gb(counted):
+    return {k: round(v / 1e9, 6) for k, v in sorted(counted.items())}
 
 
 def phase_sharded(torch, np, dev):
-    """Phase 4m: the train step under tensor parallelism, FSDP and the
-    expert placements, four thread-ranks on the card.  Returns (summary,
-    launches of the sharded runs by family)."""
+    """Phase 4m: the train step under tensor parallelism, sequence
+    parallelism, FSDP and the expert placements, and the vlm / audio
+    families on a model axis, four thread-ranks on the card.  Returns
+    (summary, launches of the sharded runs by family)."""
     from repro_torch.configs.registry import get_model_config
     from repro_torch.kernels import cuda_lib
     from repro_torch.launch.train import make_run
@@ -4453,85 +4581,104 @@ def phase_sharded(torch, np, dev):
     out = {"ranks": f"{SHARDED_WORLD} thread-ranks of the 'threaded' "
                     f"process group on cuda:0",
            "card": CARD, "note": "the four ranks share one card: step "
-                                 "times are not a multi-card speed"}
+                                 "times are not a multi-card speed, and "
+                                 "the peak is the four ranks' together"}
     gc.collect()
     torch.cuda.empty_cache()
     out["held_before_gb"] = torch.cuda.memory_allocated() / 1e9
     log(f"sharded: {out['ranks']} (torch.testing._internal.distributed."
-        f"multi_threaded_pg), a ('data', 'model') mesh of (2, 2); "
-        f"{out['held_before_gb']:.1f} GB held by the earlier phases")
+        f"multi_threaded_pg), a ('data', 'model') mesh of (2, 2) "
+        f"(tp=4: (1, 4)); {out['held_before_gb']:.1f} GB held by the "
+        f"earlier phases")
     kinds = set()
 
-    # -- llama3.2-1b, fp32, tp=2 + fsdp=2, against one process ----------
+    # -- llama3.2-1b, fp32, tp=2 + fsdp=2 (+ sp), against one process ----
     d = SHARDED_DENSE
     cfg = get_model_config(d["arch"]).replace(dtype="float32")
-    run = make_run(cfg, seq=d["seq"], batch=d["batch"], steps=d["steps"],
-                   parallel=ParallelConfig(**d["par"]))
-    run = run.replace(train=TrainConfig(lr=1e-3, warmup_steps=10,
-                                        total_steps=d["steps"],
-                                        compute_dtype="float32"))
-    t0 = time.perf_counter()
-    paths = _model_whole(cfg, run.parallel)
-    one = _one_process(torch, dev, cfg, run.replace(
-        parallel=ParallelConfig()), d["steps"], list(paths))
-    ranks, info = _sharded_run(torch, dev, cfg, run, d["steps"],
-                               SHARDED_KERNELS[d["arch"]], "sharded dense",
-                               whole_params=True, grad_paths=list(paths))
-    gworst, gat = _hold_grads(torch, "sharded dense", ranks, one, paths,
-                              SHARDED_GRAD_RTOL["float32"])
-    for i, r in enumerate(ranks):
-        rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"],
-                                                   one["losses"])]
-        check(max(rel) <= SHARDED_LOSS_RTOL,
-              f"sharded dense: rank {i} losses {r['losses']}, one process "
-              f"{one['losses']}")
-    got = ranks[0]["params"]
-    check(set(got) == set(one["params"]), "sharded dense: parameter paths")
-    worst, outside, n = 0.0, 0, 0
-    for k, want in one["params"].items():
-        err = (got[k] - want).abs()
-        tol = SHARDED_PARAM_TOL + SHARDED_PARAM_TOL * want.abs()
-        outside += int((err > tol).sum())
-        worst = max(worst, float((err - tol).max()))
-        n += want.numel()
-    log(f"[{CARD}] sharded dense {d['arch']} fp32 tp=2 fsdp=2, {d['steps']} "
-        f"steps of {d['batch']} x {d['seq']}: losses {ranks[0]['losses']} "
-        f"(one process {one['losses']}); parameters outside "
-        f"{SHARDED_PARAM_TOL} + {SHARDED_PARAM_TOL}|p|: {outside} of {n} "
-        f"(worst excess {worst:.3e}); step-1 gradients of the {len(paths)} "
-        f"leaves the model axis leaves whole within {gworst:.3e} of one "
-        f"process's (worst "
-        f"{gat}); collectives {ranks[0]['counted']} = "
-        f"derived; kernel shapes {info['local_shapes']}; launches "
-        f"{info['launches']}; peak {info['peak_gb']:.1f} GB for the four "
-        f"ranks (one process {one['peak_gb']:.1f} GB), state a rank "
-        f"{ranks[0]['state_gb']:.2f} GB; step ms by rank "
-        f"{[r['step_ms'] for r in ranks]} (one process {one['step_ms']})")
-    check(outside == 0, f"sharded dense: {outside} of {n} parameters "
-          f"outside the CPU tests' tolerance (worst excess {worst:.3e})")
-    kinds |= set(ranks[0]["counted"])
-    out["dense"] = {"arch": d["arch"], "placements": d["par"],
-                    "losses": ranks[0]["losses"],
-                    "losses_one_process": one["losses"],
-                    "grad_norms": ranks[0]["grad_norms"],
-                    "params_outside_tol": outside,
-                    "model_whole_grad_rel": gworst,
-                    "model_whole_grad_worst_leaf": gat,
-                    "model_whole_leaves": len(paths),
-                    "collective_bytes": ranks[0]["counted"],
-                    "step_ms": [r["step_ms"] for r in ranks],
-                    "step_ms_one_process": one["step_ms"],
-                    "state_gb_per_rank": ranks[0]["state_gb"],
-                    "phase_s": time.perf_counter() - t0,
-                    **{k: v for k, v in info.items()
-                       if k != "launch_counts"}}
-    for k, v in info["launch_counts"].items():
-        launches[k] += v
-    del one, ranks, got
+    one = None
+    out["dense_plans"] = []
+    for plan in d["plans"]:
+        run = make_run(cfg, seq=d["seq"], batch=d["batch"], steps=d["steps"],
+                       parallel=ParallelConfig(**plan))
+        run = run.replace(train=TrainConfig(lr=1e-3, warmup_steps=10,
+                                            total_steps=d["steps"],
+                                            compute_dtype="float32"))
+        t0 = time.perf_counter()
+        what = f"sharded dense {plan}"
+        paths = _model_whole(cfg, run.parallel)
+        if one is None:  # one process steps the same for every plan
+            one = _one_process(torch, dev, cfg, run.replace(
+                parallel=ParallelConfig()), d["steps"], list(paths))
+        ranks, info = _sharded_run(torch, dev, cfg, run, d["steps"],
+                                   SHARDED_KERNELS[d["arch"]], what,
+                                   whole_params=True, grad_paths=list(paths))
+        gworst, gat = _hold_grads(torch, what, ranks, one, paths,
+                                  SHARDED_GRAD_RTOL["float32"], run.parallel)
+        norm_rows = _norm_rows(what, info, run, ranks[0]["run"])
+        for i, r in enumerate(ranks):
+            rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                       one["losses"])]
+            check(max(rel) <= SHARDED_LOSS_RTOL,
+                  f"{what}: rank {i} losses {r['losses']}, one process "
+                  f"{one['losses']}")
+        got = ranks[0]["params"]
+        check(set(got) == set(one["params"]), f"{what}: parameter paths")
+        worst, outside, n = 0.0, 0, 0
+        for k, want in one["params"].items():
+            err = (got[k] - want).abs()
+            tol = SHARDED_PARAM_TOL + SHARDED_PARAM_TOL * want.abs()
+            outside += int((err > tol).sum())
+            worst = max(worst, float((err - tol).max()))
+            n += want.numel()
+        log(f"[{CARD}] {what} {d['arch']} fp32, {d['steps']} steps of "
+            f"{d['batch']} x {d['seq']}: losses {ranks[0]['losses']} (one "
+            f"process {one['losses']}); parameters outside "
+            f"{SHARDED_PARAM_TOL} + {SHARDED_PARAM_TOL}|p|: {outside} of "
+            f"{n} (worst excess {worst:.3e}); step-1 gradients of the "
+            f"{len(paths)} leaves the model axis leaves whole within "
+            f"{gworst:.3e} of one process's (worst {gat}); collectives "
+            f"{ranks[0]['counted']} = derived (GB "
+            f"{_collective_gb(ranks[0]['counted'])}); "
+            f"kernel shapes {info['local_shapes']}; RMSNorm rows "
+            f"{norm_rows}; launches {info['launches']}; peak "
+            f"{info['peak_gb']:.1f} GB for the four ranks, "
+            f"{info['peak_gb'] / SHARDED_WORLD:.1f} an even share (one "
+            f"process {one['peak_gb']:.1f} GB; the dry run's peak a rank "
+            f"{info['dryrun_peak_gb_per_rank']:.2f} GB), state a rank "
+            f"{ranks[0]['state_gb']:.2f} GB; step ms by rank "
+            f"{[r['step_ms'] for r in ranks]} (one process "
+            f"{one['step_ms']})")
+        check(outside == 0, f"{what}: {outside} of {n} parameters outside "
+              f"the CPU tests' tolerance (worst excess {worst:.3e})")
+        kinds |= set(ranks[0]["counted"])
+        out["dense_plans"].append({
+            "arch": d["arch"], "placements": plan,
+            "losses": ranks[0]["losses"],
+            "losses_one_process": one["losses"],
+            "grad_norms": ranks[0]["grad_norms"],
+            "params_outside_tol": outside,
+            "model_whole_grad_rel": gworst,
+            "model_whole_grad_worst_leaf": gat,
+            "model_whole_leaves": len(paths),
+            "collective_bytes": ranks[0]["counted"],
+            "collective_gb": _collective_gb(ranks[0]["counted"]),
+            "rmsnorm_rows": norm_rows,
+            "step_ms": [r["step_ms"] for r in ranks],
+            "step_ms_one_process": one["step_ms"],
+            "state_gb_per_rank": ranks[0]["state_gb"],
+            "phase_s": time.perf_counter() - t0,
+            **{k: v for k, v in info.items()
+               if k not in ("launch_counts", "norm_rows")}})
+        for k, v in info["launch_counts"].items():
+            launches[k] += v
+        del ranks, got
+    out["dense"] = out["dense_plans"][0]
+    del one
 
     # -- the other families in the model dtype ------------------------
     out["families"] = []
     ones = {}  # one process's run of a (arch, cuts, batch, seq), once
+    equal = {}  # whisper's losses by plan: sp must not change them
     for arch, cuts, par, batch, seq, optimizer in SHARDED_FAMILIES:
         t0 = time.perf_counter()
         cfg = get_model_config(arch).replace(**cuts)
@@ -4543,18 +4690,20 @@ def phase_sharded(torch, np, dev):
         what = f"sharded {arch} {par} {optimizer}"
         key = (arch, tuple(sorted(cuts.items())), batch, seq, optimizer)
         paths = _model_whole(cfg, run.parallel)
-        if key not in ones:  # the leaves of every placement that shares it
-            shared = sorted({k for a, c, p, b, q, o in SHARDED_FAMILIES
-                             if (a, tuple(sorted(c.items())), b, q, o) == key
-                             for k in _model_whole(
-                                 cfg, ParallelConfig(**p))})
-            ones = {key: _one_process(torch, dev, cfg, run.replace(
-                parallel=ParallelConfig()), SHARDED_FAMILY_STEPS, shared)}
-        one = ones[key]
-        ranks, info = _sharded_run(torch, dev, cfg, run,
-                                   SHARDED_FAMILY_STEPS,
-                                   SHARDED_KERNELS[arch], what,
-                                   grad_paths=list(paths))
+        with _model_dtype_stubs(torch, cfg):
+            if key not in ones:  # the leaves of every placement sharing it
+                shared = sorted({k for a, c, p, b, q, o in SHARDED_FAMILIES
+                                 if (a, tuple(sorted(c.items())), b, q, o)
+                                 == key for k in _model_whole(
+                                     cfg, ParallelConfig(**p))})
+                ones = {key: _one_process(torch, dev, cfg, run.replace(
+                    parallel=ParallelConfig()), SHARDED_FAMILY_STEPS,
+                    shared)}
+            one = ones[key]
+            ranks, info = _sharded_run(torch, dev, cfg, run,
+                                       SHARDED_FAMILY_STEPS,
+                                       SHARDED_KERNELS[arch], what,
+                                       grad_paths=list(paths))
         got = ranks[0]
         for i, r in enumerate(ranks):
             for j, (lk, lr_) in enumerate(zip(r["losses"], one["losses"])):
@@ -4573,7 +4722,10 @@ def phase_sharded(torch, np, dev):
         gnorm_rel = max(abs(a - b) / abs(b) for r in ranks
                         for a, b in zip(r["grad_norms"], one["grad_norms"]))
         gworst, gat = _hold_grads(torch, what, ranks, one, paths,
-                                  SHARDED_GRAD_RTOL[cfg.dtype])
+                                  SHARDED_GRAD_RTOL[cfg.dtype], run.parallel)
+        norm_rows = _norm_rows(what, info, run, got["run"])
+        if cfg.family == "audio":
+            equal[par.get("sp", False)] = [r["losses"] for r in ranks]
         kinds |= set(got["counted"])
         log(f"[{CARD}] {what} ({cfg.num_layers} layers, {batch} x {seq}, "
             f"{cfg.dtype}): losses {got['losses']} (one process "
@@ -4583,15 +4735,18 @@ def phase_sharded(torch, np, dev):
             f"leaves the model axis leaves whole within "
             f"{gworst:.3e} of one process's (worst "
             f"{gat}); collectives {got['counted']} = "
-            f"derived; kernel shapes {info['local_shapes']}; peak "
-            f"{info['peak_gb']:.1f} GB for the four ranks (one process "
-            f"{one['peak_gb']:.1f} GB), state a rank "
+            f"derived (GB {_collective_gb(got['counted'])}); kernel shapes "
+            f"{info['local_shapes']}; RMSNorm rows {norm_rows}; peak "
+            f"{info['peak_gb']:.1f} GB for the four ranks, "
+            f"{info['peak_gb'] / SHARDED_WORLD:.1f} an even share (one "
+            f"process {one['peak_gb']:.1f} GB; the dry run's peak a rank "
+            f"{info['dryrun_peak_gb_per_rank']:.2f} GB), state a rank "
             f"{got['state_gb']:.2f} GB; step ms by rank "
             f"{[r['step_ms'] for r in ranks]} (one process "
             f"{one['step_ms']})")
         out["families"].append({
             "arch": arch, "cuts": cuts, "placements": par,
-            "optimizer": optimizer,
+            "optimizer": optimizer, "batch": batch, "seq": seq,
             "losses": got["losses"], "losses_one_process": one["losses"],
             "grad_norms": got["grad_norms"],
             "grad_norms_one_process": one["grad_norms"],
@@ -4600,6 +4755,8 @@ def phase_sharded(torch, np, dev):
             "model_whole_grad_worst_leaf": gat,
             "model_whole_leaves": len(paths),
             "collective_bytes": got["counted"],
+            "collective_gb": _collective_gb(got["counted"]),
+            "rmsnorm_rows": norm_rows,
             "step_ms": [r["step_ms"] for r in ranks],
             "step_ms_one_process": one["step_ms"],
             "state_gb_per_rank": got["state_gb"],
@@ -4607,11 +4764,17 @@ def phase_sharded(torch, np, dev):
                               model_whole_grad_rtol=SHARDED_GRAD_RTOL[
                                   cfg.dtype]),
             "phase_s": time.perf_counter() - t0,
-            **{k: v for k, v in info.items() if k != "launch_counts"}})
+            **{k: v for k, v in info.items()
+               if k not in ("launch_counts", "norm_rows")}})
         for k, v in info["launch_counts"].items():
             launches[k] += v
         del one, ranks, got
         torch.cuda.empty_cache()
+    check(len(equal) == 2 and equal[True] == equal[False],
+          f"sharded whisper: tp=4 and tp=4 sp losses by rank {equal} "
+          f"differ (sp must cut nothing of the audio family)")
+    log(f"sharded whisper: tp=4 and tp=4 sp losses equal bit for bit: "
+        f"{equal[False][0]}")
     missing = [k for k in ("all-reduce", "all-gather", "reduce-scatter",
                            "all-to-all") if k not in kinds]
     out["collective_kinds_on_card"] = sorted(kinds)

@@ -24,13 +24,17 @@ batch of 1 row stays whole), and the step is built on a one-device
 ``("data",)`` mesh without process groups, so no collective runs and
 ``activation_sharding`` does not raise.  The parameters and the
 optimizer state stay whole: the rank all-gathers an FSDP shard before
-use.
+use.  Under the sequence rule a train step's stream is traced at a
+rank's sequence block ``(B, S/m, D)``: its layout cuts it over an axis
+that moves no data (``sharding.layout.traced_sequence``), so the norms,
+the residual adds and the live bytes between sublayers count what a rank
+holds, and every sublayer reads its gathered input whole.
 
 What is derived, not traced (``model_axis: "derived"`` in a dry-run
 record): what the mesh's model axis and FSDP / EP add, from the
 placements of ``bundle.in_shardings``, by rules that mirror what the
 sharded step executes (:mod:`repro_torch.sharding.layout`; tracing a
-rank's sharded program instead is ``ROADMAP.md`` queue 1, item 7):
+rank's sharded program instead is ``ROADMAP.md`` queue 1, item 7.3):
 
 - argument bytes per chip: each leaf's block under its placements
   (:func:`repro_torch.launch.mesh.local_shard`'s shapes), exact;
@@ -58,18 +62,37 @@ rank's sharded program instead is ``ROADMAP.md`` queue 1, item 7):
     router widened to fp32), in the compute dtype; a reduce-scatter of
     its fp32 gradient a layer slice and microbatch; an expert block
     split over the data axes (EP) is neither gathered nor reduced;
-  - TP: a forward matmul reading a row-parallel weight split over the
-    model axis (``attn/wo``, ``cross/wo``, ``mlp/w_down``,
-    ``shared/w_down``, ``mixer/w_out``, ``mixer/w_bcdt``) gives an
-    all-reduce of its partial sums (its result); in a train step's
+  - TP (``_tp_collectives``): the all-reduce of a row-parallel
+    product's partial sums (``attn/wo``, ``cross/wo``, ``mlp/w_down``,
+    ``shared/w_down``, ``mixer/w_out``, ``mixer/w_bcdt``); in a train
+    step's
     backward an all-reduce of each input gradient where a tensor every
-    model rank holds enters the split (the attention, MLP and mixer
-    inputs, MLA's ``c_q`` / ``c_kv`` / rope key, Mamba-1's ``w_bcdt``
-    sums, Mamba-2's ``dt`` / ``A`` / ``B`` and ``C``, the MoE tokens and
-    gates, the head's input); the vocab split's embedding all-reduce and
-    (train) logits all-gather, Mamba-2's norm statistics both ways, and
-    the MoE combine's all-reduce where no split shared expert carries it
-    (``_tp_collectives``);
+    model rank holds enters the split (the attention, cross-attention,
+    MLP and mixer inputs, MLA's ``c_q`` / ``c_kv`` / rope key, Mamba-1's
+    ``w_bcdt`` sums, Mamba-2's ``dt`` / ``A`` / ``B`` and ``C``, the MoE
+    tokens and gates, the head's input, the audio encoder's output once
+    for the decoder's cross K/V); the vocab split's embedding all-reduce
+    and (train) logits all-gather, ``frame_proj``'s and ``mtp/proj``'s
+    all-gather of their column blocks, Mamba-2's norm statistics both
+    ways, and the MoE combine's all-reduce where no split shared expert
+    carries it; where the split cuts through heads (more ranks than KV
+    heads, or a query block that is no whole number of heads;
+    ``models.attention.split_heads``) the all-gather of the rank's query
+    or key and value products and the reduce-scatter of their gradients;
+  - SP, a train or prefill step under ``sp`` whose sequence the model
+    axis divides (``sharding.specs.sequence_blocks``; not the audio
+    family, not decode): the stream between sublayers is a sequence
+    block, so each sublayer's input is all-gathered (the block's bytes;
+    the backward reduce-scatters the whole input gradient where the
+    input feeds column-split products, in place of the all-reduce
+    above), a row-parallel product's partial sums are reduce-scattered
+    (in place of the all-reduce; the backward all-gathers the block's
+    gradient), a whole output is sliced
+    (its backward all-gathers), the embedding's partial sums are
+    reduce-scattered, the stream is gathered before the head (a train
+    step's) and before the MTP head (which runs whole), and the gradients of the leaves
+    applied to the stream (``Layout.on_stream``: the norm scales, the
+    vlm gate) are all-reduced over the model axis in fp32 buckets;
   - EP: a forward matmul reading an expert down projection whose expert
     dim is split over the data axes gives the two token all-to-alls of
     the layer (dispatch and combine, each of the ``(G, E, C, D)`` expert
@@ -78,11 +101,17 @@ rank's sharded program instead is ``ROADMAP.md`` queue 1, item 7):
     ``int8_ef`` scales, Adafactor's factored means;
     ``_optimizer_collectives``).
 
-Sequence parallelism (``sp``) is not derived: a forward that asks for it
-raises in the trace (``activation_sharding``), as it does on the card.
-The memory analysis is per chip: the arguments' blocks (exact), the
-traced peak of temporaries under the split rules, the outputs (the
-donated arguments' blocks and the new results), the donated arguments.
+Each derived collective is in its tensor's dtype: the compute dtype,
+but the audio encoder's (and its output's) and a cross K/V's in the
+dtype a wider stub input promotes them to (``lower_step(...,
+stub_dtype=)``).  Two approximations remain: a prefill step's stream is
+traced whole under ``sp`` (only the train step executes sharded), and a
+query block that is no whole number of heads (llama4-maverick at tp=16:
+2.5) counts the attention at ``H/m`` heads a rank where the rank
+computes the 3 heads its rows cross.  The memory analysis is per chip: the
+arguments' blocks (exact), the traced peak of temporaries under the split
+rules, the outputs (the donated arguments' blocks and the new results),
+the donated arguments.
 """
 
 from __future__ import annotations
@@ -90,7 +119,8 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
-from typing import Any, Callable, Dict, Iterator, NamedTuple, Tuple
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, \
+    Tuple
 
 import torch
 
@@ -100,7 +130,9 @@ from repro_torch.launch.mesh import (MeshSpec, batch_shardings, local_shard,
                                      params_shardings, serve_shardings,
                                      state_shardings)
 from repro_torch.models.model import build_model, torch_dtype
-from repro_torch.sharding.specs import P, data_axes_of, to_placements
+from repro_torch.sharding.layout import Layout, traced_sequence
+from repro_torch.sharding.specs import (P, data_axes_of, sequence_blocks,
+                                        to_placements)
 from repro_torch.train.grad import bucket_ranges
 from repro_torch.train.optimizer import make_optimizer
 from repro_torch.train.serve_step import make_decode_step, make_prefill_step
@@ -273,11 +305,16 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def lower_step(run: RunConfig, mesh: MeshSpec):
+def lower_step(run: RunConfig, mesh: MeshSpec, *,
+               stub_dtype: Optional[torch.dtype] = None):
     """The step of ``run`` on ``mesh``, traced once on ``meta`` tensors:
     ``(bundle, traced)`` (see the module docstring for what is traced and
-    what is derived)."""
-    bundle = build_step(run, mesh)
+    what is derived).  ``stub_dtype``: the dtype of the vlm / audio stub
+    inputs (``vision_embeds`` / ``frames``) the train or prefill step
+    receives, where it is not the input specs' (the model's, as the
+    reference's); the train CLI's data gives fp32 ones
+    (``data.pipeline``)."""
+    bundle = _with_stubs(build_step(run, mesh), stub_dtype)
     train = bundle.kind == "train"
     daxes = data_axes_of(mesh.axis_names)
     dsize = math.prod(mesh.shape[a] for a in daxes)
@@ -289,11 +326,15 @@ def lower_step(run: RunConfig, mesh: MeshSpec):
     # one data rank's program: its rows of the batch (and of the decode
     # state) where they split, on the one-device mesh
     b = run.shape.global_batch
-    rank = build_step(run.replace(
+    rank = _with_stubs(build_step(run.replace(
         shape=dataclasses.replace(run.shape, global_batch=b // dsize
                                   if b % dsize == 0 else b),
         mesh=MeshConfig(shape=(1,), axes=("data",))),
-        MeshSpec.of((1,), ("data",)))
+        MeshSpec.of((1,), ("data",))), stub_dtype)
+    stub = next((rank.abstract_args[1][k].dtype
+                 for k in ("frames", "vision_embeds")
+                 if bundle.kind != "decode" and k in rank.abstract_args[1]),
+                compute)
 
     counter = hlo_analysis.OpCounter(train=train, data_size=dsize)
     arg_bytes = alias_bytes = 0
@@ -310,6 +351,9 @@ def lower_step(run: RunConfig, mesh: MeshSpec):
               if isinstance(leaf, torch.Tensor)]
 
     derived = msize > 1
+    blocks = sequence_blocks(run.parallel, mesh, run.shape.seq_len,
+                             run.model.family)
+    sp = bundle.kind != "decode" and blocks > 1
     for path, leaf, spec in params:
         model = _split(spec, mesh, ("model",))
         data = _split(spec, mesh, daxes)
@@ -326,15 +370,17 @@ def lower_step(run: RunConfig, mesh: MeshSpec):
         counter.add_param(leaf, hlo_analysis.ParamInfo(path, model, data,
                                                        role))
 
-    out = hlo_analysis.trace(rank.fn, rank.abstract_args, train=train,
-                             counter=counter)
+    # the train step's layout cuts the traced stream as a rank's
+    with traced_sequence(blocks if sp else 1):
+        out = hlo_analysis.trace(rank.fn, rank.abstract_args, train=train,
+                                 counter=counter)
     out_bytes = alias_bytes + counter.result_bytes(out)
     del out
     _step_collectives(counter, run, mesh, params, train, dsize, n_micro,
-                      compute)
+                      compute, stub)
     if msize > 1:
         _tp_collectives(counter, run, mesh, params, train, n_micro, compute,
-                        rank.abstract_args)
+                        rank.abstract_args, sp, stub)
     temp = counter.peak_live_bytes
     memory = MemoryAnalysis(arg_bytes, out_bytes, temp, alias_bytes,
                             arg_bytes + temp)
@@ -342,9 +388,22 @@ def lower_step(run: RunConfig, mesh: MeshSpec):
                               "derived" if derived else "none")
 
 
+def _with_stubs(bundle: StepBundle, dtype: Optional[torch.dtype]
+                ) -> StepBundle:
+    """``bundle`` with its batch's stub inputs in ``dtype`` (as it is
+    without one, and for a decode step, whose batch is its tokens)."""
+    if dtype is None or bundle.kind == "decode":
+        return bundle
+    batch = {k: torch.empty(v.shape, dtype=dtype, device="meta")
+             if k in ("frames", "vision_embeds") else v
+             for k, v in bundle.abstract_args[1].items()}
+    return bundle._replace(abstract_args=(bundle.abstract_args[0], batch)
+                           + tuple(bundle.abstract_args[2:]))
+
+
 def _step_collectives(counter, run: RunConfig, mesh: MeshSpec, params,
                       train: bool, dsize: int, n_micro: int,
-                      compute: torch.dtype) -> None:
+                      compute: torch.dtype, stub: torch.dtype) -> None:
     """The step-level collectives of data parallelism and FSDP (the
     module docstring's rules), after the traced ones."""
     grads = params
@@ -365,7 +424,8 @@ def _step_collectives(counter, run: RunConfig, mesh: MeshSpec, params,
             continue  # an expert block: its gradient is whole
         slices = leaf.shape[0] if "blocks/" in path else 1
         block = leaf.numel() // (model * data * slices)
-        uses = (1 + (train and _regathered(path, run, compute))) * n_micro
+        uses = (1 + (train and _regathered(path, run, compute, stub))
+                ) * n_micro
         counter.add_collective("all-gather", block * itemsize,
                                f"fsdp {path}", slices * uses)
         if train:
@@ -389,13 +449,26 @@ def _step_collectives(counter, run: RunConfig, mesh: MeshSpec, params,
             counter.add_collective("all-reduce", 4 * n, "dp loss sums")
 
 
-def _regathered(path: str, run: RunConfig, compute: torch.dtype) -> bool:
+def _regathered(path: str, run: RunConfig, compute: torch.dtype,
+                stub: torch.dtype) -> bool:
     """Whether the backward all-gathers an FSDP weight again: it does
     where an op saved the gathered weight itself for its backward, not
     for the embedding lookup of an untied head (which saves the indices)
     and not for a router widened to fp32 from a narrower compute dtype
-    (the product saves the widened copy)."""
+    (the product saves the widened copy), and not for the weights that
+    read a stub frontend's input (``frame_proj``, the vlm family's cross
+    K/V projections: the input takes no gradient, so the product saves
+    the input only).  A ``stub`` input wider than ``compute`` widens every
+    audio encoder weight and the decoder's cross K/V projections, which
+    read the encoder's output (``mm``: the product saves the copy)."""
     if path == "embed/embedding" and not run.model.tie_embeddings:
+        return False
+    if path == "frame_proj" or (run.model.family == "vlm"
+                                and re.search(r"cross/w[kv]$", path)):
+        return False
+    if torch.promote_types(stub, compute) != compute and (
+            path.startswith("enc_blocks/")
+            or re.search(r"dec_blocks/cross/w[kv]$", path)):
         return False
     return not (path.endswith("moe/router") and compute != torch.float32)
 
@@ -456,17 +529,26 @@ def _mdim(specs: Dict[str, Any], path: str, scanned: bool):
 
 def _tp_collectives(counter, run: RunConfig, mesh: MeshSpec, params,
                     train: bool, n_micro: int, compute: torch.dtype,
-                    args) -> None:
-    """What the model axis adds besides the row-parallel products'
-    all-reduces (which the counter records as the forward reads a
-    row-split weight), as the port's sharded forward executes it
-    (:mod:`repro_torch.sharding.layout`): the input-gradient all-reduce
-    where a tensor every model rank holds enters split heads, channels or
-    experts (a train step's backward; ``collectives.enter``), the vocab
-    split's embedding all-reduce and logits all-gather, Mamba-1's
-    ``w_bcdt`` backward and Mamba-2's norm statistics, the MoE combine's
-    all-reduce when no split shared expert carries it.  ``rows``: the
-    tokens of one data rank's microbatch."""
+                    args, sp: bool, stub: torch.dtype) -> None:
+    """What the model axis adds, as the port's sharded forward executes it
+    (:mod:`repro_torch.sharding.layout`): where a sublayer takes its input
+    from the stream (``enter``: the input-gradient all-reduce of a tensor
+    every model rank holds entering split heads, channels or experts;
+    under ``sp`` the all-gather of the block and, for such an input, the
+    reduce-scatter of its gradient) and gives its output back (``leave``:
+    a row-parallel product's partial sums all-reduced, or under ``sp``
+    reduce-scattered; the backward all-gathers the block), the head
+    gathers of a split that cuts through heads, MLA's latents, the vocab
+    split's embedding and logits, ``frame_proj`` / ``mtp/proj``,
+    Mamba-1's ``w_bcdt`` sums and Mamba-2's inner sums, the MoE combine,
+    the audio encoder's output entering the cross K/V, and under ``sp``
+    the stream leaves' gradient sums.  ``rows``: the tokens of one data
+    rank's microbatch (the decoder's; ``enc_rows`` the audio encoder's
+    frames).  Each collective is in the dtype its tensor has: the compute
+    dtype, but the audio encoder's and its output's in the stub input's
+    dtype where that is wider (``mm`` promotes), and a cross K/V's in the
+    source's."""
+    from repro_torch.models.attention import split_heads
     from repro_torch.models.ssm import _dt_rank
     from repro_torch.models.transformer import block_pattern, num_superblocks
 
@@ -476,40 +558,88 @@ def _tp_collectives(counter, run: RunConfig, mesh: MeshSpec, params,
         args[-1], torch.Tensor) else args[1]["tokens"])
     rows = tokens.shape[0] * tokens.shape[1] // n_micro
     c = torch.empty((), dtype=compute).element_size()
+    cw = torch.empty((), dtype=torch.promote_types(stub, compute)
+                     ).element_size()
     d = cfg.d_model
     tp = mesh.shape["model"]
-    fwd: list = []  # (bytes, what) once a microbatch
-    bwd: list = []
+    out: list = []  # (kind, bytes, what, backward) once a microbatch
+    seq = sp  # the stream in sequence blocks (not in the MTP head)
 
-    def ar(where, nbytes, what):
-        where.append((nbytes, what))
+    def add(kind, nbytes, what, backward=False):
+        out.append((kind, nbytes, what, backward))
 
-    def dense_mlp(prefix, scanned):
-        if _mdim(specs, f"{prefix}w_up", scanned) == 1:
-            ar(bwd, rows * d * c, f"tp partial sum {prefix}w_down (input)")
+    def enter(n, partial, what, size=c):
+        """A sublayer's input of ``n`` rows from the stream."""
+        if seq:
+            add("all-gather", n * d * size // tp, f"sp gather {what}")
+            if partial:
+                add("reduce-scatter", n * d * size, f"sp gather {what}",
+                    True)
+        elif partial:
+            add("all-reduce", n * d * size,
+                f"tp partial sum {what} (input)", True)
 
-    def gqa(prefix, scanned):
-        if _mdim(specs, f"{prefix}wq", scanned) == 1:
-            ar(bwd, rows * d * c, f"tp partial sum {prefix}wo (input)")
+    def leave(n, partial, what, size=c):
+        """A sublayer's output for the stream: ``partial`` sums, or
+        whole."""
+        if seq:
+            if partial:
+                add("reduce-scatter", n * d * size, f"sp scatter {what}")
+            add("all-gather", n * d * size // tp, f"sp leave {what}", True)
+        elif partial:
+            add("all-reduce", n * d * size, f"tp partial sum {what}")
+
+    def dense_mlp(prefix, scanned, n=rows, size=c):
+        split = _mdim(specs, f"{prefix}w_up", scanned) == 1
+        enter(n, split, f"{prefix}w_up", size)
+        leave(n, split, f"{prefix}w_down", size)
+
+    def gathered(elems, size, what):
+        """A product whose columns cut through heads: all-gathered, the
+        gradient reduce-scattered."""
+        add("all-gather", elems // tp * size, f"tp heads {what}")
+        add("reduce-scatter", elems * size, f"tp heads {what}", True)
+
+    def heads(prefix, scanned, n=rows, size=c, src=None):
+        """An attention sublayer; ``src``: (rows, bytes an element) of
+        the K/V source (its own input when None)."""
+        split = _mdim(specs, f"{prefix}wq", scanned) == 1
+        enter(n, split, f"{prefix}wq", size)
+        if split:
+            hd, hq, hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+            plan = split_heads(hq, hkv, hd, tp, 0, _mdim(
+                specs, f"{prefix}wk", scanned) == 1)
+            kv_rows, kv_size = src or (n, size)
+            if plan.gather_q:
+                gathered(n * hq * hd, size, f"{prefix}q")
+            if plan.gather_kv:
+                for name in ("k", "v"):
+                    gathered(kv_rows * hkv * hd, kv_size,
+                             f"{prefix}{name}")
+        leave(n, split, f"{prefix}wo", size)
 
     def mla(prefix, scanned):
-        if _mdim(specs, f"{prefix}w_uq", scanned) == 1:
+        split = _mdim(specs, f"{prefix}w_uq", scanned) == 1
+        enter(rows, False, f"{prefix}w_dq")
+        if split:
             for width, name in ((cfg.q_lora_rank, "c_q"),
                                 (cfg.kv_lora_rank, "c_kv"),
                                 (cfg.qk_rope_head_dim, "k_pe")):
-                ar(bwd, rows * width * c, f"tp latent {prefix}{name}")
+                add("all-reduce", rows * width * c,
+                    f"tp latent {prefix}{name}", True)
+        leave(rows, split, f"{prefix}wo")
 
     def moe(prefix, scanned):
         k = cfg.moe_top_k
         model_experts = _mdim(specs, f"{prefix}w_gate", scanned) == 0
-        shared = (cfg.moe_num_shared > 0 and _mdim(
-            specs, f"{prefix}shared/w_up", scanned) == 1)
-        if model_experts or shared:
-            ar(bwd, rows * d * c, f"tp moe tokens {prefix}")
+        shared = cfg.moe_num_shared > 0
+        shared_split = shared and _mdim(
+            specs, f"{prefix}shared/w_up", scanned) == 1
+        enter(rows, False, f"{prefix}router")
+        if model_experts or shared_split:
+            add("all-reduce", rows * d * c, f"tp moe tokens {prefix}", True)
         if model_experts:
-            ar(bwd, rows * k * 4, f"tp moe gates {prefix}")
-            if not shared:
-                ar(fwd, rows * d * c, f"tp moe combine {prefix}")
+            add("all-reduce", rows * k * 4, f"tp moe gates {prefix}", True)
         if _mdim(specs, f"{prefix}w_gate", scanned) == 2:
             from repro_torch.models import moe as moe_mod
 
@@ -517,69 +647,123 @@ def _tp_collectives(counter, run: RunConfig, mesh: MeshSpec, params,
             cap = moe_mod.capacity(cfg, tg,
                                    dropless=run.shape.kind == "decode")
             nbytes = (rows // tg) * cfg.moe_num_experts * cap * d * c
-            ar(fwd, nbytes, f"tp expert ffn {prefix}")
-            ar(bwd, nbytes, f"tp expert ffn {prefix}")
+            add("all-reduce", nbytes, f"tp expert ffn {prefix}")
+            add("all-reduce", nbytes, f"tp expert ffn {prefix}", True)
+        leave(rows, model_experts, f"{prefix}combine")
+        if shared and shared_split != model_experts:  # two sums
+            leave(rows, shared_split, f"{prefix}shared")
 
     def attention_block(prefix, scanned, kind):
-        (mla if cfg.attn_type == "mla" else gqa)(f"{prefix}attn/", scanned)
+        if cfg.attn_type == "mla":
+            mla(f"{prefix}attn/", scanned)
+        else:
+            heads(f"{prefix}attn/", scanned)
+        if kind == "cross":
+            heads(f"{prefix}cross/", scanned, src=(
+                rows // tokens.shape[1] * cfg.vision_seq, cw))
         if kind == "moe":
             moe(f"{prefix}moe/", scanned)
         else:
             dense_mlp(f"{prefix}mlp/", scanned)
 
     def mamba1(prefix, scanned):
-        if _mdim(specs, f"{prefix}w_x", scanned) == 1:
-            ar(bwd, rows * d * c, f"tp partial sum {prefix}w_out (input)")
-            ar(bwd, rows * (_dt_rank(cfg) + 2 * cfg.ssm_state) * c,
-               f"tp partial sum {prefix}w_bcdt (backward)")
+        split = _mdim(specs, f"{prefix}w_x", scanned) == 1
+        enter(rows, split, f"{prefix}w_x")
+        if split:
+            nbytes = rows * (_dt_rank(cfg) + 2 * cfg.ssm_state) * c
+            add("all-reduce", nbytes, f"tp partial sum {prefix}w_bcdt")
+            add("all-reduce", nbytes,
+                f"tp partial sum {prefix}w_bcdt (backward)", True)
+        leave(rows, split, f"{prefix}w_out")
 
     def mamba2(prefix, scanned):
-        if _mdim(specs, f"{prefix}w_x", scanned) == 1:
+        split = _mdim(specs, f"{prefix}w_x", scanned) == 1
+        enter(rows, False, f"{prefix}w_B")
+        if split:
             h = cfg.ssm_num_heads
-            ar(bwd, rows * d * c, f"tp partial sum {prefix}w_out (input)")
-            ar(bwd, rows * h * c, f"tp mamba2 dt {prefix}")
-            ar(bwd, h * c, f"tp mamba2 A {prefix}")
-            ar(bwd, rows * 2 * cfg.ssm_state * c, f"tp mamba2 B/C {prefix}")
-            ar(fwd, rows * 4, f"tp mamba2 norm {prefix}")
-            ar(bwd, rows * 4, f"tp mamba2 norm {prefix}")
+            add("all-reduce", rows * d * c,
+                f"tp partial sum {prefix}w_out (input)", True)
+            add("all-reduce", rows * h * c, f"tp mamba2 dt {prefix}", True)
+            add("all-reduce", h * c, f"tp mamba2 A {prefix}", True)
+            add("all-reduce", rows * 2 * cfg.ssm_state * c,
+                f"tp mamba2 B/C {prefix}", True)
+            add("all-reduce", rows * 4, f"tp mamba2 norm {prefix}")
+            add("all-reduce", rows * 4, f"tp mamba2 norm {prefix}", True)
+        leave(rows, split, f"{prefix}w_out")
 
-    def vocab(uses):
-        embed_split = _mdim(specs, "embed/embedding", False) == 0
-        head_split = (_mdim(specs, "embed/lm_head", False) == 1
-                      if "embed/lm_head" in specs else embed_split)
-        for _ in range(uses):
-            if embed_split:
-                ar(fwd, rows * d * c, "tp vocab embedding")
-            if head_split and train:
-                ar(bwd, rows * d * c, "tp vocab head (input)")
-                counter.add_collective(
-                    "all-gather", rows * cfg.vocab_size // tp * c,
-                    "tp vocab logits", n_micro)
+    embed_split = _mdim(specs, "embed/embedding", False) == 0
+    head_split = (_mdim(specs, "embed/lm_head", False) == 1
+                  if "embed/lm_head" in specs else embed_split)
+
+    def embedding(on_stream=True):
+        if on_stream and seq:
+            leave(rows, embed_split, "embed/embedding")
+        elif embed_split:
+            add("all-reduce", rows * d * c, "tp vocab embedding")
+
+    def head(on_stream=True):
+        if not train:
+            return
+        if on_stream and seq:
+            enter(rows, head_split, "embed head")
+        elif head_split:
+            add("all-reduce", rows * d * c, "tp vocab head (input)", True)
+        if head_split:
+            add("all-gather", rows * cfg.vocab_size // tp * c,
+                "tp vocab logits")
 
     if cfg.family == "audio":
-        return  # the audio family raises on a model axis
-    pat = block_pattern(cfg)
-    for _ in range(num_superblocks(cfg)):
-        for i, kind in enumerate(pat):
-            prefix = f"blocks/sub{i}/"
-            if kind == "mamba1":
-                mamba1(f"{prefix}mixer/", True)
-            elif kind in ("mamba2", "mamba2_shared_attn"):
-                mamba2(f"{prefix}mixer/", True)
-                if kind == "mamba2_shared_attn":
-                    gqa("shared_attn/attn/", False)
-                    dense_mlp("shared_attn/mlp/", False)
-            else:
-                attention_block(prefix, True, kind)
-    uses = 1
-    if cfg.mtp_depth > 0:
-        uses = 2
-        if _mdim(specs, "mtp/proj", False) == 1:
-            ar(bwd, rows * 2 * d * c, "tp mtp proj (input)")
-            counter.add_collective("all-gather", rows * d // tp * c,
-                                   "tp mtp proj", n_micro)
-        attention_block("mtp/block/",
-                        False, "moe" if cfg.is_moe else "dense")
-    vocab(uses)
-    for nbytes, what in fwd + (bwd if train else []):
-        counter.add_collective("all-reduce", nbytes, what, n_micro)
+        enc_rows = rows // tokens.shape[1] * cfg.encoder_seq
+        if run.shape.kind != "decode":  # decode reads the kept enc_out
+            if _mdim(specs, "frame_proj", False) == 1:
+                add("all-gather", enc_rows * d // tp * cw, "tp frame_proj")
+            for _ in range(cfg.encoder_layers or cfg.num_layers):
+                heads("enc_blocks/attn/", True, enc_rows, cw)
+                dense_mlp("enc_blocks/mlp/", True, enc_rows, cw)
+        embedding()
+        if _mdim(specs, "dec_blocks/cross/wk", True) == 1:
+            add("all-reduce", enc_rows * d * cw, "tp enter enc_out", True)
+        for _ in range(cfg.num_layers):
+            heads("dec_blocks/attn/", True)
+            heads("dec_blocks/cross/", True, src=(enc_rows, cw))
+            dense_mlp("dec_blocks/mlp/", True)
+        head()
+    else:
+        embedding()
+        pat = block_pattern(cfg)
+        for _ in range(num_superblocks(cfg)):
+            for i, kind in enumerate(pat):
+                prefix = f"blocks/sub{i}/"
+                if kind == "mamba1":
+                    mamba1(f"{prefix}mixer/", True)
+                elif kind in ("mamba2", "mamba2_shared_attn"):
+                    mamba2(f"{prefix}mixer/", True)
+                    if kind == "mamba2_shared_attn":
+                        heads("shared_attn/attn/", False)
+                        dense_mlp("shared_attn/mlp/", False)
+                else:
+                    attention_block(prefix, True, kind)
+        head()
+        if cfg.mtp_depth > 0 and train:
+            # the MTP head runs on the whole sequence, gathered first
+            if seq:
+                add("all-gather", rows * d * c // tp, "sp gather mtp")
+            seq = False
+            embedding(False)
+            if _mdim(specs, "mtp/proj", False) == 1:
+                add("all-reduce", rows * 2 * d * c, "tp mtp proj (input)",
+                    True)
+                add("all-gather", rows * d // tp * c, "tp mtp proj")
+            attention_block("mtp/block/",
+                            False, "moe" if cfg.is_moe else "dense")
+            head(False)
+    if sp and train:
+        sizes = [leaf.numel() for p, leaf, _ in params
+                 if p.startswith("params/")
+                 and Layout.on_stream(p.removeprefix("params/"))]
+        for start, end in bucket_ranges(sizes):
+            add("all-reduce", 4 * sum(sizes[start:end]),
+                "sp stream leaves' gradients", True)
+    for kind, nbytes, what, backward in out:
+        if train or not backward:
+            counter.add_collective(kind, nbytes, what, n_micro)

@@ -60,7 +60,7 @@ column-parallel one.  A non-matmul op that reads a leaf split over the
 data axes itself (the cast of an FSDP shard to the compute dtype, the
 optimizer's update) counts divided by the data axes' size.  A forward
 matmul that reads a split parameter also records the derived collectives
-of tensor and expert parallelism and the MoE statistics
+of expert parallelism and the MoE statistics
 (``lower_step``'s rules).  Live bytes count each storage over its split.
 
 Every number is per chip: the traced program is one data rank's, and the
@@ -137,7 +137,8 @@ class ParamInfo(NamedTuple):
     """How the mesh splits one parameter-like argument leaf: ``model`` /
     ``data`` the sizes of the model / data axes splitting it (1: not
     split), ``role`` ``"row"`` (a row-parallel projection split over the
-    model axis: its product is a partial sum), ``"expert"`` (an expert
+    model axis: its product is a partial sum, whole again after its
+    collective, which ``lower_step`` derives), ``"expert"`` (an expert
     weight whose expert dim is split), ``"router"`` (a MoE router) or
     None; ``direct`` False for a copy or cast of the leaf."""
     path: str
@@ -373,18 +374,12 @@ class OpCounter(TorchDispatchMode):
 
     def _derived_collectives(self, info: ParamInfo, outs) -> None:
         """What a forward matmul reading a split parameter adds on the
-        mesh (``lower_step``'s rules): a row-parallel product's partial
-        sum is all-reduced; an expert product's tokens go to their
-        experts' ranks and come back; a router's statistics are averaged
-        over the data ranks.  A train step's backward has a twin of each
+        mesh (``lower_step``'s rules): an expert product's tokens go to
+        their experts' ranks and come back; a router's statistics are
+        averaged over the data ranks.  A train step's backward has a twin of each
         (one all-reduce of the router's mean probabilities)."""
         twins = 2 if self.train else 1
-        if info.role == "row" and info.model > 1:
-            # the backward's all-reduce is where the input enters the
-            # split (``lower_step``'s model-axis rules)
-            self.add_collective("all-reduce", _nbytes(outs[0]),
-                                f"tp partial sum {info.path}")
-        elif info.role == "expert":  # the down projection: (G, E, C, D)
+        if info.role == "expert":  # the down projection: (G, E, C, D)
             self.add_collective("all-to-all", _nbytes(outs[0]),
                                 f"ep dispatch / combine {info.path}",
                                 2 * twins)

@@ -27,12 +27,13 @@ its length grows every tick, so both cases occur in normal serving:
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dense_init, mm
+from repro_torch.sharding import collectives as C
 from repro_torch.sharding.layout import LOCAL, Scope
 from repro_torch.utils.config import ModelConfig, ParallelConfig
 
@@ -96,18 +97,15 @@ def apply_gqa(
     sc: Scope = LOCAL,
 ):
     """Under a model split of ``wq`` / ``wk`` / ``wv`` (columns) and ``wo``
-    (rows) each rank attends with its query and KV heads (``sc``)."""
-    b, s, _ = x.shape
+    (rows) each rank attends with the query and KV heads its ``wo`` rows
+    read (``sc``, :func:`head_split`); ``x`` is the stream (the rank's
+    sequence block under the sequence split, gathered before the
+    projections, so ``positions`` are the whole sequence's)."""
     hd = cfg.head_dim
-    heads, kv_heads = _local_heads(
-        sc, ("wq", "wk", "wv", "wo"),
-        (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads, cfg.num_heads),
-        hd)
-    if heads != cfg.num_heads:
-        x = sc.enter(x)
-    q = (x @ p["wq"]).reshape(b, s, heads, hd)
-    k = (x @ p["wk"]).reshape(b, s, kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, s, kv_heads, hd)
+    plan = head_split(sc, cfg.num_heads, cfg.num_kv_heads, hd)
+    x = sc.gather_in(x, plan.split)
+    b, s, _ = x.shape
+    q, k, v = project_heads(p, x, x, plan, sc, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -177,27 +175,113 @@ def apply_gqa(
                 cache.k.copy_(k[:, tok])
                 cache.v.copy_(v[:, tok])
             new_cache = KVCache(cache.k, cache.v, cache.length + s)
-    out = o.reshape(b, s, heads * hd) @ p["wo"]
-    return (sc.leave(out) if heads != cfg.num_heads else out), new_cache
+    return sc.leave_out(attend_out(o, p, plan), plan.split), new_cache
 
 
-def _local_heads(sc: Scope, names, heads, width: int):
-    """The heads this model rank computes of each weight in ``names``
-    (``heads[i]`` of ``width`` each; the last weight row-split, the others
-    column-split): all of them when no weight is split, a 1/tp share of
-    each when every one is.  A split that cuts through a head, or splits
-    some of them only, raises with the shapes."""
+class HeadSplit(NamedTuple):
+    """What one model rank computes of an attention (:func:`head_split`):
+    the query heads ``q`` and KV heads ``kv`` (``[start, stop)`` of the
+    whole model's), whether the rank's product of ``wq`` (``gather_q``)
+    and of ``wk`` / ``wv`` (``gather_kv``) is all-gathered over the model
+    axis first because its columns cut through heads, whether a split
+    of the others leaves ``wk`` / ``wv`` whole (``kv_whole``), the columns ``out`` of the heads'
+    output ``(q heads x width)`` that the rank's ``wo`` rows read, and
+    ``group``: each local query head's local KV head, None where it is
+    ``j // (q heads / KV heads)`` (the kernels' grouped layout)."""
+    q: Tuple[int, int]
+    kv: Tuple[int, int]
+    gather_q: bool
+    gather_kv: bool
+    kv_whole: bool
+    out: Tuple[int, int]
+    group: Optional[Tuple[int, ...]]
+    split: bool
+
+
+def head_split(sc: Scope, heads: int, kv_heads: int, width: int,
+               names=("wq", "wk", "wv", "wo")) -> HeadSplit:
+    """This model rank's share of an attention of ``heads`` query and
+    ``kv_heads`` KV heads of ``width`` (the weights ``names``: query, key,
+    value column-split, output row-split; the key and value may stay
+    whole).  The rank's ``wo`` rows read the output columns of the query
+    heads they cross; those heads and the KV heads they read are what it
+    computes.  Where the rules' split cuts through heads (more ranks than
+    KV heads: llama-3.2-vision-11b's 8 at tp=16; or a query block of 2.5
+    heads: llama4-maverick's 40 at tp=16) the rank's products are
+    all-gathered over the model axis and it takes its heads of the whole
+    (the backward reduce-scatters: a head two ranks read gets both
+    shares).  Any other split raises with the shapes."""
     dims = [sc.model_dim(n) for n in names]
     if all(d is None for d in dims):
-        return heads[0], heads[1]
-    tp = sc.model.size
-    want = [1] * (len(names) - 1) + [0]
-    if dims != want or any(h % tp for h in heads):
+        return HeadSplit((0, heads), (0, kv_heads), False, False, False,
+                         (0, heads * width), None, False)
+    if dims[0] != 1 or dims[3] != 0 or dims[1] not in (None, 1) or \
+            dims[2] != dims[1]:
         raise ValueError(
-            f"attention at {sc.prefix}: {list(zip(names, heads))} heads of "
-            f"{width} split on dims {dims} over {tp} model ranks: a split "
-            f"must give every rank whole heads of every weight")
-    return heads[0] // tp, heads[1] // tp
+            f"attention at {sc.prefix}: {names} of {heads} / {kv_heads} "
+            f"heads of {width} split on dims {dims}: the query, key and "
+            f"value weights split by columns, the output by rows")
+    return split_heads(heads, kv_heads, width, sc.model.size,
+                       sc.model.rank, dims[1] == 1)
+
+
+def split_heads(heads: int, kv_heads: int, width: int, m: int, r: int,
+                kv_split: bool) -> HeadSplit:
+    """:func:`head_split` of rank ``r`` of ``m`` model ranks, the query
+    and output weights split, the key and value ones where ``kv_split``
+    (shapes only).  The gathers do not depend on the rank: the query
+    product's columns cut through heads where ``m`` does not divide the
+    query heads, the key / value product's where it does not divide the
+    KV heads (dividing those, it divides the query heads and each rank's
+    KV columns are the heads its query heads read)."""
+    lo, hi = r * heads * width // m, (r + 1) * heads * width // m
+    q0, q1 = lo // width, -(-hi // width)
+    g = heads // kv_heads
+    k0, k1 = q0 // g, (q1 - 1) // g + 1
+    nq, nkv = q1 - q0, k1 - k0
+    group = tuple((q0 + j) // g - k0 for j in range(nq))
+    regular = nq % nkv == 0 and group == tuple(
+        j // (nq // nkv) for j in range(nq))
+    return HeadSplit((q0, q1), (k0, k1), heads % m != 0,
+                     kv_split and kv_heads % m != 0, not kv_split,
+                     (lo - q0 * width, hi - q0 * width),
+                     None if regular else group, True)
+
+
+def _take(y: torch.Tensor, sc: Scope, heads: Tuple[int, int],
+          gather: bool, whole: bool, width: int) -> torch.Tensor:
+    """Heads ``[start, stop)`` of a projection's product ``y`` (this
+    rank's columns, or the whole weight's when ``whole``), all-gathered
+    first when ``gather``: ``(..., heads, width)``."""
+    if gather:
+        y = C.gather(y, sc.model, -1, "reduce-scatter", grad_dtype=None)
+    if gather or whole:
+        y = y[..., heads[0] * width:heads[1] * width]
+    return y.unflatten(-1, (-1, width))
+
+
+def project_heads(p: Dict, x: torch.Tensor, src: torch.Tensor,
+                  plan: HeadSplit, sc: Scope, width: int):
+    """``q`` of ``x``, ``k`` / ``v`` of ``src`` at this rank's heads
+    (``plan``); K/V repeated to one a query head where the local heads
+    do not group."""
+    q = _take(mm(x, p["wq"]), sc, plan.q, plan.gather_q, False, width)
+    k, v = (_take(mm(src, p[w]), sc, plan.kv, plan.gather_kv,
+                  plan.kv_whole, width) for w in ("wk", "wv"))
+    if plan.group is not None:
+        idx = torch.tensor(plan.group, device=k.device)
+        k, v = k.index_select(-2, idx), v.index_select(-2, idx)
+    return q, k, v
+
+
+def attend_out(o: torch.Tensor, p: Dict, plan: HeadSplit) -> torch.Tensor:
+    """The output projection of the heads' output ``o`` ``(B, S, heads,
+    width)``: the columns this rank's ``wo`` rows read (the partial sum
+    under a split)."""
+    o = o.flatten(-2)
+    if o.shape[-1] != plan.out[1] - plan.out[0]:
+        o = o[..., plan.out[0]:plan.out[1]]
+    return mm(o, p["wo"])
 
 
 def _scatter_time_(cache: torch.Tensor, new: torch.Tensor,
@@ -297,12 +381,19 @@ def apply_mla(
     ``w_uv`` by head, ``wo`` by rows) each rank computes its heads from
     the latents every rank holds whole: ``c_q``, ``c_kv`` and the rope
     key enter the split heads through ``sc.enter``, so the gradients of
-    ``w_dq`` and ``w_dkv`` sum every head's share."""
+    ``w_dq`` and ``w_dkv`` sum every head's share (and the gradient of
+    ``x`` is complete on every rank: under the sequence split its gather
+    takes the rank's slice back)."""
+    x = sc.gather_in(x, False)
     b, s, _ = x.shape
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    h, _ = _local_heads(sc, ("w_uq", "w_uk", "w_uv", "wo"),
-                        (cfg.num_heads,) * 4, dn + dr)
-    split = h != cfg.num_heads
+    plan = head_split(sc, cfg.num_heads, cfg.num_heads, dn + dr,
+                      ("w_uq", "w_uk", "w_uv", "wo"))
+    if plan.gather_q or plan.gather_kv:
+        raise ValueError(f"MLA at {sc.prefix}: {cfg.num_heads} heads over "
+                         f"{sc.model.size} model ranks: a split must give "
+                         f"every rank whole heads")
+    h, split = plan.q[1] - plan.q[0], plan.split
     enter = sc.enter if split else (lambda t: t)
     rank = cfg.kv_lora_rank
 
@@ -349,7 +440,7 @@ def apply_mla(
             cache.k_pe[:, :s] = k_pe
             new_cache = MLACache(cache.c_kv, cache.k_pe, cache.length + s)
     out = o.reshape(b, s, h * dv) @ p["wo"]
-    return (sc.leave(out) if split else out), new_cache
+    return sc.leave_out(out, split), new_cache
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -383,18 +474,20 @@ def init_cross_attn(gen, cfg: ModelConfig, kv_dim: int, dtype, device,
 
 
 def apply_cross_attn(p: Dict, cfg: ModelConfig, par: ParallelConfig,
-                     x: torch.Tensor, kv_src: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, D); kv_src: (B, T, D_kv) — no causal mask, no rope on K/V.
-    As in the reference there is no cross K/V cache: every call (every
-    decode step) projects the whole ``kv_src``.  An fp32 ``kv_src`` (the
-    stub frontends' inputs) gives fp32 K/V, as ``jnp.einsum`` promotes;
-    the output takes ``x``'s dtype."""
-    b, s, _ = x.shape
-    t = kv_src.shape[1]
-    hd = cfg.head_dim
-    q = mm(x, p["wq"]).reshape(b, s, cfg.num_heads, hd)
-    k = mm(kv_src, p["wk"]).reshape(b, t, cfg.num_kv_heads, hd)
-    v = mm(kv_src, p["wv"]).reshape(b, t, cfg.num_kv_heads, hd)
+                     x: torch.Tensor, kv_src: torch.Tensor,
+                     sc: Scope = LOCAL) -> torch.Tensor:
+    """x: (B, S, D), the stream; kv_src: (B, T, D_kv), which every model
+    rank holds whole — no causal mask, no rope on K/V.  As in the
+    reference there is no cross K/V cache: every call (every decode step)
+    projects the whole ``kv_src``.  An fp32 ``kv_src`` (the stub
+    frontends' inputs) gives fp32 K/V, as ``jnp.einsum`` promotes; the
+    output takes ``x``'s dtype.  Under a model split of ``wq`` / ``wk`` /
+    ``wv`` (columns) and ``wo`` (rows) each rank attends with its heads;
+    a ``kv_src`` that needs a gradient (the encoder's output) must have
+    entered the split (``sc.enter``) before."""
+    plan = head_split(sc, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    x = sc.gather_in(x, plan.split)
+    q, k, v = project_heads(p, x, kv_src, plan, sc, cfg.head_dim)
     o = ops.flash_attention(q, k, v, causal=False, q_block=par.attn_q_block,
                             kv_block=par.attn_kv_block)
-    return mm(o.reshape(b, s, cfg.num_heads * hd), p["wo"])
+    return sc.leave_out(attend_out(o, p, plan), plan.split)

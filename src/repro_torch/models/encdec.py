@@ -20,6 +20,15 @@ dropped: the kernels' recompute backward (:mod:`repro_torch.kernels.ops`)
 already keeps only their inputs, and the train step runs with
 ``remat="none"``.
 
+In a sharded train step both stacks take the layout's scopes
+(``layout``): ``frame_proj`` is split by columns and its product
+all-gathered back to the whole ``d_model`` (its gradient sliced back),
+the encoder's and the decoder's attention run on the rank's heads, the
+MLPs on its hidden columns, the cross-attention on its heads over an
+encoder output that enters the split once for every decoder layer.  As in
+the reference no activation of this family is constrained: ``sp`` does
+not cut its sequence.
+
 Mixed dtypes follow jax's promotion (:func:`~repro_torch.models.layers.mm`):
 fp32 ``frames`` in a bf16 model make the whole encoder, and the decoder's
 cross K/V, fp32.
@@ -38,6 +47,8 @@ from repro_torch.models.layers import (
     init_embed, init_mlp, init_rmsnorm, lm_logits, mm,
 )
 from repro_torch.models.transformer import _layer, _restack, _unstack
+from repro_torch.sharding import collectives
+from repro_torch.sharding.layout import Scope
 from repro_torch.utils.config import ModelConfig, ParallelConfig
 
 
@@ -90,26 +101,33 @@ def init_encdec_params(cfg: ModelConfig, gen: Optional[torch.Generator],
 
 
 def encode(params: Dict, cfg: ModelConfig, par: ParallelConfig,
-           frames: torch.Tensor) -> torch.Tensor:
+           frames: torch.Tensor, layout=None) -> torch.Tensor:
     """frames: (B, T_enc, D) precomputed frame embeddings (stub
-    frontend) -> the encoder output (B, T_enc, D)."""
+    frontend) -> the encoder output (B, T_enc, D); ``layout`` as
+    :func:`repro_torch.models.transformer.forward` takes it."""
+    top = Scope(layout)
+    # the stub input takes no gradient: nothing to sum where it enters
     h = mm(frames, params["frame_proj"])
-    b, t, _ = h.shape
+    if top.model_dim("frame_proj") == 1:
+        h = collectives.gather(h, top.model, -1, backward="slice")
     hd = cfg.head_dim
-    positions = torch.arange(t, device=h.device)
+    positions = torch.arange(h.shape[1], device=h.device)
+    # the train step gathers the stacks' FSDP blocks whole before this
+    sc = Scope(layout, "enc_blocks/", scanned=True)
+    plan = attn.head_split(sc["attn"], cfg.num_heads, cfg.num_kv_heads, hd)
     for p in _unstack(params["enc_blocks"], _encoder_layers(cfg)):
-        hn = apply_rmsnorm(p["attn_norm"], h, cfg.norm_eps)
-        q = mm(hn, p["attn"]["wq"]).reshape(b, t, cfg.num_heads, hd)
-        k = mm(hn, p["attn"]["wk"]).reshape(b, t, cfg.num_kv_heads, hd)
-        v = mm(hn, p["attn"]["wv"]).reshape(b, t, cfg.num_kv_heads, hd)
+        hn = sc["attn"].gather_in(
+            apply_rmsnorm(p["attn_norm"], h, cfg.norm_eps), plan.split)
+        q, k, v = attn.project_heads(p["attn"], hn, hn, plan, sc["attn"], hd)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         o = ops.flash_attention(q, k, v, causal=False,
                                 q_block=par.attn_q_block,
                                 kv_block=par.attn_kv_block)
-        h = h + mm(o.reshape(b, t, -1), p["attn"]["wo"])
+        h = h + sc["attn"].leave_out(attn.attend_out(o, p["attn"], plan),
+                                     plan.split)
         hm = apply_rmsnorm(p["mlp_norm"], h, cfg.norm_eps)
-        h = h + apply_mlp(p["mlp"], hm, cfg.mlp_type)
+        h = h + apply_mlp(p["mlp"], hm, cfg.mlp_type, sc["mlp"])
     return apply_rmsnorm(params["enc_norm"], h, cfg.norm_eps)
 
 
@@ -123,30 +141,39 @@ def decode_forward(
     positions: Optional[torch.Tensor] = None,
     decode_state: Optional[attn.KVCache] = None,
     decode: bool = False,
+    layout=None,
 ) -> Tuple[torch.Tensor, Optional[attn.KVCache]]:
     """Returns (logits, new_decode_state).  With ``decode_state`` the
     self-attention caches are filled (prefill) or extended by one row
-    (decode) in place, and the returned state holds the same tensors."""
+    (decode) in place, and the returned state holds the same tensors;
+    ``layout`` as :func:`encode` takes it."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
-    h = embed_tokens(params["embed"], tokens, cfg.d_model)
+    top = Scope(layout)
+    sc = Scope(layout, "dec_blocks/", scanned=True)
+    h = embed_tokens(params["embed"], tokens, cfg.d_model, top["embed"])
+    if sc["cross"].model_dim("wk") == 1:
+        # every layer's cross K/V projections are column-split: their
+        # partial input gradients are summed once
+        enc_out = top.enter(enc_out)
     use_cache = decode_state is not None
     caches = []
     for i, p in enumerate(_unstack(params["dec_blocks"], cfg.num_layers)):
         cache = _layer(decode_state, i) if use_cache else None
         hn = apply_rmsnorm(p["attn_norm"], h, cfg.norm_eps)
         y, kv = attn.apply_gqa(p["attn"], cfg, par, hn, positions,
-                               cache=cache, decode=decode)
+                               cache=cache, decode=decode, sc=sc["attn"])
         h = h + y
         hc = apply_rmsnorm(p["cross_norm"], h, cfg.norm_eps)
-        h = h + attn.apply_cross_attn(p["cross"], cfg, par, hc, enc_out)
+        h = h + attn.apply_cross_attn(p["cross"], cfg, par, hc, enc_out,
+                                      sc["cross"])
         hm = apply_rmsnorm(p["mlp_norm"], h, cfg.norm_eps)
-        h = h + apply_mlp(p["mlp"], hm, cfg.mlp_type)
+        h = h + apply_mlp(p["mlp"], hm, cfg.mlp_type, sc["mlp"])
         caches.append(kv)
     new_state = _restack(decode_state, caches) if use_cache else None
     h = apply_rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    return lm_logits(params["embed"], h), new_state
+    return lm_logits(params["embed"], h, top["embed"]), new_state
 
 
 def init_encdec_decode_state(cfg: ModelConfig, batch: int, max_len: int,

@@ -14,10 +14,11 @@ axes (the stacked layer axis) to a parameter's shape.
 Tensor parallelism: the apply functions take a
 :class:`~repro_torch.sharding.layout.Scope` (``sc``; the unsharded model
 by default), which says per weight which dim the model axis splits.  A
-column-split product takes its input through ``sc.enter`` (the input
-gradient's partial sums all-reduced), a row-split one gives partial sums
-that ``sc.leave`` all-reduces; the embedding and the head split the
-vocab.
+column-split product takes its input through ``sc.gather_in`` (the
+input gradient's partial sums all-reduced, or reduce-scattered from the
+whole sequence under sequence parallelism), a row-split one gives partial
+sums that ``sc.leave_out`` all-reduces (reduce-scatters to the rank's
+sequence block); the embedding and the head split the vocab.
 """
 
 from __future__ import annotations
@@ -126,15 +127,16 @@ def apply_mlp(p: Dict, x: torch.Tensor, mlp_type: str,
               sc: Scope = LOCAL, reduce: bool = True) -> torch.Tensor:
     """The MLP of ``x``; under a model split of ``w_up`` (column) and
     ``w_down`` (row) the hidden width is this rank's, and with ``reduce``
-    False the caller takes ``x`` through ``sc.enter`` and the partial
-    output through ``sc.leave`` itself."""
+    False the caller takes ``x`` in and the partial output out itself
+    (``x`` is then the whole sequence); with ``reduce`` ``x`` is the
+    stream (:meth:`~repro_torch.sharding.layout.Scope.gather_in`)."""
     split = sc.model_dim("w_up") == 1
     if split != (sc.model_dim("w_down") == 0):
         raise ValueError(f"mlp at {sc.prefix}: w_up split on "
                          f"{sc.model_dim('w_up')}, w_down on "
                          f"{sc.model_dim('w_down')}")
-    if split and reduce:
-        x = sc.enter(x)
+    if reduce:
+        x = sc.gather_in(x, split)
     if mlp_type == "swiglu":
         h = F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"])
     elif mlp_type == "relu2":
@@ -142,7 +144,7 @@ def apply_mlp(p: Dict, x: torch.Tensor, mlp_type: str,
     else:  # gelu — jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(mm(x, p["w_up"]), approximate="tanh")
     out = mm(h, p["w_down"])
-    return sc.leave(out) if split and reduce else out
+    return sc.leave_out(out, split) if reduce else out
 
 
 # -- Embedding + LM head ---------------------------------------------------
@@ -166,29 +168,32 @@ def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
 
 def embed_tokens(p: Dict, tokens: torch.Tensor, d_model: int,
                  sc: Scope = LOCAL) -> torch.Tensor:
-    """The scaled embedding rows of ``tokens``.  With the vocab split over
+    """The scaled embedding rows of ``tokens``, as the stream holds them
+    (:meth:`~repro_torch.sharding.layout.Scope.leave_out`: the rank's
+    sequence block under the sequence split).  With the vocab split over
     the model axis each rank looks up the tokens its rows hold (the
-    others give zeros) and the rows are all-reduced."""
+    others give zeros) and the partial rows are summed."""
     emb = p["embedding"]
     scale = _embed_scale(d_model, emb.dtype)
     if sc.model_dim("embedding") != 0:
-        return F.embedding(tokens, emb) * scale
+        return sc.leave_out(F.embedding(tokens, emb) * scale, False)
     rows = emb.shape[0]
     local = tokens - sc.model.rank * rows
     inside = ((local >= 0) & (local < rows))[..., None]
     e = F.embedding(local.clamp(0, rows - 1), emb) * scale
-    return sc.leave(torch.where(inside, e, torch.zeros_like(e)))
+    return sc.leave_out(torch.where(inside, e, torch.zeros_like(e)))
 
 
 def lm_logits(p: Dict, h: torch.Tensor, sc: Scope = LOCAL) -> torch.Tensor:
-    """Logits of ``h``; with the vocab split over the model axis, the
-    rank's vocab block all-gathered (its gradient sliced back: every model
-    rank computes the loss of the whole logits)."""
+    """Logits of the stream ``h`` over the whole sequence (gathered first
+    under the sequence split); with the vocab split over the model axis,
+    the rank's vocab block all-gathered (its gradient sliced back: every
+    model rank computes the loss of the whole logits)."""
     if "lm_head" in p:
         w, split = p["lm_head"], sc.model_dim("lm_head") == 1
     else:
         w, split = p["embedding"].T, sc.model_dim("embedding") == 0
+    h = sc.gather_in(h, split)
     if not split:
         return h @ w
-    return collectives.gather(sc.enter(h) @ w, sc.model, -1,
-                              backward="slice")
+    return collectives.gather(h @ w, sc.model, -1, backward="slice")

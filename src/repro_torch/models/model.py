@@ -18,7 +18,6 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Union
 import torch
 
 from repro_torch.models import encdec, transformer
-from repro_torch.sharding.specs import activation_sharding
 from repro_torch.utils.config import ModelConfig, ParallelConfig
 from repro_torch.utils.device import DeviceLike, resolve_device
 
@@ -71,12 +70,10 @@ def build_model(cfg: ModelConfig, par: Optional[ParallelConfig] = None, *,
     if cfg.family == "audio":
         def forward(params, tokens, *, frames=None, decode_state=None,
                     decode=False, positions=None, layout=None, **kw):
-            enc_out = encdec.encode(params, cfg, par, frames)
-            if layout is not None:
-                enc_out = activation_sharding(enc_out, par, layout.mesh)
+            enc_out = encdec.encode(params, cfg, par, frames, layout)
             logits, state = encdec.decode_forward(
                 params, cfg, par, tokens, enc_out, positions=positions,
-                decode_state=decode_state, decode=decode)
+                decode_state=decode_state, decode=decode, layout=layout)
             return logits, state, torch.zeros((), dtype=torch.float32,
                                               device=logits.device)
 

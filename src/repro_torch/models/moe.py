@@ -35,6 +35,14 @@ the expert weights says where the experts run:
   come back by a second one (the backward's two run the other way);
   under a model split of the experts' hidden width the experts are
   column / row products as the dense MLP's.
+
+Under sequence parallelism (the scope's ``seq``) ``x`` is the rank's
+sequence block: the layer routes the whole sequence, all-gathered first
+(so the routing groups and the capacity are those without it; the
+gradient of the gathered tokens is complete, through the router's fp32
+path and the ``enter`` of the split branches, so the gather's backward
+takes the rank's slice), and the output leaves for the block
+(:meth:`~repro_torch.sharding.layout.Scope.leave_out`).
 """
 
 from __future__ import annotations
@@ -154,7 +162,9 @@ def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 
     ``dropless`` forces capacity = group size (no token dropped), as on
     the decode path.  Under a sharded step (``sc`` with data ranks) ``x``
-    is this data rank's share of the global batch."""
+    is this data rank's share of the global batch, and ``x`` the stream
+    (the rank's sequence block under the sequence split)."""
+    x = sc.gather_in(x, False)
     b, s, d = x.shape
     e, k = cfg.moe_num_experts, cfg.moe_top_k
     t = b * s
@@ -219,18 +229,19 @@ def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         expert_out = expert_out.transpose(0, 1).flatten(1, 2)
     out = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), expert_out)
 
-    partial = model_experts  # ``out`` is this rank's experts' share
+    # ``out`` is this rank's experts' share when they are on the model axis
+    out = out.reshape(b, s, d)
     if cfg.moe_num_shared > 0:
         shared = apply_mlp(p["shared"], xin if shared_split else tokens,
-                           "swiglu", sc["shared"], reduce=False)
-        if shared_split == partial:  # one all-reduce sums both shares
-            out = out + shared
-        elif shared_split:
-            out = out + sc.leave(shared)
+                           "swiglu", sc["shared"], reduce=False
+                           ).reshape(b, s, d)
+        if shared_split == model_experts:  # one reduction carries both
+            out = sc.leave_out(out + shared, model_experts)
         else:
-            out, partial = sc.leave(out) + shared, False
-    if partial:
-        out = sc.leave(out)
+            out = (sc.leave_out(out, model_experts)
+                   + sc.leave_out(shared, shared_split))
+    else:
+        out = sc.leave_out(out, model_experts)
 
     # load-balance auxiliary loss (Switch-style): E * sum_e f_e * p_e
     me = torch.softmax(logits, dim=-1).mean(dim=(0, 1))  # mean router prob
@@ -239,4 +250,4 @@ def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         me = collectives.all_reduce(me, data) / world
         ce = collectives.all_reduce(ce, data) / world
     aux = e * torch.sum(me * ce)
-    return out.reshape(b, s, d), aux
+    return out, aux

@@ -139,8 +139,7 @@ def apply_mamba1(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     n, rank = cfg.ssm_state, _dt_rank(cfg)
     split = _split(sc, ("w_x", "w_z", "conv_w", "w_dt"),
                    ("w_bcdt", "w_out", "A_log"), ("conv_b", "dt_bias", "D"))
-    if split:
-        x = sc.enter(x)
+    x = sc.gather_in(x, split)  # the conv and the scan need the sequence
     xi = x @ p["w_x"]
     z = x @ p["w_z"]
     A = -torch.exp(p["A_log"])
@@ -159,9 +158,8 @@ def apply_mamba1(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         ssm_state, y = ops.selective_scan_step(state.ssm, u, dt, A, Bc, Cc,
                                                p["D"])
         y = y * F.silu(z[:, 0])
-        out = y @ p["w_out"]
-        out = sc.leave(out) if split else out
-        return out[:, None, :], MambaState(conv_state, ssm_state)
+        out = sc.leave_out((y @ p["w_out"])[:, None, :], split)
+        return out, MambaState(conv_state, ssm_state)
 
     u = F.silu(_causal_conv_seq(xi, p["conv_w"], p["conv_b"]))
     xdbc = u @ p["w_bcdt"]
@@ -179,8 +177,7 @@ def apply_mamba1(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         y = ops.selective_scan(u, dt, A, Bc, Cc, p["D"], chunk=cfg.ssm_chunk)
     y = y * F.silu(z)
-    out = y @ p["w_out"]
-    return (sc.leave(out) if split else out), new_state
+    return sc.leave_out(y @ p["w_out"], split), new_state
 
 
 def init_mamba1_state(cfg: ModelConfig, batch: int, dtype, device,
@@ -238,9 +235,13 @@ def apply_mamba2(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                  ) -> Tuple[torch.Tensor, Optional[MambaState]]:
     d_whole, heads_whole, head_dim, g = _m2_dims(cfg)
     n = cfg.ssm_state
-    b, s, _ = x.shape
     split = _split(sc, ("w_z", "w_x", "conv_x_w"), ("w_out",),
                    ("conv_x_b", "dt_bias", "D", "norm_scale"))
+    # the whole sequence for the conv and the SSD; its gradient is
+    # complete (``xe`` enters the split channels, and B / C / dt enter
+    # below), so a sequence gather takes the rank's slice back
+    x = sc.gather_in(x, False)
+    b, s, _ = x.shape
     xe = sc.enter(x) if split else x
     z = xe @ p["w_z"]
     xi = xe @ p["w_x"]
@@ -269,10 +270,8 @@ def apply_mamba2(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         ssm_state, y = ops.ssd_step(state.ssm, x_t, dt, A, Bt, Ct, p["D"])
         y = _gated_rmsnorm(y.reshape(b, d_inner), z[:, 0], p["norm_scale"],
                            cfg.norm_eps, sc if split else None, d_whole)
-        out = y @ p["w_out"]
-        out = sc.leave(out) if split else out
-        return (out[:, None, :],
-                MambaState(torch.cat([cs_x, cs_bc], -1), ssm_state))
+        out = sc.leave_out((y @ p["w_out"])[:, None, :], split)
+        return out, MambaState(torch.cat([cs_x, cs_bc], -1), ssm_state)
 
     xs_ = F.silu(_causal_conv_seq(xi, p["conv_x_w"], p["conv_x_b"]))
     bcs = F.silu(_causal_conv_seq(bc, p["conv_bc_w"], p["conv_bc_b"]))
@@ -292,8 +291,7 @@ def apply_mamba2(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         y = ops.ssd(xs_, dt, A, Bs, Cs, p["D"], chunk=cfg.ssm_chunk)
     y = _gated_rmsnorm(y.reshape(b, s, d_inner), z, p["norm_scale"],
                        cfg.norm_eps, sc if split else None, d_whole)
-    out = y @ p["w_out"]
-    return (sc.leave(out) if split else out), new_state
+    return sc.leave_out(y @ p["w_out"], split), new_state
 
 
 def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,

@@ -13,10 +13,12 @@ backward stacks the layers' gradients in one allocation); each layer's
 cache is a view into the stacked tensors, updated in place (see
 :mod:`repro_torch.models.attention`).  The hybrid family's
 ``shared_attn`` block has one set of weights, applied in every
-super-block, so its gradients add up over them.  This port runs on one
-device, so the reference's activation sharding constraint and its
-``remat`` policies are dropped (the train CLI's ``ParallelConfig()`` has
-``remat="none"``).
+super-block, so its gradients add up over them.  In a sharded train
+step the forward executes the reference's activation sharding constraint
+(:func:`~repro_torch.sharding.specs.activation_sharding`: under ``sp``
+the stream between sublayers is the rank's sequence block); the
+reference's ``remat`` policies are dropped (the train CLI's
+``ParallelConfig()`` has ``remat="none"``).
 
 Decode state follows the reference's trees: a KV cache for a dense,
 cross or moe layer (an :class:`~repro_torch.models.attention.MLACache`
@@ -287,7 +289,8 @@ def _apply_sublayer(sub_p, cfg, par, kind, h, positions, shared_p,
     h = h + y
     if kind == "cross":
         hc = apply_rmsnorm(sub_p["cross_norm"], h, cfg.norm_eps)
-        yc = attn.apply_cross_attn(sub_p["cross"], cfg, par, hc, vision_kv)
+        yc = attn.apply_cross_attn(sub_p["cross"], cfg, par, hc, vision_kv,
+                                   sc["cross"])
         h = h + torch.tanh(sub_p["cross_gate"]) * yc
     hm = apply_rmsnorm(sub_p["mlp_norm"], h, cfg.norm_eps)
     aux = None
@@ -334,17 +337,20 @@ def forward(
     FSDP (:meth:`Layout.gather`; the layers' slices are gathered here).
     The activations are held to
     :func:`~repro_torch.sharding.specs.activation_sharding` where the
-    reference constrains them, and the MoE statistics are averaged over
-    its data ranks."""
+    reference constrains them (under ``sp`` the stream is the rank's
+    sequence block from the embedding to the final norm, and the hidden
+    state ``return_hidden`` gives is that block), and the MoE statistics
+    are averaged over its data ranks."""
     pat = block_pattern(cfg)
     nsb = num_superblocks(cfg)
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
-    top = Scope(layout)
+    top = Scope.top(layout, s)
+    blocks = 1 if top.seq is None else top.seq.size
     h = embed_tokens(params["embed"], tokens, cfg.d_model, top["embed"])
     if layout is not None:
-        h = activation_sharding(h, par, layout.mesh)
+        h = activation_sharding(h, par, layout.mesh, s, blocks)
     shared_p = params.get("shared_attn")
     use_cache = decode_state is not None
     layers = _unstack(params["blocks"], nsb)
@@ -359,10 +365,10 @@ def forward(
                 sub_p = layout.gather(sub_p, f"blocks/{key}/")
             h, nc, a = _apply_sublayer(
                 sub_p, cfg, par, kind, h, positions, shared_p, vision_embeds,
-                cache, decode, Scope(layout, f"blocks/{key}/", scanned=True),
+                cache, decode, Scope(layout, f"blocks/{key}/", True, top.seq),
                 top["shared_attn"])
             if layout is not None:
-                h = activation_sharding(h, par, layout.mesh)
+                h = activation_sharding(h, par, layout.mesh, s, blocks)
             if use_cache:
                 new_layers[key].append(nc)
             if a is not None:
@@ -386,11 +392,17 @@ def mtp_logits(params: Dict, cfg: ModelConfig, par: ParallelConfig,
                h: torch.Tensor, tokens: torch.Tensor,
                positions: torch.Tensor, layout=None) -> torch.Tensor:
     """Predict token t+2 from hidden t combined with the embedding of token
-    t+1 (``tokens``); ``layout`` as :func:`forward`'s.  ``mtp/proj`` is
+    t+1 (``tokens``); ``h`` and ``layout`` as :func:`forward` gives and
+    takes them.  Under the sequence split the head runs on the whole
+    sequence, gathered first (its loss shifts across the blocks'
+    boundaries; every model rank's gradient of the gathered ``h`` is
+    complete, so its backward takes the rank's block).  ``mtp/proj`` is
     column-split over the model axis by the rules, so under a split its
     product is all-gathered back to the whole ``d_model``."""
     from repro_torch.sharding import collectives
 
+    h = collectives.gather(h, Scope.top(layout, tokens.shape[1]).seq, 1,
+                           "slice")
     top = Scope(layout)
     mtp = params["mtp"]
     emb_next = embed_tokens(params["embed"], tokens, cfg.d_model,

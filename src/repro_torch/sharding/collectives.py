@@ -17,8 +17,20 @@ copy to the host is made):
   reduce-scatters (an FSDP weight: every rank's gradient of the whole
   weight is a partial sum) or takes the rank's slice (``"slice"``: vocab
   logits, whose loss every model rank computes whole);
+- :func:`scatter` — reduce-scatter forward along a dim, all-gather
+  backward: the partial sums of a row-parallel product leaving for the
+  rank's sequence block under sequence parallelism (Megatron's
+  sequence-parallel ``g``);
+- :func:`shard` — the rank's block along a dim forward, all-gather
+  backward: a tensor every model rank holds whole and complete leaving
+  for the rank's sequence block;
 - :func:`all_to_all` — the GShard expert exchange, an all-to-all both
   ways.
+
+An axis whose group is :data:`TRACED` moves no data: the gathers and
+reduce-scatters over it give uncounted, unwritten tensors of their
+results' shapes (a dry run's traced rank, whose sequence blocks have the
+shapes a rank holds; :func:`repro_torch.sharding.layout.traced_sequence`).
 
 Every call adds its operand's bytes to :data:`COUNTS`, by kind and axis,
 under the calling rank: an all-reduce or an all-to-all counts its tensor,
@@ -49,6 +61,10 @@ class Axis(NamedTuple):
     name: str
     size: int
     rank: int
+
+
+#: the group of an axis that only shapes its collectives' results
+TRACED = "traced"
 
 
 def reset_counts() -> None:
@@ -87,6 +103,10 @@ def _all_reduce(t: torch.Tensor, axis: Axis, op=dist.ReduceOp.SUM
 
 
 def _all_gather(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    if axis.group is TRACED:
+        shape = list(t.shape)
+        shape[dim] *= axis.size
+        return t.new_empty(shape)
     t = t.contiguous()
     _count("all-gather", axis, t)
     flat = t.reshape(-1)
@@ -100,10 +120,13 @@ def _all_gather(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
 
 
 def _reduce_scatter(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
-    _count("reduce-scatter", axis, t)
     n = axis.size
     shape = list(t.shape)
     block = shape[dim] // n
+    if axis.group is TRACED:
+        shape[dim] = block
+        return t.new_empty(shape)
+    _count("reduce-scatter", axis, t)
     parts = t.unflatten(dim, (n, block)).movedim(dim, 0).contiguous()
     out = parts.new_empty(parts[0].numel())
     dist.reduce_scatter_tensor(out, parts.reshape(-1), group=axis.group)
@@ -149,18 +172,40 @@ class _AllReduce(torch.autograd.Function):
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axis, dim, backward):
+    def forward(ctx, x, axis, dim, backward, grad_dtype):
         ctx.axis, ctx.dim, ctx.mode = axis, dim, backward
-        ctx.dtype = x.dtype
+        ctx.dtype, ctx.grad_dtype = x.dtype, grad_dtype
         return _all_gather(x, axis, dim)
 
     @staticmethod
     def backward(ctx, g):
         if ctx.mode == "slice":
-            return _slice(g, ctx.axis, ctx.dim), None, None, None
-        # the reduce-scatter sums in fp32 (an fp32 master's gradient)
-        g = _reduce_scatter(g.to(torch.float32), ctx.axis, ctx.dim)
-        return g.to(ctx.dtype), None, None, None
+            return _slice(g, ctx.axis, ctx.dim), None, None, None, None
+        g = _reduce_scatter(g.to(ctx.grad_dtype or g.dtype), ctx.axis,
+                            ctx.dim)
+        return g.to(ctx.dtype), None, None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return _reduce_scatter(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.axis, ctx.dim), None, None
+
+
+class _Shard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return _slice(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.axis, ctx.dim), None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -219,15 +264,44 @@ def all_reduce_max(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
 
 
 def gather(x: torch.Tensor, axis: Optional[Axis], dim: int,
-           backward: str = "reduce-scatter") -> torch.Tensor:
+           backward: str = "reduce-scatter",
+           grad_dtype: Optional[torch.dtype] = torch.float32
+           ) -> torch.Tensor:
     """All-gather along ``dim`` (the blocks in the group's rank order);
     the backward reduce-scatters, or takes this rank's block
-    (``backward="slice"``)."""
+    (``backward="slice"``).  The reduce-scatter sums in ``grad_dtype``
+    (fp32 by default: an fp32 master's gradient), or in the gradient's own
+    dtype when it is None (an activation's)."""
     if axis is None or axis.size == 1:
         return x
     if backward not in ("reduce-scatter", "slice"):
         raise ValueError(f"unknown gather backward {backward!r}")
-    return _Gather.apply(x, axis, dim % x.ndim, backward)
+    return _Gather.apply(x, axis, dim % x.ndim, backward, grad_dtype)
+
+
+def _blocks(x: torch.Tensor, axis: Axis, dim: int) -> int:
+    if x.shape[dim] % axis.size:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"into {axis.size} blocks")
+    return dim % x.ndim
+
+
+def scatter(x: torch.Tensor, axis: Optional[Axis], dim: int
+            ) -> torch.Tensor:
+    """Reduce-scatter (sum) along ``dim``: this rank's block of the sum of
+    every rank's ``x``; the backward all-gathers the gradient."""
+    if axis is None or axis.size == 1:
+        return x
+    return _Scatter.apply(x, axis, _blocks(x, axis, dim))
+
+
+def shard(x: torch.Tensor, axis: Optional[Axis], dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` (which every rank holds the same) along
+    ``dim``; the backward all-gathers the gradient, so the whole gradient
+    of ``x`` is on every rank."""
+    if axis is None or axis.size == 1:
+        return x
+    return _Shard.apply(x, axis, _blocks(x, axis, dim))
 
 
 def all_to_all(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:

@@ -22,6 +22,26 @@ saved reference to it by its block and all-gathers it again when the
 backward first needs it, dropping it after the last use.  The expert dim
 of a MoE weight split over the data axes is expert parallelism, not FSDP:
 that block is used as it is (:func:`repro_torch.models.moe.apply_moe`).
+
+Sequence parallelism (``par.sp``, :func:`~repro_torch.sharding.specs.
+sequence_blocks`): between sublayers each model rank holds its block
+``(B, S/m, D)`` of the residual stream, and the norms run on it.  A
+sublayer's input is all-gathered along the sequence
+(:meth:`Scope.gather_in`) and its output leaves for the block
+(:meth:`Scope.leave_out`): a row-parallel product's partial sums by a
+reduce-scatter, a whole output by the rank's slice (each with an
+all-gather backward).  The gather's backward reduce-scatters where the
+gathered tensor's gradient is a partial sum over the model ranks (it
+feeds column-split products directly), and takes the rank's slice where
+it is complete on every rank (it feeds only replicated weights whose
+results enter the split, or a sublayer that keeps its own ``enter``).
+The leaves applied to the stream itself (the norm scales, the vlm gate:
+:meth:`Layout.on_stream`) get from each rank the share of its block, so
+the train step sums their gradients over the model axis.  The audio
+family is not cut: the reference constrains none of its activations.
+A dry run traces one rank's step without a model axis; within
+:func:`traced_sequence` its layout cuts the stream all the same, over an
+axis that moves no data, so the traced stream has a rank's shapes.
 """
 
 from __future__ import annotations
@@ -35,16 +55,38 @@ import torch
 
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.specs import (PartitionSpec, data_axes_of,
-                                        param_specs)
+                                        param_specs, sequence_blocks)
+from repro_torch.utils.config import ParallelConfig
 from repro_torch.utils.trees import flatten_with_paths, tree_map_with_path
 
 _EXPERT = re.compile(r"moe/w_(gate|up|down)$")
+#: leaves applied to the residual stream itself (the MTP head, which runs
+#: on the whole sequence, aside)
+_ON_STREAM = re.compile(r"(^|/)(attn_norm|mlp_norm|cross_norm|norm|"
+                        r"final_norm)/scale$|cross_gate$")
+
+
+#: the sequence blocks of a traced rank's stream (:func:`traced_sequence`)
+_TRACED_BLOCKS = [1]
 
 
 def _axes(entry) -> Tuple[str, ...]:
     if entry is None:
         return ()
     return entry if isinstance(entry, tuple) else (entry,)
+
+
+@contextlib.contextmanager
+def traced_sequence(blocks: int):
+    """Within: a layout made on a mesh without a model axis (a dry run's
+    traced rank, :func:`repro_torch.launch.build.lower_step`) holds the
+    stream in ``blocks`` sequence blocks where the sequence divides, over
+    a :data:`~repro_torch.sharding.collectives.TRACED` axis."""
+    _TRACED_BLOCKS.append(blocks)
+    try:
+        yield
+    finally:
+        _TRACED_BLOCKS.pop()
 
 
 class _Held:
@@ -72,13 +114,19 @@ class Layout:
 
     ``specs``: path -> spec of every parameter leaf (the whole tree's,
     scan dim included); ``mesh``: the mesh, whose ``axis("data")`` /
-    ``axis("model")`` groups the collectives run over."""
+    ``axis("model")`` groups the collectives run over; ``parallel``: the
+    run's knobs (``sp`` read here); ``family``: the model's."""
 
     def __init__(self, specs: Dict[str, PartitionSpec], mesh,
-                 shapes: Optional[Dict[str, Tuple[int, ...]]] = None):
+                 shapes: Optional[Dict[str, Tuple[int, ...]]] = None,
+                 parallel: Optional[ParallelConfig] = None,
+                 family: str = "dense"):
         self.specs = specs
         self.shapes = shapes or {}
         self.mesh = mesh
+        self.parallel = parallel or ParallelConfig()
+        self.family = family
+        self.traced = _TRACED_BLOCKS[-1]
         self.daxes = data_axes_of(mesh.axis_names)
         self.data = mesh.axis("data")
         self.model = mesh.axis("model")
@@ -89,17 +137,32 @@ class Layout:
     def of(cls, params, run, mesh) -> "Layout":
         """The layout of ``params`` (a tree of tensors of the whole
         shapes, ``meta`` ones included) under ``run``'s rules."""
-        cfg = run.model
-        if cfg.family in ("vlm", "audio") and mesh.shape.get("model", 1) > 1:
-            raise NotImplementedError(
-                f"the {cfg.family} family on a model axis of "
-                f"{mesh.shape['model']}: ROADMAP queue 1, item 7 (the vlm "
-                f"and audio families under a model axis)")
-        specs = flatten_with_paths(param_specs(params, cfg, run.parallel,
-                                               mesh))
+        cfg, par = run.model, run.parallel
+        specs = flatten_with_paths(param_specs(params, cfg, par, mesh))
         shapes = {k: tuple(v.shape)
                   for k, v in flatten_with_paths(params).items()}
-        return cls(specs, mesh, shapes)
+        return cls(specs, mesh, shapes, par, cfg.family)
+
+    # -- the sequence split --------------------------------------------------
+
+    def seq_axis(self, seq_len: int) -> Optional[C.Axis]:
+        """The model axis when a forward over ``seq_len`` tokens holds the
+        residual stream in sequence blocks, else None (a traced rank's:
+        the traced axis)."""
+        if self.traced > 1:
+            return (C.Axis(C.TRACED, "model", self.traced, 0)
+                    if seq_len % self.traced == 0 else None)
+        if sequence_blocks(self.parallel, self.mesh, seq_len,
+                           self.family) == 1:
+            return None
+        return self.model
+
+    @staticmethod
+    def on_stream(path: str) -> bool:
+        """Whether leaf ``path`` is applied to the residual stream itself
+        (a norm scale, the vlm gate): under the sequence split its
+        gradient on each model rank is its block's share."""
+        return bool(_ON_STREAM.search(path)) and not path.startswith("mtp/")
 
     # -- what a leaf's spec says ---------------------------------------------
 
@@ -232,16 +295,26 @@ class Scope:
     """A :class:`Layout` at a path of the parameter tree (``prefix``),
     which the model code asks about its weights; ``Scope(None)`` is the
     unsharded model (every weight whole, every collective the identity).
-    ``scanned``: the weights are a layer slice of stacked leaves."""
+    ``scanned``: the weights are a layer slice of stacked leaves.
+    ``seq``: the model axis when the residual stream is in sequence
+    blocks (:meth:`Layout.seq_axis`), else None."""
 
-    __slots__ = ("layout", "prefix", "scanned")
+    __slots__ = ("layout", "prefix", "scanned", "seq")
 
     def __init__(self, layout: Optional[Layout], prefix: str = "",
-                 scanned: bool = False):
+                 scanned: bool = False, seq: Optional[C.Axis] = None):
         self.layout, self.prefix, self.scanned = layout, prefix, scanned
+        self.seq = seq
+
+    @classmethod
+    def top(cls, layout: Optional[Layout], seq_len: int) -> "Scope":
+        """The root scope of a forward over ``seq_len`` tokens."""
+        return cls(layout, seq=None if layout is None
+                   else layout.seq_axis(seq_len))
 
     def __getitem__(self, key: str) -> "Scope":
-        return Scope(self.layout, f"{self.prefix}{key}/", self.scanned)
+        return Scope(self.layout, f"{self.prefix}{key}/", self.scanned,
+                     self.seq)
 
     @property
     def model(self) -> Optional[C.Axis]:
@@ -285,6 +358,30 @@ class Scope:
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         return C.all_reduce(x, self.model)
+
+    def gather_in(self, x: torch.Tensor, partial: bool = True
+                  ) -> torch.Tensor:
+        """A sublayer's input from the stream: under the sequence split
+        the whole sequence, all-gathered along dim 1 (the backward
+        reduce-scatters a ``partial`` gradient, else takes this rank's
+        block); without it ``x``, through :meth:`enter` when ``partial``
+        (it feeds column-split products)."""
+        if self.seq is not None:
+            return C.gather(x, self.seq, 1,
+                            "reduce-scatter" if partial else "slice",
+                            grad_dtype=None)
+        return self.enter(x) if partial else x
+
+    def leave_out(self, y: torch.Tensor, partial: bool = True
+                  ) -> torch.Tensor:
+        """A sublayer's output for the stream: ``partial`` sums of a
+        row-split product reduce-scattered to this rank's sequence block
+        under the sequence split (all-reduced without it); a whole output
+        sliced to the block (itself without the split)."""
+        if self.seq is not None:
+            return (C.scatter(y, self.seq, 1) if partial
+                    else C.shard(y, self.seq, 1))
+        return self.leave(y) if partial else y
 
     def local(self, x: torch.Tensor, dim: int, parts: int) -> torch.Tensor:
         """This model rank's block of a whole tensor along ``dim`` when a

@@ -89,23 +89,54 @@ def data_axes_of(mesh_axes: Tuple[str, ...]) -> Tuple[str, ...]:
     return tuple(a for a in mesh_axes if a in ("pod", "data"))
 
 
-def activation_sharding(h, par: ParallelConfig, mesh):
+def sequence_blocks(par: ParallelConfig, mesh, seq_len: int,
+                    family: str = "dense") -> int:
+    """The reference's sequence rule (``activation_sharding``'s
+    ``seq_spec``): the number of blocks the (B, S, D) residual stream of a
+    forward over ``seq_len`` tokens is cut into along the sequence — the
+    model axis' size under ``par.sp`` when the mesh has data axes and a
+    "model" axis above 1 that divides ``seq_len``, else 1 (the stream
+    whole; decode's one token, for one).  The audio ``family`` is never
+    cut: the reference constrains none of its activations."""
+    axes, sizes = _mesh_sizes(mesh)
+    m = sizes.get("model", 1)
+    if (par.sp and family != "audio" and data_axes_of(axes) and m > 1
+            and seq_len % m == 0):
+        return m
+    return 1
+
+
+def activation_sharding(h, par: ParallelConfig, mesh, seq_len=None,
+                        blocks=None):
     """The reference's constraint on (B, S, D) activations, on the mesh
     the forward executes on: batch over the data axes, sequence over
-    "model" under ``par.sp``.  Without ``sp`` every rank of a data
-    coordinate holds its rows whole, over the data axes and the model axis
-    alike (the tensor-parallel products all-reduce back to that layout),
-    so the constraint is what the layout already is and ``h`` is returned
-    as it is.  ``sp``, and an axis above 1 that is not "pod", "data" or
-    "model", raise: sequence parallelism is not executed."""
+    "model" under ``par.sp`` (:func:`sequence_blocks`).  The port executes
+    the constraint instead of asking for it: every rank of a data
+    coordinate holds its rows, whole over the model axis or, under the
+    sequence rule, its block ``(B, S/m, D)`` of the ``seq_len`` tokens
+    (the embedding's reduce-scatter cuts it,
+    :func:`repro_torch.models.layers.embed_tokens`).  So ``h`` is checked
+    against that layout and returned as it is; ``seq_len`` is the whole
+    sequence (``h.shape[1]`` when omitted: ``h`` whole), ``blocks`` the
+    blocks the caller's layout cuts it into (the rule's when omitted; a
+    dry run's traced rank cuts it without a model axis).  A stream of
+    another length raises ``ValueError``, an axis above 1 that is not
+    "pod", "data" or "model" ``NotImplementedError``: no rule of the
+    reference's cuts over it."""
     axes, sizes = _mesh_sizes(mesh)
     other = {a: sizes[a] for a in axes
              if a not in ("pod", "data", "model") and sizes[a] > 1}
-    if other or par.sp:
+    if other:
         raise NotImplementedError(
-            f"activation sharding over {other} (sp={par.sp}) needs "
-            f"sequence-parallel execution: ROADMAP queue 1, item 7 "
-            f"(sequence parallelism)")
+            f"activation sharding over {other}: the rules place the "
+            f"stream over 'pod', 'data' and 'model' only")
+    seq_len = h.shape[1] if seq_len is None else seq_len
+    if blocks is None:
+        blocks = sequence_blocks(par, mesh, seq_len)
+    want = seq_len // blocks
+    if h.ndim < 3 or h.shape[1] != want:
+        raise ValueError(f"a stream of {tuple(h.shape)} where the rule "
+                         f"holds {want} of {seq_len} tokens a rank")
     return h
 
 

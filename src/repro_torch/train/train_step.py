@@ -33,7 +33,10 @@ batch) -> (state, metrics)`` with:
   the shares' gradients are summed in buckets
   (``grad.all_reduce_grads``), before ``int8_ef`` compression, as the
   reference compresses the global loss's gradient; the optimizer's
-  statistics sum the blocks of each leaf.
+  statistics sum the blocks of each leaf.  Under sequence parallelism
+  (``sp``) the leaves applied to the stream's sequence blocks (the norm
+  scales, the vlm gate: ``Layout.on_stream``) have their gradients summed
+  over the model axis first, in the same buckets.
 
 The reference's ``remat`` is dropped: the CLI trains with
 ``ParallelConfig()`` (``remat="none"``), and the kernels' recompute
@@ -159,7 +162,8 @@ def make_train_step(model: Model, run: RunConfig, optimizer: Optimizer,
         if cfg.mtp_depth > 0:
             h, _, aux = model.forward(params_c, inputs, return_hidden=True,
                                       **fkw)
-            logits = lm_logits(params_c["embed"], h, Scope(layout)["embed"])
+            logits = lm_logits(params_c["embed"], h,
+                               Scope.top(layout, inputs.shape[1])["embed"])
         else:
             logits, _, aux = model.forward(params_c, inputs, **fkw)
         loss, metrics = cross_entropy_loss(logits, targets, z_loss=tc.z_loss,
@@ -211,6 +215,11 @@ def make_train_step(model: Model, run: RunConfig, optimizer: Optimizer,
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
         grads = [g.to(torch.float32) for g in grads]
+        if layout.seq_axis(batch["inputs"].shape[1]) is not None:
+            # the leaves applied to the stream's sequence blocks: each
+            # model rank holds its block's share
+            all_reduce_grads([g for path, g in zip(paths, grads)
+                              if layout.on_stream(path)], layout.model)
         group = layout.data
         if group is not None:
             # FSDP gradients were reduce-scattered in the backward and an

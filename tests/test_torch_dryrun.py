@@ -17,7 +17,8 @@
   deepseek-v3-671b with its MoE statistics and MTP loss).
 - ``roofline_from_record`` on a fixed record; ``CompiledPerfEnv`` (inf for
   a rejected plan and past the card's memory, finite otherwise, cached;
-  counters and space as the reference's); ``dryrun.main`` writes one
+  counters and space as the reference's; an ``sp=1`` point priced, its
+  all-reduces reduce-scatters and all-gathers); ``dryrun.main`` writes one
   record a cell with the reference's keys and reports a failing cell.
 
 Only smoke cells are traced, and one production cell, llama3.2-1b
@@ -140,8 +141,9 @@ def test_model_split_parameter_divides_its_products():
     """x (8, 16) @ W (16, 32) with W split 4 ways over the model axis:
     the product and the elementwise op on it count a quarter; a
     row-parallel W2 (32, 16) divides its product too, its result is
-    whole again (all-reduced: one all-reduce of its bytes), and what
-    reads that result counts in full."""
+    whole again (its all-reduce is ``lower_step``'s to derive, not the
+    counter's: none recorded), and what reads that result counts in
+    full."""
     x, w, w2 = _meta(8, 16), _meta(16, 32), _meta(32, 16)
 
     def step(x, w, w2):
@@ -156,8 +158,7 @@ def test_model_split_parameter_divides_its_products():
     mm1, mm2 = 2 * 8 * 16 * 32, 2 * 8 * 32 * 16
     assert c.matmul_flops == mm1 / 4 + mm2 / 4
     assert c.flops == mm1 / 4 + 8 * 32 / 4 + mm2 / 4 + 8 * 16
-    assert c.collective_bytes == {"all-reduce": 8 * 16 * F32}
-    assert c.collective_count == {"all-reduce": 1}
+    assert c.collective_bytes == {} and c.collective_count == {}
     # live: h (split) and x @ w (split) a quarter each, the product whole
     assert c.peak_live_bytes >= 8 * 16 * F32
 
@@ -200,6 +201,55 @@ def test_fsdp_and_tp_rules_hand_count():
     # every argument leaf's block, exact
     mem = traced.memory_analysis()
     assert mem.argument_size_in_bytes == _arg_bytes(bundle, run)
+
+
+def test_sequence_split_traces_the_stream_at_a_rank_block():
+    """llama3.2-1b smoke, train, data 2 x model 2, tp=2: under ``sp`` the
+    traced stream is a rank's sequence block, so the RMSNorm scopes (all
+    on the stream) count half the bytes they count without it, and the
+    matmuls count the same (each sublayer reads its gathered input)."""
+    off, on = (_lower(_smoke("llama3.2-1b", "train_smoke",
+                             {"data": 2, "model": 2}, tp=2, sp=sp))[1]
+               for sp in (False, True))
+    norm = {sp: t.counter.by_op["scope:rmsnorm"] for sp, t in
+            ((False, off), (True, on))}
+    assert norm[True][0] == norm[False][0]  # as many calls
+    # the rows halve; the scales (a few hundred bytes) do not
+    assert abs(norm[True][2] / norm[False][2] - 0.5) < 0.01
+    assert on.counter.matmul_flops == off.counter.matmul_flops
+    assert on.memory_analysis().temp_size_in_bytes <= \
+        off.memory_analysis().temp_size_in_bytes
+
+
+def test_wider_stub_inputs_widen_the_audio_encoder_collectives():
+    """whisper-large-v3 smoke, train in bf16, data 2 x model 2, tp=2,
+    fsdp=2: with fp32 ``frames`` (the train CLI's) the encoder runs in
+    fp32 (``mm`` promotes), so its derived collectives and the encoder
+    output's input-gradient all-reduce count 4 bytes an element where
+    bf16 ones count 2, the decoder's stay at 2, and the encoder weights'
+    FSDP blocks are not gathered again in the backward (the products
+    save widened copies)."""
+    run = _smoke("whisper-large-v3", "train_smoke", {"data": 2, "model": 2},
+                 tp=2, fsdp=2)
+    assert run.train.compute_dtype == "bfloat16"
+    mesh = MeshSpec.of(run.mesh.shape, run.mesh.axes)
+    _, narrow = lower_step(run, mesh, stub_dtype=torch.bfloat16)
+    _, wide = lower_step(run, mesh, stub_dtype=torch.float32)
+
+    def by(traced, what):
+        return sum(c.nbytes for c in traced.counter.collectives
+                   if c.what.startswith(what))
+
+    for what in ("tp partial sum enc_blocks/", "tp frame_proj",
+                 "tp enter enc_out"):
+        assert by(wide, what) == 2 * by(narrow, what) > 0, what
+    for what in ("tp partial sum dec_blocks/", "tp vocab"):
+        assert by(wide, what) == by(narrow, what), what
+    enc = [c for c in wide.counter.collectives
+           if c.what.startswith("fsdp enc_blocks/")]
+    assert enc and 2 * len(enc) == len(
+        [c for c in narrow.counter.collectives
+         if c.what.startswith("fsdp enc_blocks/")])
 
 
 def _param_specs(bundle, traced):
@@ -415,6 +465,46 @@ def test_compiled_env(tmp_path):
                             hardware=dataclasses.replace(
                                 H100_SXM, hbm_capacity=2**20))
     assert small.intervene(config)[1] == math.inf  # past the card's memory
+
+
+def test_compiled_env_prices_sequence_parallel_points(tmp_path, monkeypatch):
+    """An ``sp=1`` point of the train space is a plan the port prices: on
+    the smoke cell (llama3.2-1b ``train_smoke`` on a (2, 2) ``("data",
+    "model")`` mesh at tp=2, standing in for the production cell) the step
+    is finite, ``matmul_flops`` is the ``sp=0`` point's, and the
+    row-parallel all-reduces become reduce-scatters beside the sequence
+    all-gathers."""
+    from repro_torch.configs.registry import make_run as registry_run
+    from repro_torch.launch.dryrun import parallel_overrides
+    from repro_torch.tuner.compiled_env import CompiledPerfEnv
+
+    def smoke_cell(arch, shape, *, multi_pod=False, par_kv=None,
+                   mesh_kv=None):
+        run = registry_run(arch, "train_smoke", smoke=True)
+        run = run.replace(mesh=MeshConfig(shape=(2, 2),
+                                          axes=("data", "model")),
+                          parallel=parallel_overrides(
+                              run.parallel.replace(tp=2), par_kv))
+        run.validate()
+        return run
+
+    monkeypatch.setattr(dryrun, "cell_run", smoke_cell)
+    env = CompiledPerfEnv("llama3.2-1b", "train_4k", cache_dir=str(tmp_path))
+    config = env.space.default_config()
+    recs = {}
+    for sp in (0, 1):
+        counters, y = env.intervene({**config, "sp": sp})
+        assert 0 < y < math.inf, sp
+        (name,) = [n for n in os.listdir(tmp_path)
+                   if f"sp-{sp}" in n]
+        recs[sp] = json.loads((tmp_path / name).read_text())
+    assert recs[1]["parallel"]["sp"] and not recs[0]["parallel"]["sp"]
+    assert recs[1]["matmul_flops"] == recs[0]["matmul_flops"]
+    off, on = (recs[sp]["hlo_analysis"]["collective_bytes_per_chip"]
+               for sp in (0, 1))
+    assert on["reduce-scatter"] > off["reduce-scatter"]
+    assert on["all-gather"] > off["all-gather"]
+    assert on["all-reduce"] < off["all-reduce"]
 
 
 #: the reference's record keys (``repro/launch/dryrun.py:89-118``), with

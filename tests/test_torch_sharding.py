@@ -252,8 +252,9 @@ def test_to_placements():
 
 def test_activation_sharding_passes_only_what_data_parallelism_is():
     """The data axes and the model axis hold (B, S, D) activations as the
-    constraint asks; sequence parallelism (``sp``) and any other axis
-    raise, naming the ROADMAP item."""
+    constraint asks: whole without ``sp``; under ``sp`` each rank holds its
+    sequence block where the model axis divides S, the whole stream where
+    it does not (or where the axis is 1); any other axis raises."""
     h = torch.zeros(4, 8, 16)
     par = tconfig.ParallelConfig()
     for mesh in (tmesh.MeshSpec.of((1,), ("data",)),
@@ -262,19 +263,27 @@ def test_activation_sharding_passes_only_what_data_parallelism_is():
                  tmesh.make_production_mesh(),
                  tmesh.MeshSpec.of((4,), ("model",))):
         assert TS.activation_sharding(h, par, mesh) is h
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="'pod', 'data'"):
         TS.activation_sharding(h, par,
                                tmesh.MeshSpec.of((2, 2), ("data", "seq")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.activation_sharding(h, par.replace(sp=True),
-                               tmesh.MeshSpec.of((2, 1), ("data", "model")))
+    sp = par.replace(sp=True)
+    assert TS.activation_sharding(
+        h, sp, tmesh.MeshSpec.of((2, 1), ("data", "model"))) is h
+    mesh = tmesh.MeshSpec.of((2, 2), ("data", "model"))
+    block = h[:, :4]
+    assert TS.activation_sharding(block, sp, mesh, 8) is block
+    with pytest.raises(ValueError, match="4 of 8 tokens"):
+        TS.activation_sharding(h, sp, mesh, 8)
+    odd = torch.zeros(4, 7, 16)
+    assert TS.activation_sharding(odd, sp, mesh) is odd
+    assert TS.activation_sharding(odd, sp, mesh, 7) is odd
 
 
 def test_the_train_forward_holds_its_activations_to_the_mesh():
     """The guards run on the executing path: a train step on a mesh
     description with an axis above 1 raises (it has no process group to
-    reduce over), as does the vlm or audio family on a model axis and a
-    step under ``sp``; on the one-device mesh it steps as without one."""
+    reduce over), for the vlm and audio families too; on the one-device
+    mesh it steps as without one, under ``sp`` as well."""
     from repro_torch.data.pipeline import make_data
     from repro_torch.launch.train import make_run
     from repro_torch.models.model import build_model
@@ -300,15 +309,15 @@ def test_the_train_forward_holds_its_activations_to_the_mesh():
     sp = run.replace(parallel=run.parallel.replace(sp=True))
     step = make_train_step(build_model(cfg, sp.parallel, device="cpu"), sp,
                            opt, mesh=tmesh.MeshSpec.of((1,), ("data",)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        step(init_train_state(model, sp, opt, seed=0), batch)
+    assert float(step(init_train_state(model, sp, opt, seed=0),
+                      batch)[1]["loss"]) == losses[0]
     for arch in ("llama-3.2-vision-11b", "whisper-large-v3"):
         cfg = TR.get_smoke_config(arch).replace(dtype="float32")
         arun = make_run(cfg, seq=16, batch=2, steps=1)
         amodel = build_model(cfg, arun.parallel, device="cpu")
         step = make_train_step(amodel, arun, opt, mesh=tmesh.MeshSpec.of(
             (1, 2), ("data", "model")))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(RuntimeError, match="no process group"):
             step(init_train_state(amodel, arun, opt, seed=0),
                  make_data(cfg, arun.shape, seed=0).batch_at(0))
 

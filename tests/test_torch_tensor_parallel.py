@@ -15,7 +15,7 @@ start from the reference's parameters (``params_from_jax``): the first
 loss is the reference's one-device ``make_train_step`` loss.
 """
 
-import os
+import functools
 
 import numpy as np
 import pytest
@@ -50,62 +50,16 @@ FEEDS = {
                    "blocks/sub0/mixer/conv_bc_b",
                    "shared_attn/attn/wq"),
 }
-REF_LR = 1e-2  # the reference train test's run (tests/test_torch_train.py)
-
-
-def _reference_run():
-    from repro_torch.utils.config import (MeshConfig, ParallelConfig,
-                                          RunConfig, ShapeConfig, TrainConfig)
-    cfg = sc.get_smoke_config("llama3.2-1b").replace(dtype="float32")
-    return RunConfig(model=cfg, shape=ShapeConfig("train", 24, 4, "train"),
-                     mesh=MeshConfig(shape=(1,), axes=("data",)),
-                     parallel=ParallelConfig(tp=2),
-                     train=TrainConfig(lr=REF_LR, warmup_steps=1,
-                                       total_steps=10,
-                                       compute_dtype="float32"))
-
-
-def _from_reference(rank, root):
-    """tp=2 from the reference's parameters: this rank's first loss."""
-    from repro_torch.models.interop import params_from_jax
-
-    run = _reference_run()
-    init = torch.load(os.path.join(root, "ref_init.pt"), weights_only=False)
-    params = params_from_jax(init, run.model, device="cpu")
-    _, logged, _, _, _ = sc.loop(run, params)
-    return {"reference": logged[0]["loss"]}
-
-
-def _reference_first_loss(root):
-    """The reference's one-device ``make_train_step`` on its own
-    parameters (saved for the ranks): the first step's loss."""
-    import jax
-    import jax.numpy as jnp
-    from repro.data.pipeline import make_data as jmake_data
-    from repro.models.model import build_model as jbuild
-    from repro.train import optimizer as joptim
-    from repro.train.train_step import init_train_state as jinit_state
-    from repro.train.train_step import make_train_step as jmake_step
-    from repro.utils.config import RunConfig as JRun
-
-    run = JRun.from_json(_reference_run().replace(
-        parallel=sc.ParallelConfig()).to_json())
-    model = jbuild(run.model, run.parallel)
-    opt = joptim.make_optimizer(run.train)
-    state = jinit_state(model, run, opt, jax.random.PRNGKey(0))
-    torch.save(jax.tree.map(np.array, state.params),
-               os.path.join(root, "ref_init.pt"))
-    batch = jmake_data(run.model, run.shape, seed=0).batch_at(0)
-    _, m = jax.jit(jmake_step(model, run, opt))(
-        state, {k: jnp.asarray(v) for k, v in batch.items()})
-    return float(m["loss"])
+#: the reference-parameter check: tp=2 ranks from the reference's init
+REFERENCE = (("reference", sc.reference_run("llama3.2-1b", tp=2)),)
 
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("tp"))
-    ref = _reference_first_loss(root)
-    two = sc.spawn(root, 2, TWO, extra=_from_reference)
+    ref = sc.reference_first_loss(root, REFERENCE[0][1], "reference")
+    two = sc.spawn(root, 2, TWO, extra=functools.partial(
+        sc.from_reference, runs=REFERENCE))
     four = sc.spawn(root, 4, FOUR)
     return {2: two, 4: four, "reference": ref}
 
@@ -156,8 +110,12 @@ def test_split_heads_run_at_their_local_shapes():
 
 def test_a_split_through_a_head_raises_with_the_shapes():
     """tp=2 on one KV head of 64: the rule splits ``wk``'s 64 columns, a
-    rank would hold half a head."""
-    from repro_torch.models.attention import _local_heads
+    rank would hold half a head.  That split executes (it raised before
+    the head plan): each rank gathers the key and value products and
+    takes the whole head its query heads read.  What raises, with the
+    shapes, is a split the plan cannot execute: the output weight split
+    by columns."""
+    from repro_torch.models.attention import head_split
     from repro_torch.sharding.layout import Layout, Scope
     from repro_torch.sharding.specs import P
     from repro_torch.launch.mesh import MeshSpec
@@ -165,12 +123,17 @@ def test_a_split_through_a_head_raises_with_the_shapes():
 
     mesh = MeshSpec(("data", "model"), {"data": 1, "model": 2},
                     {"data": Axis(None, "data", 1, 0),
-                     "model": Axis(None, "model", 2, 0),
-                     "world": Axis(None, "data,model", 2, 0)}, 0)
+                     "model": Axis(None, "model", 2, 1),
+                     "world": Axis(None, "data,model", 2, 1)}, 1)
     specs = {f"attn/{w}": P(None, "model") for w in ("wq", "wk", "wv")}
     specs["attn/wo"] = P("model", None)
     scope = Scope(Layout(specs, mesh), "attn/")
-    with pytest.raises(ValueError, match="whole heads"):
-        _local_heads(scope, ("wq", "wk", "wv", "wo"), (4, 1, 1, 4), 64)
-    assert _local_heads(scope, ("wq", "wk", "wv", "wo"), (4, 2, 2, 4),
-                        64) == (2, 1)
+    plan = head_split(scope, 4, 1, 64)
+    assert (plan.q, plan.kv, plan.gather_q, plan.gather_kv) == (
+        (2, 4), (0, 1), False, True)
+    plan = head_split(scope, 4, 2, 64)
+    assert (plan.q, plan.kv, plan.gather_q, plan.gather_kv) == (
+        (2, 4), (1, 2), False, False)
+    specs["attn/wo"] = P(None, "model")
+    with pytest.raises(ValueError, match=r"split on dims \[1, 1, 1, 1\]"):
+        head_split(Scope(Layout(specs, mesh), "attn/"), 4, 2, 64)

@@ -2,7 +2,8 @@
 machinery the tensor-parallel and FSDP / EP test files share.
 
 A case is ``(id, arch, global batch, seq, ParallelConfig kwargs, mesh,
-optimizer)``; ``mesh`` is ``(shape, axes)`` or None for the mesh
+optimizer)`` (``arch`` a name, or ``(name, config overrides)``);
+``mesh`` is ``(shape, axes)`` or None for the mesh
 ``launch.train.data_parallel`` gives (``("data", "model")`` keeping
 ``tp``).  :func:`spawn` runs every case of a list on ``world`` gloo ranks
 (``torch.multiprocessing.spawn``, a ``FileStore``, no network), smoke
@@ -12,7 +13,10 @@ gathered whole (the train step's gradients after every reduction, before
 clipping), the final parameters gathered whole, and the operand bytes by
 kind its collectives sent in step 1 (``sharding.collectives``).
 :func:`one_process` is the same loop in this process without a process
-group.
+group.  The vlm family's cross gates start open (:func:`open_gates`: the
+reference's zeros would zero every cross weight's gradient).
+:func:`reference_first_loss` and :func:`from_reference` hold a run's first
+loss from the reference's parameters against the reference's own.
 """
 
 import os
@@ -27,6 +31,7 @@ from repro_torch.utils.config import MeshConfig, ParallelConfig, TrainConfig
 from repro_torch.utils.trees import flatten_with_paths
 
 STEPS = 3
+REF_LR = 1e-2  # the reference train test's run (tests/test_torch_train.py)
 LOSS_RTOL = 1e-6
 GRAD_RTOL = 1e-5   # ||grad - one process's|| / ||one process's||, a leaf
 PARAM_TOL = 1e-5   # atol and rtol
@@ -34,7 +39,8 @@ PARAM_TOL = 1e-5   # atol and rtol
 
 def make_run(arch, batch, seq, par, mesh=None, optimizer="adamw",
              ckpt_dir="unused", steps=STEPS):
-    cfg = get_smoke_config(arch).replace(dtype="float32")
+    name, cuts = (arch, {}) if isinstance(arch, str) else arch
+    cfg = get_smoke_config(name).replace(dtype="float32", **cuts)
     run = tlaunch.make_run(cfg, seq=seq, batch=batch, steps=steps,
                            checkpoint_dir=ckpt_dir,
                            parallel=ParallelConfig(**par))
@@ -53,6 +59,22 @@ def _whole(flat, layout):
             for k, v in flat.items()}
 
 
+def open_gates(params):
+    """Every ``cross_gate`` leaf of a parameter tree (torch or numpy)
+    set, in place, to seeded values of either sign, |g| in [0.5, 1.5]."""
+    for path, leaf in flatten_with_paths(params).items():
+        if path.endswith("cross_gate"):
+            rng = np.random.default_rng(11)
+            n = int(np.prod(leaf.shape))
+            gates = (rng.uniform(0.5, 1.5, n) * rng.choice([-1.0, 1.0], n)
+                     ).reshape(leaf.shape)
+            if isinstance(leaf, torch.Tensor):
+                leaf.copy_(torch.as_tensor(gates, dtype=leaf.dtype))
+            else:
+                leaf[...] = gates.astype(leaf.dtype)
+    return params
+
+
 def loop(run, params=None):
     """The train CLI's loop (``launch.train``'s pieces): sharded over the
     process group when one is up.  Returns (run as placed, metrics a step,
@@ -66,6 +88,8 @@ def loop(run, params=None):
     from repro_torch.train.optimizer import make_optimizer
 
     model = build_model(run.model, run.parallel, device="cpu")
+    if params is None and run.model.family == "vlm":
+        params = open_gates(model.init(0))
     run, mesh = tlaunch.data_parallel(run, model.device)
     opt = make_optimizer(run.train)
     seen = {}
@@ -179,3 +203,61 @@ def hold(records, case, must_check=(), param_tol=PARAM_TOL):
         assert counted == derived, (counted, derived)
         assert sum(counted.values()) > 0
     return records
+
+
+def reference_run(arch, **par):
+    """The run the reference-parameter checks step: ``arch``'s smoke
+    config in fp32, 4 x 24 tokens at the reference train test's learning
+    rate, under ``ParallelConfig(**par)`` (placed by ``data_parallel``)."""
+    from repro_torch.utils.config import RunConfig, ShapeConfig
+
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    return RunConfig(model=cfg, shape=ShapeConfig("train", 24, 4, "train"),
+                     mesh=MeshConfig(shape=(1,), axes=("data",)),
+                     parallel=ParallelConfig(**par),
+                     train=TrainConfig(lr=REF_LR, warmup_steps=1,
+                                       total_steps=10,
+                                       compute_dtype="float32"))
+
+
+def reference_first_loss(root, run, name):
+    """The reference's one-device ``make_train_step`` on its own
+    parameters (vlm gates opened; saved under ``root`` as ``name`` for
+    :func:`from_reference`): the first step's loss on ``run``'s shape."""
+    import jax
+    import jax.numpy as jnp
+    from repro.data.pipeline import make_data as jmake_data
+    from repro.models.model import build_model as jbuild
+    from repro.train import optimizer as joptim
+    from repro.train.train_step import init_train_state as jinit_state
+    from repro.train.train_step import make_train_step as jmake_step
+    from repro.utils.config import RunConfig as JRun
+
+    jrun = JRun.from_json(run.replace(
+        parallel=ParallelConfig(),
+        mesh=MeshConfig(shape=(1,), axes=("data",))).to_json())
+    model = jbuild(jrun.model, jrun.parallel)
+    opt = joptim.make_optimizer(jrun.train)
+    state = jinit_state(model, jrun, opt, jax.random.PRNGKey(0))
+    params = open_gates(jax.tree.map(np.array, state.params))
+    torch.save(params, os.path.join(root, f"{name}_init.pt"))
+    state = state._replace(params=jax.tree.map(jnp.asarray, params))
+    batch = jmake_data(jrun.model, jrun.shape, seed=0).batch_at(0)
+    _, m = jax.jit(jmake_step(model, jrun, opt))(
+        state, {k: jnp.asarray(v) for k, v in batch.items()})
+    return float(m["loss"])
+
+
+def from_reference(rank, root, runs):
+    """On a rank (``spawn``'s ``extra`` through ``functools.partial``):
+    each ``(name, run)`` of ``runs`` stepped from the parameters
+    :func:`reference_first_loss` saved; its first loss by name."""
+    from repro_torch.models.interop import params_from_jax
+
+    out = {}
+    for name, run in runs:
+        init = torch.load(os.path.join(root, f"{name}_init.pt"),
+                          weights_only=False)
+        params = params_from_jax(init, run.model, device="cpu")
+        out[name] = loop(run, params)[1][0]["loss"]
+    return out

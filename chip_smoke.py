@@ -169,7 +169,9 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    ``FleetSimulator`` built apart, each replica's replay on the shared
    deployment against a plain replay of its sub-trace on a fresh batcher
    (schedule fields and tokens bit for bit), the pooled counters against
-   the replicas' reports and against ``intervene``, every resolution
+   the replicas' reports and against ``intervene`` (exactly, but the
+   wall-clock ones; ``slo_violation_rate`` against the share of the
+   measured replay's own latencies above the SLO), every resolution
    ``cuda``, no graph captured inside a measured replay; then
    ``transfer_tune("cameo", ...)`` over the fleet knobs (the fleet
    replays' launches counted each just around its ``fleet_replay``, and
@@ -180,7 +182,7 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    loop's, its step time), and its checkpoint restored through
    ``remesh_state`` on the one-device mesh: the NCCL loop's state bit for
    bit, and its next step gives the unbroken run's loss;
-4m. the sharded train step (``phase_sharded``, run after 4j): four
+4m. the sharded train and serve steps (``phase_sharded``, run after 4j): four
    thread-ranks of the ``threaded`` process group of
    ``torch.testing._internal.distributed.multi_threaded_pg`` on the one
    card, a (2, 2) ``("data", "model")`` mesh ((1, 4) at tp=4);
@@ -194,20 +196,32 @@ Run from the root of a checkout on a machine with an sm_90 card.  Phases:
    llama-3.2-vision-11b (one super-block, 5 of 40 layers, Adafactor) at
    tp=2 with and without ``sp``, whisper-large-v3 (4 + 4 layers) at
    tp=4 with and without ``sp`` (equal losses bit for bit: ``sp`` cuts
-   no audio activation), their stub inputs in the model dtype, 2 steps
+   no audio activation), on the train CLI's fp32 stub inputs, 2 steps
    in the model dtype against the one-process loop (phase 4i's
    ``STEP_TOL`` and 1e-4 relative on every rank's losses and grad
    norms); in every run each rank's step-1
    gradient of every leaf the model axis leaves whole (norms, ``w_dkv``,
    the router, Mamba-2's ``w_B`` / ``w_C`` / ``A_log`` ...) against its
    block of one process's (1e-5 in fp32, 5e-2 in bf16, relative in
-   norm), each rank's step-1 collective bytes by kind equal the dry run's
-   derivation, every
+   norm; in bf16 the vlm gate's against 5e-2 of the root of the sum of
+   its products' squares, ``gate_hold``), each rank's step-1 collective
+   bytes by kind equal the dry run's trace of rank 0, every
    resolution is ``cuda`` and the kernels launch at the ranks' local
    shapes (prefill at 16 / 4 heads for llama3.2-1b, the vision cross
    attention at 16 / 4 heads over 1600 patch rows, whisper's encoder at
    5 / 5 heads, non-causal, over 1500 frames), RMSNorm at the stream's
-   rows (``B S / 2`` under ``sp``);
+   rows (``B S / 2`` under ``sp``); then the prefill and decode steps
+   with ``mesh=`` (``SHARDED_SERVE``): llama3.2-1b full, fp32, tp=2 +
+   fsdp=2 with and without ``sp`` (4 x 512, 4 decode steps),
+   zamba2-2.7b 6 layers, bf16, tp=2 (4 x 512, 8), deepseek-v3-671b one
+   MoE layer of 12 experts, fp32, tp=2 + fsdp=2 (4 x 256, 8), each rank
+   teacher-forced with one process's greedy tokens: logits against one
+   process's (fp32 within 1e-5 + 1e-5 x the row's largest |logit|,
+   tokens equal; bf16 by phase 4f's rule, under 2% of the tokens flipped,
+   each at a near tie), the bytes of the prefill and of every decode
+   step equal to the dry run's trace of rank 0's prefill and decode,
+   every resolution ``cuda``, the kernels at the local shapes (decode at
+   16 / 4 heads for llama3.2-1b, the SSD at 40 of zamba2's 80 heads);
 4k. the dry run against the card: ``repro_torch.launch.dryrun``'s
    ``dryrun_cell`` on three llama3.2-1b cells under the plan the port
    executes (``tp=1,fsdp=1`` on a data-only mesh: ``decode_32k`` and
@@ -3830,6 +3844,10 @@ FLEET_SCHEDULE = ("completed", "rejected", "ticks", "tokens",
 #: pooled counters that read the clock
 FLEET_WALL = ("latency", "throughput", "prefill_decode_ratio",
               "straggler_flagged")
+#: pooled counters computed from the replay's wall-clock latencies: held
+#: against the same computation on the measured replay's own latencies,
+#: not against another replay's
+FLEET_LATENCY_SHARES = ("slo_violation_rate",)
 DP = dict(steps=3, seq=512, batch=2)
 
 
@@ -3926,10 +3944,26 @@ def phase_fleet(torch, np, dev):
                                                        for r in reports),
                   f"fleet {name}: pooled counters differ from the "
                   f"replicas' reports")
-            counters, y2 = env.intervene(cfg_)
+            measured = []  # the reports the measurement pools
+            env._pool_fleet = lambda reps, plan_report: (
+                measured.append(reps) or type(env)._pool_fleet(
+                    env, reps, plan_report))
+            try:
+                counters, y2 = env.intervene(cfg_)
+            finally:
+                del env._pool_fleet
             torch.cuda.synchronize()
+            check(len(measured) == 1, f"fleet {name}: the measurement "
+                  f"pooled {len(measured)} replays")
+            own = np.asarray([l for r in measured[0] for l in r.latencies_ms],
+                             np.float64)
+            share = float((own > env.slo_ms).mean()) if own.size else 0.0
+            check(counters["slo_violation_rate"] == share,
+                  f"fleet {name}: slo_violation_rate "
+                  f"{counters['slo_violation_rate']} measured, {share} from "
+                  f"the measured replay's own {own.size} latencies")
             for k, v in counters.items():
-                if k not in FLEET_WALL:
+                if k not in FLEET_WALL + FLEET_LATENCY_SHARES:
                     check(v == pooled[k], f"fleet {name}: {k} {v} measured, "
                           f"{pooled[k]} from the broken-out replay")
             check(all(math.isfinite(counters[k]) for k in FLEET_WALL) and
@@ -4158,10 +4192,9 @@ SHARDED_FAMILIES = (
      dict(tp=2, fsdp=2, moe_expert_axis="data"), 2, 512, "adafactor"),
     ("deepseek-v3-671b", dict(num_layers=1, moe_num_experts=12),
      dict(tp=2, fsdp=2, sp=True), 2, 512, "adafactor"),
-    # the vlm and audio families on a model axis, at published widths;
-    # whisper with the train CLI's fp32 frames (its encoder runs in fp32),
-    # the vision model with its stub embeddings in the model dtype
-    # (``SHARDED_MODEL_DTYPE_STUBS``):
+    # the vlm and audio families on a model axis, at published widths,
+    # on the train CLI's fp32 stub inputs (whisper's encoder runs in fp32;
+    # the vision gate's gradient is held by ``gate_hold``):
     # llama-3.2-vision-11b one super-block (5 of 40 layers: 4 self, 1
     # gated cross over 1600 patch rows), Adafactor as deepseek (its vocab
     # and head are 1.05 B of its 2.2 B parameters; two data copies of the
@@ -4178,29 +4211,72 @@ SHARDED_FAMILIES = (
      dict(tp=4, sp=True), 2, 448, "adamw"),
 )
 SHARDED_FAMILY_STEPS = 2
-#: the families whose runs feed their stub inputs in the model dtype, not
-#: the train CLI's fp32 (``_model_dtype_stubs``): the vision model's
-#: embeddings move no collective at tp=2 (its cross K/V are each rank's
-#: heads), and with fp32 ones the step-1 gradient of ``cross_gate`` (one
-#: scalar summing 8.4 M products that nearly cancel) reads 0.10 of one
-#: process's under either split on an H100, against 5.9e-5 with fp32
-#: compute: the ranks' rounding, amplified, where the hold
-#: (``SHARDED_GRAD_RTOL``) cannot tell rounding from a fault
-SHARDED_MODEL_DTYPE_STUBS = ("vlm",)
-#: the kernels each model's sharded step must launch, and the local shapes
-#: they must see: (kernel, query heads, KV heads) for prefill, also with
-#: (..., KV rows, causal), (kernel, channels) for the scan, (kernel, heads)
-#: for the SSD
+#: the leaves whose gradient is one reduction over many products (the vlm
+#: gate: ``sech^2(gate) sum(dL/d(gated) * cross(x))`` over 8.4 M products
+#: at the vision model's widths, which nearly cancel): in bf16 their hold
+#: bounds ``||g_rank - g_one||`` by ``SHARDED_REDUCTION_RTOL`` times the
+#: root of the sum of the products' squares (``_gate_magnitudes``, in fp32
+#: on the one-process run), not by the sum itself (with the train CLI's
+#: fp32 embeddings the relative hold read 0.103 / 0.105 on an H100: the
+#: ranks' bf16 rounding against a sum near 0).  Not by the sum of the
+#: products' magnitudes either: an error made of N such products of
+#: either sign is about sqrt(N) of them, so against their sum a fault
+#: shrinks with N (on the CPU at 8192 products, ranks that drop the input
+#: gradient's all-reduce read 0.014 and 0.022 of it; against the root of
+#: the squares 0.83 and 1.32, the sound ranks 2.9e-3;
+#: ``tests/test_torch_gate_hold.py``)
+SHARDED_REDUCTION_LEAVES = ("cross_gate",)
+SHARDED_REDUCTION_RTOL = 5e-2
+#: the kernels each model's sharded train step (``"train"``) and serve
+#: steps (``"serve"``) must launch, and the local shapes they must see:
+#: (kernel, query heads, KV heads) for prefill and decode, prefill also
+#: with (..., KV rows, causal), (kernel, channels) for the scan, (kernel,
+#: heads) for the SSD
 SHARDED_KERNELS = {
-    "llama3.2-1b": {("flash_attention", 16, 4)},
-    "falcon-mamba-7b": {("selective_scan", 4096)},
-    "zamba2-2.7b": {("ssd", 40), ("flash_attention", 16, 16)},
-    "deepseek-v3-671b": {("flash_attention", 64, 64)},
-    "llama-3.2-vision-11b": {("flash_attention", 16, 4, 1024, True),
-                             ("flash_attention", 16, 4, 1600, False)},
-    "whisper-large-v3": {("flash_attention", 5, 5, 1500, False),
-                         ("flash_attention", 5, 5, 448, True)},
+    ("train", "llama3.2-1b"): {("flash_attention", 16, 4)},
+    ("train", "falcon-mamba-7b"): {("selective_scan", 4096)},
+    ("train", "zamba2-2.7b"): {("ssd", 40), ("flash_attention", 16, 16)},
+    ("train", "deepseek-v3-671b"): {("flash_attention", 64, 64)},
+    ("train", "llama-3.2-vision-11b"): {
+        ("flash_attention", 16, 4, 1024, True),
+        ("flash_attention", 16, 4, 1600, False)},
+    ("train", "whisper-large-v3"): {("flash_attention", 5, 5, 1500, False),
+                                    ("flash_attention", 5, 5, 448, True)},
+    ("serve", "llama3.2-1b"): {("flash_attention", 16, 4),
+                               ("decode_attention", 16, 4)},
+    ("serve", "zamba2-2.7b"): {("ssd", 40), ("flash_attention", 16, 16),
+                               ("decode_attention", 16, 16)},
+    ("serve", "deepseek-v3-671b"): {("flash_attention", 64, 64)},
 }
+#: phase 4m's sharded serve runs: (arch, cuts, dtype, placements (one
+#: ParallelConfig's kwargs each), batch, prompt, decode steps), each on
+#: the four thread-ranks against one process.  llama3.2-1b at full width
+#: and depth; zamba2-2.7b one super-block (6 of 54 layers) in bf16;
+#: deepseek-v3-671b one MoE layer with 12 experts on the model axis, no
+#: MTP head (serving runs none), in fp32 so that no route flips at a near
+#: tie between the ranks' and one process's rounding.  4 decode steps
+#: at llama3.2-1b's width, 8 at the others': a sharded decode step of
+#: four thread-ranks takes about 1 s there (its FSDP blocks gathered
+#: every step), and the script keeps within its time
+SHARDED_SERVE = (
+    ("llama3.2-1b", {}, "float32",
+     (dict(tp=2, fsdp=2), dict(tp=2, fsdp=2, sp=True)), 4, 512, 4),
+    ("zamba2-2.7b", dict(num_layers=6), "bfloat16", (dict(tp=2),), 4, 512,
+     8),
+    ("deepseek-v3-671b", dict(num_layers=1, moe_num_experts=12,
+                              mtp_depth=0), "float32",
+     (dict(tp=2, fsdp=2),), 4, 256, 8),
+)
+#: fp32 serve logits against one process's: the CPU tests' 1e-5 + 1e-5|x|
+#: with |x| the row's largest logit.  Elementwise, at llama3.2-1b's full
+#: width, the prefill's logits read 1.221e-4 off one process's (an H100
+#: 80GB HBM3 at 700 W): a logit near 0 sums 2048 products of the row's
+#: scale, so the ranks' fp32 rounding upstream moves it by a share of that
+#: scale, not of itself; a missing partial sum moves a row by its scale
+SHARDED_SERVE_TOL = 1e-5
+#: the share of a bf16 run's greedy tokens that may flip (each at a near
+#: tie, ``_compare_logits``), PERF.md section 2's rule
+SHARDED_SERVE_FLIPPED = 0.02
 SHARDED_PARAM_TOL = 1e-5  # the CPU tests' (atol and rtol)
 SHARDED_LOSS_RTOL = 1e-5
 #: the model-dtype runs' losses and grad norms against one process's,
@@ -4279,14 +4355,19 @@ def _threaded_ranks(torch, world, fn):
 
 @contextlib.contextmanager
 def _local_shapes():
-    """Record the heads / channels each prefill, scan and SSD call sees,
-    and the rows of each RMSNorm call (all threads): yields the set of
-    (kernel, heads...) and ("rmsnorm", rows) tuples."""
+    """Record the heads / channels each prefill, decode, scan and SSD call
+    sees, and the rows of each RMSNorm call (all threads): yields the set
+    of (kernel, heads...) and ("rmsnorm", rows) tuples."""
     from repro_torch.kernels import ops
 
     seen = set()
     real = {n: getattr(ops, n) for n in
-            ("flash_attention", "selective_scan", "ssd", "rmsnorm")}
+            ("flash_attention", "selective_scan", "ssd", "rmsnorm",
+             "decode_attention")}
+
+    def decode(q, k, v, *a, **kw):
+        seen.add(("decode_attention", q.shape[2], k.shape[2]))
+        return real["decode_attention"](q, k, v, *a, **kw)
 
     def flash(q, k, v, *a, **kw):
         seen.add(("flash_attention", q.shape[2], k.shape[2]))
@@ -4307,7 +4388,7 @@ def _local_shapes():
         return real["ssd"](x, *a, **kw)
 
     ops.flash_attention, ops.selective_scan, ops.ssd = flash, scan, ssd
-    ops.rmsnorm = rmsnorm
+    ops.rmsnorm, ops.decode_attention = rmsnorm, decode
     try:
         yield seen
     finally:
@@ -4325,32 +4406,46 @@ def _sharded_mesh(par):
 
 
 @contextlib.contextmanager
-def _model_dtype_stubs(torch, cfg):
-    """The train CLI's data with the stub inputs (``vision_embeds`` /
-    ``frames``, fp32 from ``make_data``) in the model dtype, for the
-    families ``SHARDED_MODEL_DTYPE_STUBS`` names; other families' data as
-    it is."""
-    import repro_torch.launch.train as tl
-    from repro_torch.models.model import torch_dtype
+def _gate_magnitudes(torch):
+    """The magnitude of each vlm gate's gradient sum: yields a list that
+    every ``tanh(gate) * y`` product of the runs inside
+    (``models.transformer.gated``, hooked) fills, in forward call order,
+    with ``sech^2(gate) * ||dL/d(gated) * y||`` (the root of the sum of the
+    products' squares) in fp32, a (1,) tensor on the host, when its
+    backward runs."""
+    from repro_torch.models import transformer
 
-    real = tl.make_data
-    dtype = torch_dtype(cfg.dtype)
+    real = transformer.gated
+    out = []
 
-    class Stubs:
-        def __init__(self, data):
-            self.data, self.shard_batch = data, data.shard_batch
+    def probed(gate, y):
+        prod = real(gate, y)
+        if prod.requires_grad:
+            slot = len(out)
+            out.append(None)
 
-        def batch_at(self, step):
-            return {k: torch.from_numpy(v).to(dtype)
-                    if k in ("vision_embeds", "frames") else v
-                    for k, v in self.data.batch_at(step).items()}
+            def hook(g):
+                sech2 = 1.0 - torch.tanh(gate.detach().float()) ** 2
+                m = torch.linalg.vector_norm(g.float() * y.detach().float())
+                out[slot] = (sech2 * m).reshape(1).cpu()
+            prod.register_hook(hook)
+        return prod
 
-    if cfg.family in SHARDED_MODEL_DTYPE_STUBS:
-        tl.make_data = lambda *a, **k: Stubs(real(*a, **k))
+    transformer.gated = probed
     try:
-        yield
+        yield out
     finally:
-        tl.make_data = real
+        transformer.gated = real
+
+
+def gate_hold(torch, g_rank, g_one, magnitude):
+    """The bf16 hold of a gate's gradient (``SHARDED_REDUCTION_LEAVES``):
+    ``||g_rank - g_one|| / ||magnitude||``, the error over the magnitude of
+    what the gradient sums (``_gate_magnitudes``), to be at most
+    ``SHARDED_REDUCTION_RTOL``."""
+    err = float(torch.linalg.vector_norm(g_rank.float() - g_one.float()))
+    return err / max(float(torch.linalg.vector_norm(magnitude.float())),
+                     1e-30)
 
 
 def _model_whole(cfg, par):
@@ -4406,17 +4501,33 @@ def _hold_grads(torch, what, ranks, one, specs, tol, par):
     """Each rank's step-1 gradients of the leaves ``specs`` names against
     the rank's blocks of one process's (``local_shard`` at the rank's
     coordinates of ``par``'s mesh, :func:`_sharded_mesh`): the worst
-    ``||g - g1|| / ||g1||`` and its leaf, checked against ``tol``."""
+    ``||g - g1|| / ||g1||`` and its leaf, checked against ``tol``.  In
+    bf16 (``tol`` the bf16 one) a leaf of ``SHARDED_REDUCTION_LEAVES`` is
+    held by :func:`gate_hold` instead, against one process's magnitudes
+    (``one["gate_magnitudes"]``); returns also the worst of those and its
+    leaf."""
     from repro_torch.launch.mesh import coords_of, local_shard
 
     mesh = _sharded_mesh(par)
     worst, at = 0.0, None
+    gworst, gat = 0.0, None
+    scaled = tol == SHARDED_GRAD_RTOL["bfloat16"]
     for i, r in enumerate(ranks):
         check(set(r["grads"]) == set(specs),
               f"{what}: rank {i} recorded {sorted(r['grads'])}")
         for k, spec in specs.items():
             want = local_shard(one["grads"][k], spec, mesh,
                                coords_of(i, mesh))
+            if scaled and k.endswith(SHARDED_REDUCTION_LEAVES):
+                rel = gate_hold(torch, r["grads"][k], want,
+                                one["gate_magnitudes"])
+                if rel >= gworst:
+                    gworst, gat = rel, k
+                check(rel <= SHARDED_REDUCTION_RTOL,
+                      f"{what}: rank {i}'s step-1 gradient of {k} is off "
+                      f"by {rel:.3e} of the magnitude of its products "
+                      f"(tolerance {SHARDED_REDUCTION_RTOL})")
+                continue
             ref = float(torch.linalg.vector_norm(want))
             err = float(torch.linalg.vector_norm(r["grads"][k] - want))
             rel = err / ref if ref > 0 else err
@@ -4425,7 +4536,7 @@ def _hold_grads(torch, what, ranks, one, specs, tol, par):
             check(rel <= tol, f"{what}: rank {i}'s step-1 gradient of {k} "
                   f"is {rel:.3e} of one process's norm {ref:.3e} from it "
                   f"(tolerance {tol})")
-    return worst, at
+    return worst, at, gworst, gat
 
 
 def _one_process(torch, dev, cfg, run, steps, grad_paths=()):
@@ -4437,7 +4548,8 @@ def _one_process(torch, dev, cfg, run, steps, grad_paths=()):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with _step1_grads(torch, grad_paths) as grads:
+    with _step1_grads(torch, grad_paths) as grads, \
+            _gate_magnitudes(torch) as gates:
         res = train(cfg, steps=steps, seq=run.shape.seq_len,
                     batch=run.shape.global_batch, device=dev, seed=0,
                     run=run)
@@ -4447,6 +4559,9 @@ def _one_process(torch, dev, cfg, run, steps, grad_paths=()):
     out = {"losses": res.losses, "grad_norms": res.grad_norms,
            "step_ms": [t * 1e3 for t in res.step_s], "params": params,
            "grads": grads.get(-1, {}),
+           # the first step's gates (one a super-block)
+           "gate_magnitudes": (torch.cat(gates[:len(gates) // steps])
+                               if gates else None),
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     del res
     torch.cuda.empty_cache()
@@ -4459,8 +4574,8 @@ def _sharded_run(torch, dev, cfg, run, steps, kernels, what,
     resolutions, step-1 collective bytes and step-1 gradients of
     ``grad_paths`` (leaves the mesh leaves whole); with ``whole_params``
     rank 0's whole parameters on the host; the launches by family, the
-    local shapes seen, the derived collectives of the dry run for the
-    same run and mesh."""
+    local shapes seen, the collectives of the dry run's trace of rank 0's
+    step for the same run and mesh."""
     import repro_torch.launch.train as tl
     from repro_torch.kernels import cuda_lib, dispatch
     from repro_torch.launch.build import lower_step
@@ -4519,24 +4634,24 @@ def _sharded_run(torch, dev, cfg, run, steps, kernels, what,
               f"{what}: the sharded step launched no {name}: {launches}")
     check(kernels <= shapes, f"{what}: the kernels saw {sorted(shapes)}, "
           f"want {sorted(kernels)} among them")
-    # the derivation at the dtype of the stub inputs the step received
-    # (the train CLI's data: fp32 vision_embeds / frames)
+    # the trace at the dtype of the stub inputs the step received (the
+    # train CLI's data: fp32 vision_embeds / frames)
     batch = tl.make_data(placed.model, placed.shape).batch_at(0)
     stub = next((torch.as_tensor(batch[k]).dtype
                  for k in ("frames", "vision_embeds") if k in batch), None)
     _, traced = lower_step(placed, MeshSpec.of(placed.mesh.shape,
                                                placed.mesh.axes),
                            stub_dtype=stub)
-    derived = {k: int(v) for k, v in
-               traced.cost_analysis().collective_bytes.items()}
+    recorded = {k: int(v) for k, v in
+                traced.cost_analysis().collective_bytes.items()}
     for i, r in enumerate(ranks):
-        check(r["counted"] == derived,
+        check(r["counted"] == recorded,
               f"{what}: rank {i}'s step-1 collective bytes {r['counted']}, "
-              f"the dry run derives {derived}")
+              f"the dry run's trace of rank 0 {recorded}")
     norms = {t for t in shapes if t[0] == "rmsnorm"}
     return ranks, {"launches": {k: v for k, v in launches.items() if v},
                    "local_shapes": sorted(shapes - norms, key=str),
-                   "norm_rows": sorted(norms), "derived": derived,
+                   "norm_rows": sorted(norms), "traced": recorded,
                    "peak_gb": peak / 1e9, "launch_counts": launches,
                    "dryrun_peak_gb_per_rank":
                        traced.memory_analysis().peak_memory_in_bytes / 1e9}
@@ -4567,10 +4682,219 @@ def _collective_gb(counted):
     return {k: round(v / 1e9, 6) for k, v in sorted(counted.items())}
 
 
+def _serve_runs(cfg, plan, batch, prompt, steps):
+    """The prefill and decode runs of a sharded serve run on the four
+    ranks' ``("data", "model")`` mesh (:func:`_sharded_mesh`)."""
+    from repro_torch.utils.config import (MeshConfig, ParallelConfig,
+                                          RunConfig, ShapeConfig,
+                                          TrainConfig)
+
+    par = ParallelConfig(**plan)
+    mesh = _sharded_mesh(par)
+    runs = []
+    for kind, seq in (("prefill", prompt), ("decode", prompt + steps)):
+        runs.append(RunConfig(
+            model=cfg, shape=ShapeConfig(f"serve_{kind}", seq, batch, kind),
+            mesh=MeshConfig(shape=tuple(mesh.shape.values()),
+                            axes=mesh.axis_names),
+            parallel=par, train=TrainConfig(compute_dtype=cfg.dtype)))
+    return runs
+
+
+def _serve_steps(torch, model, runs, params, tokens, steps, mesh=None,
+                 forced=None):
+    """A prefill of ``tokens`` and ``steps`` decode steps (greedy, or
+    teacher-forced with ``forced`` (B, steps)), eager, on ``mesh`` when
+    given: the logits a step in fp32 on the host, the greedy tokens a step
+    (B, 1 + steps) on the host, and the collective bytes by kind a step
+    (counted when ``mesh`` is given)."""
+    from repro_torch.sharding import collectives
+    from repro_torch.train.serve_step import (make_decode_step,
+                                              make_prefill_step,
+                                              sample_token)
+
+    run, drun = runs
+    prefill = make_prefill_step(model, run, cache_len=drun.shape.seq_len,
+                                mesh=mesh)
+    decode = make_decode_step(model, drun, mesh=mesh)
+    logits, greedy, counted = [], [], []
+    with torch.no_grad():
+        for i in range(1 + steps):
+            collectives.reset_counts()
+            if i == 0:
+                state, lg = prefill(params, {"tokens": tokens})
+            else:
+                fed = (greedy[-1] if forced is None
+                       else forced[:, i - 1].to(tokens.device))
+                state, lg = decode(params, state, fed[:, None])
+            tok = sample_token(lg, None)
+            logits.append(lg.float().cpu())
+            greedy.append(tok)
+            counted.append(collectives.bytes_by_kind() if mesh is not None
+                           and mesh.groups is not None else {})
+    return logits, torch.stack([t.cpu() for t in greedy], 1), counted
+
+
+def _sharded_serve(torch, dev, arch, cuts, dtype, plans, batch, prompt,
+                   steps):
+    """One model served on the four thread-ranks under each plan of
+    ``plans`` against one process: per plan each rank's logits of its rows
+    (teacher-forced with one process's greedy tokens) held to one
+    process's (fp32: ``SHARDED_SERVE_TOL``; bf16: ``_compare_logits`` with
+    at most ``SHARDED_SERVE_FLIPPED`` of the tokens flipped, each at a near
+    tie), its collective bytes of the prefill and of every decode step
+    equal to the dry run's trace of rank 0's prefill and decode steps,
+    every resolution ``cuda``, the kernels at the local shapes of
+    ``SHARDED_KERNELS["serve", arch]``.  Returns (summaries, launches)."""
+    from repro_torch.configs.registry import get_model_config
+    from repro_torch.kernels import cuda_lib, dispatch
+    from repro_torch.launch.build import lower_step
+    from repro_torch.launch.mesh import MeshSpec, make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.layout import shard_params
+    from repro_torch.sharding.specs import sequence_blocks
+
+    cfg = get_model_config(arch).replace(dtype=dtype, **cuts)
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                           generator=gen, device=dev, dtype=torch.int32)
+    runs = _serve_runs(cfg, {}, batch, prompt, steps)
+    t0 = time.perf_counter()
+    one, greedy, _ = _serve_steps(torch, model, runs, params, tokens, steps)
+    one_s = time.perf_counter() - t0
+    launches = {k: 0 for k in cuda_lib.LAUNCHES}
+    out = []
+    for plan in plans:
+        what = f"sharded serve {arch} {plan} {dtype}"
+        runs = _serve_runs(cfg, plan, batch, prompt, steps)
+        smodel = build_model(cfg, runs[0].parallel, device=dev)
+
+        def rank_fn(rank):
+            mesh = make_mesh(runs[0].mesh)
+            data = mesh.groups["data"]
+            n = batch // data.size
+            lo = data.rank * n
+            blocks = shard_params(params, runs[0], mesh, rank)
+            with dispatch.record_resolutions() as resolved:
+                t1 = time.perf_counter()
+                logits, _, counted = _serve_steps(
+                    torch, smodel, runs, blocks, tokens[lo:lo + n], steps,
+                    mesh, forced=greedy[lo:lo + n, :steps])
+                torch.cuda.synchronize()
+                took = time.perf_counter() - t1
+            return {"rows": (lo, lo + n), "logits": logits,
+                    "counted": counted, "s": took,
+                    "modes": sorted({(r.family, r.mode) for r in resolved})}
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launches()
+        with _local_shapes() as shapes:
+            ranks = _threaded_ranks(torch, SHARDED_WORLD, rank_fn)
+        own = dict(cuda_lib.LAUNCHES)
+        for k, v in own.items():
+            launches[k] += v
+        peak = torch.cuda.max_memory_allocated()
+        want = SHARDED_KERNELS["serve", arch]
+        for name, *_ in want:
+            check(own.get(name, 0) > 0,
+                  f"{what}: the sharded steps launched no {name}: {own}")
+        check(want <= shapes, f"{what}: the kernels saw {sorted(shapes)}, "
+              f"want {sorted(want)} among them")
+        mesh_d = _sharded_mesh(runs[0].parallel)
+        b = batch // mesh_d.shape["data"]
+        blocks_ = sequence_blocks(runs[0].parallel, mesh_d, prompt,
+                                  cfg.family)
+        norms = sorted(r for k, r in (t for t in shapes
+                                      if t[0] == "rmsnorm"))
+        check(set(norms) == {b * prompt // blocks_, b},
+              f"{what}: RMSNorm launched at {norms} rows, want "
+              f"{sorted({b * prompt // blocks_, b})}")
+        traced = [{k: int(v) for k, v in lower_step(
+            r, MeshSpec.of(r.mesh.shape, r.mesh.axes))[1].cost_analysis()
+            .collective_bytes.items()} for r in runs]
+        worst, share, flipped, total = 0.0, 0.0, 0, 0
+        for i, r in enumerate(ranks):
+            bad = [m for m in r["modes"] if m[1] != "cuda"]
+            check(r["modes"] and not bad, f"{what}: resolutions "
+                  f"{r['modes']}")
+            check(r["counted"][0] == traced[0],
+                  f"{what}: rank {i}'s prefill collective bytes "
+                  f"{r['counted'][0]}, the dry run's trace {traced[0]}")
+            for j, c in enumerate(r["counted"][1:]):
+                check(c == traced[1], f"{what}: rank {i}'s decode step {j} "
+                      f"collective bytes {c}, the dry run's trace "
+                      f"{traced[1]}")
+            lo, hi = r["rows"]
+            want_l = [lg[lo:hi] for lg in one]
+            for j, (got, ref) in enumerate(zip(r["logits"], want_l)):
+                check(bool(torch.isfinite(got).all()),
+                      f"{what}: rank {i} step {j}: non-finite logits")
+                worst = max(worst, float((got - ref).abs().max()))
+                same = got.argmax(-1) == ref.argmax(-1)
+                flipped += int((~same).sum())
+                total += same.numel()
+                if dtype == "float32":
+                    err = (got - ref).abs()
+                    row = ref.abs().amax(-1, keepdim=True)
+                    share = max(share, float((err / row).max()))
+                    check(bool((err <= SHARDED_SERVE_TOL + SHARDED_SERVE_TOL
+                                * row).all()),
+                          f"{what}: rank {i} step {j}: logits off one "
+                          f"process's by {float(err.max()):.3e} (tolerance "
+                          f"{SHARDED_SERVE_TOL} + {SHARDED_SERVE_TOL} x the "
+                          f"row's largest |logit|)")
+                    check(bool(same.all()), f"{what}: rank {i} step {j}: "
+                          f"greedy tokens differ from one process's")
+            if dtype != "float32":
+                scale = max(float(lg.abs().max()) for lg in want_l)
+                atol = (SSM_LOGIT_ATOL_SHARE * scale
+                        if cfg.family in ("ssm", "hybrid") else None)
+                _compare_logits(torch, r["logits"], want_l, cfg.vocab_size,
+                                f"{what} rank {i}", atol=atol, batch=hi - lo)
+        check(flipped <= SHARDED_SERVE_FLIPPED * total,
+              f"{what}: {flipped} of {total} greedy tokens flipped")
+        summary = {
+            "arch": arch, "cuts": cuts, "dtype": dtype, "placements": plan,
+            "batch": batch, "prompt": prompt, "decode_steps": steps,
+            "max_abs_logit_diff": worst, "logit_scale": max(
+                float(lg.abs().max()) for lg in one),
+            "max_diff_over_row_scale": share, "flipped": flipped,
+            "tokens": total, "prefill_bytes": traced[0],
+            "decode_step_bytes": traced[1],
+            "local_shapes": sorted((t for t in shapes if t[0] != "rmsnorm"),
+                                   key=str),
+            "rmsnorm_rows": norms, "launches": {k: v for k, v in own.items()
+                                                if v},
+            "rank_s": [r["s"] for r in ranks], "one_process_s": one_s,
+            "peak_gb": peak / 1e9}
+        log(f"[{CARD}] {what}: {batch} x {prompt} prefill + {steps} decode "
+            f"steps on 4 thread-ranks (rows {[r['rows'] for r in ranks]}): "
+            f"logits within {worst:.3e} of one process's (largest |logit| "
+            f"{summary['logit_scale']:.1f}; {share:.3e} of a row's largest "
+            f"in fp32), {flipped} of "
+            f"{total} greedy tokens flipped; collective bytes = traced "
+            f"(prefill {traced[0]}, a decode step {traced[1]}); kernel "
+            f"shapes {summary['local_shapes']}; RMSNorm rows {norms}; "
+            f"launches {summary['launches']}; ranks "
+            f"{[round(r['s'], 2) for r in ranks]} s (one process "
+            f"{one_s:.2f} s); peak {peak / 1e9:.1f} GB")
+        out.append(summary)
+        del ranks, smodel
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def phase_sharded(torch, np, dev):
     """Phase 4m: the train step under tensor parallelism, sequence
     parallelism, FSDP and the expert placements, and the vlm / audio
-    families on a model axis, four thread-ranks on the card.  Returns
+    families on a model axis, then the prefill and decode steps of three
+    models (``SHARDED_SERVE``), four thread-ranks on the card.  Returns
     (summary, launches of the sharded runs by family)."""
     from repro_torch.configs.registry import get_model_config
     from repro_torch.kernels import cuda_lib
@@ -4610,10 +4934,11 @@ def phase_sharded(torch, np, dev):
             one = _one_process(torch, dev, cfg, run.replace(
                 parallel=ParallelConfig()), d["steps"], list(paths))
         ranks, info = _sharded_run(torch, dev, cfg, run, d["steps"],
-                                   SHARDED_KERNELS[d["arch"]], what,
+                                   SHARDED_KERNELS["train", d["arch"]], what,
                                    whole_params=True, grad_paths=list(paths))
-        gworst, gat = _hold_grads(torch, what, ranks, one, paths,
-                                  SHARDED_GRAD_RTOL["float32"], run.parallel)
+        gworst, gat, _, _ = _hold_grads(torch, what, ranks, one, paths,
+                                        SHARDED_GRAD_RTOL["float32"],
+                                        run.parallel)
         norm_rows = _norm_rows(what, info, run, ranks[0]["run"])
         for i, r in enumerate(ranks):
             rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"],
@@ -4637,7 +4962,7 @@ def phase_sharded(torch, np, dev):
             f"{n} (worst excess {worst:.3e}); step-1 gradients of the "
             f"{len(paths)} leaves the model axis leaves whole within "
             f"{gworst:.3e} of one process's (worst {gat}); collectives "
-            f"{ranks[0]['counted']} = derived (GB "
+            f"{ranks[0]['counted']} = traced (GB "
             f"{_collective_gb(ranks[0]['counted'])}); "
             f"kernel shapes {info['local_shapes']}; RMSNorm rows "
             f"{norm_rows}; launches {info['launches']}; peak "
@@ -4690,20 +5015,19 @@ def phase_sharded(torch, np, dev):
         what = f"sharded {arch} {par} {optimizer}"
         key = (arch, tuple(sorted(cuts.items())), batch, seq, optimizer)
         paths = _model_whole(cfg, run.parallel)
-        with _model_dtype_stubs(torch, cfg):
-            if key not in ones:  # the leaves of every placement sharing it
-                shared = sorted({k for a, c, p, b, q, o in SHARDED_FAMILIES
-                                 if (a, tuple(sorted(c.items())), b, q, o)
-                                 == key for k in _model_whole(
-                                     cfg, ParallelConfig(**p))})
-                ones = {key: _one_process(torch, dev, cfg, run.replace(
-                    parallel=ParallelConfig()), SHARDED_FAMILY_STEPS,
-                    shared)}
-            one = ones[key]
-            ranks, info = _sharded_run(torch, dev, cfg, run,
-                                       SHARDED_FAMILY_STEPS,
-                                       SHARDED_KERNELS[arch], what,
-                                       grad_paths=list(paths))
+        if key not in ones:  # the leaves of every placement sharing it
+            shared = sorted({k for a, c, p, b, q, o in SHARDED_FAMILIES
+                             if (a, tuple(sorted(c.items())), b, q, o)
+                             == key for k in _model_whole(
+                                 cfg, ParallelConfig(**p))})
+            ones = {key: _one_process(torch, dev, cfg, run.replace(
+                parallel=ParallelConfig()), SHARDED_FAMILY_STEPS,
+                shared)}
+        one = ones[key]
+        ranks, info = _sharded_run(torch, dev, cfg, run,
+                                   SHARDED_FAMILY_STEPS,
+                                   SHARDED_KERNELS["train", arch], what,
+                                   grad_paths=list(paths))
         got = ranks[0]
         for i, r in enumerate(ranks):
             for j, (lk, lr_) in enumerate(zip(r["losses"], one["losses"])):
@@ -4721,8 +5045,9 @@ def phase_sharded(torch, np, dev):
                        for a, b in zip(r["losses"], one["losses"]))
         gnorm_rel = max(abs(a - b) / abs(b) for r in ranks
                         for a, b in zip(r["grad_norms"], one["grad_norms"]))
-        gworst, gat = _hold_grads(torch, what, ranks, one, paths,
-                                  SHARDED_GRAD_RTOL[cfg.dtype], run.parallel)
+        gworst, gat, gate_rel, gate_at = _hold_grads(
+            torch, what, ranks, one, paths, SHARDED_GRAD_RTOL[cfg.dtype],
+            run.parallel)
         norm_rows = _norm_rows(what, info, run, got["run"])
         if cfg.family == "audio":
             equal[par.get("sp", False)] = [r["losses"] for r in ranks]
@@ -4734,8 +5059,11 @@ def phase_sharded(torch, np, dev):
             f"{gnorm_rel:.3e}; step-1 gradients of the {len(paths)} "
             f"leaves the model axis leaves whole within "
             f"{gworst:.3e} of one process's (worst "
-            f"{gat}); collectives {got['counted']} = "
-            f"derived (GB {_collective_gb(got['counted'])}); kernel shapes "
+            f"{gat})"
+            + (f", the gate's within {gate_rel:.3e} of its products' "
+               f"magnitude" if gate_at else "")
+            + f"; collectives {got['counted']} = "
+            f"traced (GB {_collective_gb(got['counted'])}); kernel shapes "
             f"{info['local_shapes']}; RMSNorm rows {norm_rows}; peak "
             f"{info['peak_gb']:.1f} GB for the four ranks, "
             f"{info['peak_gb'] / SHARDED_WORLD:.1f} an even share (one "
@@ -4754,6 +5082,7 @@ def phase_sharded(torch, np, dev):
             "model_whole_grad_rel": gworst,
             "model_whole_grad_worst_leaf": gat,
             "model_whole_leaves": len(paths),
+            "gate_grad_over_magnitude": gate_rel if gate_at else None,
             "collective_bytes": got["counted"],
             "collective_gb": _collective_gb(got["counted"]),
             "rmsnorm_rows": norm_rows,
@@ -4775,6 +5104,19 @@ def phase_sharded(torch, np, dev):
           f"differ (sp must cut nothing of the audio family)")
     log(f"sharded whisper: tp=4 and tp=4 sp losses equal bit for bit: "
         f"{equal[False][0]}")
+
+    # -- the serve steps: prefill and decode on the four ranks -----------
+    out["serve"] = []
+    for arch, cuts, dtype, plans, batch, prompt, steps in SHARDED_SERVE:
+        t0 = time.perf_counter()
+        served, own = _sharded_serve(torch, dev, arch, cuts, dtype, plans,
+                                     batch, prompt, steps)
+        for s in served:
+            s["phase_s"] = time.perf_counter() - t0
+            kinds |= set(s["prefill_bytes"]) | set(s["decode_step_bytes"])
+        out["serve"] += served
+        for k, v in own.items():
+            launches[k] += v
     missing = [k for k in ("all-reduce", "all-gather", "reduce-scatter",
                            "all-to-all") if k not in kinds]
     out["collective_kinds_on_card"] = sorted(kinds)
@@ -4934,9 +5276,10 @@ def phase_dryrun(torch, np, dev):
         rec = dryrun.dryrun_cell(ARCH, shape, par_kv=DRYRUN_PLAN,
                                  mesh_kv=mesh_kv, save=False)
         dry_s = time.perf_counter() - t0
-        check(rec["model_axis"] == "none",
-              f"{shape}: the dry run derived a model axis on a data-only "
-              f"mesh")
+        check(all(c.split()[2] == "data"
+                  for c in rec["collective_schedule_head"]),
+              f"{shape}: collectives off the data axis on a data-only "
+              f"mesh: {rec['collective_schedule_head']}")
         run = dryrun.cell_run(ARCH, shape, par_kv=DRYRUN_PLAN,
                               mesh_kv=mesh_kv)
         dsize = run.mesh.shape[0]
@@ -6330,7 +6673,8 @@ def main() -> int:
     t0 = time.perf_counter()
     sharded, sharded_launches = phase_sharded(torch, np, dev)
     sharded["phase_s"] = time.perf_counter() - t0
-    log(f"[{CARD}] sharded train step done in {sharded['phase_s']:.1f} s")
+    log(f"[{CARD}] sharded train and serve steps done in "
+        f"{sharded['phase_s']:.1f} s")
 
     by_path = {name: {"serve": launches.get(name, 0),
                       "train": sum(t["launches"][name]

@@ -150,17 +150,20 @@ def input_specs(run: RunConfig) -> Dict[str, Any]:
     return {"state": serve_state_template(run, b, s), "tokens": _i32(b, 1)}
 
 
-def serve_state_template(run: RunConfig, b: int, s: int):
+def serve_state_template(run: RunConfig, b: int, s: int, layout=None):
     """The ``ServeState`` of ``b`` requests over ``s`` cache rows, on
     ``meta``: the port's own decode-state init, the lengths, and the vlm /
-    audio input a request carries (``vision_embeds`` / ``enc_out``)."""
+    audio input a request carries (``vision_embeds`` / ``enc_out``); on a
+    ``layout`` (a sharded step's) the state a rank holds
+    (``init_decode_state(..., layout=)``)."""
     from repro_torch.models.model import build_model, torch_dtype
     from repro_torch.train.serve_step import ServeState
 
     cfg = run.model
     dtype = torch_dtype(cfg.dtype)
     caches = build_model(cfg, run.parallel,
-                         device="meta").init_decode_state(b, s)
+                         device="meta").init_decode_state(b, s,
+                                                          layout=layout)
     extras: Dict[str, torch.Tensor] = {}
     if cfg.family == "vlm":
         extras["vision_embeds"] = _meta((b, cfg.vision_seq, cfg.vision_dim),

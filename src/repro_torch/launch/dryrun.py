@@ -5,8 +5,8 @@ nothing (``meta`` tensors), and record what one chip holds and does.
 The reference lowers and compiles each cell under a 512-device XLA flag.
 The port needs no flag and no subprocess: the production mesh is a
 :class:`~repro_torch.launch.mesh.MeshSpec` description, and
-:func:`repro_torch.launch.build.lower_step` traces one data rank's
-program and derives what the model axis and FSDP / EP add.
+:func:`repro_torch.launch.build.lower_step` traces rank 0's sharded
+program on a traced mesh (its collectives recorded, no data moved).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape decode_32k
@@ -16,13 +16,11 @@ Usage:
 Per cell this records to ``artifacts/dryrun_torch/``:
     memory_analysis (bytes per chip: the arguments' blocks, the traced
     peak of temporaries, the outputs, the donated arguments),
-    op_cost_analysis (the traced program's FLOPs and bytes, before the
-    model axis' division),
+    op_cost_analysis (the traced program's FLOPs and bytes, where the
+    reference keeps XLA's cost analysis),
     hlo_analysis (per-chip FLOPs / bytes / collective bytes, the key the
     reference's roofline reads),
-    matmul_flops, kernel_scopes and model_axis ("derived" when the mesh's
-    model axis or FSDP / EP add to the traced program, else "none"),
-    the collective schedule head.
+    matmul_flops, kernel_scopes, the collective schedule head.
 """
 
 from __future__ import annotations
@@ -115,8 +113,8 @@ def dryrun_cell(arch: str, shape: str, *, multi_pod: bool = False,
             "alias_bytes": mem.alias_size_in_bytes,
         },
         "op_cost_analysis": {
-            "flops": traced.counter.flops_traced,
-            "bytes_accessed": traced.counter.bytes_traced,
+            "flops": costs.flops,
+            "bytes_accessed": costs.bytes_accessed,
         },
         "hlo_analysis": {
             "flops_per_chip": costs.flops,
@@ -127,7 +125,6 @@ def dryrun_cell(arch: str, shape: str, *, multi_pod: bool = False,
         },
         "matmul_flops": costs.matmul_flops,
         "kernel_scopes": costs.kernel_scopes,
-        "model_axis": traced.model_axis,
         "collective_schedule_head": sched,
     }
     print(f"[dryrun] {arch} x {shape} ({'x'.join(map(str, run.mesh.shape))}"

@@ -34,9 +34,10 @@ What an op counts:
 - **Collectives** by kind (``all-reduce``, ``all-gather``,
   ``reduce-scatter``, ``all-to-all``): the bytes of their operands, as the
   reference counts them, and their number, in program order.  The traced
-  step runs none (one data rank on a one-device mesh); what the mesh adds
-  is derived (:func:`repro_torch.launch.build.lower_step`'s rules) and
-  recorded through :meth:`OpCounter.add_collective`.
+  program is one rank's on a traced mesh, whose collectives record
+  themselves (:class:`repro_torch.sharding.collectives.Recorder`);
+  :func:`repro_torch.launch.build.lower_step` hands them to
+  :meth:`OpCounter.add_collective`.
 - **Kernel scopes** entered, by name (``rmsnorm``, ``flash_attention``,
   ``decode_attention``, ``paged_decode_attention``, ``selective_scan``,
   ``ssd``; ``<name>_bwd`` for a recompute backward).
@@ -47,25 +48,9 @@ What an op counts:
   keeps its interior on chip); a recompute backward (``<name>_bwd``)
   runs the plain version op by op on the card, so its temporaries count.
 
-Parameters.  The counter is told which argument leaves are parameters
-and how the mesh splits them (:class:`ParamInfo`, from
-:func:`repro_torch.launch.build.lower_step`).  A split over the model
-axis carries from operands to results: an op that reads a model-split
-parameter (or its copy in the compute dtype) or a model-split activation
-counts its FLOPs and bytes divided by the axis' size, and its results are
-split too (so are a kernel scope's, by what its inputs are), except a
-partial sum, which the mesh all-reduces to its whole size on every rank:
-the forward product of a row-parallel weight, the backward product of a
-column-parallel one.  A non-matmul op that reads a leaf split over the
-data axes itself (the cast of an FSDP shard to the compute dtype, the
-optimizer's update) counts divided by the data axes' size.  A forward
-matmul that reads a split parameter also records the derived collectives
-of expert parallelism and the MoE statistics
-(``lower_step``'s rules).  Live bytes count each storage over its split.
-
-Every number is per chip: the traced program is one data rank's, and the
-divisions above take out what the rank's share of the model axis and of
-an FSDP / EP shard leaves to it.
+Every number is per chip: the traced program is one rank's, at the
+shapes the rank holds (its parameter blocks, its rows, its heads and
+channels, its sequence block), so the counter divides nothing.
 """
 
 from __future__ import annotations
@@ -73,7 +58,7 @@ from __future__ import annotations
 import weakref
 from collections import Counter
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -100,8 +85,6 @@ _GATHER = {"embedding", "index", "index_select", "gather"}
 _UPDATE = {"copy_", "index_put_", "index_copy_", "scatter_", "scatter_add_",
            "index_add_", "masked_scatter_", "_index_put_impl_"}
 _FILL = {"fill_", "zero_"}
-#: copies that carry a parameter's placement to their result
-_COPIES = {"_to_copy", "clone"}
 #: the CUDA caching allocator's granule
 _GRANULE = 512
 
@@ -133,21 +116,6 @@ def matmul_flops(name: str, args) -> float:
     return 2.0 * a.shape[0] * a.shape[1] * b.shape[1]
 
 
-class ParamInfo(NamedTuple):
-    """How the mesh splits one parameter-like argument leaf: ``model`` /
-    ``data`` the sizes of the model / data axes splitting it (1: not
-    split), ``role`` ``"row"`` (a row-parallel projection split over the
-    model axis: its product is a partial sum, whole again after its
-    collective, which ``lower_step`` derives), ``"expert"`` (an expert
-    weight whose expert dim is split), ``"router"`` (a MoE router) or
-    None; ``direct`` False for a copy or cast of the leaf."""
-    path: str
-    model: int = 1
-    data: int = 1
-    role: Optional[str] = None
-    direct: bool = True
-
-
 @dataclass
 class OpCosts:
     """One traced step's costs, per chip — the fields of the reference's
@@ -168,29 +136,19 @@ class OpCosts:
 class Collective(NamedTuple):
     kind: str
     nbytes: float
-    what: str
+    what: str  # the mesh axes of its group ("model", "data", "pod,data")
 
 
 class OpCounter(TorchDispatchMode):
     """Counts one traced call's ops (see the module docstring).  Use as a
     context manager around the call; it listens to the kernel scopes for
-    as long as it is entered.
+    as long as it is entered."""
 
-    ``train``: a train step (a forward matmul's tensor- and
-    expert-parallel collectives have a backward twin); ``data_size``: the
-    data axes' size (the MoE statistics are all-reduced over it in a
-    data-parallel train step).  The parameter-like argument leaves are
-    marked with :meth:`add_param`."""
-
-    def __init__(self, *, train: bool = False, data_size: int = 1):
+    def __init__(self):
         super().__init__()
-        self.train = train
-        self.data_size = data_size
         self.flops = 0.0
         self.bytes_accessed = 0.0
         self.matmul_flops = 0.0
-        self.flops_traced = 0.0
-        self.bytes_traced = 0.0
         self.kernel_scopes: Counter = Counter()
         self.collectives: List[Collective] = []
         #: op name -> [calls, FLOPs, bytes] (per chip)
@@ -199,22 +157,12 @@ class OpCounter(TorchDispatchMode):
         self.matmuls: Counter = Counter()
         self.live_bytes = 0
         self.peak_live_bytes = 0
-        self._params: Dict[int, ParamInfo] = {}  # id(storage) -> info
-        self._held: List[Any] = []  # the parameters' storages
-        #: id(storage) -> model-axis split of an activation split over it
-        self._activations: Dict[int, int] = {}
         self._known: Dict[int, int] = {}  # id(storage) -> counted bytes
-        #: the open kernel scopes: (split, a kernel's interior)
-        self._scopes: List[Tuple[int, bool]] = []
+        #: the open kernel scopes: whether each is a kernel's interior
+        self._scopes: List[bool] = []
         self._listening = None
 
     # -- set-up -------------------------------------------------------------
-
-    def add_param(self, tensor: torch.Tensor, info: ParamInfo) -> None:
-        """Mark ``tensor``'s storage as a parameter-like argument leaf."""
-        st = tensor.untyped_storage()
-        self._held.append(st)
-        self._params[id(st)] = info
 
     def add_argument(self, tensor: torch.Tensor) -> None:
         """An argument of the step: its storage is not a temporary."""
@@ -247,25 +195,22 @@ class OpCounter(TorchDispatchMode):
         :func:`repro_torch.kernels.ops._scoped`)."""
         self.kernel_scopes[name] += 1
         inputs = tensors((args, kwargs))
-        split = self._split_of(inputs, matmul=True)[0]
         outer = not self._scopes
         # a kernel keeps its interior on chip; a recompute backward runs
         # the plain version op by op, whose temporaries are real
-        self._scopes.append((split, not name.endswith("_bwd")))
+        self._scopes.append(not name.endswith("_bwd"))
         try:
             out = body(*args, **kwargs)
         finally:
             self._scopes.pop()
         results = tensors(out)
-        self._mark(results, split)
         if not name.endswith("_bwd"):
-            self._track(results, split)
+            self._track(results)
         if outer:
             boundary = (sum(map(_nbytes, inputs))
                         + sum(map(_nbytes, results)))
-            self.bytes_accessed += boundary / split
-            self.bytes_traced += boundary
-            self._tally(f"scope:{name}", 0.0, boundary / split)
+            self.bytes_accessed += boundary
+            self._tally(f"scope:{name}", 0.0, boundary)
         return out
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -277,35 +222,18 @@ class OpCounter(TorchDispatchMode):
         outs = tensors(out)
         ins = tensors((args, kwargs))
         flops, nbytes = self._cost(name, ins, outs, args)
-        matmul = name in _MATMUL
-        split, data, param = self._split_of(ins, matmul)
-        backward = torch._C._current_autograd_node() is not None
         if self._scopes:  # a kernel's interior: its FLOPs, no bytes
-            split, data, nbytes = max(split, self._scopes[-1][0]), 1, 0.0
-        factor = split * data
-        result_split = split
-        if matmul:
-            self.matmul_flops += flops / factor
+            nbytes = 0.0
+        if name in _MATMUL:
+            self.matmul_flops += flops
+            backward = torch._C._current_autograd_node() is not None
             self.matmuls[(name, tuple(tuple(t.shape) for t in ins),
                           "bwd" if backward else "fwd")] += 1
-            if param is not None:
-                # a partial sum (forward through a row-parallel weight,
-                # backward through a column-parallel one) is all-reduced
-                # to its whole size on every rank
-                if (param.role == "row") != backward:
-                    result_split = 1
-                if not backward:
-                    self._derived_collectives(param, outs)
-        if name in _COPIES and len(ins) == 1 and outs:
-            self._inherit(ins[0], outs[0])
-        self.flops += flops / factor
-        self.flops_traced += flops
-        self.bytes_accessed += nbytes / factor
-        self.bytes_traced += nbytes
-        self._tally(name, flops / factor, nbytes / factor)
-        self._mark(outs, result_split)
-        if not (self._scopes and self._scopes[-1][1]):
-            self._track(outs, result_split)
+        self.flops += flops
+        self.bytes_accessed += nbytes
+        self._tally(name, flops, nbytes)
+        if not (self._scopes and self._scopes[-1]):
+            self._track(outs)
         return out
 
     # -- rules ----------------------------------------------------------------
@@ -331,67 +259,6 @@ class OpCounter(TorchDispatchMode):
             return float(elems), float(sum(map(_nbytes, ins[1:])) + size)
         return float(out_elems), float(sum(map(_nbytes, ins)) + written)
 
-    def _split_of(self, ins, matmul: bool
-                  ) -> Tuple[int, int, Optional[ParamInfo]]:
-        """``(split, data, param)`` of an op reading ``ins``: the largest
-        model-axis split among the parameters and activations it reads,
-        the data-axes split of a leaf it reads itself (not for a matmul),
-        and the split parameter it reads, if any."""
-        split, data, found = 1, 1, None
-        for t in ins:
-            key = id(t.untyped_storage())
-            info = self._params.get(key)
-            if info is None:
-                split = max(split, self._activations.get(key, 1))
-                continue
-            if (info.role is not None or info.model > 1) and (
-                    found is None or info.model > found.model):
-                found = info
-            split = max(split, info.model)
-            if info.direct and not matmul:
-                data = max(data, info.data)
-        return split, data, found
-
-    def _mark(self, outs, split: int) -> None:
-        """Record that ``outs`` are split ``split`` ways over the model
-        axis (their storages, for the ops that read them)."""
-        if split == 1:
-            return
-        for t in outs:
-            st = t.untyped_storage()
-            key = id(st)
-            if key not in self._params and key not in self._activations:
-                self._activations[key] = split
-                weakref.finalize(st, self._activations.pop, key, None)
-
-    def _inherit(self, src: torch.Tensor, dst: torch.Tensor) -> None:
-        info = self._params.get(id(src.untyped_storage()))
-        st = dst.untyped_storage()
-        if info is None or id(st) in self._params:
-            return
-        self._params[id(st)] = info._replace(direct=False)
-        weakref.finalize(st, self._params.pop, id(st), None)
-
-    def _derived_collectives(self, info: ParamInfo, outs) -> None:
-        """What a forward matmul reading a split parameter adds on the
-        mesh (``lower_step``'s rules): an expert product's tokens go to
-        their experts' ranks and come back; a router's statistics are
-        averaged over the data ranks.  A train step's backward has a twin of each
-        (one all-reduce of the router's mean probabilities)."""
-        twins = 2 if self.train else 1
-        if info.role == "expert":  # the down projection: (G, E, C, D)
-            self.add_collective("all-to-all", _nbytes(outs[0]),
-                                f"ep dispatch / combine {info.path}",
-                                2 * twins)
-        elif (info.role == "router" and self.train and self.data_size > 1):
-            # E fp32 means; the backward all-reduces the probabilities'
-            # gradient where the aux loss enters the train loss (the MTP
-            # head's does not)
-            stat = outs[0].shape[-1] * 4
-            self.add_collective("all-reduce", stat,
-                                f"moe statistics {info.path}",
-                                2 if "mtp/" in info.path else 3)
-
     # -- bookkeeping ----------------------------------------------------------
 
     def _tally(self, name: str, flops: float, nbytes: float) -> None:
@@ -400,13 +267,13 @@ class OpCounter(TorchDispatchMode):
         rec[1] += flops
         rec[2] += nbytes
 
-    def _track(self, outs, split: int) -> None:
+    def _track(self, outs) -> None:
         for t in outs:
             st = t.untyped_storage()
             key = id(st)
             if key in self._known:
                 continue
-            size = -(-(st.nbytes() // split) // _GRANULE) * _GRANULE
+            size = -(-st.nbytes() // _GRANULE) * _GRANULE
             self._known[key] = size
             self.live_bytes += size
             weakref.finalize(st, self._free, key)
@@ -418,13 +285,13 @@ class OpCounter(TorchDispatchMode):
     # -- results --------------------------------------------------------------
 
     def result_bytes(self, out) -> int:
-        """Bytes per chip of the storages in ``out`` that the traced call
-        created (not its arguments'), each over its model-axis split."""
+        """Bytes of the storages in ``out`` that the traced call created
+        (not its arguments')."""
         seen = {}
         for t in tensors(out):
             st = t.untyped_storage()
             if self._known.get(id(st)) != 0:  # 0: an argument's storage
-                seen[id(st)] = st.nbytes() // self._activations.get(id(st), 1)
+                seen[id(st)] = st.nbytes()
         return sum(seen.values())
 
     def costs(self) -> OpCosts:
@@ -458,8 +325,8 @@ class OpCounter(TorchDispatchMode):
 
 def collective_schedule(counter: OpCounter, limit: Optional[int] = 40
                         ) -> List[str]:
-    """The collectives in program order (derived step-level ones last),
-    as ``kind bytes what`` lines, at most ``limit``."""
+    """The collectives in program order, as ``kind bytes axes`` lines, at
+    most ``limit``."""
     out = [f"{c.kind} {c.nbytes:.0f} {c.what}" for c in counter.collectives]
     return out if limit is None else out[:limit]
 

@@ -8,6 +8,10 @@ such a description, so importing this module touches no device and no
 process group.  :func:`make_mesh` builds the mesh a run executes on: the
 process groups of its data and model axes over every rank when a process
 group is up, the one-device description when none is.
+:meth:`MeshSpec.traced` is a mesh whose groups only record their
+collectives (:class:`~repro_torch.sharding.collectives.Recorder`): the
+mesh of one rank's program traced on ``meta`` tensors
+(:func:`repro_torch.launch.build.lower_step`).
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import math
 from dataclasses import dataclass, field
 from typing import Dict, Mapping, Optional, Tuple
 
-from repro_torch.sharding.collectives import Axis
+from repro_torch.sharding.collectives import Axis, Recorder
 from repro_torch.sharding.specs import (
     PartitionSpec, batch_specs, data_axes_of, param_specs,
     serve_state_specs, to_placements, train_state_specs)
@@ -45,16 +49,50 @@ class MeshSpec:
                              f"in length")
         return cls(tuple(axes), dict(zip(axes, shape)))
 
+    @classmethod
+    def traced(cls, shape: Tuple[int, ...], axes: Tuple[str, ...],
+               rank: int = 0) -> "MeshSpec":
+        """The mesh of ``shape`` / ``axes`` as rank ``rank`` sees it, with
+        groups that move no data: each of ``"data"``, ``"model"`` and
+        ``"world"`` is an :class:`~repro_torch.sharding.collectives.Axis`
+        at the rank's coordinates (:func:`coords_of`) whose group is one
+        shared :class:`~repro_torch.sharding.collectives.Recorder`
+        (:attr:`recorder`)."""
+        desc = cls.of(shape, axes)
+        rec = Recorder()
+        coords = coords_of(rank, desc)
+
+        def axis(over):
+            idx = 0
+            for a in over:
+                idx = idx * desc.shape[a] + coords[a]
+            return Axis(rec, ",".join(over) or "none", desc.size(over), idx)
+
+        model = ("model",) if "model" in desc.axis_names else ()
+        groups = {"data": axis(data_axes_of(desc.axis_names)),
+                  "model": axis(model),
+                  "world": Axis(rec, ",".join(desc.axis_names),
+                                desc.size(desc.axis_names), rank)}
+        return cls(desc.axis_names, desc.shape, groups, rank)
+
+    @property
+    def recorder(self) -> Optional[Recorder]:
+        """The recorder of a traced mesh's groups; None on another mesh."""
+        if self.groups is None:
+            return None
+        group = self.groups["world"].group
+        return group if isinstance(group, Recorder) else None
+
     def size(self, axes) -> int:
         return math.prod(self.shape.get(a, 1) for a in axes)
 
     def axis(self, name: str) -> Optional[Axis]:
         """The process group over ``name``'s axes (``"data"``: every data
         axis, flattened row-major; ``"model"``; ``"world"``) on an
-        executing mesh; None on a description whose axes are all of size
-        1.  A description with such an axis above 1 raises: it has no
-        process group to reduce over, and a step on it is not the step of
-        one process."""
+        executing or traced mesh; None on a description whose axes are
+        all of size 1.  A description with such an axis above 1 raises:
+        it has no process group to reduce over, and a step on it is not
+        the step of one process."""
         axes = {"data": data_axes_of(self.axis_names),
                 "model": tuple(a for a in self.axis_names if a == "model"),
                 "world": self.axis_names}[name]

@@ -320,13 +320,28 @@ def init_paged_kv_cache(cfg: ModelConfig, batch: int, pool_pages: int,
     )
 
 
+def cache_heads(sc: Scope, cfg: ModelConfig) -> int:
+    """The KV heads a GQA cache holds on this model rank: those the rank's
+    ``wo`` rows read (:func:`head_split`'s ``kv``), or one a local query
+    head where they do not group (:func:`project_heads` repeats them).
+    Where KV heads are fewer than the model ranks two ranks hold the same
+    head."""
+    plan = head_split(sc, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    if plan.group is not None:
+        return plan.q[1] - plan.q[0]
+    return plan.kv[1] - plan.kv[0]
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
-                  lead: Tuple[int, ...] = ()) -> KVCache:
+                  lead: Tuple[int, ...] = (), sc: Scope = LOCAL) -> KVCache:
+    """The dense cache of ``batch`` slots over ``max_len`` rows, at the
+    rank's heads under a model split (``sc``: the attention's scope,
+    :func:`cache_heads`)."""
     hd = cfg.head_dim
     if cfg.sliding_window > 0:
         # ring buffer: the cache never needs to exceed the attention window
         max_len = min(max_len, cfg.sliding_window)
-    shape = lead + (batch, max_len, cfg.num_kv_heads, hd)
+    shape = lead + (batch, max_len, cache_heads(sc, cfg), hd)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),

@@ -142,11 +142,13 @@ def decode_forward(
     decode_state: Optional[attn.KVCache] = None,
     decode: bool = False,
     layout=None,
+    last: bool = False,
 ) -> Tuple[torch.Tensor, Optional[attn.KVCache]]:
     """Returns (logits, new_decode_state).  With ``decode_state`` the
     self-attention caches are filled (prefill) or extended by one row
     (decode) in place, and the returned state holds the same tensors;
-    ``layout`` as :func:`encode` takes it."""
+    ``layout`` as :func:`encode` takes it; ``last``: the last position's
+    logits only."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
@@ -173,11 +175,13 @@ def decode_forward(
         caches.append(kv)
     new_state = _restack(decode_state, caches) if use_cache else None
     h = apply_rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    return lm_logits(params["embed"], h, top["embed"]), new_state
+    return lm_logits(params["embed"], h, top["embed"], last), new_state
 
 
 def init_encdec_decode_state(cfg: ModelConfig, batch: int, max_len: int,
-                             dtype, device) -> attn.KVCache:
-    """The decoder's self-attention caches, stacked: leaves (L, B, ...)."""
+                             dtype, device, layout=None) -> attn.KVCache:
+    """The decoder's self-attention caches, stacked: leaves (L, B, ...),
+    at the rank's KV heads on a ``layout``."""
     return attn.init_kv_cache(cfg, batch, max_len, dtype, device,
-                              lead=(cfg.num_layers,))
+                              lead=(cfg.num_layers,),
+                              sc=Scope(layout, "dec_blocks/", True)["attn"])

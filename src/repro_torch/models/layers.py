@@ -184,16 +184,23 @@ def embed_tokens(p: Dict, tokens: torch.Tensor, d_model: int,
     return sc.leave_out(torch.where(inside, e, torch.zeros_like(e)))
 
 
-def lm_logits(p: Dict, h: torch.Tensor, sc: Scope = LOCAL) -> torch.Tensor:
+def lm_logits(p: Dict, h: torch.Tensor, sc: Scope = LOCAL,
+              last: bool = False) -> torch.Tensor:
     """Logits of the stream ``h`` over the whole sequence (gathered first
     under the sequence split); with the vocab split over the model axis,
     the rank's vocab block all-gathered (its gradient sliced back: every
-    model rank computes the loss of the whole logits)."""
+    model rank computes the loss of the whole logits).  With ``last`` the
+    last position's ``(B, V)``: the product over every position, as the
+    reference's prefill computes it, then its last row, before the
+    vocab gather."""
     if "lm_head" in p:
         w, split = p["lm_head"], sc.model_dim("lm_head") == 1
     else:
         w, split = p["embedding"].T, sc.model_dim("embedding") == 0
     h = sc.gather_in(h, split)
+    logits = h @ w
+    if last:
+        logits = logits[:, -1]
     if not split:
-        return h @ w
-    return collectives.gather(h @ w, sc.model, -1, backward="slice")
+        return logits
+    return collectives.gather(logits, sc.model, -1, backward="slice")

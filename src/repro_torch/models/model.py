@@ -69,30 +69,34 @@ def build_model(cfg: ModelConfig, par: Optional[ParallelConfig] = None, *,
 
     if cfg.family == "audio":
         def forward(params, tokens, *, frames=None, decode_state=None,
-                    decode=False, positions=None, layout=None, **kw):
+                    decode=False, positions=None, layout=None, last=False,
+                    **kw):
             enc_out = encdec.encode(params, cfg, par, frames, layout)
             logits, state = encdec.decode_forward(
                 params, cfg, par, tokens, enc_out, positions=positions,
-                decode_state=decode_state, decode=decode, layout=layout)
+                decode_state=decode_state, decode=decode, layout=layout,
+                last=last)
             return logits, state, torch.zeros((), dtype=torch.float32,
                                               device=logits.device)
 
-        def init_state(batch, max_len):
+        def init_state(batch, max_len, layout=None):
             return encdec.init_encdec_decode_state(cfg, batch, max_len, dtype,
-                                                   dev)
+                                                   dev, layout)
 
         return Model(cfg, init, forward, init_state, None, dev)
 
     def forward(params, tokens, *, vision_embeds=None, decode_state=None,
                 decode=False, positions=None, return_hidden=False,
-                layout=None, **kw):
+                layout=None, last=False, **kw):
         return transformer.forward(
             params, cfg, par, tokens, positions=positions,
             vision_embeds=vision_embeds, decode_state=decode_state,
-            decode=decode, return_hidden=return_hidden, layout=layout)
+            decode=decode, return_hidden=return_hidden, layout=layout,
+            last=last)
 
-    def init_state(batch, max_len):
-        return transformer.init_decode_state(cfg, batch, max_len, dtype, dev)
+    def init_state(batch, max_len, layout=None):
+        return transformer.init_decode_state(cfg, batch, max_len, dtype, dev,
+                                             layout)
 
     def init_paged_state(batch, pool_pages, page_size, pages_per_slot_max):
         return transformer.init_paged_decode_state(

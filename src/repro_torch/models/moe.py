@@ -161,7 +161,9 @@ def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     """x: (B, S, D).  Returns (out, aux_loss).
 
     ``dropless`` forces capacity = group size (no token dropped), as on
-    the decode path.  Under a sharded step (``sc`` with data ranks) ``x``
+    the decode path: every token then reaches its experts whatever the
+    routing groups, so a data rank routes its own tokens in groups of its
+    own.  Under a sharded step (``sc`` with data ranks) ``x``
     is this data rank's share of the global batch, and ``x`` the stream
     (the rank's sequence block under the sequence split)."""
     x = sc.gather_in(x, False)
@@ -171,7 +173,8 @@ def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     tg = _group_size(t, group_size)
     data = sc.data
     world = data.size if data is not None else 1
-    if world > 1 and _group_size(t * world, group_size) != tg:
+    if world > 1 and not dropless and \
+            _group_size(t * world, group_size) != tg:
         raise ValueError(
             f"{t} tokens a rank route in groups of {tg}, the batch of "
             f"{world} ranks in groups of "
@@ -246,7 +249,9 @@ def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     # load-balance auxiliary loss (Switch-style): E * sum_e f_e * p_e
     me = torch.softmax(logits, dim=-1).mean(dim=(0, 1))  # mean router prob
     ce = onehot.to(torch.float32).sum(2).mean(dim=(0, 1)) / k
-    if data is not None:  # means over the global batch
+    if data is not None and torch.is_grad_enabled():
+        # means over the global batch (a train step's; serving keeps its
+        # rank's own)
         me = collectives.all_reduce(me, data) / world
         ce = collectives.all_reduce(ce, data) / world
     aux = e * torch.sum(me * ce)

@@ -180,9 +180,18 @@ def apply_mamba1(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     return sc.leave_out(y @ p["w_out"], split), new_state
 
 
+def _local(sc: Scope, n: int) -> int:
+    """``n`` channels or heads, this rank's share where the model axis
+    splits the mixer (``sc``)."""
+    return n // sc.model.size if sc.model_dim("w_x") == 1 else n
+
+
 def init_mamba1_state(cfg: ModelConfig, batch: int, dtype, device,
-                      lead: Tuple[int, ...] = ()) -> MambaState:
-    d_inner = cfg.ssm_expand * cfg.d_model
+                      lead: Tuple[int, ...] = (), sc: Scope = LOCAL
+                      ) -> MambaState:
+    """The decode state at the rank's channels under a model split
+    (``sc``: the mixer's scope)."""
+    d_inner = _local(sc, cfg.ssm_expand * cfg.d_model)
     return MambaState(
         conv=torch.zeros(lead + (batch, cfg.ssm_conv - 1, d_inner),
                          dtype=dtype, device=device),
@@ -311,8 +320,13 @@ def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
 
 
 def init_mamba2_state(cfg: ModelConfig, batch: int, dtype, device,
-                      lead: Tuple[int, ...] = ()) -> MambaState:
-    d_inner, heads, head_dim, g = _m2_dims(cfg)
+                      lead: Tuple[int, ...] = (), sc: Scope = LOCAL
+                      ) -> MambaState:
+    """The decode state at the rank's heads under a model split (``sc``:
+    the mixer's scope)."""
+    _, heads, head_dim, g = _m2_dims(cfg)
+    heads = _local(sc, heads)
+    d_inner = heads * head_dim
     conv_ch = d_inner + 2 * g * cfg.ssm_state
     return MambaState(
         conv=torch.zeros(lead + (batch, cfg.ssm_conv - 1, conv_ch),

@@ -162,31 +162,42 @@ def _normal(shape: Tuple[int, ...], gen, dtype, device,
 # --------------------------------------------------------------------------
 
 def _init_sub_state(cfg: ModelConfig, kind: str, batch: int, kv_cache,
-                    dtype, device, lead: Tuple[int, ...]):
-    """One sub-layer's decode state; ``kv_cache()`` makes its KV cache."""
+                    dtype, device, lead: Tuple[int, ...],
+                    sc: Scope = LOCAL, shared_sc: Scope = LOCAL):
+    """One sub-layer's decode state; ``kv_cache(scope)`` makes the KV cache
+    of the attention at ``scope`` (``sc``: the sublayer's, ``shared_sc``:
+    the hybrid's shared block's)."""
     if kind == "mamba1":
-        return ssm.init_mamba1_state(cfg, batch, dtype, device, lead)
+        return ssm.init_mamba1_state(cfg, batch, dtype, device, lead,
+                                     sc["mixer"])
     if kind in ("mamba2", "mamba2_shared_attn"):
-        st = {"mixer": ssm.init_mamba2_state(cfg, batch, dtype, device, lead)}
+        st = {"mixer": ssm.init_mamba2_state(cfg, batch, dtype, device, lead,
+                                             sc["mixer"])}
         if kind == "mamba2_shared_attn":
-            st["shared_kv"] = kv_cache()
+            st["shared_kv"] = kv_cache(shared_sc["attn"])
         return st
-    return kv_cache()
+    return kv_cache(sc["attn"])
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                      device) -> Dict:
-    """Stacked per-super-block decode state: leaves (nsb, B, ...)."""
+                      device, layout=None) -> Dict:
+    """Stacked per-super-block decode state: leaves (nsb, B, ...).  On a
+    ``layout`` (a sharded serve step's) each leaf is what the rank holds:
+    a GQA cache at its KV heads, a Mamba-1 state at its channels, a
+    Mamba-2 state at its heads; MLA's latent cache is whole (the latents
+    enter the split whole)."""
     lead = (num_superblocks(cfg),)
 
-    def kv_cache():
+    def kv_cache(sc):
         if cfg.attn_type == "mla":
             return attn.init_mla_cache(cfg, batch, max_len, dtype, device,
                                        lead)
-        return attn.init_kv_cache(cfg, batch, max_len, dtype, device, lead)
-    return {f"sub{i}": _init_sub_state(cfg, kind, batch, kv_cache, dtype,
-                                       device, lead)
-            for i, kind in enumerate(block_pattern(cfg))}
+        return attn.init_kv_cache(cfg, batch, max_len, dtype, device, lead,
+                                  sc)
+    return {f"sub{i}": _init_sub_state(
+        cfg, kind, batch, kv_cache, dtype, device, lead,
+        Scope(layout, f"blocks/sub{i}/", True), Scope(layout)["shared_attn"])
+        for i, kind in enumerate(block_pattern(cfg))}
 
 
 def init_paged_decode_state(cfg: ModelConfig, batch: int, pool_pages: int,
@@ -202,7 +213,7 @@ def init_paged_decode_state(cfg: ModelConfig, batch: int, pool_pages: int,
             "serve MLA models dense")
     lead = (num_superblocks(cfg),)
 
-    def kv_cache():
+    def kv_cache(sc):
         return attn.init_paged_kv_cache(cfg, batch, pool_pages, page_size,
                                         pages_per_slot_max, dtype, device,
                                         lead)
@@ -291,7 +302,7 @@ def _apply_sublayer(sub_p, cfg, par, kind, h, positions, shared_p,
         hc = apply_rmsnorm(sub_p["cross_norm"], h, cfg.norm_eps)
         yc = attn.apply_cross_attn(sub_p["cross"], cfg, par, hc, vision_kv,
                                    sc["cross"])
-        h = h + torch.tanh(sub_p["cross_gate"]) * yc
+        h = h + gated(sub_p["cross_gate"], yc)
     hm = apply_rmsnorm(sub_p["mlp_norm"], h, cfg.norm_eps)
     aux = None
     if kind == "moe":
@@ -303,6 +314,13 @@ def _apply_sublayer(sub_p, cfg, par, kind, h, positions, shared_p,
     else:
         h = h + apply_mlp(sub_p["mlp"], hm, cfg.mlp_type, sc["mlp"])
     return h, kv, aux
+
+
+def gated(gate: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The vlm cross sublayer's output ``tanh(gate) * y``, its own function
+    so that a check can hook the product (``chip_smoke.py`` bounds the
+    gate's gradient by the sum of its products' magnitudes)."""
+    return torch.tanh(gate) * y
 
 
 def _unstack(tree: Dict, n: int) -> List[Dict]:
@@ -328,8 +346,11 @@ def forward(
     decode: bool = False,
     return_hidden: bool = False,
     layout=None,
+    last: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
-    """Returns (logits, new_decode_state, aux_loss).
+    """Returns (logits, new_decode_state, aux_loss); with ``last`` the
+    logits of the last position only (:func:`~repro_torch.models.layers.
+    lm_logits`).
 
     ``layout``: the :class:`~repro_torch.sharding.layout.Layout` a
     sharded train step executes on, ``params`` this rank's blocks with
@@ -381,7 +402,7 @@ def forward(
     h = apply_rmsnorm(params["final_norm"], h, cfg.norm_eps)
     if return_hidden:
         return h, new_state, aux
-    return lm_logits(params["embed"], h, top["embed"]), new_state, aux
+    return lm_logits(params["embed"], h, top["embed"], last), new_state, aux
 
 
 # --------------------------------------------------------------------------

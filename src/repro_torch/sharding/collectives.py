@@ -27,24 +27,27 @@ copy to the host is made):
 - :func:`all_to_all` — the GShard expert exchange, an all-to-all both
   ways.
 
-An axis whose group is :data:`TRACED` moves no data: the gathers and
-reduce-scatters over it give uncounted, unwritten tensors of their
-results' shapes (a dry run's traced rank, whose sequence blocks have the
-shapes a rank holds; :func:`repro_torch.sharding.layout.traced_sequence`).
-
 Every call adds its operand's bytes to :data:`COUNTS`, by kind and axis,
 under the calling rank: an all-reduce or an all-to-all counts its tensor,
 an all-gather its local block, a reduce-scatter its whole input (the
-reference's operand convention, which the dry run derives in
-:func:`repro_torch.launch.build.lower_step`).  ``axis`` names the mesh
-axes the group spans (``"model"``, ``"data"``, ``"pod,data"``).
+reference's operand convention).  ``axis`` names the mesh axes the group
+spans (``"model"``, ``"data"``, ``"pod,data"``).
+
+An axis whose group is a :class:`Recorder` (a traced mesh's,
+:meth:`repro_torch.launch.mesh.MeshSpec.traced`) moves no data and never
+calls ``torch.distributed``: each operator records ``(kind, axis, operand
+bytes)`` in the recorder, by the same convention, and returns an unwritten
+tensor of its result's shape on the input's device.  So one rank's
+sharded program runs on ``meta`` tensors with the shapes the rank holds,
+and its collectives are the ones the rank would send
+(:func:`repro_torch.launch.build.lower_step`).
 """
 
 from __future__ import annotations
 
 import threading
 from collections import Counter, defaultdict
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -63,8 +66,20 @@ class Axis(NamedTuple):
     rank: int
 
 
-#: the group of an axis that only shapes its collectives' results
-TRACED = "traced"
+class Recorder:
+    """The group of a traced mesh's axes: ``entries`` lists ``(kind, axis
+    name, operand bytes)`` of every collective over them, in program
+    order."""
+
+    def __init__(self):
+        self.entries: List[Tuple[str, str, int]] = []
+
+    def __repr__(self) -> str:
+        return f"Recorder({len(self.entries)} collectives)"
+
+
+def _traced(axis: Axis) -> bool:
+    return isinstance(axis.group, Recorder)
 
 
 def reset_counts() -> None:
@@ -89,13 +104,20 @@ def bytes_by_kind(rank: Optional[int] = None) -> Dict[str, int]:
 
 
 def _count(kind: str, axis: Axis, t: torch.Tensor) -> None:
+    nbytes = t.numel() * t.element_size()
+    if _traced(axis):
+        axis.group.entries.append((kind, axis.name, nbytes))
+        return
     rank = dist.get_rank()
     with _LOCK:
-        COUNTS[rank][(kind, axis.name)] += t.numel() * t.element_size()
+        COUNTS[rank][(kind, axis.name)] += nbytes
 
 
 def _all_reduce(t: torch.Tensor, axis: Axis, op=dist.ReduceOp.SUM
                 ) -> torch.Tensor:
+    if _traced(axis):
+        _count("all-reduce", axis, t)
+        return t.new_empty(t.shape)
     out = t.contiguous().clone()
     _count("all-reduce", axis, out)
     dist.all_reduce(out, op=op, group=axis.group)
@@ -103,19 +125,17 @@ def _all_reduce(t: torch.Tensor, axis: Axis, op=dist.ReduceOp.SUM
 
 
 def _all_gather(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
-    if axis.group is TRACED:
-        shape = list(t.shape)
-        shape[dim] *= axis.size
+    _count("all-gather", axis, t)
+    shape = list(t.shape)
+    shape[dim] *= axis.size
+    if _traced(axis):
         return t.new_empty(shape)
     t = t.contiguous()
-    _count("all-gather", axis, t)
     flat = t.reshape(-1)
     out = flat.new_empty((axis.size * flat.numel(),))
     dist.all_gather_into_tensor(out, flat, group=axis.group)
     # (n, ..., k, ...) -> (..., n k, ...): the blocks in rank order
     out = out.view((axis.size,) + tuple(t.shape)).movedim(0, dim)
-    shape = list(t.shape)
-    shape[dim] *= axis.size
     return out.reshape(shape)
 
 
@@ -123,10 +143,10 @@ def _reduce_scatter(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     n = axis.size
     shape = list(t.shape)
     block = shape[dim] // n
-    if axis.group is TRACED:
+    _count("reduce-scatter", axis, t)
+    if _traced(axis):
         shape[dim] = block
         return t.new_empty(shape)
-    _count("reduce-scatter", axis, t)
     parts = t.unflatten(dim, (n, block)).movedim(dim, 0).contiguous()
     out = parts.new_empty(parts[0].numel())
     dist.reduce_scatter_tensor(out, parts.reshape(-1), group=axis.group)
@@ -220,8 +240,10 @@ class _AllToAll(torch.autograd.Function):
 
 
 def _exchange(x: torch.Tensor, axis: Axis) -> torch.Tensor:
-    x = x.contiguous()
     _count("all-to-all", axis, x)
+    if _traced(axis):
+        return x.new_empty(x.shape)
+    x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=axis.group)
     return out

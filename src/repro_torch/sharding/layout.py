@@ -39,9 +39,15 @@ The leaves applied to the stream itself (the norm scales, the vlm gate:
 :meth:`Layout.on_stream`) get from each rank the share of its block, so
 the train step sums their gradients over the model axis.  The audio
 family is not cut: the reference constrains none of its activations.
-A dry run traces one rank's step without a model axis; within
-:func:`traced_sequence` its layout cuts the stream all the same, over an
-axis that moves no data, so the traced stream has a rank's shapes.
+
+Serving (:func:`repro_torch.train.serve_step.make_prefill_step` /
+``make_decode_step`` with a mesh) runs the same forward under no
+gradient: the FSDP blocks are gathered before use, and the decode state
+holds the rank's heads or channels
+(:func:`repro_torch.models.transformer.init_decode_state`).  On a traced
+mesh (:meth:`repro_torch.launch.mesh.MeshSpec.traced`) every collective
+only records itself, so a dry run executes this module's program as a
+rank does, on ``meta`` tensors.
 """
 
 from __future__ import annotations
@@ -66,9 +72,6 @@ _ON_STREAM = re.compile(r"(^|/)(attn_norm|mlp_norm|cross_norm|norm|"
                         r"final_norm)/scale$|cross_gate$")
 
 
-#: the sequence blocks of a traced rank's stream (:func:`traced_sequence`)
-_TRACED_BLOCKS = [1]
-
 
 def _axes(entry) -> Tuple[str, ...]:
     if entry is None:
@@ -76,17 +79,14 @@ def _axes(entry) -> Tuple[str, ...]:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
-@contextlib.contextmanager
-def traced_sequence(blocks: int):
-    """Within: a layout made on a mesh without a model axis (a dry run's
-    traced rank, :func:`repro_torch.launch.build.lower_step`) holds the
-    stream in ``blocks`` sequence blocks where the sequence divides, over
-    a :data:`~repro_torch.sharding.collectives.TRACED` axis."""
-    _TRACED_BLOCKS.append(blocks)
-    try:
-        yield
-    finally:
-        _TRACED_BLOCKS.pop()
+def _spans(axis: Optional[C.Axis]) -> Optional[C.Axis]:
+    return axis if axis is not None and axis.size > 1 else None
+
+
+def _key(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage (a ``meta`` tensor has no address
+    of its own)."""
+    return id(t.untyped_storage())
 
 
 class _Held:
@@ -126,10 +126,11 @@ class Layout:
         self.mesh = mesh
         self.parallel = parallel or ParallelConfig()
         self.family = family
-        self.traced = _TRACED_BLOCKS[-1]
         self.daxes = data_axes_of(mesh.axis_names)
-        self.data = mesh.axis("data")
-        self.model = mesh.axis("model")
+        #: the groups of the data axes and of the model axis; None where
+        #: the axes' size is 1 (no collective, no packing for one)
+        self.data = _spans(mesh.axis("data"))
+        self.model = _spans(mesh.axis("model"))
         self.tp = self.model.size if self.model is not None else 1
         self._held: Dict[int, list] = {}
 
@@ -147,11 +148,7 @@ class Layout:
 
     def seq_axis(self, seq_len: int) -> Optional[C.Axis]:
         """The model axis when a forward over ``seq_len`` tokens holds the
-        residual stream in sequence blocks, else None (a traced rank's:
-        the traced axis)."""
-        if self.traced > 1:
-            return (C.Axis(C.TRACED, "model", self.traced, 0)
-                    if seq_len % self.traced == 0 else None)
+        residual stream in sequence blocks, else None."""
         if sequence_blocks(self.parallel, self.mesh, seq_len,
                            self.family) == 1:
             return None
@@ -237,8 +234,7 @@ class Layout:
             d -= int(scanned)
             whole = C.gather(leaf, self.data, d)
             held = _Held(whole, leaf.detach(), self.data, d)
-            ptr = whole.untyped_storage().data_ptr()
-            self._held.setdefault(ptr, []).append(held)
+            self._held.setdefault(_key(whole), []).append(held)
             return whole
 
         return tree_map_with_path(one, tree)
@@ -256,7 +252,7 @@ class Layout:
         if not self.fsdp:
             return contextlib.nullcontext()
         def pack(t):
-            for held in self._held.get(t.untyped_storage().data_ptr(), ()):
+            for held in self._held.get(_key(t), ()):
                 if held.ref() is not None:
                     held.pending += 1
                     return (held, t.size(), t.stride(), t.storage_offset())

@@ -12,6 +12,19 @@ signature).  Both run their
 body under an *exclusive* ``dispatch.use_launch_config`` so a step is a
 pure function of its ``launch_config``.  They run eagerly.
 
+With ``mesh`` (the :class:`~repro_torch.launch.mesh.MeshSpec` the run
+executes on, as ``make_train_step`` takes it) a step is one rank's:
+``params`` are the rank's blocks under the rules' placements
+(:func:`~repro_torch.sharding.layout.shard_params`), the batch, tokens
+and state are the rows of the rank's data coordinate, and the forward
+runs on the :class:`~repro_torch.sharding.layout.Layout` of the train
+step: tensor-parallel products, FSDP blocks gathered before use, experts
+on their ranks, the stream in sequence blocks under ``sp`` (prefill).
+The decode state holds the rank's KV heads, channels or SSM heads
+(``init_decode_state(..., layout=)``); every model rank ends with the
+whole vocab's logits.  The sharded decode runs eagerly (no graph).
+Without a mesh nothing of this runs.
+
 :func:`jitted_steps` keeps its name and its cache key ``(model, run,
 cache_len, frozen launch config)``.  Its prefill is the eager step (one
 shape per prompt length; the tensor-core SSD's host-side epoch cannot be
@@ -43,6 +56,7 @@ its capture wrote) and returns the input state itself.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 from collections import OrderedDict
@@ -52,9 +66,10 @@ import torch
 
 from repro_torch.kernels import cuda_lib, dispatch
 from repro_torch.models import encdec
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, build_model
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
+from repro_torch.sharding.layout import Layout
 from repro_torch.utils.config import RunConfig
 
 
@@ -74,70 +89,120 @@ class ServeState(NamedTuple):
     extras: Dict[str, torch.Tensor]  # enc_out / vision_embeds, per request
 
 
+def _sharded(model: Model, run: RunConfig, mesh):
+    """``(layout_of, gathered)`` of a step on ``mesh``: the step's
+    :class:`~repro_torch.sharding.layout.Layout` (None without a mesh;
+    made here on an executing or traced mesh, at the step's first call on
+    a description, which a bundle's step may be built on); and the context
+    that gives the rank's parameters with every FSDP block but the stacked
+    layers' gathered (the forward gathers those a layer slice at a time),
+    forgetting them after."""
+    bound: Dict[str, Any] = {}
+
+    def layout_of() -> Optional[Layout]:
+        if mesh is None:
+            return None
+        if "layout" not in bound:
+            shapes = build_model(model.cfg, run.parallel,
+                                 device="meta").init(0)
+            bound["layout"] = Layout.of(shapes, run, mesh)
+        return bound["layout"]
+
+    if mesh is not None and mesh.groups is not None:
+        layout_of()
+
+    @contextlib.contextmanager
+    def gathered(params, layout):
+        if layout is None:
+            yield params
+            return
+        try:
+            yield {k: v if k == "blocks" else layout.gather(v, f"{k}/")
+                   for k, v in params.items()}
+        finally:
+            layout.release()
+
+    return layout_of, gathered
+
+
 def make_prefill_step(model: Model, run: RunConfig,
                       cache_len: Optional[int] = None,
-                      launch_config: Optional[Dict[str, Any]] = None
+                      launch_config: Optional[Dict[str, Any]] = None, *,
+                      mesh=None
                       ) -> Callable[..., Tuple[ServeState, torch.Tensor]]:
-    """Returns prefill(params, batch) -> (ServeState, last_logits (B, V))."""
+    """Returns prefill(params, batch) -> (ServeState, last_logits (B, V));
+    with ``mesh`` one rank's (module docstring)."""
     cfg = model.cfg
     max_len = cache_len or run.shape.seq_len
     dispatch.split_launch_config(launch_config or {})  # eager validation
+    layout_of, gathered = _sharded(model, run, mesh)
 
     @torch.no_grad()
     def prefill_step(params, batch: Dict) -> Tuple[ServeState, torch.Tensor]:
-        with dispatch.use_launch_config(launch_config, exclusive=True):
+        layout = layout_of()
+        with dispatch.use_launch_config(launch_config, exclusive=True), \
+                gathered(params, layout) as params:
             tokens = batch["tokens"]
             b, s = tokens.shape
-            caches = model.init_decode_state(b, max_len)
+            caches = model.init_decode_state(b, max_len, layout=layout)
             extras: Dict[str, torch.Tensor] = {}
             if cfg.family == "audio":
                 par = run.parallel
-                enc_out = encdec.encode(params, cfg, par, batch["frames"])
+                enc_out = encdec.encode(params, cfg, par, batch["frames"],
+                                        layout)
                 extras["enc_out"] = enc_out
                 logits, new_caches = encdec.decode_forward(
                     params, cfg, par, tokens, enc_out, decode_state=caches,
-                    decode=False)
+                    decode=False, layout=layout, last=True)
             else:
                 fkw = {}
                 if cfg.family == "vlm":
                     extras["vision_embeds"] = batch["vision_embeds"]
                     fkw["vision_embeds"] = batch["vision_embeds"]
                 logits, new_caches, _ = model.forward(
-                    params, tokens, decode_state=caches, decode=False, **fkw)
+                    params, tokens, decode_state=caches, decode=False,
+                    layout=layout, last=True, **fkw)
             lengths = torch.full((b,), s, dtype=torch.int32,
                                  device=tokens.device)
-            return ServeState(new_caches, lengths, extras), logits[:, -1]
+            return ServeState(new_caches, lengths, extras), logits
 
     return prefill_step
 
 
 def make_decode_step(model: Model, run: RunConfig,
-                     launch_config: Optional[Dict[str, Any]] = None
+                     launch_config: Optional[Dict[str, Any]] = None, *,
+                     mesh=None
                      ) -> Callable[..., Tuple[ServeState, torch.Tensor]]:
-    """Returns decode(params, state, tokens (B,1)) -> (state', logits (B, V))."""
+    """Returns decode(params, state, tokens (B,1)) -> (state', logits (B,
+    V)); with ``mesh`` one rank's (module docstring)."""
     cfg = model.cfg
     dispatch.split_launch_config(launch_config or {})  # eager validation
+    layout_of, gathered = _sharded(model, run, mesh)
 
     @torch.no_grad()
     def decode_step(params, state: ServeState, tokens: torch.Tensor
                     ) -> Tuple[ServeState, torch.Tensor]:
-        with dispatch.use_launch_config(launch_config, exclusive=True):
+        layout = layout_of()
+        with dispatch.use_launch_config(launch_config, exclusive=True), \
+                gathered(params, layout) as params:
             positions = state.lengths[:, None]  # (B, 1) per-request positions
             if cfg.family == "audio":
                 logits, new_caches = encdec.decode_forward(
                     params, cfg, run.parallel, tokens,
                     state.extras["enc_out"], positions=positions,
-                    decode_state=state.caches, decode=True)
+                    decode_state=state.caches, decode=True, layout=layout,
+                    last=True)
             else:
                 fkw = {}
                 if cfg.family == "vlm":
                     fkw["vision_embeds"] = state.extras["vision_embeds"]
                 logits, new_caches, _ = model.forward(
                     params, tokens, positions=positions,
-                    decode_state=state.caches, decode=True, **fkw)
+                    decode_state=state.caches, decode=True, layout=layout,
+                    last=True, **fkw)
             state.lengths.add_(1)
             new_state = ServeState(new_caches, state.lengths, state.extras)
-            return new_state, logits[:, -1]
+            return new_state, logits
 
     return decode_step
 

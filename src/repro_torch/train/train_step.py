@@ -130,10 +130,10 @@ def make_train_step(model: Model, run: RunConfig, optimizer: Optimizer,
     sharded step: ``state`` holds this rank's blocks under the rules'
     placements (:func:`init_train_state` with the mesh) and ``batch`` the
     rows of this rank's data coordinate.  Without ``mesh``, the step of
-    one process (the one-device description).  The mesh's process groups
-    are looked up at the first call, so a step may be built on a
-    description (the dry run's bundle); stepping on a description with an
-    axis above 1 raises."""
+    one process (the one-device description).  On a description the mesh's
+    process groups are looked up at the first call, so a step may be built
+    on one (the dry run's bundle); stepping on a description with an axis
+    above 1 raises."""
     if mesh is None:
         mesh = MeshSpec.of((1,), ("data",))
     cfg = model.cfg
@@ -149,6 +149,9 @@ def make_train_step(model: Model, run: RunConfig, optimizer: Optimizer,
             shapes = build_model(cfg, par, device="meta").init(0)
             bound["layout"] = Layout.of(shapes, run, mesh)
         return bound["layout"]
+
+    if mesh.groups is not None:  # an executing or traced mesh: made now
+        layout_of()
 
     def loss_fn(params_c, batch, layout):
         inputs, targets = batch["inputs"], batch["targets"]

@@ -4,8 +4,8 @@
 ``intervene(config)`` turns a parallel plan from ``framework_space`` into
 ``--parallel`` overrides (``config_to_parallel_kv``) and runs
 :func:`repro_torch.launch.dryrun.dryrun_cell` on it in this process: the
-cell's step traced on ``meta`` tensors on the production mesh, with what
-the model axis and FSDP / EP add derived from the placements.  Its
+cell's step as rank 0 of the production mesh executes it, traced on
+``meta`` tensors with its collectives recorded (``lower_step``).  Its
 objective is the three-term roofline bound of the step on an H100
 (compute, memory, collectives; no overlap), the terms and the per-chip
 counts its system-event counters.

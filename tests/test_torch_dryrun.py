@@ -1,18 +1,18 @@
 """The port's dry-run group on the CPU: the op counter
-(``launch/hlo_analysis.py``), ``lower_step``'s derived rules
-(``launch/build.py``), ``launch/dryrun.py``, ``launch/roofline.py`` and
-``tuner/compiled_env.py``.
+(``launch/hlo_analysis.py``), ``lower_step``'s trace of rank 0's sharded
+program (``launch/build.py``), ``launch/dryrun.py``,
+``launch/roofline.py`` and ``tuner/compiled_env.py``.
 
 - Kernel scopes: entered once per op call, by family; inside a scope the
   ops' FLOPs count and only the scope's boundary bytes (the counterpart of
   ``test_hlo_analysis.py::test_kernel_scope_elides_interior_bytes_keeps_flops``).
-- The derived rules, each on a hand count: a model-split parameter's
-  products and what they feed divided by the axis, a row-parallel
-  product's all-reduce; FSDP's all-gathers and reduce-scatters, TP's
-  activation all-reduces, EP's all-to-alls on small meshes; argument
-  bytes per chip.
-- Data parallelism: the all-reduce bytes the dry run derives for a train
-  step over two data ranks equal what two gloo ranks hand to
+- The traced rank on hand counts: FSDP's all-gathers and reduce-scatters,
+  TP's activation all-reduces, EP's all-to-alls on small meshes (each a
+  collective the trace recorded, by kind and the mesh axes of its
+  group); argument bytes per chip; the heads a rank computes where the
+  split cuts through heads; the stream's sequence block under ``sp``.
+- Data parallelism: the all-reduce bytes of the traced train step over
+  two data ranks equal what two gloo ranks hand to
   ``torch.distributed.all_reduce`` in the same step (llama3.2-1b, and
   deepseek-v3-671b with its MoE statistics and MTP loss).
 - ``roofline_from_record`` on a fixed record; ``CompiledPerfEnv`` (inf for
@@ -38,7 +38,7 @@ from repro_torch.configs.registry import get_smoke_config, make_run
 from repro_torch.kernels import ops
 from repro_torch.launch import dryrun, roofline
 from repro_torch.launch.build import lower_step
-from repro_torch.launch.hlo_analysis import OpCounter, ParamInfo, trace
+from repro_torch.launch.hlo_analysis import OpCounter, trace
 from repro_torch.launch.mesh import MeshSpec
 from repro_torch.models import moe
 from repro_torch.utils.config import MeshConfig, TrainConfig
@@ -67,9 +67,12 @@ def _lower(run):
     return lower_step(run, MeshSpec.of(run.mesh.shape, run.mesh.axes))
 
 
-def _by_what(traced, kind, prefix):
+def _by(traced, kind, axes, nbytes=None):
+    """The traced collectives of ``kind`` over the mesh axes ``axes``
+    (of ``nbytes`` each when given)."""
     return [c for c in traced.counter.collectives
-            if c.kind == kind and c.what.startswith(prefix)]
+            if c.kind == kind and c.what == axes
+            and (nbytes is None or c.nbytes == nbytes)]
 
 
 # --------------------------------------------------------------------------
@@ -137,67 +140,49 @@ def test_kernel_scopes_by_family_equal_the_op_calls(arch, shape, want,
         {k: v for k, v in scopes.items() if k.endswith("_bwd")}
 
 
-def test_model_split_parameter_divides_its_products():
-    """x (8, 16) @ W (16, 32) with W split 4 ways over the model axis:
-    the product and the elementwise op on it count a quarter; a
-    row-parallel W2 (32, 16) divides its product too, its result is
-    whole again (its all-reduce is ``lower_step``'s to derive, not the
-    counter's: none recorded), and what reads that result counts in
-    full."""
-    x, w, w2 = _meta(8, 16), _meta(16, 32), _meta(32, 16)
-
-    def step(x, w, w2):
-        h = torch.relu(x @ w)
-        return (h @ w2) * 2.0
-
-    counter = OpCounter()
-    counter.add_param(w, ParamInfo("mlp/w_up", model=4))
-    counter.add_param(w2, ParamInfo("mlp/w_down", model=4, role="row"))
-    trace(step, (x, w, w2), train=False, counter=counter)
-    c = counter.costs()
-    mm1, mm2 = 2 * 8 * 16 * 32, 2 * 8 * 32 * 16
-    assert c.matmul_flops == mm1 / 4 + mm2 / 4
-    assert c.flops == mm1 / 4 + 8 * 32 / 4 + mm2 / 4 + 8 * 16
-    assert c.collective_bytes == {} and c.collective_count == {}
-    # live: h (split) and x @ w (split) a quarter each, the product whole
-    assert c.peak_live_bytes >= 8 * 16 * F32
-
-
 def test_fsdp_and_tp_rules_hand_count():
-    """llama3.2-1b smoke, train, data 2 x model 2, tp=2, fsdp=2: every
-    rule on a hand count."""
+    """llama3.2-1b smoke, train, data 2 x model 2, tp=2, fsdp=2: the
+    traced rank's collectives on a hand count."""
     run = _smoke("llama3.2-1b", "train_smoke", {"data": 2, "model": 2},
                  tp=2, fsdp=2)
     bundle, traced = _lower(run)
     cfg, n = run.model, run.model.num_layers
     rows = run.shape.global_batch // 2 * run.shape.seq_len
-    # TP: wo and w_down a layer, forward and backward, each (rows, D) in
-    # the compute dtype (bf16)
-    tp = _by_what(traced, "all-reduce", "tp partial sum")
-    assert len(tp) == 2 * n * 2
+    # TP: wo and w_down a layer forward, their inputs' gradients backward,
+    # the vocab-split embedding's partial rows and the head input's
+    # gradient: each (rows, D) in the compute dtype (bf16)
+    tp = _by(traced, "all-reduce", "model")
+    assert len(tp) == 2 * n * 2 + 2
     assert {c.nbytes for c in tp} == {rows * cfg.d_model * 2}
     # FSDP: the stacked weights split over data (and model) gather their
-    # block a layer slice, twice a step; the gradient reduce-scatters once
-    params = dict(_param_specs(bundle, traced))
-    gathers = _by_what(traced, "all-gather", "fsdp")
-    scatters = _by_what(traced, "reduce-scatter", "fsdp")
-    want_g, want_s = 0, 0
+    # block a layer slice, twice a step (the forward and the backward's
+    # regather); the gradient reduce-scatters once
+    params = dict(_param_specs(bundle))
+    gathers = _by(traced, "all-gather", "data")
+    scatters = _by(traced, "reduce-scatter", "data")
+    want_g, want_s, uses, slices_all = 0, 0, 0, 0
     for path, (leaf, data, model) in params.items():
         if data == 1:
             continue
         slices = leaf.shape[0] if "blocks/" in path else 1
         want_g += 2 * leaf.numel() // (data * model) * 2
         want_s += leaf.numel() // model * F32
-        assert sum(1 for c in gathers if c.what == f"fsdp {path}") == \
-            2 * slices
+        uses += 2 * slices
+        slices_all += slices
+    assert len(gathers) == uses and len(scatters) == slices_all
     assert sum(c.nbytes for c in gathers) == want_g
     assert sum(c.nbytes for c in scatters) == want_s
-    assert traced.model_axis == "derived"
     # data parallelism: only the parameters the data axes replicate (the
-    # norms) all-reduce their gradient, beside the loss's sums
-    dp = sum(c.nbytes for c in _by_what(traced, "all-reduce", "dp gradient"))
-    assert dp == F32 * sum(leaf.numel() // model for leaf, data, model in
-                           params.values() if data == 1)
+    # norms) all-reduce their gradient (one bucket), beside the loss's
+    # sums (ce_loss, count, z_loss, accuracy) and the loss metric
+    dp = F32 * sum(leaf.numel() // model for leaf, data, model in
+                   params.values() if data == 1)
+    assert run.train.z_loss > 0
+    assert sorted(c.nbytes for c in _by(traced, "all-reduce", "data")) == \
+        sorted([dp, 4 * F32, F32])
+    # the global norm: every split leaf is split over both axes
+    assert [c.nbytes for c in _by(traced, "all-reduce", "data,model")] == \
+        [F32]
     # every argument leaf's block, exact
     mem = traced.memory_analysis()
     assert mem.argument_size_in_bytes == _arg_bytes(bundle, run)
@@ -221,39 +206,117 @@ def test_sequence_split_traces_the_stream_at_a_rank_block():
         off.memory_analysis().temp_size_in_bytes
 
 
+def test_prefill_sequence_split_traces_the_stream_at_a_rank_block():
+    """llama3.2-1b smoke, prefill, data 2 x model 2, tp=2: under ``sp``
+    the traced rank's stream is its sequence block, so the RMSNorm
+    scopes (all on the stream) count half the rows, the matmuls count the
+    same (each sublayer reads its gathered input), and the row-parallel
+    all-reduces become reduce-scatters beside the sequence gathers."""
+    off, on = (_lower(_smoke("llama3.2-1b", "prefill_smoke",
+                             {"data": 2, "model": 2}, tp=2, sp=sp))[1]
+               for sp in (False, True))
+    norm = {sp: t.counter.by_op["scope:rmsnorm"] for sp, t in
+            ((False, off), (True, on))}
+    assert norm[True][0] == norm[False][0]
+    assert abs(norm[True][2] / norm[False][2] - 0.5) < 0.01
+    assert on.counter.matmul_flops == off.counter.matmul_flops
+    kinds = {sp: {(c.kind, c.what) for c in t.counter.collectives}
+             for sp, t in ((False, off), (True, on))}
+    assert ("reduce-scatter", "model") in kinds[True] - kinds[False]
+    n = len(_by(off, "all-reduce", "model"))
+    assert n and len(_by(on, "reduce-scatter", "model")) == n
+
+
+def test_split_through_heads_traces_the_heads_a_rank_computes(monkeypatch):
+    """llama4-maverick-400b-a17b's 40 query / 8 KV heads at tp=16 (its
+    smoke config at published head counts): a rank's ``wo`` rows cross
+    2.5 heads, and the traced rank 0 attends with the 3 it computes and
+    the one KV head they read."""
+    seen = []
+    real = ops.flash_attention
+
+    def recorded(q, k, v, *a, **kw):
+        seen.append((q.shape[2], k.shape[2]))
+        return real(q, k, v, *a, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention", recorded)
+    run = _smoke("llama4-maverick-400b-a17b", "prefill_smoke",
+                 {"data": 1, "model": 16}, tp=16)
+    cfg = run.model.replace(num_heads=40, num_kv_heads=8, head_dim=16,
+                            d_model=64, moe_num_experts=16)
+    run = run.replace(model=cfg)
+    _, traced = _lower(run)
+    assert seen and set(seen) == {(3, 1)}
+    # the query product's columns cut through heads: all-gathered
+    assert _by(traced, "all-gather", "model")
+
+
 def test_wider_stub_inputs_widen_the_audio_encoder_collectives():
     """whisper-large-v3 smoke, train in bf16, data 2 x model 2, tp=2,
     fsdp=2: with fp32 ``frames`` (the train CLI's) the encoder runs in
-    fp32 (``mm`` promotes), so its derived collectives and the encoder
-    output's input-gradient all-reduce count 4 bytes an element where
-    bf16 ones count 2, the decoder's stay at 2, and the encoder weights'
-    FSDP blocks are not gathered again in the backward (the products
-    save widened copies)."""
+    fp32 (``mm`` promotes), so its model-axis collectives (the encoder
+    layers' partial sums and input gradients, the encoder output's
+    input-gradient all-reduce, ``frame_proj``'s gather) count 4 bytes an
+    element where bf16 ones count 2, the decoder's stay at 2, and the
+    weights that read the widened encoder (its layers, the decoder's
+    cross K/V) are not gathered again in the backward (the products save
+    widened copies)."""
     run = _smoke("whisper-large-v3", "train_smoke", {"data": 2, "model": 2},
                  tp=2, fsdp=2)
     assert run.train.compute_dtype == "bfloat16"
+    cfg = run.model
     mesh = MeshSpec.of(run.mesh.shape, run.mesh.axes)
-    _, narrow = lower_step(run, mesh, stub_dtype=torch.bfloat16)
+    bundle, narrow = lower_step(run, mesh, stub_dtype=torch.bfloat16)
     _, wide = lower_step(run, mesh, stub_dtype=torch.float32)
+    b = run.shape.global_batch // 2
+    enc = b * cfg.encoder_seq * cfg.d_model   # elements of the encoder's
+    dec = b * run.shape.seq_len * cfg.d_model  # and the decoder's stream
+    assert enc != dec
 
-    def by(traced, what):
-        return sum(c.nbytes for c in traced.counter.collectives
-                   if c.what.startswith(what))
+    def n(traced, kind, nbytes):
+        return len(_by(traced, kind, "model", nbytes))
 
-    for what in ("tp partial sum enc_blocks/", "tp frame_proj",
-                 "tp enter enc_out"):
-        assert by(wide, what) == 2 * by(narrow, what) > 0, what
-    for what in ("tp partial sum dec_blocks/", "tp vocab"):
-        assert by(wide, what) == by(narrow, what), what
-    enc = [c for c in wide.counter.collectives
-           if c.what.startswith("fsdp enc_blocks/")]
-    assert enc and 2 * len(enc) == len(
-        [c for c in narrow.counter.collectives
-         if c.what.startswith("fsdp enc_blocks/")])
+    # each encoder layer's attention and MLP (forward, backward), and
+    # enc_out entering the cross K/V once
+    layers = cfg.encoder_layers or cfg.num_layers
+    assert n(narrow, "all-reduce", 2 * enc) == 4 * layers + 1
+    assert n(wide, "all-reduce", 4 * enc) == 4 * layers + 1
+    assert n(wide, "all-reduce", 2 * enc) == 0
+    assert n(wide, "all-reduce", 2 * dec) == \
+        n(narrow, "all-reduce", 2 * dec) > 0
+    assert n(narrow, "all-gather", 2 * enc // 2) == 1  # frame_proj
+    assert n(wide, "all-gather", 4 * enc // 2) == 1
+    # the FSDP leaves that read the encoder's output in fp32
+    widened = [path for path, (leaf, data, model) in _param_specs(bundle)
+               if data > 1 and (path.startswith("enc_blocks/")
+                                or path.endswith(("cross/wk", "cross/wv")))]
+    assert widened
+    assert len(_by(narrow, "all-gather", "data")) - \
+        len(_by(wide, "all-gather", "data")) == len(widened)
 
 
-def _param_specs(bundle, traced):
-    from repro_torch.launch.build import _leaves, _spec_of, _split
+def _leaves(arg, plc, path=""):
+    """``(path, leaf, placements)`` of an argument tree beside its tree of
+    placements."""
+    if isinstance(arg, dict):
+        for k in sorted(arg):
+            yield from _leaves(arg[k], plc[k], f"{path}{k}/")
+    elif isinstance(arg, (list, tuple)):
+        names = arg._fields if hasattr(arg, "_fields") else range(len(arg))
+        for name, a, p in zip(names, arg, plc):
+            yield from _leaves(a, p, f"{path}{name}/")
+    elif arg is not None:
+        yield path[:-1], arg, plc
+
+
+def _split(spec, mesh, axes):
+    return math.prod(mesh.shape[a] for entry in spec if entry is not None
+                     for a in ((entry,) if isinstance(entry, str) else entry)
+                     if a in axes)
+
+
+def _param_specs(bundle):
+    from repro_torch.launch.build import _spec_of
     mesh = MeshSpec.of((2, 2), ("data", "model"))
     for path, leaf, pl in _leaves(bundle.abstract_args[0],
                                   bundle.in_shardings[0]):
@@ -264,13 +327,16 @@ def _param_specs(bundle, traced):
                     _split(spec, mesh, ("model",))))
 
 
-def _arg_bytes(bundle, run):
-    """Each leaf's bytes over the mesh axes its placements shard."""
+def _arg_bytes(bundle, run, args=None):
+    """Each leaf's bytes over the mesh axes its placements shard (of the
+    arguments ``args``, every one by default)."""
     from torch.distributed.tensor import Shard
-    from repro_torch.launch.build import _leaves
     sizes = dict(zip(run.mesh.axes, run.mesh.shape))
     total = 0
-    for arg, plc in zip(bundle.abstract_args, bundle.in_shardings):
+    for i, (arg, plc) in enumerate(zip(bundle.abstract_args,
+                                       bundle.in_shardings)):
+        if args is not None and i not in args:
+            continue
         for _, leaf, pl in _leaves(arg, plc):
             if isinstance(leaf, torch.Tensor):
                 split = math.prod(sizes[a] for a, p in zip(run.mesh.axes, pl)
@@ -289,37 +355,55 @@ def test_tp_divides_the_step():
     ratio = split.cost_analysis().matmul_flops / \
         whole.cost_analysis().matmul_flops
     assert ratio == pytest.approx(0.5, abs=1e-9)
-    assert whole.model_axis == "none" and split.model_axis == "derived"
+    assert not whole.counter.collectives and split.counter.collectives
 
 
 def test_ep_all_to_all_hand_count():
-    """deepseek-v3-671b smoke, experts over the data axes (2): each MoE
-    layer's down projection gives dispatch and combine all-to-alls of the
-    (G, E, C, D) expert tensor, twice in a train step."""
+    """deepseek-v3-671b smoke, experts over the data axes (2), routing
+    groups of 128 (a rank's 2 x 64 tokens; the global batch's groups are
+    the same): each MoE layer sends the (G, E, C, D) expert tensor to the
+    experts' ranks and back, twice in a train step."""
     run = _smoke("deepseek-v3-671b", "train_smoke", {"data": 2, "model": 1},
-                 moe_expert_axis="data")
+                 moe_expert_axis="data", moe_group_size=128)
     cfg = run.model
     _, traced = _lower(run)
     t = run.shape.global_batch // 2 * run.shape.seq_len
     tg = moe._group_size(t, run.parallel.moe_group_size)
     cap = moe.capacity(cfg, tg, dropless=False)
     expert = (t // tg) * cfg.moe_num_experts * cap * cfg.d_model * 2
-    a2a = _by_what(traced, "all-to-all", "ep")
+    a2a = _by(traced, "all-to-all", "data")
     routed = cfg.num_layers + cfg.mtp_depth  # every layer routes in smoke
     assert len(a2a) == routed * 2 * 2
     assert {c.nbytes for c in a2a} == {expert}
     # the router statistics: two all-reduces of E fp32 forward, one back
     # where the aux loss enters the loss (not the MTP head's)
-    stats = _by_what(traced, "all-reduce", "moe statistics")
+    stats = _by(traced, "all-reduce", "data", cfg.moe_num_experts * F32)
     assert len(stats) == 3 * routed - cfg.mtp_depth
-    assert {c.nbytes for c in stats} == {cfg.moe_num_experts * F32}
 
 
 def test_production_decode_cell_arguments_and_scopes():
+    """llama3.2-1b ``decode_32k`` on (16, 16) at its default plan: rank 0
+    holds its parameter and token blocks under the placements, and its
+    decode state as it executes it: its 8 slots, each KV cache at the KV
+    heads its query heads read (tp=8 over 8 KV heads: one), where the
+    placements (``cache_specs``) split the head width instead."""
+    from repro_torch.models.attention import cache_heads
+    from repro_torch.sharding.layout import Layout, Scope
+
     run = make_run("llama3.2-1b", "decode_32k")
     bundle, traced = _lower(run)
+    cfg = run.model
+    mesh = MeshSpec.of(run.mesh.shape, run.mesh.axes)
+    layout = Layout.of(bundle.abstract_args[0], run,
+                       MeshSpec.traced(run.mesh.shape, run.mesh.axes))
+    heads = cache_heads(Scope(layout, "blocks/sub0/", True)["attn"], cfg)
+    assert heads == cfg.num_kv_heads // run.parallel.tp == 1
+    slots = run.shape.global_batch // mesh.size(("data",))
+    caches = 2 * cfg.num_layers * slots * run.shape.seq_len * heads * \
+        cfg.head_dim * 2
+    placed = _arg_bytes(bundle, run, args=(0, 2))
     assert traced.memory_analysis().argument_size_in_bytes == \
-        _arg_bytes(bundle, run)
+        placed + caches + slots * 4 * (1 + cfg.num_layers)
     # one data rank's 8 slots: the scopes of one decode step
     assert traced.cost_analysis().kernel_scopes == {
         "rmsnorm": 2 * run.model.num_layers + 1,
@@ -327,7 +411,7 @@ def test_production_decode_cell_arguments_and_scopes():
 
 
 # --------------------------------------------------------------------------
-# data parallelism: the derived all-reduces against two gloo ranks
+# data parallelism: the traced all-reduces against two gloo ranks
 # --------------------------------------------------------------------------
 
 #: (arch, global batch, seq): deepseek's 2 x 512 fill a routing group a rank
@@ -396,10 +480,9 @@ def test_dp_all_reduce_bytes_equal_what_two_gloo_ranks_hand_over(dp_ranks,
     handed, run = dp_ranks[0][arch]
     assert dp_ranks[1][arch][0] == handed
     _, traced = lower_step(run, MeshSpec.of((2,), ("data",)))
-    derived = [c.nbytes for c in traced.counter.collectives
-               if c.kind == "all-reduce"]
-    assert sorted(derived) == sorted(handed) and sum(handed) > 0
-    assert traced.model_axis == "none"
+    recorded = [c.nbytes for c in traced.counter.collectives
+                if c.kind == "all-reduce"]
+    assert sorted(recorded) == sorted(handed) and sum(handed) > 0
 
 
 # --------------------------------------------------------------------------
@@ -522,12 +605,14 @@ def test_dryrun_main_writes_a_record_a_cell(tmp_path, monkeypatch):
     (name,) = os.listdir(tmp_path)
     assert name == "llama3.2-1b__decode_32k__pod__t.json"
     rec = json.loads((tmp_path / name).read_text())
-    assert REF_KEYS | {"op_cost_analysis", "matmul_flops", "kernel_scopes",
-                       "model_axis"} == set(rec)
+    assert REF_KEYS | {"op_cost_analysis", "matmul_flops",
+                       "kernel_scopes"} == set(rec)
     assert set(rec["memory_analysis"]) == {
         "argument_bytes", "output_bytes", "temp_bytes", "peak_bytes",
         "alias_bytes"}
-    assert rec["chips"] == 256 and rec["model_axis"] == "derived"
+    assert rec["chips"] == 256
+    assert {c.split()[0] for c in rec["collective_schedule_head"]} == \
+        {"all-reduce", "all-gather"}
     assert roofline.load_records("*__t.json")[0] == rec
 
     # the sweep: one cell that traces and one that fails, exit code 1

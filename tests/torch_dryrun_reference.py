@@ -5,11 +5,15 @@ HLO text.
 The cell is compiled without ``compat.set_mesh``: under the installed jax
 the mesh context makes ``with_sharding_constraint`` fail
 (``tests/test_integration_lower.py``'s known failures), and on the
-one-device smoke mesh the constraint changes nothing.  The dot term is
-``repro.launch.hlo_analysis``'s own rule (2 x result elements x contracted
-elements, ``:330-342``), summed over the computations its call-graph walk
-reaches, each scaled by its loop's trip count, through the module's own
-parsing functions.
+one-device smoke mesh the constraint changes nothing.  Run as a script
+(``python torch_dryrun_reference.py ARCH:SHAPE ...``, in a process whose
+``XLA_FLAGS`` force at least 2 host devices) it compiles each cell at
+tp=2 on a ``(1, 2)`` ``("data", "model")`` mesh, the SPMD partitioner's
+program of one device, and prints its dot FLOPs by cell as JSON.  The
+dot term is ``repro.launch.hlo_analysis``'s own rule (2 x result
+elements x contracted elements, ``:330-342``), summed over the
+computations its call-graph walk reaches, each scaled by its loop's trip
+count, through the module's own parsing functions.
 """
 
 import jax
@@ -20,8 +24,16 @@ from repro.launch.build import build_step
 from repro.launch.mesh import make_mesh
 
 
-def compiled_text(arch: str, shape: str) -> str:
+def compiled_text(arch: str, shape: str, tp: int = 1) -> str:
+    """The compiled smoke cell, on its one-device mesh, or with ``tp`` > 1
+    on a ``(1, tp)`` ``("data", "model")`` mesh at that tp (fsdp 1)."""
+    from repro.utils.config import MeshConfig
+
     run = make_run(arch, shape, smoke=True)
+    if tp > 1:
+        run = run.replace(mesh=MeshConfig(shape=(1, tp),
+                                          axes=("data", "model")),
+                          parallel=run.parallel.replace(tp=tp, fsdp=1))
     b = build_step(run, make_mesh(run.mesh))
     jitted = jax.jit(b.fn, in_shardings=b.in_shardings,
                      out_shardings=b.out_shardings,
@@ -85,3 +97,11 @@ def reference_costs(arch: str, shape: str):
     """(dot FLOPs, ``analyze_hlo(...).flops``) of one compiled smoke cell."""
     text = compiled_text(arch, shape)
     return dot_flops(text), H.analyze_hlo(text).flops
+
+
+if __name__ == "__main__":
+    import json
+    import sys
+
+    print(json.dumps({cell: dot_flops(compiled_text(*cell.split(":"), tp=2))
+                      for cell in sys.argv[1:]}))

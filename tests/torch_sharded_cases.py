@@ -1,5 +1,6 @@
-"""Sharded train steps of the port against one process, on the CPU: the
-machinery the tensor-parallel and FSDP / EP test files share.
+"""Sharded train and serve steps of the port against one process, on the
+CPU: the machinery the tensor-parallel, FSDP / EP, sequence-parallel and
+sharded-serve test files share.
 
 A case is ``(id, arch, global batch, seq, ParallelConfig kwargs, mesh,
 optimizer)`` (``arch`` a name, or ``(name, config overrides)``);
@@ -13,8 +14,20 @@ gathered whole (the train step's gradients after every reduction, before
 clipping), the final parameters gathered whole, and the operand bytes by
 kind its collectives sent in step 1 (``sharding.collectives``).
 :func:`one_process` is the same loop in this process without a process
-group.  The vlm family's cross gates start open (:func:`open_gates`: the
-reference's zeros would zero every cross weight's gradient).
+group.  :func:`hold` holds every rank against it, and each rank's counted
+collective bytes against ``launch.build.lower_step``'s trace of the
+rank's program for the same run and mesh.
+
+A serve case is ``(id, arch, batch, prompt, ParallelConfig kwargs,
+mesh)``: :func:`serve_loop` runs a prefill of ``prompt`` tokens and
+:data:`SERVE_DECODE` greedy decode steps through ``make_prefill_step`` /
+``make_decode_step`` (with the rank's mesh and its parameter blocks and
+rows under a process group), recording the logits, the tokens and the
+collective bytes of the prefill and of each decode step;
+:func:`hold_serve` holds the ranks against one process and the bytes
+against the traces of the prefill and decode cells.  The vlm family's
+cross gates start open (:func:`open_gates`: the reference's zeros would
+zero every cross weight's gradient).
 :func:`reference_first_loss` and :func:`from_reference` hold a run's first
 loss from the reference's parameters against the reference's own.
 """
@@ -175,8 +188,8 @@ def hold(records, case, must_check=(), param_tol=PARAM_TOL):
     :data:`LOSS_RTOL`, each leaf's step-1 gradient within
     :data:`GRAD_RTOL` (``must_check``: paths that must be among the
     leaves), final parameters within ``param_tol``; and the bytes its
-    collectives sent in step 1 against the dry run's derivation for the
-    same run and mesh (``launch.build.lower_step``)."""
+    collectives sent in step 1 equal to the dry run's trace of rank 0's
+    step for the same run and mesh (``launch.build.lower_step``)."""
     from repro_torch.launch.build import lower_step
     from repro_torch.launch.mesh import MeshSpec
 
@@ -186,8 +199,8 @@ def hold(records, case, must_check=(), param_tol=PARAM_TOL):
     assert set(must_check) <= set(grads), sorted(set(must_check) - set(grads))
     run = records[0][case[0]][0]
     _, traced = lower_step(run, MeshSpec.of(run.mesh.shape, run.mesh.axes))
-    derived = {k: int(v) for k, v in
-               traced.cost_analysis().collective_bytes.items()}
+    recorded = {k: int(v) for k, v in
+                traced.cost_analysis().collective_bytes.items()}
     for rec in records:
         _, got_logged, got_grads, got_params, counted = rec[case[0]]
         for k in names:
@@ -200,8 +213,145 @@ def hold(records, case, must_check=(), param_tol=PARAM_TOL):
             err = float((got_grads[k] - g).norm())
             assert err <= GRAD_RTOL * float(g.norm()) + 1e-12, (k, err)
         close_params(got_params, params, param_tol)
-        assert counted == derived, (counted, derived)
+        assert counted == recorded, (counted, recorded)
         assert sum(counted.values()) > 0
+    return records
+
+
+# --------------------------------------------------------------------------
+# sharded serving
+# --------------------------------------------------------------------------
+
+SERVE_DECODE = 3
+LOGIT_TOL = 1e-5  # atol and rtol
+
+
+def serve_run(arch, batch, prompt, par, mesh=None, kind="prefill"):
+    """The prefill (``prompt`` tokens) or decode (a cache of ``prompt`` +
+    :data:`SERVE_DECODE` rows) run of a serve case, smoke config in fp32;
+    ``mesh`` as a train case's."""
+    from repro_torch.utils.config import RunConfig, ShapeConfig
+
+    name, cuts = (arch, {}) if isinstance(arch, str) else arch
+    cfg = get_smoke_config(name).replace(dtype="float32", **cuts)
+    seq = prompt if kind == "prefill" else prompt + SERVE_DECODE
+    return RunConfig(model=cfg, shape=ShapeConfig(f"serve_{kind}", seq,
+                                                  batch, kind),
+                     mesh=MeshConfig(*mesh) if mesh is not None else
+                     MeshConfig(shape=(1,), axes=("data",)),
+                     parallel=ParallelConfig(**par),
+                     train=TrainConfig(compute_dtype="float32"))
+
+
+def serve_loop(case, sharded=True):
+    """A serve case's prefill and greedy decode steps, sharded over the
+    process group when one is up (else in this process, its placements
+    without a split: ``tp`` and ``fsdp`` 1).  Returns (prefill run as
+    placed, decode run as placed, {"logits": [(rows, V) a step], "tokens":
+    [(rows,) a step], "rows": (first, stop), "bytes": [collective bytes
+    by kind a step]})."""
+    from repro_torch.launch.serve import make_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import collectives
+    from repro_torch.sharding.layout import shard_params
+    from repro_torch.train.serve_step import (make_decode_step,
+                                              make_prefill_step,
+                                              sample_token)
+
+    _, arch, b, s, par, mesh = case
+    if not sharded:
+        par, mesh = dict(par, tp=1, fsdp=1), None
+    run = serve_run(arch, b, s, par, mesh)
+    model = build_model(run.model, run.parallel, device="cpu")
+    params = model.init(0)
+    if run.model.family == "vlm":
+        open_gates(params)
+    run, placed = tlaunch.data_parallel(run, model.device)
+    drun = run.replace(shape=serve_run(arch, b, s, par, mesh,
+                                       "decode").shape)
+    batch = make_batch(run.model, run.shape, b, s, "cpu")
+    rows = (0, b)
+    if placed.groups is not None:
+        data = placed.groups["data"]
+        if b % data.size == 0:
+            n = b // data.size
+            rows = (data.rank * n, (data.rank + 1) * n)
+        batch = {k: v[rows[0]:rows[1]] for k, v in batch.items()}
+        params = shard_params(params, run, placed, placed.rank)
+    else:
+        placed = None
+    prefill = make_prefill_step(model, run, cache_len=drun.shape.seq_len,
+                                mesh=placed)
+    decode = make_decode_step(model, drun, mesh=placed)
+    out = {"logits": [], "tokens": [], "rows": rows, "bytes": []}
+    counting = placed is not None
+    for i in range(1 + SERVE_DECODE):
+        if counting:
+            collectives.reset_counts()
+        if i == 0:
+            state, logits = prefill(params, batch)
+        else:
+            state, logits = decode(params, state, tok[:, None])
+        tok = sample_token(logits, None)
+        out["logits"].append(logits.clone())
+        out["tokens"].append(tok.clone())
+        out["bytes"].append(collectives.bytes_by_kind() if counting else {})
+    return run, drun, out
+
+
+def _serve_rank(rank, root, world, cases):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(root, f"serve{world}"), world), rank=rank,
+        world_size=world)
+    try:
+        out = {case[0]: serve_loop(case) for case in cases}
+        torch.save(out, os.path.join(root, f"serve{world}_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_serve(root, world, cases):
+    """Every serve case on ``world`` gloo ranks; the records, one a
+    rank."""
+    mp.spawn(_serve_rank, args=(root, world, cases), nprocs=world,
+             join=True)
+    return [torch.load(os.path.join(root, f"serve{world}_rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def hold_serve(records, case):
+    """Every rank of ``records`` against one process: the logits of its
+    rows at each step within :data:`LOGIT_TOL` (atol and rtol), the greedy
+    tokens equal; and its collective bytes, of the prefill and of each
+    decode step, equal to ``lower_step``'s trace of rank 0's prefill and
+    decode steps for the same runs and mesh (rank 0's trace holds every
+    rank: the ranks send the same bytes)."""
+    from repro_torch.launch.build import lower_step
+    from repro_torch.launch.mesh import MeshSpec
+
+    _, _, one = serve_loop(case, sharded=False)
+    run, drun, _ = records[0][case[0]]
+    mesh = MeshSpec.of(run.mesh.shape, run.mesh.axes)
+    want = []
+    for r in (run, drun):
+        _, traced = lower_step(r, mesh)
+        want.append({k: int(v) for k, v in
+                     traced.cost_analysis().collective_bytes.items()})
+    for rec in records:
+        _, _, got = rec[case[0]]
+        lo, hi = got["rows"]
+        for i, (lg, tk) in enumerate(zip(got["logits"], got["tokens"])):
+            np.testing.assert_allclose(
+                lg.numpy(), one["logits"][i][lo:hi].numpy(),
+                rtol=LOGIT_TOL, atol=LOGIT_TOL, err_msg=f"step {i}")
+            assert torch.equal(tk, one["tokens"][i][lo:hi]), i
+        assert got["bytes"][0] == want[0], (got["bytes"][0], want[0])
+        for i in range(1, 1 + SERVE_DECODE):
+            assert got["bytes"][i] == want[1], (i, got["bytes"][i], want[1])
+        assert sum(got["bytes"][0].values()) > 0
     return records
 
 

@@ -2030,6 +2030,250 @@ def inert_knobs(backend, families):
     return out
 
 
+#: the launch geometry's predictions must lie within this factor of the
+#: card's median at every distinct launch of phase 4d's cells
+GEOMETRY_RATIO = 4.0
+#: the two sizes of each latency's slope: (first, second) of the SSD's
+#: links on one (batch, head) pair, the scan's steps on one block of one
+#: warp, and the prefill's K/V tiles under one block and under full SMs
+GEOMETRY_SLOPES = {"chain_link_us": (8, 64), "scan_step_us": (1024, 8192),
+                   "tile_latency": (16, 128), "tile_sm": (4, 32)}
+#: small kernels that open each profiler window of the geometry's hold
+GEOMETRY_PAD = 16
+
+
+def measure_geometry_constants(torch, np, dev):
+    """The latencies ``envs/measure.py``'s launch geometry prices with,
+    measured here through ``WallClockBackend``'s CUDA-event timer (median
+    of 3 timings, each the median of 9 calls): one launch of the port's
+    smallest block (RMSNorm of one row of 8), and the slopes over two
+    sizes of one chain or one block — the tensor-core SSD's links on one
+    (batch, head) pair (N = P = 64, chunk 64, two chunks a link), the
+    scan's steps on one block of one warp (8 channels, N 16, bf16 x with
+    fp32 dt) — and, at every (head dim, q block, kv block) of
+    ``TILE_US``, the bf16 prefill's K/V tiles: under one block of q rows
+    at the end of the keys (the latency), and under as many such blocks
+    as every SM holds, over one shared kv head (the SM's time a tile: the
+    slope over the blocks an SM holds)."""
+    from repro_torch.envs import measure
+    from repro_torch.envs.measure import (KernelWorkload, WallClockBackend,
+                                          resident_blocks)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda, prefill_record)
+    from repro_torch.kernels.mamba_scan.kernel import selective_scan_cuda
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.kernels.ssd.kernel import ssd_cuda
+    from repro_torch.utils.hardware import H100_SM_COUNT
+
+    timer = WallClockBackend(KernelWorkload(batch=1, seq_len=1, d_model=8),
+                             ["rmsnorm"], device=dev, warmup=2, repeats=9)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def us(fn):
+        with torch.no_grad():
+            return float(np.median([timer._time_us(fn) for _ in range(3)]))
+
+    def rand(*shape, dtype=bf):
+        return _rand(torch, gen, shape, dtype, dev)
+
+    def chain(links):
+        l = links * 2 * 64
+        a = (rand(1, l, 1, 64), rand(1, l, 1, dtype=f32).abs() * 0.05,
+             -rand(1, dtype=f32).abs(), rand(1, l, 1, 64), rand(1, l, 1, 64),
+             torch.ones(1, device=dev))
+        return us(lambda: ssd_cuda(*a, chunk=64))
+
+    def scan(steps):
+        a = (rand(1, steps, 8), rand(1, steps, 8, dtype=f32).abs() * 0.05,
+             -rand(8, 16, dtype=f32).abs(), rand(1, steps, 16),
+             rand(1, steps, 16), torch.ones(8, device=dev))
+        return us(lambda: selective_scan_cuda(*a))
+
+    def tiles(d, qb, kb, heads, n):
+        keys = n * kb
+        q = rand(1, qb, heads, d)
+        k, v = rand(1, keys, 1, d), rand(1, keys, 1, d)
+        return us(lambda: flash_attention_cuda(
+            q, k, v, q_offset=keys - qb, q_block=qb, kv_block=kb))
+
+    def slope(name, fn):
+        lo, hi = GEOMETRY_SLOPES[name]
+        t_lo, t_hi = fn(lo), fn(hi)
+        return (t_hi - t_lo) / (hi - lo), [t_lo, t_hi]
+
+    x, w = rand(1, 8), rand(8)
+    out = {"launch_us": us(lambda: rmsnorm_cuda(x, w))}
+    samples = {"launch_us": [out["launch_us"]]}
+    committed = {"launch_us": measure.LAUNCH_US,
+                 "chain_link_us": measure.CHAIN_LINK_US,
+                 "scan_step_us": measure.SCAN_STEP_US}
+    for name, fn in (("chain_link_us", chain), ("scan_step_us", scan)):
+        out[name], samples[name] = slope(name, fn)
+    for (d, qb, kb), priced in sorted(measure.TILE_US.items()):
+        held = resident_blocks(prefill_record(bf, 1, qb, 1, d, d, qb, kb))
+        latency, t_one = slope("tile_latency",
+                               lambda n: tiles(d, qb, kb, 1, n))
+        full, t_full = slope("tile_sm", lambda n: tiles(
+            d, qb, kb, H100_SM_COUNT * held, n))
+        key = f"tile_us d{d} q{qb} kv{kb}"
+        out[key] = [latency, full / held]
+        samples[key] = t_one + t_full
+        committed[key] = list(priced)
+    for name, v in out.items():
+        check(min(np.atleast_1d(v)) > 0, f"geometry constant {name}: "
+              f"measured {v}")
+        log(f"[{CARD}] geometry constant {name}: {np.round(v, 4).tolist()} "
+            f"us measured (times {[round(t, 2) for t in samples[name]]} us;"
+            f" the geometry prices with {committed[name]})")
+    return {"measured": out, "samples_us": samples, "committed": committed}
+
+
+def _spearman(a, b):
+    from scipy.stats import spearmanr
+
+    return float(spearmanr(a, b).statistic)
+
+
+def _hold_geometry(torch, np, backend, families, cell):
+    """Phase 4d's hold of the launch geometry: every distinct launch of
+    each family's launch space (one config a distinct record of the
+    geometry, as many as ``inert_knobs`` counts) timed on the card by
+    ``backend`` (median of 3 timings) beside the geometry's price; one
+    profiled call of each (one profiler window a cell; launches whose
+    record the profiler lost, profiled again) held to the priced record
+    (kernel, grid, block, shared bytes); every ratio within
+    ``GEOMETRY_RATIO``; Spearman's rho for a family of 3 or more distinct
+    launches; and the kv_block ordering (:func:`_kv_order`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.envs.measure import family_params
+    from repro_torch.kernels import dispatch
+
+    geometry = backend.geometry
+    inert = inert_knobs(backend, families)
+    launches = []
+    for fam in families:
+        distinct = {}
+        for point in dispatch.launch_space([fam]).grid():
+            params = family_params(fam, point)
+            r = geometry.record(fam, params)
+            distinct.setdefault((r.kernel, r.grid, r.block, r.smem),
+                                (fam, params, r))
+        check(len(distinct) == inert[fam]["distinct"],
+              f"geometry {cell} {fam}: {len(distinct)} distinct records, "
+              f"{inert[fam]['distinct']} distinct launches")
+        launches += distinct.values()
+
+    def priced(rec):
+        return (rec.kernel, list(rec.grid), list(rec.block), rec.smem)
+
+    # late in the script the profiler loses a window's first kernel
+    # records (up to 5 of them in the runs of this phase): each window
+    # opens with GEOMETRY_PAD small PyTorch kernels and one extra call,
+    # every event must be a priced record, and a launch with no event is
+    # profiled again
+    pad = torch.zeros(16, device=backend.device)
+    ran, todo = {}, list(range(len(launches)))
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with torch.no_grad(), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(GEOMETRY_PAD):
+                pad.add_(1.0)
+            for i in todo[:1] + todo:
+                fam, params, _ = launches[i]
+                backend.call(fam, params)
+            torch.cuda.synchronize()
+        events = [[name, args.get("grid"), args.get("block"),
+                   args.get("shared memory")]
+                  for name, args in _kernel_events(prof)]
+        wanted = [list(priced(launches[i][2])) for i in todo]
+        stray = [e for e in events if e not in wanted]
+        check(not stray, f"geometry {cell}: the card ran {stray}, which "
+              f"the geometry priced for no launch of {wanted}")
+        ran.update({i: w for i, w in zip(todo, wanted) if w in events})
+        todo = [i for i in todo if i not in ran]
+        if not todo:
+            break
+        on_device = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                        for e in prof.events())
+        log(f"geometry {cell}: no profiled record of {len(todo)} of the "
+            f"launches (attempt {attempt}; {len(events)} of the port's "
+            f"kernel records, {on_device} device events in the window)")
+    check(not todo, f"geometry {cell}: the profiler recorded no launch of "
+          f"{[launches[i][:2] for i in todo]} in {PROFILE_ATTEMPTS} windows")
+    out = {fam: {"launches": []} for fam in families}
+    for i, (fam, params, rec) in enumerate(launches):
+        with torch.no_grad():
+            card = [backend._time_us(lambda: backend.call(fam, params))
+                    for _ in range(3)]
+        t, grid, vmem, _, _ = geometry.family_cost(fam, params)
+        med = float(np.median(card))
+        out[fam]["launches"].append({
+            "params": params, "kernel": rec.kernel, "grid": list(rec.grid),
+            "block": list(rec.block), "smem": rec.smem, "priced_grid": grid,
+            "priced_vmem": vmem, "profiled": ran[i], "card_us": card,
+            "predicted_us": t, "ratio": t / med})
+        log(f"[{CARD}] geometry {cell} {fam} {params}: card {med:.2f} us "
+            f"({[round(c, 2) for c in card]}), predicted {t:.2f} us, ratio "
+            f"{t / med:.3f}; grid {list(rec.grid)}, {rec.smem} shared "
+            f"bytes")
+    for fam, held in out.items():
+        rows = held["launches"]
+        ratios = [r["ratio"] for r in rows]
+        held["rho"] = (_spearman([r["predicted_us"] for r in rows],
+                                 [float(np.median(r["card_us"]))
+                                  for r in rows])
+                       if len(rows) >= 3 else None)
+        held["ratio_range"] = [min(ratios), max(ratios)]
+        log(f"[{CARD}] geometry {cell} {fam}: {len(rows)} distinct "
+            f"launches, predicted / card {min(ratios):.3f}-"
+            f"{max(ratios):.3f}" + ("" if held["rho"] is None
+                                    else f", Spearman rho {held['rho']:.3f}"))
+        for r in rows:
+            check(1 / GEOMETRY_RATIO <= r["ratio"] <= GEOMETRY_RATIO,
+                  f"geometry {cell} {fam} {r['params']}: predicted "
+                  f"{r['predicted_us']:.2f} us, the card "
+                  f"{float(np.median(r['card_us'])):.2f} us (ratio "
+                  f"{r['ratio']:.3f}, outside 1/{GEOMETRY_RATIO:g}-"
+                  f"{GEOMETRY_RATIO:g})")
+        held["kv_order"] = _kv_order(np, cell, fam, rows)
+    return out
+
+
+def _kv_order(np, cell, fam, rows):
+    """Launches of ``fam`` that differ only in ``kv_block``: where the card
+    tells them apart (the gap of their medians over the sum of their
+    timings' spreads), the geometry must order them the same way."""
+    pairs = []
+    for i, a in enumerate(rows):
+        for b in rows[i + 1:]:
+            pa, pb = a["params"], b["params"]
+            if "kv_block" not in pa or pa["kv_block"] == pb["kv_block"] \
+                    or {k: v for k, v in pa.items() if k != "kv_block"} \
+                    != {k: v for k, v in pb.items() if k != "kv_block"}:
+                continue
+            gap = float(np.median(a["card_us"]) - np.median(b["card_us"]))
+            noise = (max(a["card_us"]) - min(a["card_us"])
+                     + max(b["card_us"]) - min(b["card_us"]))
+            pred = a["predicted_us"] - b["predicted_us"]
+            told = abs(gap) > noise
+            agree = (gap > 0) == (pred > 0)
+            pairs.append({"params": [pa, pb], "card_gap_us": gap,
+                          "card_noise_us": noise, "predicted_gap_us": pred,
+                          "told_apart": told, "agree": agree})
+            log(f"[{CARD}] geometry {cell} {fam} kv_block {pa['kv_block']} "
+                f"vs {pb['kv_block']} at {pa}: card {gap:+.2f} us (noise "
+                f"{noise:.2f}), predicted {pred:+.2f} us: "
+                + ("agree" if agree else "disagree")
+                + ("" if told else " (the card does not tell them apart)"))
+            check(agree or not told,
+                  f"geometry {cell} {fam}: kv_block {pa['kv_block']} vs "
+                  f"{pb['kv_block']} at {pa}: the card {gap:+.2f} us "
+                  f"(noise {noise:.2f}), the geometry {pred:+.2f} us")
+    return pairs
+
+
 def _plain(backend, family, params):
     import inspect
 
@@ -2044,15 +2288,14 @@ def _plain(backend, family, params):
 def phase_tune_launch(torch, np, dev, train_out):
     """Returns (summary, launches of the counted tuning runs)."""
     from repro_torch.configs.registry import get_model_config
-    from repro_torch.envs.measure import (LaunchGeometry, WallClockBackend,
-                                          family_params)
+    from repro_torch.envs.measure import WallClockBackend, family_params
     from repro_torch.kernels import cuda_lib, dispatch
     from repro_torch.launch.tune import launch_workload_for
     from repro_torch.obs import trace as obs_trace
     from repro_torch.tuner.runner import tune_kernel_launch
     from repro_torch.tuner.space import launch_families_for
 
-    out = {}
+    out = {"geometry_constants": measure_geometry_constants(torch, np, dev)}
     launches = {k: 0 for k in cuda_lib.LAUNCHES}
     n_checked = 0
     with dispatch.record_resolutions() as resolved:
@@ -2135,13 +2378,14 @@ def phase_tune_launch(torch, np, dev, train_out):
             remeasured = {"default": [], "tuned": []}
             for w in REMEASURE_ORDER:
                 remeasured[w].append(backend.measure(which[w])[1])
-            geometry = LaunchGeometry(workload)
+            geometry = backend.geometry
             predicted = {w: geometry.totals(families, c)[1]
                          for w, c in which.items()}
             spread = {w: max(v) - min(v) for w, v in remeasured.items()}
             med = {w: float(np.median(v)) for w, v in remeasured.items()}
             gain = med["default"] - med["tuned"]
             inert = inert_knobs(backend, families)
+            held = _hold_geometry(torch, np, backend, families, cell)
             out[cell] = {
                 "workload": {"batch": batch, "tokens": tokens,
                              "d_model": workload.d_model,
@@ -2165,7 +2409,7 @@ def phase_tune_launch(torch, np, dev, train_out):
                 "inputs_s": inputs_s, "tuner_share": tuner_s / tune_s,
                 "launches": {k: v for k, v in counted.items() if v},
                 "max_abs_err": errs, "inert_knobs": inert,
-                "extras": res.extras}
+                "geometry": held, "extras": res.extras}
             log(f"tune_launch {cell}: tuned {tuned}, best_y "
                 f"{res.best_y:.2f} us; remeasured default "
                 f"{[round(v, 2) for v in remeasured['default']]} us, tuned "
@@ -5818,7 +6062,10 @@ def _bound(nbytes, flops, dtype_name, elementwise=False):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-SFU_EX2_PER_CLOCK_SM = 16  # CUDA C Programming Guide, compute capability 9.0
+def _work(work):
+    """The bytes and operations of a kernel's ``launch_work`` (the count
+    the launch geometry prices with), as ``row`` / ``extra`` take them."""
+    return {"nbytes": work.hbm, "flops": work.flops}
 
 
 def _scan_clock(torch, fn, calls=3000):
@@ -5887,6 +6134,21 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.kernels.ssd.kernel import ssd_cuda
     from repro_torch.kernels.ssd.ref import ssd_ref
+    from repro_torch.kernels.flash_attention.kernel import (
+        decode_work, launch_work as attention_work)
+    from repro_torch.kernels.mamba_scan.kernel import (
+        launch_work as scan_work)
+    from repro_torch.kernels.paged_attention.kernel import (
+        launch_work as paged_work)
+    from repro_torch.kernels.rmsnorm.kernel import launch_work as norm_work
+    from repro_torch.kernels.ssd.kernel import launch_work as ssd_work
+    from repro_torch.utils.hardware import SFU_PER_SM
+
+    def prefill(b, sq, skv, hq, hkv, d, dv, causal=True):
+        (work,) = attention_work(dict(
+            d=d, dv=dv, g=hq // hkv, causal=causal, decode=False, batch=b,
+            kv_heads=hkv, sq=sq, skv=skv), bf)
+        return _work(work)
 
     gen = torch.Generator(device=dev).manual_seed(1)
     bf = torch.bfloat16
@@ -5944,7 +6206,8 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
         "src/repro/kernels/rmsnorm/kernel.py:66", [4, 64, 2048],
         lambda: rmsnorm_cuda(x, w), lambda: rmsnorm_ref(x, w),
         lambda: F.rms_norm(x, (2048,), w, 1e-5),
-        nbytes=2 * n * es + 2048 * es, flops=4 * n, elementwise=True)
+        **_work(norm_work(dict(rows=n // 2048, dim=2048), bf)[0]),
+        elementwise=True)
     # the decode step's rows (4 slots x 1 token) and the training rows
     # (2 x 1024 tokens) of falcon-mamba-7b (4096) and zamba2-2.7b (2560)
     for key, shape in (("decode", (4, 1, 2048)),
@@ -5956,8 +6219,8 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
         extra(rows[-1], key, list(shape),
               lambda: rmsnorm_cuda(xe, we), lambda: rmsnorm_ref(xe, we),
               lambda: F.rms_norm(xe, shape[-1:], we, 1e-5),
-              nbytes=2 * ne * es + shape[-1] * es, flops=4 * ne,
-              elementwise=True)
+              **_work(norm_work(dict(rows=ne // shape[-1], dim=shape[-1]),
+                                bf)[0]), elementwise=True)
 
     # prefill attention at the fixed-batch prompt (causal, 4 x 64 tokens)
     b, s, hq, hkv, d = 4, 64, 32, 8, 64
@@ -5965,15 +6228,13 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
     k = _rand(torch, gen, (b, s, hkv, d), bf, dev)
     v = _rand(torch, gen, (b, s, hkv, d), bf, dev)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    pairs = b * hq * s * (s + 1) // 2
     row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:142", [b, s, hq, hkv, d],
         lambda: flash_attention_cuda(q, k, v),
         lambda: attention_blockwise_ref(q, k, v, kv_block=64),
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                enable_gqa=True),
-        nbytes=(2 * q.numel() + k.numel() + v.numel()) * es,
-        flops=4 * d * pairs)
+        **prefill(b, s, s, hq, hkv, d, d))
 
     # the same kernel at zamba2-2.7b's training shape: head dim 80, 32 / 32
     # heads, 2 x 1024 tokens, causal (extra fields of the row above)
@@ -5987,8 +6248,8 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
         tq, tk, tv, kv_block=1024), flush)
     t_lib = _time_ms(torch, lambda: F.scaled_dot_product_attention(
         tqt, tkt, tvt, is_causal=True), flush)
-    t_bound, t_by = _bound(4 * tq.numel() * es,
-                           4 * 80 * 2 * 32 * 1024 * 1025 // 2, "bfloat16")
+    t_bound, t_by = _bound(**prefill(2, 1024, 1024, 32, 32, 80, 80),
+                           dtype_name="bfloat16")
     rows[-1]["train_shape"] = {
         "shape": shape, "ms": t_ms, "plain_ms": t_plain,
         "library_ms": t_lib, "bound_ms": t_bound, "bound_by": t_by}
@@ -6008,8 +6269,7 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
           lambda: attention_blockwise_ref(lq, lk, lv, kv_block=1024),
           lambda: F.scaled_dot_product_attention(
               lqt, lkt, lvt, is_causal=True, enable_gqa=True),
-          nbytes=(2 * lq.numel() + lk.numel() + lv.numel()) * es,
-          flops=4 * d * hq * s * (s + 1) // 2)
+          **prefill(b, s, s, hq, hkv, d, d))
     # MLA prefill at deepseek-v3-671b's head dims: q/k 192, v 128, 128
     # heads, 1 x 2048 tokens, causal; SDPA takes a value head dim of its
     # own, so it is the library yardstick here too
@@ -6027,8 +6287,7 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
           lambda: attention_blockwise_ref(mq, mk, mv, kv_block=64),
           lambda: F.scaled_dot_product_attention(
               mqt, mkt, mvt, is_causal=True),
-          nbytes=(mq.numel() + mk.numel() + 2 * mv.numel()) * es,
-          flops=2 * (mla[3] + mla[4]) * mla[2] * mla[1] * (mla[1] + 1) // 2)
+          **prefill(mla[0], mla[1], mla[1], mla[2], mla[2], mla[3], mla[4]))
     # ... and at the shape phase 4g serves it: deepseek-v3-671b's fixed
     # batch, 4 x 64 tokens, with the serving path's block sizes
     sq_, sh_ = (4, 64, 128), (4, 64, 128, 128, 192, 128)
@@ -6041,8 +6300,7 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
           lambda: attention_blockwise_ref(sq, sk, sv, kv_block=1024),
           lambda: F.scaled_dot_product_attention(sqt, skt, svt,
                                                  is_causal=True),
-          nbytes=(sq.numel() + sk.numel() + 2 * sv.numel()) * es,
-          flops=2 * (192 + 128) * 128 * 4 * 64 * 65 // 2)
+          **prefill(4, 64, 64, 128, 128, 192, 128))
     # the vlm and audio families' non-causal shapes (phase 4h), with the
     # serving path's block sizes: a vision decode step's cross-attention
     # (4 slots x 1 query row over 1600 patch rows, 32 / 8 heads of 128) and
@@ -6064,8 +6322,7 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
                                               kv_block=1024),
               lambda: F.scaled_dot_product_attention(xqt, xkt, xvt,
                                                      enable_gqa=True),
-              nbytes=(2 * xq.numel() + xk.numel() + xv.numel()) * es,
-              flops=4 * xd * xhq * xb * xsq * xskv)
+              **prefill(xb, xsq, xskv, xhq, xhkv, xd, xd, causal=False))
     # the tensor-core kernel's block shapes (q_block x kv_block) at the
     # training shape and the long prompt
     sweep = {}
@@ -6090,10 +6347,7 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
     ln = torch.tensor(lens, dtype=torch.int32, device=dev)
     mask = (torch.arange(skv, device=dev)[None, :] < ln[:, None])[:, None, None]
     kvt, vvt = kc.transpose(1, 2), vc.transpose(1, 2)
-    valid = sum(lens)
-    kv_bytes = 2 * valid * hkv * d * es
-    dec_bytes = 2 * q.numel() * es + kv_bytes + 4 * b
-    dec_flops = 4 * d * hq * valid
+    dec_work = _work(decode_work(bf, b, hkv, hq // hkv, d, skv, 64, lens))
     row("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:263",
         [b, skv, hq, hkv, d],
@@ -6101,7 +6355,7 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
         lambda: decode_attention_ref(q, kc, vc, ln),
         lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), kvt, vvt, attn_mask=mask, enable_gqa=True),
-        nbytes=dec_bytes, flops=dec_flops)
+        **dec_work)
 
     ps, n_pages = 64, 8
     kp = torch.cat([kc.reshape(b * n_pages, ps, hkv, d),
@@ -6110,13 +6364,14 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
                     torch.zeros((1, ps, hkv, d), dtype=bf, device=dev)])
     table = torch.arange(b * n_pages, dtype=torch.int32,
                          device=dev).reshape(b, n_pages)
-    used_pages = sum(-(-n_ // ps) for n_ in lens)
     row("paged_decode_attention", "src/repro_torch/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention/kernel.py:126",
         [b, n_pages, ps, hq, hkv, d],
         lambda: paged_decode_attention_cuda(q, kp, vp, table, ln),
         lambda: paged_decode_attention_ref(q, kp, vp, table, ln),
-        None, nbytes=dec_bytes + 4 * used_pages, flops=dec_flops)
+        None, **_work(paged_work(dict(batch=b, kv_heads=hkv, g=hq // hkv,
+                                      d=d, lens=lens), bf, page_size=ps,
+                                 pages_per_slot_max=n_pages)[0]))
 
     # dense and paged decode at a larger batch: 32 slots over 2048-row
     # caches (32 pages of 64), half full on average (seeded ragged lengths
@@ -6130,15 +6385,14 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
     mask = (torch.arange(skv, device=dev)[None, :] < lens[:, None])[:, None,
                                                                     None]
     kvt, vvt = kc.transpose(1, 2), vc.transpose(1, 2)
-    valid = int(lens.sum())
-    dec_bytes = 2 * q.numel() * es + 2 * valid * hkv * d * es + 4 * b
-    dec_flops = 4 * d * hq * valid
+    dec_work = _work(decode_work(bf, b, hkv, hq // hkv, d, skv, 64,
+                                 lens.tolist()))
     extra(rows[-2], "batch32", [b, skv, hq, hkv, d],
           lambda: decode_attention_cuda(q, kc, vc, lens),
           lambda: decode_attention_ref(q, kc, vc, lens),
           lambda: F.scaled_dot_product_attention(
               q.transpose(1, 2), kvt, vvt, attn_mask=mask, enable_gqa=True),
-          nbytes=dec_bytes, flops=dec_flops)
+          **dec_work)
     # the split planner's target at this shape: blocks per SM 8 / 16 / 32
     # (one of them is the planner's constant)
     import repro_torch.kernels.flash_attention.kernel as fa_kernel
@@ -6161,11 +6415,12 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
                     torch.zeros((1, ps, hkv, d), dtype=bf, device=dev)])
     table = torch.arange(b * n_pages, dtype=torch.int32,
                          device=dev).reshape(b, n_pages)
-    used_pages = int(((lens + ps - 1) // ps).sum())
     extra(rows[-1], "batch32", [b, n_pages, ps, hq, hkv, d],
           lambda: paged_decode_attention_cuda(q, kp, vp, table, lens),
           lambda: paged_decode_attention_ref(q, kp, vp, table, lens), None,
-          nbytes=dec_bytes + 4 * used_pages, flops=dec_flops)
+          **_work(paged_work(dict(batch=b, kv_heads=hkv, g=hq // hkv, d=d,
+                                  lens=lens.tolist()), bf, page_size=ps,
+                             pages_per_slot_max=n_pages)[0]))
 
     # the Mamba-1 scan at falcon-mamba-7b's training shape, with the launch
     # options the train step resolved in phase 4b (the config's chunk 256,
@@ -6181,8 +6436,9 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
         lambda: selective_scan_cuda(*a, **scan_launch),
         lambda: selective_scan_chunked_ref(*a, chunk=scan_launch["chunk"]),
         None,
-        nbytes=3 * b * l * c * es + 2 * b * l * n * es + 4 * c * n + 4 * c,
-        flops=7 * b * l * c * n, elementwise=True,
+        **_work(scan_work(dict(batch=b, len=l, channels=c, n=n,
+                               return_state=False), bf)[0]),
+        elementwise=True,
         note="operations: 7 per (b, t, c, n) (dt*A, exp, two products, two "
              "FMAs' worth) at the fp32 rate; the exponentials alone, on the "
              "special-function units (16 a clock an SM at clocks.max.sm), "
@@ -6195,7 +6451,7 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
     rows[-1]["sm_clock_max_mhz"] = max_mhz
     # the floor the exponentials set, kept as text: the row's only
     # computed time is bound_ms
-    floor_us = b * l * c * n / (SFU_EX2_PER_CLOCK_SM * cuda_lib.sm_count(dev)
+    floor_us = b * l * c * n / (SFU_PER_SM * cuda_lib.sm_count(dev)
                                 * max_mhz * 1e6) * 1e6
     rows[-1]["note"] += f" = {floor_us:.1f} us at {max_mhz:.0f} MHz"
     log(f"selective_scan: the exponentials alone need {floor_us:.1f} us on "
@@ -6207,15 +6463,15 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
     # (B, C, N) fp32 store adds to the bytes)
     b, l = FIXED["batch"], FIXED["prompt_len"]
     a = scan_inputs(torch, gen, b, l, c, n, 0.1, bf, dev)
-    scan_bytes = 3 * b * l * c * es + 2 * b * l * n * es + 4 * c * n + 4 * c
     for key, state in (("serve_prefill", False), ("serve_prefill_state", True)):
         extra(rows[-1], key, [b, l, c, n],
               lambda: selective_scan_cuda(*a, chunk=256, c_block=64,
                                           return_state=state),
               lambda: selective_scan_chunked_ref(*a, chunk=256,
                                                  return_state=state),
-              None, nbytes=scan_bytes + state * 4 * b * c * n,
-              flops=7 * b * l * c * n, elementwise=True)
+              None, **_work(scan_work(dict(batch=b, len=l, channels=c, n=n,
+                                           return_state=state), bf)[0]),
+              elementwise=True)
 
     # the Mamba-2 SSD at zamba2-2.7b's training shape (chunk 256 -> 64).
     # Its bound: the bytes (x, dt, B, C read, y written once) against the
@@ -6224,9 +6480,9 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
     # (n q p) and C S_in (q n p), two operations per multiply-add
     b, l, h, p, g, n, q = 2, 1024, 80, 64, 1, 64, 64
     a = ssd_inputs(torch, gen, b, l, h, p, g, n, 0.1, bf, dev)
-    ssd_bytes = (2 * b * l * h * p + b * l * h + 2 * b * l * g * n) * es \
-        + 8 * h
-    ssd_flops = b * h * (l // q) * 2 * q * (q * n + q * p + 2 * n * p)
+    (ssd,) = ssd_work(dict(batch=b, len=l, heads=h, p=p, groups=g, n=n,
+                           states=False), bf, chunk=q, dt_dtype=bf)
+    ssd_bytes, ssd_flops = ssd.hbm, ssd.flops
     old_bound_ms, _ = _bound(ssd_bytes, 5 * b * l * h * n * p, "float32",
                              elementwise=True)
     row("ssd", "src/repro_torch/csrc/ssd.cu",
@@ -6245,21 +6501,20 @@ def phase_timings(torch, dev, errs, launches, scan_launch):
     a = ssd_inputs(torch, gen, b, l, h, p, g, n, 0.1, bf, dev)
     extra(rows[-1], "chain128", [b, l, h, p, g, n],
           lambda: ssd_cuda(*a, chunk=64), lambda: ssd_ref(*a, chunk=64),
-          None, nbytes=(2 * b * l * h * p + b * l * h + 2 * b * l * g * n)
-          * es + 8 * h,
-          flops=b * h * (l // q) * 2 * q * (q * n + q * p + 2 * n * p))
+          None, **_work(ssd_work(dict(batch=b, len=l, heads=h, p=p,
+                                      groups=g, n=n, states=False), bf,
+                                 chunk=q, dt_dtype=bf)[0]))
     # serving's prefill: zamba2-2.7b's fixed batch (4 x 64, one chunk per
     # pair), without and with the final state ((B, H, N, P) fp32 written)
     b, l, h = FIXED["batch"], FIXED["prompt_len"], 80
     a = ssd_inputs(torch, gen, b, l, h, p, g, n, 0.1, bf, dev)
-    ssd_bytes = (2 * b * l * h * p + b * l * h + 2 * b * l * g * n) * es \
-        + 8 * h
     for key, state in (("serve_prefill", False), ("serve_prefill_state", True)):
         extra(rows[-1], key, [b, l, h, p, g, n],
               lambda: ssd_cuda(*a, chunk=256, return_state=state),
               lambda: ssd_ref(*a, chunk=256, return_state=state), None,
-              nbytes=ssd_bytes + state * 4 * b * h * n * p,
-              flops=b * h * (l // q) * 2 * q * (q * n + q * p + 2 * n * p))
+              **_work(ssd_work(dict(batch=b, len=l, heads=h, p=p, groups=g,
+                                    n=n, states=state), bf, chunk=q,
+                               dt_dtype=bf)[0]))
     return rows
 
 

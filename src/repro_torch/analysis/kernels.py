@@ -278,7 +278,9 @@ def smem_findings(family: str, configs: Iterable[Tuple[Dict[str, Any],
                   path: str, line: int) -> Tuple[List[Finding], int]:
     """Cross-check each launch config's records — ``(params, [(shape,
     dtype name, record), ...])`` — against the opt-in shared-memory limit
-    and the block thread limit AND the analytic feasibility gate.  Fires
+    and the block thread limit AND the analytic feasibility gate (the
+    launch geometry on ``KernelWorkload()``, which reads the family's own
+    records at that workload's shapes).  Fires
     where a block is over a limit for a config the analytic gate admits
     (or cannot see); returns the findings and the configs checked."""
     from repro_torch.envs.measure import KernelWorkload, LaunchGeometry

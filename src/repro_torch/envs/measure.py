@@ -1,17 +1,18 @@
 """Measurement backends for the kernel-launch tuning environment — the
-port of :mod:`repro.envs.measure`, with the H100's constants.
+port of :mod:`repro.envs.measure`, priced on the H100.
 
 CAMEO's premise is that cheap source-environment measurements transfer to a
 costly target.  This module supplies the source side of that pair for the
 launch space, and the geometry the serving simulator prices with:
 
-- :class:`AnalyticBackend` — the launch-geometry model (grid extent, block
-  footprints, streamed bytes, per-launch overhead).  Fast and
-  deterministic: the observational source.
+- :class:`AnalyticBackend` — the launch-geometry model: the launches each
+  family's ``kernel.py::launch_records`` gives for the candidate, priced
+  in waves over the card's SMs.  Fast and deterministic: the
+  observational source.
 - :class:`ShiftedAnalyticBackend` — the analytic model a fixed,
   reproducible distance away: composable :class:`EnvShift` perturbations
   (scaled hardware constants, workload-shape changes, heteroscedastic
-  noise, a tightened footprint budget) build the paper's
+  noise, a tightened shared-memory budget) build the paper's
   environmental-change target pairs on a CPU.  Named kinds live in
   ``SHIFT_KINDS`` and are selectable as ``shifted:<kind>``.
 - :class:`WallClockBackend` — timed execution of the port's kernels under
@@ -27,18 +28,24 @@ All satisfy the :class:`MeasurementBackend` protocol —
 Selection: an explicit constructor argument wins, then the
 ``REPRO_MEASURE_BACKEND`` env var, then ``analytic``.
 
-**The card's constants.**  :class:`HardwareSpec` and
-:class:`KernelWorkload` default to one H100 SXM: 989 TFLOP/s bf16 on the
-tensor cores, 67 TFLOP/s fp32 on the CUDA cores, 3.35 TB/s of HBM, and
-232,448 bytes of shared memory a block may opt into.  The field and
-counter names stay the reference's (``mxu_flops_per_us``,
-``vpu_flops_per_us``, ``vmem_limit``, ``vmem_peak_bytes``, the "vmem"
-infeasibility reason), because the simulator reads them and a causal model
-learned over the reference's counters must transfer; each docstring says
-what the name means on this card.  :class:`LaunchGeometry`'s formulae are
-the reference's: a footprint read off the Hopper kernels' own plans
-(``plan_rmsnorm``, ``plan_decode_splits``, ``plan_scan``, ``ssd_route``)
-is a later item.
+**What the names mean on this card.**  The field and counter names stay
+the reference's (``mxu_flops_per_us``, ``vpu_flops_per_us``,
+``vmem_limit``, ``launch_overhead_us``, ``grid_points``,
+``vmem_peak_bytes``, the "vmem" infeasibility reason), because the
+simulator reads them and a causal model learned over the reference's
+counters must keep its variables.  On the H100: ``grid_points`` counts the
+CUDA blocks a configuration launches; "vmem" is the static plus dynamic
+shared memory of its largest block, and the budget it must fit is the
+232,448 bytes one block may opt into; ``mxu`` is the tensor cores' bf16
+rate, ``vpu`` the CUDA cores' fp32 rate; ``launch_overhead_us`` is charged
+once a launch (not a block).  The geometry reads the launches off the
+kernels' own plans (``plan_rmsnorm``, ``plan_decode_splits``,
+``plan_scan``, ``ssd_route`` through each family's ``launch_records``),
+counts their work with each family's ``launch_work``, and prices them
+from data-sheet rates and latencies that ``chip_smoke.py`` phase 4d
+measures on the card (:data:`LAUNCH_US`, :data:`CHAIN_LINK_US`,
+:data:`SCAN_STEP_US`, and :data:`TILE_US`, a K/V tile's latency and an
+SM's time a tile at each head dim and block shape of the prefill).
 
 The timing harness (:func:`timeit`) takes an injectable clock so tests run
 against a deterministic :class:`FakeClock` instead of ``perf_counter``.
@@ -46,61 +53,83 @@ against a deterministic :class:`FakeClock` instead of ``perf_counter``.
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from dataclasses import dataclass, field, replace
-from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
-                    Protocol, Sequence, Tuple, Union, runtime_checkable)
+from typing import (Any, Callable, Dict, Iterable, List, Mapping,
+                    Optional, Protocol, Sequence, Tuple, Union,
+                    runtime_checkable)
 
 import numpy as np
 import torch
 
-from repro_torch.utils.hardware import H100_SMEM_PER_BLOCK
+from repro_torch.utils.hardware import (
+    FP32_LANES_PER_SM, H100_SM_COUNT, H100_SMEM_PER_BLOCK, H100_SMEM_PER_SM,
+    MAX_SM_BLOCKS, MAX_SM_THREADS, SFU_PER_SM, SMEM_RESERVED_PER_BLOCK)
 
 MEASURE_BACKEND_ENV = "REPRO_MEASURE_BACKEND"
 ANALYTIC = "analytic"
 WALLCLOCK = "wallclock"
 SHIFTED_PREFIX = "shifted:"
 
-LANE = 128                        # tile edge the geometry's utilization uses
 SMEM_LIMIT_BYTES = H100_SMEM_PER_BLOCK  # opt-in shared memory of one H100 block
-TENSOR_FLOPS_PER_US = 989e6       # H100 SXM bf16 dense tensor cores
-CUDA_CORE_FLOPS_PER_US = 67e6     # H100 SXM fp32 on the CUDA cores
-HBM_BYTES_PER_US = 3.35e6         # H100 SXM HBM3, 3.35 TB/s
-SM_CLOCK_HZ = 1.98e9              # H100 SXM boost clock (spin lengths)
+# NVIDIA's data sheet, H100 SXM at 700 W: dense bf16 on the tensor cores,
+# fp32 on the CUDA cores, HBM3 bandwidth, boost clock
+TENSOR_FLOPS_PER_US = 989e6
+CUDA_CORE_FLOPS_PER_US = 67e6
+HBM_BYTES_PER_US = 3.35e6
+SM_CLOCK_HZ = 1.98e9
+#: fp32 operations one exponential takes the time of: an SM issues
+#: FP32_LANES_PER_SM multiply-adds (two operations each) a clock and
+#: SFU_PER_SM exponentials
+EXP_FLOPS = 2 * FP32_LANES_PER_SM // SFU_PER_SM
+# Measured on one H100 80GB HBM3 at 700 W by ``chip_smoke.py`` phase 4d
+# (``measure_geometry_constants``; PERF.md lists each run's values), never
+# fitted to a family:
+#: one launch of the smallest block the port makes (RMSNorm of one row of
+#: 8 elements) through WallClockBackend's CUDA-event timer
+LAUNCH_US = 5.54
+#: one link of an in-order chain: the slope of the tensor-core SSD's time
+#: over its links on one (batch, head) pair
+CHAIN_LINK_US = 4.21
+#: one step of the Mamba-1 recurrence in a block: the slope of the scan's
+#: time over the sequence on one block of one warp
+SCAN_STEP_US = 0.0946
+#: one K/V tile of the online softmax, by (head dim, q rows, kv rows) of
+#: the tile: ``(latency, sm_us)``, the slope of the bf16 prefill's time over
+#: the tiles its blocks walk, with one block on the card (a block's latency
+#: a tile) and with every SM full of resident blocks (``sm_us`` is that
+#: slope over the blocks an SM holds: an SM's time a tile when its blocks
+#: contend)
+TILE_US = {
+    (16, 32, 32): (0.4174, 0.181), (16, 32, 64): (0.5951, 0.3038),
+    (16, 64, 32): (0.4114, 0.1799), (16, 64, 64): (0.5637, 0.2766),
+    (32, 32, 32): (0.5146, 0.1989), (32, 32, 64): (0.7371, 0.3704),
+    (32, 64, 32): (0.4811, 0.2035), (32, 64, 64): (0.6797, 0.3733),
+    (64, 32, 32): (0.7029, 0.2938), (64, 32, 64): (1.11, 0.5667),
+    (64, 64, 32): (0.6314, 0.3008), (64, 64, 64): (0.9457, 0.6103),
+    (80, 32, 32): (0.7083, 0.3797), (80, 32, 64): (1.559, 0.7685),
+    (80, 64, 32): (0.6334, 0.3851), (80, 64, 64): (1.188, 0.8363),
+    (128, 32, 32): (0.9746, 0.6225), (128, 32, 64): (1.874, 1.02),
+    (128, 64, 32): (0.8314, 0.572), (128, 64, 64): (1.42, 1.402),
+}
 HOST_CALL_S = 5e-4                # a kernel call's host time, if unmeasured
 SPIN_MIN_S, SPIN_MAX_S = 1e-3, 2e-2  # the spin ahead of a timed run
-F32 = 4                           # scratch accumulators
-BF16 = 2                          # streamed in/out blocks
 
 COUNTER_NAMES = ("grid_points", "vmem_peak_bytes", "hbm_bytes", "flops")
 
 
-def _ceil_div(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def _padded(a: int, b: int) -> int:
-    return _ceil_div(a, b) * b
-
-
-def _mxu_util(*block_dims: int) -> float:
-    """Fraction of the matrix unit a tile fills: 1.0 at >= 128 a side (the
-    reference's rule, kept for the simulator's parity)."""
-    u = 1.0
-    for d in block_dims:
-        u *= min(d, LANE) / LANE
-    return max(u, 1e-3)
-
-
 @dataclass(frozen=True)
 class HardwareSpec:
-    """The hardware constants the launch-geometry model prices with.
+    """The card the launch-geometry model prices on.
 
-    The defaults are one H100 SXM's: ``mxu_flops_per_us`` is the bf16
-    dense rate of the tensor cores, ``vpu_flops_per_us`` the fp32 rate of
-    the CUDA cores, ``hbm_bytes_per_us`` the HBM bandwidth (the names are
-    the reference's).  A shifted environment scales them (another card)."""
+    The defaults are one H100 SXM's (data sheet, 700 W): ``mxu_flops_per_us``
+    is the tensor cores' dense bf16 rate, ``vpu_flops_per_us`` the CUDA
+    cores' fp32 rate (which also sets the exponentials' rate, one per
+    :data:`EXP_FLOPS` fp32 operations), ``hbm_bytes_per_us`` the HBM
+    bandwidth; the names are the reference's.  A shifted environment scales
+    them (another card, a slow one)."""
 
     mxu_flops_per_us: float = TENSOR_FLOPS_PER_US
     vpu_flops_per_us: float = CUDA_CORE_FLOPS_PER_US
@@ -117,9 +146,11 @@ class HardwareSpec:
 
 @dataclass(frozen=True)
 class KernelWorkload:
-    """One (model shape x batch) cell the kernels run under.  ``vmem_limit``
-    is the on-chip footprint budget a launch must fit (default: the shared
-    memory one H100 block may hold)."""
+    """One (model shape x batch) cell the kernels run under: the tensors
+    :class:`WallClockBackend` draws and :class:`LaunchGeometry` prices.
+    ``vmem_limit`` is the shared memory a block must fit (default: the
+    232,448 bytes one H100 block may opt into); ``launch_overhead_us`` the
+    cost of one launch on the card (default: :data:`LAUNCH_US`, measured)."""
 
     name: str = "serve-8b"
     batch: int = 8
@@ -136,7 +167,7 @@ class KernelWorkload:
     ssm_head_dim: int = 64
     ssm_state: int = 128
     vmem_limit: int = SMEM_LIMIT_BYTES
-    launch_overhead_us: float = 1.5
+    launch_overhead_us: float = LAUNCH_US
     noise: float = 0.01
 
 
@@ -158,105 +189,159 @@ def family_params(family: str, config: Dict[str, Any]) -> Dict[str, Any]:
 # launch-geometry model
 # --------------------------------------------------------------------------
 
+def resident_blocks(record) -> int:
+    """Blocks of ``record`` one SM holds at once, by their shared bytes
+    (each with the runtime's reserved kilobyte) and threads."""
+    by_smem = H100_SMEM_PER_SM // (record.smem + SMEM_RESERVED_PER_BLOCK)
+    by_threads = MAX_SM_THREADS // max(record.threads, 1)
+    return max(1, min(MAX_SM_BLOCKS, by_smem, by_threads))
+
+
 class LaunchGeometry:
-    """Analytic cost model of one kernel launch per family.
+    """The launch-geometry model of the port's Hopper kernels.
 
-    Each ``<family>(params)`` returns ``(t_us, grid, vmem, flops, hbm)`` —
-    modeled latency, grid points, on-chip footprint of the blocks (the
-    "vmem" of the reference's names), total FLOPs, and streamed HBM bytes —
-    from the launch parameters, by the reference's formulae.  ``hardware``
-    supplies the peak rates (default: one H100 SXM).
+    ``family_cost(family, params)`` returns ``(t_us, grid, vmem, flops,
+    hbm)`` for one call of the family on the workload's tensors, the ones
+    :class:`WallClockBackend` draws, in ``dtype`` (bf16 by default):
+
+    - ``grid``: the blocks the family's ``launch_records`` launch for the
+      parameters (the "grid points" of the reference's names);
+    - ``vmem``: the largest block's static plus dynamic shared bytes;
+    - ``flops`` / ``hbm``: the work itself, as the family's
+      ``launch_work`` counts it — the arithmetic, and the compulsory
+      device-memory bytes — whatever the launch;
+    - ``t_us``: the launch costs ``launch_overhead_us``; its blocks run in
+      waves over :data:`H100_SM_COUNT` SMs at the residency their shared
+      bytes and threads allow, each wave the larger of its share of the
+      compute (at the tensor-core or the CUDA-core rate, over the SMs it
+      occupies), of the bytes (at the HBM rate) and of its serial steps
+      (:meth:`serial_us`); an in-order chain (the SSD's, the split
+      decode's combine) adds its links x :data:`CHAIN_LINK_US`, and
+      widening copies their launches and bytes.
+
+    Parameters snap into the kernels' domains inside ``launch_records``
+    and ``launch_work``, so configurations that launch the same blocks
+    price the same.
     """
-
-    def __init__(self, workload: KernelWorkload,
-                 hardware: Optional[HardwareSpec] = None):
-        self.workload = workload
-        self.hardware = hardware or HardwareSpec()
-
-    def flash_attention(self, p) -> Tuple[float, float, float, float, float]:
-        w = self.workload
-        qb, kb = int(p["q_block"]), int(p["kv_block"])
-        sq, sk = _padded(w.seq_len, qb), _padded(w.seq_len, kb)
-        grid = w.batch * w.heads * (sq // qb) * (sk // kb)
-        # causal: roughly half the kv blocks are visible
-        flops = 0.5 * w.batch * w.heads * sq * sk * 4 * w.head_dim
-        vmem = (BF16 * 2 * (qb + 2 * kb) * w.head_dim         # double-buffered in
-                + BF16 * 2 * qb * w.head_dim                  # out
-                + F32 * qb * (w.head_dim + 2 * LANE))         # acc/m/l scratch
-        hbm = F32 * grid * (qb + 2 * kb) * w.head_dim / 2 + F32 * sq * w.head_dim
-        t = (grid * w.launch_overhead_us
-             + flops / (self.hardware.mxu_flops_per_us * _mxu_util(qb, kb))
-             + hbm / self.hardware.hbm_bytes_per_us)
-        return t, grid, vmem, flops, hbm
-
-    def mamba_scan(self, p) -> Tuple[float, float, float, float, float]:
-        w = self.workload
-        chunk, cb = int(p["chunk"]), int(p["c_block"])
-        l = _padded(w.seq_len, chunk)
-        grid = w.batch * _ceil_div(w.channels, cb) * (l // chunk)
-        flops = 8.0 * w.batch * l * w.channels * w.scan_state
-        vmem = (BF16 * 2 * chunk * (3 * cb + 2 * w.scan_state)  # in, dbl-buffered
-                + BF16 * 2 * chunk * cb                          # out
-                + F32 * cb * w.scan_state)                       # state scratch
-        hbm = F32 * w.batch * l * (3 * w.channels + 2 * w.scan_state)
-        # the recurrence is serial inside a chunk: VPU-bound step chain
-        serial = grid * chunk * (cb * w.scan_state
-                                 / self.hardware.vpu_flops_per_us) * 1e-3
-        t = (grid * w.launch_overhead_us + serial
-             + hbm / self.hardware.hbm_bytes_per_us)
-        return t, grid, vmem, flops, hbm
-
-    def ssd(self, p) -> Tuple[float, float, float, float, float]:
-        w = self.workload
-        chunk = int(p["chunk"])
-        l = _padded(w.seq_len, chunk)
-        grid = w.batch * w.ssm_heads * (l // chunk)
-        n, hd = w.ssm_state, w.ssm_head_dim
-        # quadratic intra-chunk term + two state matmuls per chunk
-        flops = grid * (2 * chunk * chunk * (n + hd) + 4 * chunk * n * hd)
-        vmem = (BF16 * 2 * chunk * (hd + 2 * n) + BF16 * 2 * chunk * hd
-                + F32 * (chunk * chunk + n * hd))
-        hbm = F32 * w.batch * l * w.ssm_heads * (hd + 2 * n // max(w.ssm_heads // 8, 1))
-        t = (grid * w.launch_overhead_us
-             + flops / (self.hardware.mxu_flops_per_us * _mxu_util(chunk))
-             + hbm / self.hardware.hbm_bytes_per_us)
-        return t, grid, vmem, flops, hbm
-
-    def rmsnorm(self, p) -> Tuple[float, float, float, float, float]:
-        w = self.workload
-        rb = int(p["row_block"])
-        rows = _padded(w.batch * w.seq_len, rb)
-        grid = rows // rb
-        flops = 4.0 * rows * w.d_model
-        vmem = BF16 * (2 * 2 * rb * w.d_model + w.d_model)
-        hbm = F32 * rows * w.d_model * 2
-        t = grid * w.launch_overhead_us + hbm / self.hardware.hbm_bytes_per_us
-        return t, grid, vmem, flops, hbm
-
-    def paged_attention(self, p) -> Tuple[float, float, float, float, float]:
-        w = self.workload
-        ps = int(p["page_size"])
-        n_pages = _ceil_div(w.seq_len, ps)
-        grid = w.batch * w.kv_heads * n_pages
-        g = max(w.heads // max(w.kv_heads, 1), 1)
-        ctx = n_pages * ps
-        # one new token per slot attending over the page-quantized context
-        flops = w.batch * w.heads * ctx * 4 * w.head_dim
-        # the paged win: on-chip memory holds one (page_size x head_dim) K/V page pair
-        # per stream — independent of seq_len, unlike the dense decode cache
-        vmem = (BF16 * 2 * 2 * ps * w.head_dim       # k/v page, dbl-buffered
-                + BF16 * 2 * g * w.head_dim          # q in / out block
-                + F32 * g * (w.head_dim + 2 * LANE))  # acc/m/l scratch
-        hbm = (F32 * grid * 2 * ps * w.head_dim       # streamed pool pages
-               + F32 * w.batch * w.heads * w.head_dim * 2  # q in, out
-               + F32 * w.batch * n_pages)             # page table
-        t = (grid * w.launch_overhead_us
-             + flops / (self.hardware.mxu_flops_per_us * _mxu_util(ps))
-             + hbm / self.hardware.hbm_bytes_per_us)
-        return t, grid, vmem, flops, hbm
 
     MODELS = ("flash_attention", "mamba_scan", "ssd", "rmsnorm",
               "paged_attention")
+
+    def __init__(self, workload: KernelWorkload,
+                 hardware: Optional[HardwareSpec] = None,
+                 dtype: torch.dtype = torch.bfloat16):
+        self.workload = workload
+        self.hardware = hardware or HardwareSpec()
+        self.dtype = dtype
+
+    # -- what WallClockBackend launches -----------------------------------
+
+    def shape(self, family: str) -> Dict[str, Any]:
+        """The ``launch_records`` shape of ``family`` on the workload's
+        tensors: a causal prefill of batch x seq_len; the scan and the SSD
+        without states; RMSNorm over batch x seq_len rows; one paged decode
+        step over slots of seq_len rows (its capacity comes from the launch
+        parameters)."""
+        w = self.workload
+        g = max(w.heads // max(w.kv_heads, 1), 1)
+        if family == "flash_attention":
+            return dict(d=w.head_dim, dv=w.head_dim, g=g, causal=True,
+                        decode=False, batch=w.batch, kv_heads=w.kv_heads,
+                        sq=w.seq_len, skv=w.seq_len)
+        if family == "mamba_scan":
+            return dict(batch=w.batch, len=w.seq_len, channels=w.channels,
+                        n=w.scan_state, return_state=False)
+        if family == "ssd":
+            return dict(batch=w.batch, len=w.seq_len, heads=w.ssm_heads,
+                        p=w.ssm_head_dim, groups=1, n=w.ssm_state,
+                        states=False)
+        if family == "rmsnorm":
+            return dict(rows=w.batch * w.seq_len, dim=w.d_model)
+        if family == "paged_attention":
+            return dict(batch=w.batch, kv_heads=w.kv_heads, g=g,
+                        d=w.head_dim, lens=[w.seq_len] * w.batch)
+        raise KeyError(
+            f"no launch-geometry model for family {family!r}; "
+            f"modeled: {sorted(self.MODELS)}")
+
+    def record(self, family: str, params: Dict[str, Any]):
+        """The one launch (``cuda_lib.LaunchRecord``) a call makes."""
+        # dt comes in fp32 (models/ssm.py): the scan's wrapper widens x, B
+        # and C to one fp32 storage (``storage_size``), y in x's dtype
+        dt = {"dt_dtype": torch.float32} if family == "mamba_scan" else {}
+        (record,) = _kernel_module(family).launch_records(
+            self.shape(family), self.dtype, **params, **dt)
+        return record
+
+    def work(self, family: str, params: Dict[str, Any]):
+        """The family's ``launch_work`` (``cuda_lib.LaunchWork``) on the
+        workload: its arithmetic, compulsory bytes and serial parts (dt in
+        fp32 for the scan and the SSD, as the backend draws it)."""
+        dt = ({"dt_dtype": torch.float32}
+              if family in ("mamba_scan", "ssd") else {})
+        (work,) = _kernel_module(family).launch_work(
+            self.shape(family), self.dtype, **params, **dt)
+        return work
+
+    @staticmethod
+    def step_us(work) -> Tuple[float, float]:
+        """``(latency, sm_us)`` of one serial step of ``work``: a K/V tile
+        from :data:`TILE_US` at the smallest measured head dim at or above
+        the tile's (the largest where none is), a scan time step
+        :data:`SCAN_STEP_US` (the SM's throughput left to the compute)."""
+        if work.tile is None:
+            return SCAN_STEP_US, 0.0
+        d, _, qb, kb = work.tile
+        dims = sorted({k[0] for k in TILE_US})
+        dim = next((x for x in dims if x >= d), dims[-1])
+        return TILE_US[(dim, qb, kb)]
+
+    @staticmethod
+    def serial_us(steps: np.ndarray, latency: float, sm_us: float) -> float:
+        """One wave's serial time: its blocks dealt out over the SMs in
+        launch order; on each SM a block takes a step in ``latency``, or in
+        ``sm_us`` x the blocks still walking where the SM's throughput
+        holds them back; the slowest SM."""
+        k = len(steps)
+        sms = min(H100_SM_COUNT, k)
+        rounds = -(-k // sms)
+        dealt = np.zeros(rounds * sms)
+        dealt[:k] = steps
+        per_sm = -np.sort(-dealt.reshape(rounds, sms), axis=0)
+        after = np.vstack([per_sm[1:], np.zeros((1, sms))])
+        rate = np.maximum(latency, np.arange(1, rounds + 1) * sm_us)
+        return float(((per_sm - after) * rate[:, None]).sum(axis=0).max())
+
+    def launch_us(self, record, work) -> float:
+        """The call's time: the launch's overhead, its waves of resident
+        blocks (each the larger of its compute, its bytes and its serial
+        steps), its chain's links, and any widening copies."""
+        hw = self.hardware
+        blocks = math.prod(record.grid)
+        slots = H100_SM_COUNT * resident_blocks(record)
+        if work.tensor:
+            compute = (work.flops / hw.mxu_flops_per_us
+                       + work.exps * EXP_FLOPS / hw.vpu_flops_per_us)
+        else:
+            compute = ((work.flops + work.exps * EXP_FLOPS)
+                       / hw.vpu_flops_per_us)
+        nbytes = work.hbm / hw.hbm_bytes_per_us
+        latency, sm_us = (self.step_us(work) if work.steps is not None
+                          else (0.0, 0.0))
+        t = 0.0
+        for first in range(0, blocks, slots):
+            k = min(slots, blocks - first)
+            frac = k / blocks
+            # the scheduler deals a wave's blocks out over the SMs
+            sms = min(H100_SM_COUNT, k)
+            serial = (self.serial_us(work.steps[first:first + k], latency,
+                                     sm_us)
+                      if work.steps is not None else 0.0)
+            t += max(compute * frac * H100_SM_COUNT / sms, nbytes * frac,
+                     serial)
+        return ((1 + work.copies) * self.workload.launch_overhead_us
+                + work.copy_bytes / hw.hbm_bytes_per_us + t
+                + work.links * CHAIN_LINK_US)
 
     def family_cost(self, family: str, params: Dict[str, Any]
                     ) -> Tuple[float, float, float, float, float]:
@@ -264,13 +349,16 @@ class LaunchGeometry:
             raise KeyError(
                 f"no launch-geometry model for family {family!r}; "
                 f"modeled: {sorted(self.MODELS)}")
-        return getattr(self, family)(params)
+        record = self.record(family, params)
+        work = self.work(family, params)
+        return (self.launch_us(record, work), float(math.prod(record.grid)),
+                float(record.smem), float(work.flops), float(work.hbm))
 
     def totals(self, families: Sequence[str], config: Dict[str, Any]
                ) -> Tuple[Dict[str, float], float, bool]:
-        """Summed counters, total modeled latency, and footprint feasibility over
-        ``families`` (evaluated in the given order — keep it sorted for
-        reproducible accumulation)."""
+        """Summed counters, total modeled latency, and shared-memory
+        feasibility over ``families`` (evaluated in the given order — keep
+        it sorted for reproducible accumulation)."""
         total_us, grid_pts, vmem_peak, flops, hbm = 0.0, 0.0, 0.0, 0.0, 0.0
         feasible = True
         for family in families:
@@ -288,6 +376,12 @@ class LaunchGeometry:
         return counters, total_us, feasible
 
 
+def _kernel_module(family: str):
+    import importlib
+
+    return importlib.import_module(f"repro_torch.kernels.{family}.kernel")
+
+
 def modeled_families() -> Tuple[str, ...]:
     return LaunchGeometry.MODELS
 
@@ -303,12 +397,13 @@ class EnvShift:
     launch space.  A shift rewrites the (workload, hardware) pair the
     geometry model prices with:
 
-    - hardware: scale the peak rates and per-launch overhead (a different
-      accelerator generation);
+    - hardware: scale the peak rates and the launch overhead (a different
+      card);
     - workload: scale/override the workload shape (a different serving
       assignment);
-    - feasibility: scale the footprint budget (tightened -> parts of the
-      source-feasible grid become infeasible in the target);
+    - feasibility: scale the shared-memory budget a block must fit
+      (tightened -> launches with larger blocks become infeasible in the
+      target);
     - noise: scale the multiplicative measurement noise and/or add a
       heteroscedastic component that grows with modeled latency;
     - fleet: scale the device count (elastic resize) and/or slow a fraction
@@ -516,7 +611,7 @@ class AnalyticBackend:
     """The launch-geometry model as a measurement backend.
 
     The reference's backend, draw for draw: same accumulation order over
-    sorted families, same footprint feasibility gate, and the
+    sorted families, the same shared-memory ("vmem") gate, and the
     multiplicative noise draw is taken from ``default_rng(seed + 13)`` only
     for feasible configurations.
     """
@@ -631,8 +726,9 @@ class WallClockBackend:
     The inputs stay in L2 between calls.  With a ``clock`` (the
     reference's :class:`FakeClock` contract), or on the CPU, the
     host-clock :func:`timeit` path runs unchanged.  Counters and the
-    footprint feasibility gate come from the geometry model; an
-    infeasible configuration returns ``inf`` without launching.
+    shared-memory gate come from the geometry model in ``dtype``, which
+    prices exactly these inputs; an infeasible configuration returns
+    ``inf`` without launching.
 
     When the obs tracer is active each measurement exports a ``measure``
     span on the env track with its config, ``y`` and per-family times (and
@@ -651,9 +747,9 @@ class WallClockBackend:
         self.workload = workload
         self.families = tuple(sorted(families))
         _check_modeled(self.families)
-        self.geometry = LaunchGeometry(workload)
         self.device = resolve_device(device)
         self.dtype = dtype or torch.bfloat16
+        self.geometry = LaunchGeometry(workload, dtype=self.dtype)
         self.warmup = warmup
         self.repeats = repeats
         self.clock = clock

@@ -272,7 +272,9 @@ class ReplayServingEnv(PooledEnv):
         ``vmem``/``devices``), decided analytically so undeployable configs
         never reach the batcher.  The paged branch mirrors
         ``ServingSimulator.capacity_reason`` so the analytic gate and the
-        real deployment agree."""
+        real deployment agree.  "vmem": a kernel the step launches has a
+        block whose shared bytes (its ``launch_records``) exceed the cell's
+        ``vmem_limit`` (default the 232,448 bytes of one H100 block)."""
         plan = ServingPlan.from_config(config)
         paged = PagedPlan.from_config(config)
         if paged.paging:

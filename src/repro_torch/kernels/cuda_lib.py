@@ -32,9 +32,10 @@ import subprocess
 import threading
 from pathlib import Path
 from dataclasses import dataclass, field
-from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
-                    Tuple)
+from typing import (Callable, Dict, Iterator, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
+import numpy as np
 import torch
 
 from repro_torch.utils.hardware import H100_SMEM_PER_BLOCK
@@ -159,6 +160,30 @@ class LaunchRecord:
     def smem(self) -> int:
         """Static plus dynamic shared bytes of one block."""
         return self.static_smem + self.dynamic_smem
+
+
+class LaunchWork(NamedTuple):
+    """What one launch computes, beside its :class:`LaunchRecord`: the
+    work that ``kernels/<family>/kernel.py::launch_work`` counts from
+    shapes alone, the same count the chip smoke test's bounds take.
+
+    ``flops`` and ``exps`` (exponentials) run on the tensor cores where
+    ``tensor``, else on the CUDA cores; ``hbm`` is the compulsory
+    device-memory bytes (each input read once, each output written once).
+    ``steps`` gives each block's serial steps in launch order (the
+    attention kernels' K/V tiles, the scan's time steps), ``tile`` the
+    ``(d, dv, q rows, kv rows)`` of an attention step (None for a time
+    step); ``links`` is the depth of an in-order chain between blocks;
+    ``copies`` / ``copy_bytes`` the wrapper's widening copies."""
+    flops: float
+    exps: float
+    hbm: float
+    tensor: bool = False
+    steps: Optional[np.ndarray] = None
+    tile: Optional[Tuple[int, int, int, int]] = None
+    links: int = 0
+    copies: int = 0
+    copy_bytes: float = 0.0
 
 
 def reset_launches() -> None:

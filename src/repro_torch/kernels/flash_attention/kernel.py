@@ -36,12 +36,13 @@ registry's archs give these kernels.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import cuda_lib, dispatch
-from repro_torch.kernels.cuda_lib import LaunchRecord, Tile
+from repro_torch.kernels.cuda_lib import LaunchRecord, LaunchWork, Tile
 from repro_torch.kernels.flash_attention.ref import (
     attention_blockwise_ref, decode_attention_ref)
 from repro_torch.utils.hardware import H100_SM_COUNT
@@ -216,6 +217,75 @@ def launch_records(shape: Dict[str, Any], dtype: torch.dtype, *,
         out.append(decode_record(dtype, False, b, hkv, shape["g"], shape["d"],
                                  shape["skv"], _block("kv_block", kv_block),
                                  sm_count))
+    return out
+
+
+def prefill_work(dtype: torch.dtype, batch: int, sq: int, skv: int,
+                 heads: int, kv_heads: int, d: int, dv: int, causal: bool,
+                 q_block: int, kv_block: int) -> LaunchWork:
+    """The prefill's work: a causal row ``i`` reads keys up to ``i``; each
+    block walks the K/V tiles of its q tile, in the order
+    :func:`prefill_record` launches the q tiles."""
+    qb, kb = _block("q_block", q_block), _block("kv_block", kv_block)
+    tiles = -(-sq // qb)
+    ends = np.minimum(np.arange(1, tiles + 1) * qb, sq)
+    if causal:
+        keys = np.minimum(skv, ends)
+        per_head = int(np.minimum(skv, np.arange(1, sq + 1)).sum())
+    else:
+        keys = np.full(tiles, skv)
+        per_head = sq * skv
+    visited = -(-keys // kb)
+    pairs = batch * heads * per_head
+    tensor = dtype != torch.float32
+    # the tensor-core grid (Hq, B, q tiles) takes its q tiles backwards;
+    # the SIMT grid (q tiles, Hq, B) forwards
+    steps = (np.repeat(visited[::-1], heads * batch) if tensor
+             else np.tile(visited, heads * batch))
+    hbm = (batch * sq * heads + batch * skv * kv_heads) * (d + dv) \
+        * dtype.itemsize
+    return LaunchWork(2 * (d + dv) * pairs, pairs, hbm, tensor=tensor,
+                      steps=steps, tile=(d, dv, qb, kb))
+
+
+def decode_work(dtype: torch.dtype, batch: int, kv_heads: int, g: int,
+                d: int, capacity: int, kv_block: int,
+                lens: Optional[Sequence[int]] = None, page_size: int = 0,
+                sm_count: int = H100_SM_COUNT) -> LaunchWork:
+    """The split decode's work over slots of ``lens`` rows (default: full
+    caches of ``capacity``), read through pages of ``page_size`` rows where
+    it is paged: each block walks its split's K/V tiles, and the split
+    axis is combined in order.  A decode block (128 threads, like a 64-row
+    prefill block) prices its tile as that prefill tile."""
+    n_split, split_rows = plan_decode_splits(capacity, kv_block, batch,
+                                             kv_heads, sm_count)
+    lens = np.minimum(np.asarray([capacity] * batch if lens is None
+                                 else lens), capacity)
+    valid, hq, es = int(lens.sum()), kv_heads * g, dtype.itemsize
+    # grid (Hkv, B, n_split): the rows of each block's split
+    rows = np.clip(lens[None, :] - split_rows * np.arange(n_split)[:, None],
+                   0, split_rows)
+    steps = np.repeat((-(-rows // kv_block)).ravel(), kv_heads)
+    hbm = 2 * batch * hq * d * es + 2 * valid * kv_heads * d * es + 4 * batch
+    if page_size:
+        hbm += 4 * int((-(-lens // page_size)).sum())
+    return LaunchWork(4 * d * hq * valid, hq * valid, hbm, steps=steps,
+                      tile=(d, d, 64, kv_block), links=int(n_split > 1))
+
+
+def launch_work(shape: Dict[str, Any], dtype: torch.dtype, *,
+                q_block: int = 64, kv_block: int = 64,
+                sm_count: int = H100_SM_COUNT) -> List[LaunchWork]:
+    """The work of each launch :func:`launch_records` gives at ``shape``
+    (the decode's slots filled to the shape's ``lens``, where given)."""
+    b, hkv, g = shape["batch"], shape["kv_heads"], shape["g"]
+    out = [prefill_work(dtype, b, shape["sq"], shape["skv"], hkv * g, hkv,
+                        shape["d"], shape["dv"], shape["causal"], q_block,
+                        kv_block)]
+    if shape["decode"]:
+        out.append(decode_work(dtype, b, hkv, g, shape["d"], shape["skv"],
+                               _block("kv_block", kv_block),
+                               shape.get("lens"), sm_count=sm_count))
     return out
 
 

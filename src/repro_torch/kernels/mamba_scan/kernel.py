@@ -29,12 +29,13 @@ gives the launch a plan makes.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Any, Dict, Iterable, List, NamedTuple
+from typing import Any, Dict, Iterable, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import cuda_lib, dispatch
-from repro_torch.kernels.cuda_lib import LaunchRecord, Tile
+from repro_torch.kernels.cuda_lib import LaunchRecord, LaunchWork, Tile
 from repro_torch.kernels.mamba_scan.ref import selective_scan_chunked_ref
 
 #: states a lane holds (``kStates`` in the kernel; the fastest of 1, 2, 4
@@ -159,10 +160,12 @@ def launch_shapes(cfgs: Iterable[Any]) -> List[Dict[str, Any]]:
 
 
 def plan_record(plan: ScanPlan, dtype: torch.dtype, b: int, l: int, c: int,
-                n: int, return_state: bool) -> LaunchRecord:
-    """The launch of ``plan`` on x, dt of (b, l, c) stored as ``dtype``:
-    grid (channel blocks, B); block (cx, b) writes y[b, :, its channels]
-    and, with ``return_state``, their final state."""
+                n: int, return_state: bool,
+                out_dtype: Optional[torch.dtype] = None) -> LaunchRecord:
+    """The launch of ``plan`` on x, dt of (b, l, c) stored as ``dtype``,
+    y in ``out_dtype`` (x's; default ``dtype``): grid (channel blocks, B);
+    block (cx, b) writes y[b, :, its channels] and, with ``return_state``,
+    their final state."""
     cpb = plan.channels
 
     def writes(idx):
@@ -174,21 +177,59 @@ def plan_record(plan: ScanPlan, dtype: torch.dtype, b: int, l: int, c: int,
         return tiles
 
     name = cuda_lib.CTYPE_NAMES[dtype]
+    out = cuda_lib.CTYPE_NAMES[out_dtype or dtype]
     return LaunchRecord(
-        f"repro::scan::selective_scan_kernel<{name}, {name}, {plan.lanes}>",
+        f"repro::scan::selective_scan_kernel<{name}, {out}, {plan.lanes}>",
         (-(-c // cpb), b, 1), (plan.threads, 1, 1), plan.smem,
         writes=writes)
 
 
+def _storage(dtype: torch.dtype, dt_dtype: torch.dtype) -> torch.dtype:
+    """The kernel's storage for x, B and C in ``dtype`` beside dt in
+    ``dt_dtype``, as :func:`storage_size` picks it."""
+    same = dt_dtype == dtype and dtype in cuda_lib.DTYPE_CODES
+    return dtype if same else torch.float32
+
+
 def launch_records(shape: Dict[str, Any], dtype: torch.dtype, *,
-                   chunk: int = 64, c_block: int = 64) -> List[LaunchRecord]:
-    """The launch of one scan at ``shape``, x, dt, B and C stored as
-    ``dtype``: :func:`plan_scan`'s plan."""
+                   chunk: int = 64, c_block: int = 64,
+                   dt_dtype: Optional[torch.dtype] = None
+                   ) -> List[LaunchRecord]:
+    """The launch of one scan at ``shape`` on x, B, C and y in ``dtype``
+    and dt in ``dt_dtype`` (default ``dtype``): :func:`plan_scan`'s plan
+    on the kernel's storage (a bf16 x beside fp32 dt is widened to fp32,
+    y stays bf16)."""
     b, l, c, n = (shape["batch"], shape["len"], shape["channels"],
                   shape["n"])
-    plan = plan_scan(b, l, c, n, dtype.itemsize, chunk,
+    storage = _storage(dtype, dt_dtype or dtype)
+    plan = plan_scan(b, l, c, n, storage.itemsize, chunk,
                      c_block)
-    return [plan_record(plan, dtype, b, l, c, n, shape["return_state"])]
+    return [plan_record(plan, storage, b, l, c, n, shape["return_state"],
+                        dtype)]
+
+
+def launch_work(shape: Dict[str, Any], dtype: torch.dtype, *,
+                chunk: int = 64, c_block: int = 64,
+                dt_dtype: Optional[torch.dtype] = None) -> List[LaunchWork]:
+    """The work of one scan at ``shape`` on x, B, C and y in ``dtype`` and
+    dt in ``dt_dtype`` (default ``dtype``): every block walks all ``len``
+    time steps; where dt's type differs, the wrapper first widens x, B and
+    C to one fp32 storage (three copies, as :func:`storage_size` says)."""
+    b, l, c, n = (shape["batch"], shape["len"], shape["channels"],
+                  shape["n"])
+    es = dtype.itemsize
+    dt_dtype = dt_dtype or dtype
+    wide = _storage(dtype, dt_dtype) != dtype
+    (record,) = launch_records(shape, dtype, chunk=chunk, c_block=c_block,
+                               dt_dtype=dt_dtype)
+    blocks = record.grid[0] * record.grid[1] * record.grid[2]
+    hbm = (2 * b * l * c * es + b * l * c * dt_dtype.itemsize
+           + 2 * b * l * n * es + 4 * c * n + 4 * c
+           + shape["return_state"] * 4 * b * c * n)
+    widened = b * l * (c + 2 * n) if wide else 0
+    return [LaunchWork(7 * b * l * c * n, b * l * c * n, hbm,
+                       steps=np.full(blocks, l), copies=3 if wide else 0,
+                       copy_bytes=widened * (es + 4))]
 
 
 def storage_size(x: torch.Tensor, dt: torch.Tensor, Bmat: torch.Tensor,

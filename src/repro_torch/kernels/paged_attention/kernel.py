@@ -28,7 +28,7 @@ from typing import Any, Dict, Iterable, List, Optional
 import torch
 
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.cuda_lib import LaunchRecord
+from repro_torch.kernels.cuda_lib import LaunchRecord, LaunchWork
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.kernel import launch_split_decode
 from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
@@ -55,6 +55,18 @@ def launch_records(shape: Dict[str, Any], dtype: torch.dtype, *,
     return [flash_kernel.decode_record(
         dtype, True, shape["batch"], shape["kv_heads"], shape["g"],
         shape["d"], page_size * pages_per_slot_max, KV_TILE, sm_count)]
+
+
+def launch_work(shape: Dict[str, Any], dtype: torch.dtype, *,
+                page_size: int = 64, pages_per_slot_max: int = 8,
+                prefill_chunk: int = 0,
+                sm_count: int = H100_SM_COUNT) -> List[LaunchWork]:
+    """The work of :func:`launch_records`' decode: slots of ``lens`` rows
+    (the shape's; default full), each row read through its page."""
+    return [flash_kernel.decode_work(
+        dtype, shape["batch"], shape["kv_heads"], shape["g"], shape["d"],
+        page_size * pages_per_slot_max, KV_TILE, shape.get("lens"),
+        page_size=page_size, sm_count=sm_count)]
 
 
 def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,

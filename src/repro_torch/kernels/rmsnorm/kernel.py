@@ -20,7 +20,7 @@ from typing import Any, Dict, Iterable, List, NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import cuda_lib, dispatch
-from repro_torch.kernels.cuda_lib import LaunchRecord, Tile
+from repro_torch.kernels.cuda_lib import LaunchRecord, LaunchWork, Tile
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 #: slots a lane holds (16-byte vectors, or elements), as ``rmsnorm.cu``
@@ -118,6 +118,15 @@ def launch_records(shape: Dict[str, Any], dtype: torch.dtype, *,
         f"{str(plan.vectorized).lower()}>", (-(-rows // rpb), 1, 1),
         (32 * plan.warps_per_row * rpb, 1, 1), 0, STATIC_SMEM,
         writes=writes)]
+
+
+def launch_work(shape: Dict[str, Any], dtype: torch.dtype, *,
+                row_block: int = 4) -> List[LaunchWork]:
+    """The work of one call: x read and y written once, the weight read
+    once; four operations an element."""
+    rows, dim = shape["rows"], shape["dim"]
+    return [LaunchWork(4 * rows * dim, 0,
+                       (2 * rows * dim + dim) * dtype.itemsize)]
 
 
 def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-5,

@@ -38,7 +38,7 @@ from typing import Any, Dict, Iterable, List, Optional
 import torch
 
 from repro_torch.kernels import cuda_lib, dispatch
-from repro_torch.kernels.cuda_lib import LaunchRecord, Tile
+from repro_torch.kernels.cuda_lib import LaunchRecord, LaunchWork, Tile
 from repro_torch.kernels.ssd.ref import ssd_ref
 
 #: head widths P the tensor-core route is instantiated for
@@ -153,6 +153,29 @@ def launch_records(shape: Dict[str, Any], dtype: torch.dtype, *,
         f"repro::ssd_mma_kernel<{p}, float>", (n_blocks * bh, 1, 1),
         (MMA_THREADS, 1, 1), mma_smem_bytes(n, p, q), MMA_STATIC_SMEM,
         in_order=(0,), writes=mma_writes)]
+
+
+def launch_work(shape: Dict[str, Any], dtype: torch.dtype, *,
+                chunk: int = 64,
+                dt_dtype: torch.dtype = torch.float32) -> List[LaunchWork]:
+    """The work of :func:`launch_records`' call, dt in ``dt_dtype``: the
+    chunked form's products per (b, h, chunk of Q steps) — C B^T (Q Q N),
+    M x (Q Q P), the chunk state (N Q P) and C S_in (Q N P) — on the
+    tensor cores where the route is the tensor-core chain, whose links
+    run in order."""
+    b, l, h, p, n = (shape["batch"], shape["len"], shape["heads"],
+                     shape["p"], shape["n"])
+    g, es = shape["groups"], dtype.itemsize
+    q = dispatch.snap_down(chunk,
+                           dispatch.get_family("ssd").option("chunk").values)
+    (record,) = launch_records(shape, dtype, chunk=chunk)
+    chained = bool(record.in_order)
+    hbm = ((2 * b * l * h * p + 2 * b * l * g * n) * es
+           + b * l * h * dt_dtype.itemsize + 8 * h
+           + shape["states"] * 4 * b * h * n * p)
+    return [LaunchWork(2 * b * h * l * (q * n + q * p + 2 * n * p),
+                       b * h * l * (q + 1) // 2, hbm, tensor=chained,
+                       links=record.grid[0] // (b * h) if chained else 0)]
 
 
 def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

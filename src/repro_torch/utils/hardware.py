@@ -67,6 +67,18 @@ H100_SM_COUNT = 132
 #: threads one block may hold, and 32-bit registers one SM holds (sm_90)
 MAX_BLOCK_THREADS = 1024
 REGISTERS_PER_SM = 65536
+#: what one SM holds at once (CUDA C Programming Guide, compute capability
+#: 9.0): resident blocks and threads, shared bytes (228 KB), and the shared
+#: bytes the runtime reserves for each resident block
+MAX_SM_BLOCKS = 32
+MAX_SM_THREADS = 2048
+H100_SMEM_PER_SM = 233472
+SMEM_RESERVED_PER_BLOCK = 1024
+#: results a clock one SM issues (CUDA C Programming Guide, compute
+#: capability 9.0): fp32 multiply-adds, and exponentials (``ex2``) on the
+#: special-function units
+FP32_LANES_PER_SM = 128
+SFU_PER_SM = 16
 
 # NVIDIA's data sheet, SXM part, dense bf16: 989 TFLOP/s; 3.35 TB/s of HBM3;
 # NVLink 900 GB/s a card, 450 GB/s each way; one 400 Gb/s NDR InfiniBand

@@ -4,16 +4,19 @@ The real :class:`repro_torch.serving.scheduler.ContinuousBatcher` keeps a fixed
 number of decode slots, admits queued requests into free slots, and runs one
 fused decode step per tick.  This module replays that control loop against
 the analytic per-kernel cost model (:class:`repro_torch.envs.measure.
-LaunchGeometry`), so the full serving stack — scheduler knobs AND kernel
-launch geometry — is priceable in microseconds of modeled time on CPU CI:
+LaunchGeometry`: the Hopper kernels' own launch records, one launch
+overhead each, their blocks in waves over the H100's SMs), so the full
+serving stack — scheduler knobs AND kernel launch geometry — is priceable
+in microseconds of modeled time on CPU CI:
 
 - one admission costs the modeled prefill of that prompt at batch 1;
 - one decode tick costs the modeled cost of the compiled decode shape
   ``(num_slots, cache_len)`` amortized per token — the compiled program runs
   at full batch whether slots are occupied or not, exactly like the real
   batcher;
-- the footprint feasibility gate of the launch space ("vmem" in the
-  reference's names) carries over, and a plan
+- the shared-memory gate of the launch space ("vmem" in the reference's
+  names: a launch's largest block against the 232,448 bytes one H100
+  block may opt into) carries over, and a plan
   whose ``cache_len`` cannot hold every request of the trace is infeasible
   (you cannot deploy a cache too small for the workload).
 
@@ -224,7 +227,11 @@ class ServingSimulator:
     implies.  ``families`` are the kernel families the served model
     dispatches — their launch parameters (``family.param`` keys of the
     config) steer every prefill/decode price through the same
-    :class:`LaunchGeometry` the kernel-launch environment uses.
+    :class:`LaunchGeometry` the kernel-launch environment uses: the blocks
+    the kernels launch ("grid points"), their shared bytes ("vmem") and a
+    launch overhead a kernel, priced on ``hardware`` (default one H100).
+    ``_cost_cache`` keeps each (families, batch, seq_len, launch knobs)
+    price.
     """
 
     def __init__(self, cell: KernelWorkload, families: Iterable[str], *,
@@ -243,7 +250,8 @@ class ServingSimulator:
     def _shape_cost(self, batch: int, seq_len: int, config: Dict[str, Any],
                     families: Optional[Tuple[str, ...]] = None
                     ) -> Tuple[float, bool]:
-        """(modeled us, vmem-feasible) of one launch at (batch, seq_len)."""
+        """(modeled us, shared-memory feasible) of the families' launches
+        at (batch, seq_len)."""
         fams = self.families if families is None else families
         key = (fams, batch, seq_len,
                tuple(sorted((k, v) for k, v in config.items() if "." in k)))

@@ -6,6 +6,7 @@ registry audits and the CLI.  The parity with ``repro.analysis`` is in
 ``tests/test_torch_analysis_parity.py``.  No jax is imported here.
 """
 
+import functools
 import json
 import os
 import textwrap
@@ -192,19 +193,33 @@ def test_smem_budget_fires_past_the_limit():
         "fixture.py", 3)[0]] == ["kernel-smem-budget"]
 
 
-def test_smem_budget_defers_to_the_analytic_gate():
+def test_smem_budget_defers_to_the_analytic_gate(monkeypatch):
+    # the Hopper decode's block holds a K/V tile ring, not a page: every
+    # page size takes the same shared bytes, and page 256 is admitted
     geometry = measure.LaunchGeometry(measure.KernelWorkload())
-    admitted = {"page_size": 64, "pages_per_slot_max": 8, "prefill_chunk": 0}
-    rejected = dict(admitted, page_size=256)
     limit = geometry.workload.vmem_limit
-    assert geometry.family_cost("paged_attention", admitted)[2] <= limit
-    assert geometry.family_cost("paged_attention", rejected)[2] > limit
+    for page in (64, 256):
+        paged = {"page_size": page, "pages_per_slot_max": 8,
+                 "prefill_chunk": 0}
+        assert geometry.family_cost("paged_attention", paged)[2] == 72768
+        assert 72768 <= limit
+    # a budget between two prefill launches' blocks (head dim 128: 34,816
+    # and 69,632 bytes): the gate rejects the larger, and the check defers
+    monkeypatch.setattr(measure, "KernelWorkload", functools.partial(
+        measure.KernelWorkload, vmem_limit=50_000))
+    admitted = {"q_block": 64, "kv_block": 32}
+    rejected = dict(admitted, kv_block=64)
     over = [({}, "bfloat16", _record(232449))]
     findings, checked = kernels.smem_findings(
-        "paged_attention", [(admitted, over), (rejected, over)],
+        "flash_attention", [(admitted, over), (rejected, over)],
         "fixture.py", 3)
     assert checked == 2
-    assert len(findings) == 1 and "'page_size': 64" in findings[0].message
+    assert len(findings) == 1 and "'kv_block': 32" in findings[0].message
+    monkeypatch.undo()
+    findings, _ = kernels.smem_findings(
+        "flash_attention", [(admitted, over), (rejected, over)],
+        "fixture.py", 3)
+    assert len(findings) == 2  # the default budget admits both
     # a family the geometry does not model: no gate, so it always fires
     findings, _ = kernels.smem_findings("<fixture>", [({}, over)],
                                         "fixture.py", 3)

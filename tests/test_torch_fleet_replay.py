@@ -35,6 +35,11 @@ from repro_torch.envs.serving_env import ServingEnv
 from repro_torch.models.interop import params_from_jax
 from repro_torch.serving.replay import replay_trace
 from repro_torch.workloads import FleetPlan, ServingPlan
+from torch_reference_geometry import reference_geometry  # noqa: F401
+
+# every test drives the module's parity pair, whose simulators cache the
+# prices they take: all of them price through the reference's geometry
+pytestmark = pytest.mark.usefixtures("reference_geometry")
 
 torch.set_num_threads(1)
 

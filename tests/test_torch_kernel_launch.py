@@ -36,6 +36,7 @@ from repro_torch.envs.measure import (AnalyticBackend, FakeClock,
 from repro_torch.kernels import dispatch
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
+from torch_reference_geometry import reference_geometry  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -147,6 +148,7 @@ def test_router_exports_the_span_and_counters_the_reference_does():
 # WallClockBackend against the reference's
 # --------------------------------------------------------------------------
 
+@pytest.mark.usefixtures("reference_geometry")
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_wallclock_counters_and_y_match_the_reference(name):
     config = CONFIGS[name]
@@ -184,6 +186,7 @@ def test_wallclock_default_inputs_take_the_model_paths_dtypes():
     assert {a.dtype for a in b.inputs("rmsnorm")} == {bf}
 
 
+@pytest.mark.usefixtures("reference_geometry")
 def test_wallclock_infeasible_short_circuits_without_a_clock_tick():
     clk = FakeClock([1e-3])
     tight = dataclasses.replace(TINY, vmem_limit=1)
@@ -268,6 +271,7 @@ def test_wallclock_runs_on_the_card_by_default():
 # KernelLaunchEnv
 # --------------------------------------------------------------------------
 
+@pytest.mark.usefixtures("reference_geometry")
 def test_env_delegates_to_the_analytic_backend_as_the_reference():
     env = KernelLaunchEnv(TINY, seed=3)
     assert env.families == sorted(

@@ -42,6 +42,7 @@ from repro_torch.serving.scheduler import ContinuousBatcher
 from repro_torch.tuner.runner import transfer_tune
 from repro_torch.workloads import (SIM_COUNTER_NAMES, RequestSpec,
                                    ServingPlan, Trace, make_workload)
+from torch_reference_geometry import reference_geometry  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -107,6 +108,7 @@ def test_replay_is_the_reference_schedule_and_tokens(weights, plan, paged):
     assert out.p99_latency_ms >= out.p50_latency_ms > 0
 
 
+@pytest.mark.usefixtures("reference_geometry")
 def test_env_replay_counters_match_the_reference_env(weights):
     _, tgt = jmake_sim2real_pair(SPEC, seed=0, trace_seed=0, repeats=1)
     env = _env(weights)

@@ -38,6 +38,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.launch.tune import measure_backend_arg, tune_launch_config
 from repro_torch.tuner import bench
 from repro_torch.tuner.runner import tune_kernel_launch
+from torch_reference_geometry import reference_geometry  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -95,6 +96,7 @@ def _same_runs(ref_doc, doc, best_config=False):
 # tune_kernel_launch and the kernel-launch sweep
 # --------------------------------------------------------------------------
 
+@pytest.mark.usefixtures("reference_geometry")
 @pytest.mark.parametrize("query_batch", [1, 2])
 def test_tune_kernel_launch_makes_the_reference_proposals(monkeypatch,
                                                           query_batch):
@@ -127,6 +129,7 @@ def test_tune_kernel_launch_makes_the_reference_proposals(monkeypatch,
         [r["size"] for r in jres.rounds]
 
 
+@pytest.mark.usefixtures("reference_geometry")
 def test_transfer_bench_matches_the_reference_on_the_paged_space():
     kw = dict(shifts=("hardware", "feasibility", "noise"),
               methods=("cameo", "random"), budget=5, n_source=24,
@@ -143,6 +146,7 @@ def test_transfer_bench_matches_the_reference_on_the_paged_space():
                   "reference_mean_final_regret"))
 
 
+@pytest.mark.usefixtures("reference_geometry")
 def test_transfer_bench_matches_the_reference_on_one_space(
         reference_domains):
     fams = ("flash_attention", "mamba_scan", "rmsnorm", "ssd")
@@ -174,6 +178,7 @@ def test_shifted_pair_and_cells():
 # the serving and fleet sweeps
 # --------------------------------------------------------------------------
 
+@pytest.mark.usefixtures("reference_geometry")
 def test_serving_bench_matches_the_reference(reference_domains):
     kw = dict(methods=("cameo", "random"), budget=4, n_source=24,
               n_target_init=2, seeds=(0,), pool=16)
@@ -188,6 +193,7 @@ def test_serving_bench_matches_the_reference(reference_domains):
     _same_runs(jdoc, doc, best_config=True)
 
 
+@pytest.mark.usefixtures("reference_geometry")
 def test_fleet_bench_matches_the_reference(reference_domains):
     kw = dict(shifts=("straggler",), methods=("cameo", "random"), budget=4,
               n_source=24, n_target_init=2, seeds=(0,), pool=16)

@@ -43,6 +43,7 @@ from repro_torch.envs.measure import HardwareSpec, KernelWorkload
 from repro_torch.envs.serving_env import make_serving_pair
 from repro_torch.tuner.runner import tune_kernel_launch, transfer_tune
 from repro_torch.workloads import serving_space
+from torch_reference_geometry import reference_geometry  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -163,6 +164,7 @@ def _cameo_run(pkg_cameo, pkg_query, src, tgt, budget=8, seed=0):
     return cam
 
 
+@pytest.mark.usefixtures("reference_geometry")
 def test_seeded_cameo_makes_the_reference_proposals_round_for_round():
     (jsrc, jtgt), (src, tgt) = _pairs(seed=0)
     assert src.space.names == jsrc.space.names
@@ -180,6 +182,7 @@ def test_seeded_cameo_makes_the_reference_proposals_round_for_round():
     assert len({y for y in cam.d_t.ys if np.isfinite(y)}) > 5
 
 
+@pytest.mark.usefixtures("reference_geometry")
 def test_random_search_baseline_matches_the_reference():
     (jsrc, jtgt), (src, tgt) = _pairs(seed=1)
     kw = dict(budget=6, n_source=16, n_target_init=2, seed=1)

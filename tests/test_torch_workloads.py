@@ -29,6 +29,7 @@ from repro_torch.workloads import (FLEET_COUNTER_NAMES, SIM_COUNTER_NAMES,
                                    ServingPlan, ServingSimulator,
                                    make_workload, serving_space,
                                    workload_kinds)
+from torch_reference_geometry import reference_geometry  # noqa: F401
 
 GENERATED_KINDS = ("poisson", "bursty", "diurnal", "heavy_tail")
 SPECS = ("poisson:rate=3000,horizon=0.02",
@@ -108,6 +109,7 @@ def _sampled_configs(families, n, seed):
         np.random.default_rng(seed), n)
 
 
+@pytest.mark.usefixtures("reference_geometry")
 @pytest.mark.parametrize("spec", SPECS)
 @pytest.mark.parametrize("families", SHARED_FAMILIES)
 def test_simulator_counters_are_the_reference_bit_for_bit(spec, families):
@@ -126,6 +128,7 @@ def test_simulator_counters_are_the_reference_bit_for_bit(spec, families):
     assert feasible >= 3
 
 
+@pytest.mark.usefixtures("reference_geometry")
 @pytest.mark.parametrize("families", SHARED_FAMILIES)
 def test_fleet_simulator_is_the_reference_bit_for_bit(families):
     (jc, jh), (pc, ph) = _cells()

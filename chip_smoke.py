@@ -5390,6 +5390,10 @@ SM_HZ = 1.98e9  # H100 SXM boost clock, for the spin kernel's length
 DRYRUN_CELLS = (("decode_32k", "16x1"), ("prefill_32k", "16x1"),
                 ("train_4k", "128x1"))
 DRYRUN_PLAN = "tp=1,fsdp=1"
+#: the train cell's ``remat`` policies: the plan's ``"dots"`` first (its
+#: summary keeps the cell's name), then the others under ``train_4k
+#: remat=<policy>``
+DRYRUN_REMAT = ("dots", "none", "full")
 
 
 def _rank_inputs(torch, dev, run, model):
@@ -5493,6 +5497,47 @@ def _scope_call_ns(calls=200000, rounds=5):
     return best
 
 
+def _hold_remat(torch, np, summary, policies):
+    """Phase 4k's train cell under each ``remat`` policy: the allocated
+    peaks ordered none > dots > full, and every step's metrics and the
+    parameters after the four steps equal across the policies, bit for
+    bit where the card gives it, else within ``STEP_TOL`` (losses and
+    grad norms; the parameters' largest difference recorded)."""
+    shape = next(s for s, _ in DRYRUN_CELLS if s.startswith("train"))
+    key = {r: shape if r == DRYRUN_REMAT[0] else f"{shape} remat={r}"
+           for r in DRYRUN_REMAT}
+    peak = {r: summary[key[r]]["max_allocated"] for r in DRYRUN_REMAT}
+    check(peak["none"] > peak["dots"] > peak["full"],
+          f"4k: allocated peaks not ordered none > dots > full: {peak}")
+    base_metrics, base_params = policies["none"]
+    out = {"allocated_peak_bytes": peak, "bit_for_bit": {}}
+    for r in DRYRUN_REMAT:
+        if r == "none":
+            continue
+        metrics, params = policies[r]
+        same = metrics == base_metrics and all(
+            torch.equal(a, b) for a, b in zip(params, base_params))
+        diff = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(params, base_params))
+        out["bit_for_bit"][r] = same
+        out[f"param_max_abs_diff_{r}"] = diff
+        if not same:
+            for got, want in zip(metrics, base_metrics):
+                check(abs(got["loss"] - want["loss"])
+                      <= STEP_TOL["loss_rtol"] * abs(want["loss"]),
+                      f"4k remat={r}: loss {got['loss']} vs {want['loss']}")
+                check(abs(got["grad_norm"] - want["grad_norm"])
+                      <= STEP_TOL["grad_norm_rtol"] * abs(want["grad_norm"]),
+                      f"4k remat={r}: grad norm {got['grad_norm']} vs "
+                      f"{want['grad_norm']}")
+    log(f"[{CARD}] 4k {ARCH} {shape} remat: allocated peaks "
+        f"{ {r: round(n / 2**30, 2) for r, n in peak.items()} } GiB; "
+        f"losses, metrics and parameters against none: bit for bit "
+        f"{out['bit_for_bit']}, parameters' max |diff| "
+        f"{ {r: out[f'param_max_abs_diff_{r}'] for r in out['bit_for_bit']} }")
+    return out
+
+
 def phase_dryrun(torch, np, dev):
     """4k. ``dryrun_cell`` on three llama3.2-1b cells (``DRYRUN_CELLS``)
     under the plan the port executes, then one data rank's real step on
@@ -5501,12 +5546,15 @@ def phase_dryrun(torch, np, dev):
     backwards; (b) its argument bytes equal the real arguments' exactly;
     (c) its peak beside ``max_memory_allocated`` over the step; (d) the
     step's device time (CUDA events) against the roofline bound at the
-    H100's constants.  Then one ``CompiledPerfEnv`` intervention, timed.
+    H100's constants.  The train cell runs under each ``remat`` policy
+    (``DRYRUN_REMAT``: the recompute's launches among the scopes), held by
+    :func:`_hold_remat`.  Then one ``CompiledPerfEnv`` intervention, timed.
     Returns (summary, launches)."""
     import tempfile
 
     from repro_torch.kernels import cuda_lib, ops
     from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import tensors
     from repro_torch.launch.roofline import roofline_from_record
     from repro_torch.models.model import build_model
     from repro_torch.tuner.compiled_env import CompiledPerfEnv
@@ -5515,17 +5563,23 @@ def phase_dryrun(torch, np, dev):
     torch.cuda.empty_cache()
     cuda_lib.reset_launches()
     summary = {}
-    for shape, mesh_kv in DRYRUN_CELLS:
+    policies = {}  # remat -> (metrics of each call, parameters after)
+    cells = [(shape, mesh_kv, remat) for shape, mesh_kv in DRYRUN_CELLS
+             for remat in (DRYRUN_REMAT if shape.startswith("train")
+                           else (None,))]
+    for shape, mesh_kv, remat in cells:
+        plan = DRYRUN_PLAN + (f",remat={remat}" if remat else "")
+        key = (shape if remat in (None, DRYRUN_REMAT[0])
+               else f"{shape} remat={remat}")
         t0 = time.perf_counter()
-        rec = dryrun.dryrun_cell(ARCH, shape, par_kv=DRYRUN_PLAN,
+        rec = dryrun.dryrun_cell(ARCH, shape, par_kv=plan,
                                  mesh_kv=mesh_kv, save=False)
         dry_s = time.perf_counter() - t0
         check(all(c.split()[2] == "data"
                   for c in rec["collective_schedule_head"]),
               f"{shape}: collectives off the data axis on a data-only "
               f"mesh: {rec['collective_schedule_head']}")
-        run = dryrun.cell_run(ARCH, shape, par_kv=DRYRUN_PLAN,
-                              mesh_kv=mesh_kv)
+        run = dryrun.cell_run(ARCH, shape, par_kv=plan, mesh_kv=mesh_kv)
         dsize = run.mesh.shape[0]
         b = run.shape.global_batch
         rank_run = run.replace(shape=dataclasses.replace(
@@ -5533,7 +5587,11 @@ def phase_dryrun(torch, np, dev):
         model = build_model(rank_run.model, rank_run.parallel, device=dev)
         step, args = _rank_inputs(torch, dev, rank_run, model)
         real_args = _tensor_bytes(args)
-        step(*args)  # warm-up
+        # a train step's metrics of each call (a serve step's logits would
+        # keep the prompt's whole logits alive)
+        outs = []
+        keep = outs.append if remat is not None else (lambda m: None)
+        keep(step(*args)[1])  # warm-up
         torch.cuda.synchronize()
         before = dict(cuda_lib.LAUNCHES)
         ops.reset_recomputes()
@@ -5541,7 +5599,7 @@ def phase_dryrun(torch, np, dev):
         start, end = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
         start.record()
-        step(*args)
+        keep(step(*args)[1])
         end.record()
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
@@ -5552,11 +5610,16 @@ def phase_dryrun(torch, np, dev):
         times = [start.elapsed_time(end)]
         for _ in range(2):
             start.record()
-            step(*args)
+            keep(step(*args)[1])
             end.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
         step_ms = float(np.median(times))
+        if remat is not None:
+            policies[remat] = (
+                [{k: float(v) for k, v in m.items()} for m in outs],
+                [p.detach().cpu() for p in tensors(args[0].params)])
+        del outs
         scopes = rec["kernel_scopes"]
         fwd = {k: v for k, v in scopes.items() if not k.endswith("_bwd")}
         bwd = {k: v for k, v in scopes.items() if k.endswith("_bwd")}
@@ -5573,8 +5636,8 @@ def phase_dryrun(torch, np, dev):
         row = roofline_from_record(rec)
         bound_ms = max(row.compute_s, row.memory_s) * 1e3
         predicted_peak = rec["memory_analysis"]["peak_bytes"]
-        summary[shape] = {
-            "mesh": mesh_kv, "rank_batch": rank_run.shape.global_batch,
+        summary[key] = {
+            "mesh": mesh_kv, "remat": remat, "rank_batch": rank_run.shape.global_batch,
             "seq": run.shape.seq_len, "dryrun_s": dry_s,
             "kernel_scopes": scopes, "launches": launched,
             "recomputes": recomputed, "argument_bytes": real_args,
@@ -5590,23 +5653,23 @@ def phase_dryrun(torch, np, dev):
             "bytes_per_chip": rec["hlo_analysis"]["bytes_per_chip"],
             "matmul_flops": rec["matmul_flops"]}
         rows = rank_run.shape.global_batch
-        log(f"[{CARD}] 4k {ARCH} {shape} ({mesh_kv}, rank {rows} x "
+        log(f"[{CARD}] 4k {ARCH} {key} ({mesh_kv}, rank {rows} x "
             f"{run.shape.seq_len}): dry run {dry_s:.2f} s; "
             f"scopes {scopes} = launches {launched} + recomputes "
             f"{recomputed}; argument bytes {real_args} predicted exactly; "
             f"peak predicted {predicted_peak / 2**30:.2f} GiB vs allocated "
             f"{peak / 2**30:.2f} GiB (ratio {predicted_peak / peak:.3f}); "
             f"step {step_ms:.3f} ms vs roofline {bound_ms:.3f} ms "
-            f"({summary[shape]['bound_by']}-bound, ratio "
+            f"({summary[key]['bound_by']}-bound, ratio "
             f"{step_ms / bound_ms:.2f})")
         if rank_run.shape.kind == "decode":
             host = _scope_host_cost(torch, np, step, args)
-            summary[shape]["scope_host_p50_ms"] = host
+            summary[key]["scope_host_p50_ms"] = host
             call = _scope_call_ns()
             added_us = (call["scoped"] - call["direct"]) * sum(
                 scopes.values()) / 1e3
-            summary[shape]["scope_call_ns"] = call
-            summary[shape]["scope_us_a_step"] = added_us
+            summary[key]["scope_call_ns"] = call
+            summary[key]["scope_us_a_step"] = added_us
             log(f"[{CARD}] 4k eager decode step host p50 with the kernel "
                 f"scopes {host['scoped']:.3f} ms, bare {host['bare']:.3f} "
                 f"ms; the rounds' p50s {host['rounds_p50']}; a scope call "
@@ -5615,6 +5678,7 @@ def phase_dryrun(torch, np, dev):
                 f"step's {sum(scopes.values())} scopes")
         del step, args, model
         torch.cuda.empty_cache()
+    summary["remat"] = _hold_remat(torch, np, summary, policies)
     with tempfile.TemporaryDirectory() as cache:
         env = CompiledPerfEnv(ARCH, "decode_32k", cache_dir=cache)
         t0 = time.perf_counter()

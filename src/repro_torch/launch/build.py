@@ -240,18 +240,21 @@ def _rank_step(run: RunConfig, bundle: StepBundle, mesh: MeshSpec,
 
 
 def lower_step(run: RunConfig, mesh: MeshSpec, *,
-               stub_dtype: Optional[torch.dtype] = None):
+               stub_dtype: Optional[torch.dtype] = None,
+               peak_tensors: int = 0):
     """The step of ``run`` on ``mesh``, rank 0's program traced once on
     ``meta`` tensors: ``(bundle, traced)`` (see the module docstring).
     ``stub_dtype``: the dtype of the vlm / audio stub inputs
     (``vision_embeds`` / ``frames``) the train or prefill step receives,
     where it is not the input specs' (the model's, as the reference's);
-    the train CLI's data gives fp32 ones (``data.pipeline``)."""
+    the train CLI's data gives fp32 ones (``data.pipeline``).
+    ``peak_tensors``: how many of the largest groups of storages live at
+    the peak the counter keeps (``traced.counter.peak_live``)."""
     bundle = _with_stubs(build_step(run, mesh), stub_dtype)
     traced = MeshSpec.traced(tuple(mesh.shape[a] for a in mesh.axis_names),
                              mesh.axis_names, rank=0)
     fn, args = _rank_step(run, bundle, mesh, traced)
-    counter = hlo_analysis.OpCounter()
+    counter = hlo_analysis.OpCounter(peak_tensors)
     arg_bytes = _nbytes(args)
     alias_bytes = sum(_nbytes(args[i]) for i in bundle.donate_argnums)
     out = hlo_analysis.trace(fn, args, train=bundle.kind == "train",

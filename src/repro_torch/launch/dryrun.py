@@ -79,16 +79,20 @@ def cell_run(arch: str, shape: str, *, multi_pod: bool = False,
 
 def dryrun_cell(arch: str, shape: str, *, multi_pod: bool = False,
                 par_kv: Optional[str] = None, save: bool = True,
-                tag: str = "", mesh_kv: Optional[str] = None) -> Dict:
+                tag: str = "", mesh_kv: Optional[str] = None,
+                peak_tensors: int = 0) -> Dict:
     """Trace one cell (:func:`cell_run`) and return its record, written as
-    JSON under :data:`ARTIFACT_DIR` when ``save``."""
+    JSON under :data:`ARTIFACT_DIR` when ``save``; with ``peak_tensors``
+    the record's ``peak_tensors`` lists that many of the largest groups of
+    storages live at the peak, by the op, dtype, shape and pass that made
+    them (bytes, count, what), printed too."""
     t0 = time.perf_counter()  # repro: ignore[wall-clock] -- the record's trace time
     run = cell_run(arch, shape, multi_pod=multi_pod, par_kv=par_kv,
                    mesh_kv=mesh_kv)
     mesh = MeshSpec.of(run.mesh.shape, run.mesh.axes)
     chips = run.mesh.num_devices
 
-    bundle, traced = lower_step(run, mesh)
+    bundle, traced = lower_step(run, mesh, peak_tensors=peak_tensors)
     t_lower = time.perf_counter() - t0  # repro: ignore[wall-clock] -- the record's trace time
 
     mem = traced.memory_analysis()
@@ -134,6 +138,11 @@ def dryrun_cell(arch: str, shape: str, *, multi_pod: bool = False,
           f"coll/chip={costs.total_collective_bytes:.3e}  "
           f"args+temp={mem.peak_memory_in_bytes / 2**30:.2f}GiB "
           f"(trace {t_lower:.1f}s)")
+    if peak_tensors:
+        rec["peak_tensors"] = traced.counter.peak_live
+        for n, count, what in traced.counter.peak_live:
+            print(f"[dryrun]   live at the peak: {n / 2**30:.2f} GiB in "
+                  f"{count}  {what}")
     if save:
         os.makedirs(ARTIFACT_DIR, exist_ok=True)
         name = f"{arch}__{shape}__{'multipod' if multi_pod else 'pod'}"
@@ -155,6 +164,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", help="logical re-mesh of the same chips, "
                                    "e.g. 64x4 (data x model)")
     ap.add_argument("--tag", default="", help="artifact suffix for perf iters")
+    ap.add_argument("--peak-tensors", type=int, default=0, metavar="N",
+                    help="list the N largest storages live at the peak")
     args = ap.parse_args(argv)
 
     failures = []
@@ -164,7 +175,8 @@ def main(argv=None) -> int:
                 try:
                     dryrun_cell(arch, shape, multi_pod=args.multi_pod,
                                 par_kv=args.parallel, tag=args.tag,
-                                mesh_kv=args.mesh)
+                                mesh_kv=args.mesh,
+                                peak_tensors=args.peak_tensors)
                 except (ValueError, KeyError, TypeError, RuntimeError,
                         NotImplementedError) as e:
                     # a cell the rules or the trace refuse: recorded and
@@ -181,7 +193,8 @@ def main(argv=None) -> int:
     if not args.arch or not args.shape:
         ap.error("--arch and --shape required (or --all)")
     dryrun_cell(args.arch, args.shape, multi_pod=args.multi_pod,
-                par_kv=args.parallel, tag=args.tag, mesh_kv=args.mesh)
+                par_kv=args.parallel, tag=args.tag, mesh_kv=args.mesh,
+                peak_tensors=args.peak_tensors)
     return 0
 
 

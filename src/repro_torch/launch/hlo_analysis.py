@@ -142,10 +142,16 @@ class Collective(NamedTuple):
 class OpCounter(TorchDispatchMode):
     """Counts one traced call's ops (see the module docstring).  Use as a
     context manager around the call; it listens to the kernel scopes for
-    as long as it is entered."""
+    as long as it is entered.  With ``peak_tensors`` > 0 it also keeps,
+    of the storages live at the peak, the that many largest groups made
+    by one kind of op (:attr:`peak_live`: bytes, count and ``"op dtype
+    shape fwd|bwd"``)."""
 
-    def __init__(self):
+    def __init__(self, peak_tensors: int = 0):
         super().__init__()
+        self.peak_tensors = peak_tensors
+        self.peak_live: List[Tuple[int, int, str]] = []
+        self._what: Dict[int, str] = {}  # id(storage) -> its maker
         self.flops = 0.0
         self.bytes_accessed = 0.0
         self.matmul_flops = 0.0
@@ -205,7 +211,7 @@ class OpCounter(TorchDispatchMode):
             self._scopes.pop()
         results = tensors(out)
         if not name.endswith("_bwd"):
-            self._track(results)
+            self._track(results, f"scope:{name}")
         if outer:
             boundary = (sum(map(_nbytes, inputs))
                         + sum(map(_nbytes, results)))
@@ -233,7 +239,7 @@ class OpCounter(TorchDispatchMode):
         self.bytes_accessed += nbytes
         self._tally(name, flops, nbytes)
         if not (self._scopes and self._scopes[-1]):
-            self._track(outs)
+            self._track(outs, name)
         return out
 
     # -- rules ----------------------------------------------------------------
@@ -267,7 +273,7 @@ class OpCounter(TorchDispatchMode):
         rec[1] += flops
         rec[2] += nbytes
 
-    def _track(self, outs) -> None:
+    def _track(self, outs, op: str) -> None:
         for t in outs:
             st = t.untyped_storage()
             key = id(st)
@@ -277,10 +283,27 @@ class OpCounter(TorchDispatchMode):
             self._known[key] = size
             self.live_bytes += size
             weakref.finalize(st, self._free, key)
-        self.peak_live_bytes = max(self.peak_live_bytes, self.live_bytes)
+            if self.peak_tensors:
+                phase = ("bwd" if torch._C._current_autograd_node() is not None
+                         else "fwd")
+                self._what[key] = (f"{op} {str(t.dtype)[6:]} "
+                                   f"{tuple(t.shape)} {phase}")
+        if self.live_bytes > self.peak_live_bytes:
+            self.peak_live_bytes = self.live_bytes
+            if self.peak_tensors:
+                groups: Dict[str, List[int]] = {}
+                for k, n in self._known.items():
+                    if n:
+                        g = groups.setdefault(self._what[k], [0, 0])
+                        g[0] += n
+                        g[1] += 1
+                self.peak_live = sorted(
+                    ((n, c, what) for what, (n, c) in groups.items()),
+                    reverse=True)[:self.peak_tensors]
 
     def _free(self, key: int) -> None:
         self.live_bytes -= self._known.pop(key, 0) or 0
+        self._what.pop(key, None)
 
     # -- results --------------------------------------------------------------
 

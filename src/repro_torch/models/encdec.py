@@ -15,10 +15,11 @@ reference scans; the decode state is one
 :class:`~repro_torch.models.attention.KVCache` whose leaves are stacked
 over the decoder layers.  A forward with a cache writes the KV rows in
 place and the new lengths into the stacked storage, as
-:mod:`repro_torch.models.transformer` does.  The reference's ``remat`` is
-dropped: the kernels' recompute backward (:mod:`repro_torch.kernels.ops`)
-already keeps only their inputs, and the train step runs with
-``remat="none"``.
+:mod:`repro_torch.models.transformer` does.  As the reference's
+``_maybe_remat`` wraps its scanned bodies, each encoder layer, and each
+decoder layer of a forward without a cache, runs under
+``ParallelConfig.remat`` when gradients are taken
+(:func:`repro_torch.models.transformer.remat`).
 
 In a sharded train step both stacks take the layout's scopes
 (``layout``): ``frame_proj`` is split by columns and its product
@@ -46,7 +47,8 @@ from repro_torch.models.layers import (
     apply_mlp, apply_rmsnorm, apply_rope, dense_init, embed_tokens,
     init_embed, init_mlp, init_rmsnorm, lm_logits, mm,
 )
-from repro_torch.models.transformer import _layer, _restack, _unstack
+from repro_torch.models.transformer import (_layer, _restack, _unstack,
+                                           remat)
 from repro_torch.sharding import collectives
 from repro_torch.sharding.layout import Scope
 from repro_torch.utils.config import ModelConfig, ParallelConfig
@@ -115,7 +117,8 @@ def encode(params: Dict, cfg: ModelConfig, par: ParallelConfig,
     # the train step gathers the stacks' FSDP blocks whole before this
     sc = Scope(layout, "enc_blocks/", scanned=True)
     plan = attn.head_split(sc["attn"], cfg.num_heads, cfg.num_kv_heads, hd)
-    for p in _unstack(params["enc_blocks"], _encoder_layers(cfg)):
+
+    def layer(h, p):
         hn = sc["attn"].gather_in(
             apply_rmsnorm(p["attn_norm"], h, cfg.norm_eps), plan.split)
         q, k, v = attn.project_heads(p["attn"], hn, hn, plan, sc["attn"], hd)
@@ -127,7 +130,11 @@ def encode(params: Dict, cfg: ModelConfig, par: ParallelConfig,
         h = h + sc["attn"].leave_out(attn.attend_out(o, p["attn"], plan),
                                      plan.split)
         hm = apply_rmsnorm(p["mlp_norm"], h, cfg.norm_eps)
-        h = h + apply_mlp(p["mlp"], hm, cfg.mlp_type, sc["mlp"])
+        return h + apply_mlp(p["mlp"], hm, cfg.mlp_type, sc["mlp"])
+
+    body = remat(layer, par)
+    for p in _unstack(params["enc_blocks"], _encoder_layers(cfg)):
+        h = body(h, p)
     return apply_rmsnorm(params["enc_norm"], h, cfg.norm_eps)
 
 
@@ -160,9 +167,8 @@ def decode_forward(
         # partial input gradients are summed once
         enc_out = top.enter(enc_out)
     use_cache = decode_state is not None
-    caches = []
-    for i, p in enumerate(_unstack(params["dec_blocks"], cfg.num_layers)):
-        cache = _layer(decode_state, i) if use_cache else None
+
+    def layer(h, p, cache):
         hn = apply_rmsnorm(p["attn_norm"], h, cfg.norm_eps)
         y, kv = attn.apply_gqa(p["attn"], cfg, par, hn, positions,
                                cache=cache, decode=decode, sc=sc["attn"])
@@ -171,7 +177,12 @@ def decode_forward(
         h = h + attn.apply_cross_attn(p["cross"], cfg, par, hc, enc_out,
                                       sc["cross"])
         hm = apply_rmsnorm(p["mlp_norm"], h, cfg.norm_eps)
-        h = h + apply_mlp(p["mlp"], hm, cfg.mlp_type, sc["mlp"])
+        return h + apply_mlp(p["mlp"], hm, cfg.mlp_type, sc["mlp"]), kv
+
+    body = remat(layer, par, not use_cache)
+    caches = []
+    for i, p in enumerate(_unstack(params["dec_blocks"], cfg.num_layers)):
+        h, kv = body(h, p, _layer(decode_state, i) if use_cache else None)
         caches.append(kv)
     new_state = _restack(decode_state, caches) if use_cache else None
     h = apply_rmsnorm(params["final_norm"], h, cfg.norm_eps)

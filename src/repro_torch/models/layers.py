@@ -18,7 +18,8 @@ column-split product takes its input through ``sc.gather_in`` (the
 input gradient's partial sums all-reduced, or reduce-scattered from the
 whole sequence under sequence parallelism), a row-split one gives partial
 sums that ``sc.leave_out`` all-reduces (reduce-scatters to the rank's
-sequence block); the embedding and the head split the vocab.
+sequence block); the embedding and the head split the vocab, and the
+head's logits stay the rank's vocab block.
 """
 
 from __future__ import annotations
@@ -184,23 +185,29 @@ def embed_tokens(p: Dict, tokens: torch.Tensor, d_model: int,
     return sc.leave_out(torch.where(inside, e, torch.zeros_like(e)))
 
 
+def vocab_axis(p: Dict, sc: Scope = LOCAL):
+    """The model axis when the head splits the vocab over it (each rank's
+    logits are its block of ``V / m`` columns, in rank order), else
+    None."""
+    split = (sc.model_dim("lm_head") == 1 if "lm_head" in p
+             else sc.model_dim("embedding") == 0)
+    return sc.model if split else None
+
+
 def lm_logits(p: Dict, h: torch.Tensor, sc: Scope = LOCAL,
               last: bool = False) -> torch.Tensor:
     """Logits of the stream ``h`` over the whole sequence (gathered first
-    under the sequence split); with the vocab split over the model axis,
-    the rank's vocab block all-gathered (its gradient sliced back: every
-    model rank computes the loss of the whole logits).  With ``last`` the
-    last position's ``(B, V)``: the product over every position, as the
-    reference's prefill computes it, then its last row, before the
-    vocab gather."""
-    if "lm_head" in p:
-        w, split = p["lm_head"], sc.model_dim("lm_head") == 1
-    else:
-        w, split = p["embedding"].T, sc.model_dim("embedding") == 0
-    h = sc.gather_in(h, split)
+    under the sequence split).  With the vocab split over the model axis
+    (:func:`vocab_axis`) they are the rank's vocab block: the loss runs
+    on the blocks (:func:`repro_torch.train.grad.cross_entropy_loss`),
+    and ``h`` enters the split, so its gradient sums over the model
+    ranks.  With ``last`` the last position's ``(B, V)``: the product over
+    every position, as the reference's prefill computes it, then its last
+    row, all-gathered over the vocab blocks."""
+    w = p["lm_head"] if "lm_head" in p else p["embedding"].T
+    axis = vocab_axis(p, sc)
+    h = sc.gather_in(h, axis is not None)
     logits = h @ w
-    if last:
-        logits = logits[:, -1]
-    if not split:
+    if not last:
         return logits
-    return collectives.gather(logits, sc.model, -1, backward="slice")
+    return collectives.gather(logits[:, -1], axis, -1, backward="slice")

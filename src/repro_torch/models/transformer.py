@@ -16,9 +16,14 @@ cache is a view into the stacked tensors, updated in place (see
 super-block, so its gradients add up over them.  In a sharded train
 step the forward executes the reference's activation sharding constraint
 (:func:`~repro_torch.sharding.specs.activation_sharding`: under ``sp``
-the stream between sublayers is the rank's sequence block); the
-reference's ``remat`` policies are dropped (the train CLI's
-``ParallelConfig()`` has ``remat="none"``).
+the stream between sublayers is the rank's sequence block).  As the
+reference checkpoints its scanned layer body, a forward that takes
+gradients without a cache runs each super-block under
+``ParallelConfig.remat`` (:func:`remat`): ``"full"`` keeps only the
+super-block's input for the backward, ``"dots"`` also the outputs of its
+products without batch dims; the rest, the attention and the kernels
+among it, is recomputed in the backward, with the layer slice's FSDP
+gather.
 
 Decode state follows the reference's trees: a KV cache for a dense,
 cross or moe layer (an :class:`~repro_torch.models.attention.MLACache`
@@ -37,9 +42,13 @@ layers' load-balance losses as its aux (a zero without MoE layers).
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
@@ -334,6 +343,57 @@ def _unstack(tree: Dict, n: int) -> List[Dict]:
     return out
 
 
+def _no_batch_product(func, args) -> bool:
+    """Whether an aten op is a product without batch dims, the outputs
+    jax's ``checkpoint_dots_with_no_batch_dims`` saves: ``mm`` / ``addmm``
+    (``x @ W``, a 3-D ``x`` folded into rows), or a ``bmm`` whose batch is
+    one (``torch.einsum`` of a product without batch dims) or broadcast
+    (``matmul`` of a 3-D input by an expanded 2-D weight).  A batched
+    einsum over a batch of one (a MoE layer's single routing group)
+    reaches the same ``bmm`` and is saved, where the reference
+    recomputes it."""
+    name = func.overloadpacket.__name__
+    if name in ("mm", "addmm"):
+        return True
+    if name == "bmm":
+        a, b = args
+        return a.shape[0] == 1 or a.stride(0) == 0 or b.stride(0) == 0
+    return False
+
+
+def _save_dots(ctx, func, *args, **kwargs) -> CheckpointPolicy:
+    """The ``"dots"`` policy: save the products without batch dims,
+    recompute the rest (attention and the kernels among it)."""
+    if _no_batch_product(func, args):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(body: Callable, par: ParallelConfig, active: bool = True
+          ) -> Callable:
+    """``body`` under the reference's ``remat`` policy (``jax.checkpoint``
+    of a layer body): with ``par.remat`` ``"full"`` the backward keeps
+    only the body's inputs and recomputes the rest, with ``"dots"`` it
+    also keeps the outputs of the products without batch dims
+    (:func:`_save_dots`).  The body itself when ``remat`` is ``"none"``,
+    when not ``active`` (a forward with a cache) or when no gradient is
+    taken.  A recompute runs the body's collectives again (an FSDP layer
+    slice is gathered again) and launches its kernels again."""
+    if par.remat not in ("none", "dots", "full"):
+        raise ValueError(f"unknown remat policy {par.remat!r}")
+    if par.remat == "none" or not active or not torch.is_grad_enabled():
+        return body
+    context = (functools.partial(create_selective_checkpoint_contexts,
+                                 _save_dots)
+               if par.remat == "dots" else noop_context_fn)
+
+    def run(*args):
+        # the bodies draw no random numbers
+        return checkpoint(body, *args, use_reentrant=False,
+                          context_fn=context, preserve_rng_state=False)
+    return run
+
+
 def forward(
     params: Dict,
     cfg: ModelConfig,
@@ -361,7 +421,9 @@ def forward(
     reference constrains them (under ``sp`` the stream is the rank's
     sequence block from the embedding to the final norm, and the hidden
     state ``return_hidden`` gives is that block), and the MoE statistics
-    are averaged over its data ranks."""
+    are averaged over its data ranks.  Without a cache and with gradients
+    each super-block (its FSDP gathers included) runs under
+    :func:`remat`."""
     pat = block_pattern(cfg)
     nsb = num_superblocks(cfg)
     b, s = tokens.shape
@@ -374,26 +436,39 @@ def forward(
         h = activation_sharding(h, par, layout.mesh, s, blocks)
     shared_p = params.get("shared_attn")
     use_cache = decode_state is not None
-    layers = _unstack(params["blocks"], nsb)
-    new_layers: Dict[str, List] = {f"sub{i}": [] for i in range(len(pat))}
-    aux = None
-    for layer in range(nsb):
+
+    def superblock(h, block_p, block_cache):
+        """One super-block: (h, its sublayers' new caches, its aux)."""
+        new_caches, aux = {}, None
         for i, kind in enumerate(pat):
             key = f"sub{i}"
-            cache = _layer(decode_state[key], layer) if use_cache else None
-            sub_p = layers[layer][key]
+            sub_p = block_p[key]
             if layout is not None:
                 sub_p = layout.gather(sub_p, f"blocks/{key}/")
             h, nc, a = _apply_sublayer(
                 sub_p, cfg, par, kind, h, positions, shared_p, vision_embeds,
-                cache, decode, Scope(layout, f"blocks/{key}/", True, top.seq),
+                block_cache[key] if use_cache else None, decode,
+                Scope(layout, f"blocks/{key}/", True, top.seq),
                 top["shared_attn"])
             if layout is not None:
                 h = activation_sharding(h, par, layout.mesh, s, blocks)
-            if use_cache:
-                new_layers[key].append(nc)
+            new_caches[key] = nc
             if a is not None:
                 aux = a if aux is None else aux + a
+        return h, new_caches, aux
+
+    body = remat(superblock, par, not use_cache)
+    new_layers: Dict[str, List] = {f"sub{i}": [] for i in range(len(pat))}
+    aux = None
+    for layer, block_p in enumerate(_unstack(params["blocks"], nsb)):
+        block_cache = ({key: _layer(c, layer) for key, c in
+                        decode_state.items()} if use_cache else None)
+        h, new_caches, a = body(h, block_p, block_cache)
+        if use_cache:
+            for key, nc in new_caches.items():
+                new_layers[key].append(nc)
+        if a is not None:
+            aux = a if aux is None else aux + a
     new_state = ({key: _restack(decode_state[key], caches)
                   for key, caches in new_layers.items()}
                  if use_cache else None)

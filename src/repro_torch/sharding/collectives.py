@@ -15,8 +15,8 @@ copy to the host is made):
   statistics, the MoE router's statistics);
 - :func:`gather` — all-gather forward along a dim; the backward
   reduce-scatters (an FSDP weight: every rank's gradient of the whole
-  weight is a partial sum) or takes the rank's slice (``"slice"``: vocab
-  logits, whose loss every model rank computes whole);
+  weight is a partial sum) or takes the rank's slice (``"slice"``: a
+  product every model rank then uses whole, e.g. the MTP projection);
 - :func:`scatter` — reduce-scatter forward along a dim, all-gather
   backward: the partial sums of a row-parallel product leaving for the
   rank's sequence block under sequence parallelism (Megatron's
@@ -283,6 +283,15 @@ def all_reduce_max(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
     if axis is None or axis.size == 1:
         return x
     return _all_reduce(x.detach(), axis, dist.ReduceOp.MAX)
+
+
+def all_gather_values(x: torch.Tensor, axis: Optional[Axis], dim: int
+                      ) -> torch.Tensor:
+    """Every rank's ``x`` along ``dim``, in the group's rank order (no
+    gradient)."""
+    if axis is None or axis.size == 1:
+        return x
+    return _all_gather(x.detach(), axis, dim % x.ndim)
 
 
 def gather(x: torch.Tensor, axis: Optional[Axis], dim: int,

@@ -11,7 +11,7 @@ from repro_torch.utils.trees import tree_map
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
-                       z_loss: float = 0.0, group=None
+                       z_loss: float = 0.0, group=None, vocab=None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Token-level CE with optional z-loss.  logits (B, S, V), targets
     (B, S); a negative target is masked out.
@@ -22,17 +22,33 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     are summed over the group, the returned loss is this rank's share of
     the global mean (its sum over the global count; the shares add up to
     the loss over the whole batch) and the metrics are the global
-    values."""
+    values.
+
+    With ``vocab`` (the model axis that splits the vocab,
+    :func:`~repro_torch.models.layers.vocab_axis`) ``logits`` are this
+    rank's block of ``V / m`` columns, at offset ``vocab.rank * V / m``,
+    and no rank forms a whole row: the row maximum is all-reduced (no
+    gradient), the block's sum of ``exp(l - max)`` and its gold logit
+    (zero where the target lies in another block) are summed over the
+    axis in one all-reduce whose backward is the identity, so each rank's
+    gradient is its block's; every model rank holds the same loss.  The
+    accuracy all-gathers each row's (max value, index) pair, fp32 and
+    int32, and the first block holding the maximum wins a tie, as
+    ``argmax`` over the whole row does."""
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        targets.clamp(min=0).long()[..., None])[..., 0]
+    if vocab is None or vocab.size == 1:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            targets.clamp(min=0).long()[..., None])[..., 0]
+        pred = logits.argmax(-1)
+    else:
+        lse, gold, pred = _vocab_parallel(logits, targets, vocab)
     nll = lse - gold
     mask = (targets >= 0).to(torch.float32)
     sums = {"ce_loss": (nll * mask).sum(), "count": mask.sum()}
     if z_loss > 0.0:
         sums["z_loss"] = (torch.square(lse) * mask).sum()
-    hit = (logits.argmax(-1) == targets).to(torch.float32)
+    hit = (pred == targets).to(torch.float32)
     sums["accuracy"] = (hit * mask).sum()
     totals = sums
     if group is not None:
@@ -46,6 +62,28 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
         metrics["z_loss"] = z_loss * totals["z_loss"] / denom
     metrics["accuracy"] = totals["accuracy"] / denom
     return loss, metrics
+
+
+def _vocab_parallel(logits: torch.Tensor, targets: torch.Tensor, vocab
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(log-sum-exp, gold logit, argmax) of each row of the whole vocab
+    from this rank's block ``logits`` (:func:`cross_entropy_loss`)."""
+    width = logits.shape[-1]
+    offset = vocab.rank * width
+    top, idx = logits.detach().max(-1)  # the first maximum on a tie
+    m = collectives.all_reduce_max(top, vocab)
+    local = targets.long() - offset
+    inside = (local >= 0) & (local < width)
+    gold = torch.gather(logits, -1, local.clamp(0, width - 1)[..., None])
+    parts = torch.stack([torch.exp(logits - m[..., None]).sum(-1),
+                         torch.where(inside, gold[..., 0],
+                                     torch.zeros_like(gold[..., 0]))])
+    sumexp, gold = collectives.leave(parts, vocab).unbind()
+    pairs = [collectives.all_gather_values(t[..., None], vocab, -1)
+             for t in (top, (idx + offset).to(torch.int32))]
+    best = pairs[0].argmax(-1, keepdim=True)  # the first block on a tie
+    pred = torch.gather(pairs[1], -1, best)[..., 0]
+    return m + torch.log(sumexp), gold, pred
 
 
 def all_reduce_sum(tensors: Dict[str, torch.Tensor], group

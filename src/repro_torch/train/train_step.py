@@ -36,11 +36,16 @@ batch) -> (state, metrics)`` with:
   statistics sum the blocks of each leaf.  Under sequence parallelism
   (``sp``) the leaves applied to the stream's sequence blocks (the norm
   scales, the vlm gate: ``Layout.on_stream``) have their gradients summed
-  over the model axis first, in the same buckets.
+  over the model axis first, in the same buckets.  Under a model split of
+  the vocab the logits stay each rank's vocab block and the loss runs on
+  the blocks (``cross_entropy_loss(..., vocab=)``: the rows' statistics
+  all-reduced, no rank forming a whole row), the MTP loss too;
+- the reference's ``remat`` policies (``ParallelConfig.remat``): the
+  forward runs each layer body under ``torch.utils.checkpoint``
+  (:func:`repro_torch.models.transformer.remat`), so the backward
+  recomputes what the policy does not keep — the same step, with a lower
+  peak and more FLOPs.
 
-The reference's ``remat`` is dropped: the CLI trains with
-``ParallelConfig()`` (``remat="none"``), and the kernels' recompute
-backward (:mod:`repro_torch.kernels.ops`) already keeps only their inputs.
 The optimizer updates parameters and moments in place
 (:mod:`repro_torch.train.optimizer`), so the returned state holds the
 tensors of the state it was given.
@@ -54,7 +59,7 @@ import torch
 
 from repro_torch.kernels import dispatch
 from repro_torch.launch.mesh import MeshSpec
-from repro_torch.models.layers import lm_logits
+from repro_torch.models.layers import lm_logits, vocab_axis
 from repro_torch.models.model import Model, build_model, torch_dtype
 from repro_torch.models.transformer import mtp_logits
 from repro_torch.sharding.layout import Layout, Scope, shard_params
@@ -162,15 +167,16 @@ def make_train_step(model: Model, run: RunConfig, optimizer: Optimizer,
             fkw["vision_embeds"] = batch["vision_embeds"]
         if cfg.family == "audio":
             fkw["frames"] = batch["frames"]
+        head = Scope.top(layout, inputs.shape[1])["embed"]
+        vocab = vocab_axis(params_c["embed"], head)
         if cfg.mtp_depth > 0:
             h, _, aux = model.forward(params_c, inputs, return_hidden=True,
                                       **fkw)
-            logits = lm_logits(params_c["embed"], h,
-                               Scope.top(layout, inputs.shape[1])["embed"])
+            logits = lm_logits(params_c["embed"], h, head)
         else:
             logits, _, aux = model.forward(params_c, inputs, **fkw)
         loss, metrics = cross_entropy_loss(logits, targets, z_loss=tc.z_loss,
-                                           group=group)
+                                           group=group, vocab=vocab)
         if cfg.is_moe:
             # every rank holds the global aux loss: its share is 1/world
             loss = loss + tc.moe_aux_loss * (aux / world if group is not None
@@ -183,7 +189,8 @@ def make_train_step(model: Model, run: RunConfig, optimizer: Optimizer,
             mtp_tgt = torch.cat([targets[:, 1:],
                                  torch.full_like(targets[:, :1], -1)], dim=1)
             mtp_loss, mtp_metrics = cross_entropy_loss(lg2, mtp_tgt,
-                                                       group=group)
+                                                       group=group,
+                                                       vocab=vocab)
             loss = loss + 0.3 * mtp_loss
             metrics["mtp_loss"] = mtp_metrics["ce_loss"]
         metrics["loss"] = (loss if group is None else

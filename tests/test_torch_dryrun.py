@@ -150,10 +150,14 @@ def test_fsdp_and_tp_rules_hand_count():
     rows = run.shape.global_batch // 2 * run.shape.seq_len
     # TP: wo and w_down a layer forward, their inputs' gradients backward,
     # the vocab-split embedding's partial rows and the head input's
-    # gradient: each (rows, D) in the compute dtype (bf16)
+    # gradient: each (rows, D) in the compute dtype (bf16); the
+    # vocab-parallel loss's row maxima and its (sum of exponentials, gold
+    # logit) pairs: (rows,) and (2, rows) in fp32
     tp = _by(traced, "all-reduce", "model")
-    assert len(tp) == 2 * n * 2 + 2
-    assert {c.nbytes for c in tp} == {rows * cfg.d_model * 2}
+    assert len(tp) == 2 * n * 2 + 2 + 2
+    assert sorted(c.nbytes for c in tp) == sorted(
+        [rows * cfg.d_model * 2] * (2 * n * 2 + 2) + [rows * F32,
+                                                      2 * rows * F32])
     # FSDP: the stacked weights split over data (and model) gather their
     # block a layer slice, twice a step (the forward and the backward's
     # regather); the gradient reduce-scatters once

@@ -6,10 +6,13 @@ The cell is compiled without ``compat.set_mesh``: under the installed jax
 the mesh context makes ``with_sharding_constraint`` fail
 (``tests/test_integration_lower.py``'s known failures), and on the
 one-device smoke mesh the constraint changes nothing.  Run as a script
-(``python torch_dryrun_reference.py ARCH:SHAPE ...``, in a process whose
-``XLA_FLAGS`` force at least 2 host devices) it compiles each cell at
-tp=2 on a ``(1, 2)`` ``("data", "model")`` mesh, the SPMD partitioner's
-program of one device, and prints its dot FLOPs by cell as JSON.  The
+(``python torch_dryrun_reference.py [--collectives] CELL ...``, in a
+process whose ``XLA_FLAGS`` force at least 2 host devices) it compiles
+each cell — ``ARCH:SHAPE`` at tp=2 on a ``(1, 2)`` ``("data", "model")``
+mesh, the SPMD partitioner's program of one device, or
+``ARCH:SHAPE:TP:REMAT`` at that tp (1: the one-device mesh) under that
+``remat`` policy — and prints its dot FLOPs by cell as JSON (with
+``--collectives``, ``analyze_hlo``'s collective operand bytes by kind).  The
 dot term is ``repro.launch.hlo_analysis``'s own rule (2 x result
 elements x contracted elements, ``:330-342``), summed over the
 computations its call-graph walk reaches, each scaled by its loop's trip
@@ -24,9 +27,11 @@ from repro.launch.build import build_step
 from repro.launch.mesh import make_mesh
 
 
-def compiled_text(arch: str, shape: str, tp: int = 1) -> str:
+def compiled_text(arch: str, shape: str, tp: int = 1,
+                  remat: str = None) -> str:
     """The compiled smoke cell, on its one-device mesh, or with ``tp`` > 1
-    on a ``(1, tp)`` ``("data", "model")`` mesh at that tp (fsdp 1)."""
+    on a ``(1, tp)`` ``("data", "model")`` mesh at that tp (fsdp 1); with
+    ``remat`` under that policy (the smoke plan's, ``"none"``, else)."""
     from repro.utils.config import MeshConfig
 
     run = make_run(arch, shape, smoke=True)
@@ -34,6 +39,8 @@ def compiled_text(arch: str, shape: str, tp: int = 1) -> str:
         run = run.replace(mesh=MeshConfig(shape=(1, tp),
                                           axes=("data", "model")),
                           parallel=run.parallel.replace(tp=tp, fsdp=1))
+    if remat is not None:
+        run = run.replace(parallel=run.parallel.replace(remat=remat))
     b = build_step(run, make_mesh(run.mesh))
     jitted = jax.jit(b.fn, in_shardings=b.in_shardings,
                      out_shardings=b.out_shardings,
@@ -99,9 +106,19 @@ def reference_costs(arch: str, shape: str):
     return dot_flops(text), H.analyze_hlo(text).flops
 
 
+def _cell_text(cell: str) -> str:
+    arch, shape, *rest = cell.split(":")
+    tp, remat = (int(rest[0]), rest[1]) if rest else (2, None)
+    return compiled_text(arch, shape, tp=tp, remat=remat)
+
+
 if __name__ == "__main__":
     import json
     import sys
 
-    print(json.dumps({cell: dot_flops(compiled_text(*cell.split(":"), tp=2))
-                      for cell in sys.argv[1:]}))
+    cells = [c for c in sys.argv[1:] if c != "--collectives"]
+    if "--collectives" in sys.argv:
+        print(json.dumps({c: H.analyze_hlo(_cell_text(c)).collective_bytes
+                          for c in cells}))
+    else:
+        print(json.dumps({c: dot_flops(_cell_text(c)) for c in cells}))

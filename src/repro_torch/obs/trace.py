@@ -18,7 +18,19 @@ Design constraints, in order:
    dispatch) timestamp from a monotonic epoch captured at tracer start; the
    discrete-event simulator emits spans at *modeled* microseconds on its own
    process track (:data:`TRACK_SIM`), so one trace file holds both the real
-   and the modeled view of a serving run.
+   and the modeled view of a serving run.  A span may take its bounds from
+   readings of the tracer's clock that its caller keeps too (``t0=`` and
+   :meth:`_Span.end`, :meth:`Tracer.between`), so a record and its span
+   share one reading per boundary.
+4. **One clock with the device trace.**  Each live span also opens a
+   ``torch.profiler.record_function`` range named ``serve.<span>`` for as
+   long as it is open, so under a ``torch.profiler`` trace every device
+   event and idle gap sits under the phase the host was in, on the
+   profiler's clock.  Only a live span opens one: with no tracer active
+   nothing is entered (a range would show as a device-side annotation and
+   count as device work in a reader of the profiler's trace).  Spans
+   written after the fact (:meth:`Tracer.complete`, :meth:`Tracer.between`)
+   have none.
 
 Tracks are logical Chrome "processes" (integer pids with name metadata):
 serving wall time, simulator modeled time, tuner rounds, kernel dispatch,
@@ -33,11 +45,13 @@ import time
 from contextlib import contextmanager
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
+from torch.profiler import record_function
+
 #: logical process ids of the exported trace (named via "M" metadata events)
 TRACK_SERVE = 1     # real batcher / replay wall time
 TRACK_SIM = 2       # discrete-event simulator, modeled microseconds
 TRACK_TUNER = 3     # per-round tuner events
-TRACK_KERNEL = 4    # kernel dispatch resolutions / jit cache
+TRACK_KERNEL = 4    # kernel dispatch resolutions / decode-graph captures
 TRACK_ENV = 5       # environment measurements (deploy / warmup / replay)
 
 TRACK_NAMES = {
@@ -63,38 +77,62 @@ class _NullSpan:
     def set(self, **args: Any) -> "_NullSpan":
         return self
 
+    def end(self, t: float) -> float:
+        return t
+
 
 NULL_SPAN = _NullSpan()
 
+#: prefix of the ``record_function`` range each live span opens
+PROFILER_PREFIX = "serve."
+
 
 class _Span:
-    """One live complete-event span; records duration on ``__exit__``."""
+    """One live complete-event span; records duration on ``__exit__``.
+    Its start is the clock read at ``__enter__``, or ``t0`` (a reading of
+    the tracer's clock) where given; its end likewise, or the reading
+    handed to :meth:`end`.  While open it holds a ``record_function``
+    range (module docstring, 4)."""
 
-    __slots__ = ("_tracer", "name", "cat", "track", "args", "_t0")
+    __slots__ = ("_tracer", "name", "cat", "track", "args", "_t0", "_t1",
+                 "_range")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str, track: int,
-                 args: Dict[str, Any]):
+                 args: Dict[str, Any], t0: Optional[float] = None):
         self._tracer = tracer
         self.name = name
         self.cat = cat
         self.track = track
         self.args = args
-        self._t0 = 0.0
+        self._t0 = None if t0 is None else tracer.us_at(t0)
+        self._t1: Optional[float] = None
+        self._range = None
 
     def set(self, **args: Any) -> "_Span":
         """Attach (or overwrite) args on the open span."""
         self.args.update(args)
         return self
 
+    def end(self, t: float) -> float:
+        """End the span at ``t``, a reading of the tracer's clock, when it
+        exits; returns ``t`` (so a caller's record keeps the same
+        reading)."""
+        self._t1 = self._tracer.us_at(t)
+        return t
+
     def __enter__(self) -> "_Span":
-        self._t0 = self._tracer.now_us()
+        if self._t0 is None:
+            self._t0 = self._tracer.now_us()
+        self._range = record_function(PROFILER_PREFIX + self.name)
+        self._range.__enter__()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
+        t1 = self._tracer.now_us() if self._t1 is None else self._t1
+        self._range.__exit__(exc_type, exc, tb)
         if exc_type is not None:
             self.args["error"] = exc_type.__name__
-        self._tracer.complete(self.name, self._t0,
-                              self._tracer.now_us() - self._t0,
+        self._tracer.complete(self.name, self._t0, t1 - self._t0,
                               cat=self.cat, track=self.track, **self.args)
         return False
 
@@ -125,6 +163,11 @@ class Tracer:
         """Microseconds since tracer start (monotonic)."""
         return (self._clock() - self._epoch) * 1e6
 
+    def us_at(self, t: float) -> float:
+        """Microseconds since tracer start of ``t``, a reading of this
+        tracer's clock taken by its caller."""
+        return (t - self._epoch) * 1e6
+
     # -- event sinks ----------------------------------------------------
 
     def _push(self, ev: Dict[str, Any]) -> None:
@@ -143,10 +186,20 @@ class Tracer:
                     "ts": round(ts_us, 3), "dur": round(max(dur_us, 0.0), 3),
                     "pid": track, "tid": tid, "args": args})
 
+    def between(self, name: str, t0: float, t1: float, *,
+                cat: str = "span", track: int = TRACK_SERVE,
+                **args: Any) -> None:
+        """A finished span between two readings of this tracer's clock."""
+        a = self.us_at(t0)
+        self.complete(name, a, self.us_at(t1) - a, cat=cat, track=track,
+                      **args)
+
     def span(self, name: str, *, cat: str = "span",
-             track: int = TRACK_SERVE, **args: Any) -> _Span:
-        """A context-managed wall-clock span."""
-        return _Span(self, name, cat, track, dict(args))
+             track: int = TRACK_SERVE, t0: Optional[float] = None,
+             **args: Any) -> _Span:
+        """A context-managed wall-clock span, from ``t0`` (a reading of
+        this tracer's clock) where given, else from its entry."""
+        return _Span(self, name, cat, track, dict(args), t0)
 
     def instant(self, name: str, *, cat: str = "event",
                 track: int = TRACK_SERVE, tid: int = 0,
@@ -284,11 +337,11 @@ def trace_to(path: Optional[str] = None,
 # -- module-level helpers: no-ops when disabled -----------------------------
 
 def span(name: str, *, cat: str = "span", track: int = TRACK_SERVE,
-         **args: Any):
+         t0: Optional[float] = None, **args: Any):
     t = _ACTIVE
     if t is None:
         return NULL_SPAN
-    return t.span(name, cat=cat, track=track, **args)
+    return t.span(name, cat=cat, track=track, t0=t0, **args)
 
 
 def instant(name: str, **kw: Any) -> None:

@@ -21,6 +21,20 @@ sampled (temperature > 0) rows draw from the batcher's own seeded
 ``torch.Generator`` — the reference's ``jax.random`` stream cannot be
 reproduced.  Step times are taken around a ``torch.cuda.synchronize()``
 where the reference blocks on the result.
+
+Each request's lifecycle is recorded on its :class:`RequestState`, one
+``time.perf_counter()`` reading a boundary, whether or not a tracer is
+on: submitted, dequeued, prefill started, prefill enqueued (every kernel
+of the forward queued), prefill done (after the synchronize), admitted
+(slot scattered, first token on the host), finished.  With a tracer
+active the request's serve spans are built from the same readings:
+``queue`` (submitted -> dequeued), ``chunking`` (dequeued -> prefill
+started, chunked prefill only), ``prefill`` (started -> done) with its
+children ``prefill.enqueue`` and ``prefill.sync``, and ``seat`` (done ->
+admitted); a tick's ``decode_tick`` is followed by ``sample`` (token
+choice and readback).  The spans place the readings on the tracer's
+clock, which is ``time.perf_counter`` for every tracer that
+``obs_trace.start`` / ``trace_to`` installs.
 """
 
 from __future__ import annotations
@@ -28,7 +42,7 @@ from __future__ import annotations
 import time
 import warnings
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,11 +92,20 @@ class Request:
 
 @dataclass
 class RequestState:
+    """A seated request and its lifecycle, as ``time.perf_counter()``
+    readings (module docstring); on the dense path one reading is both
+    ``dequeued_at`` and ``prefill_started_at``, as the request is popped
+    for its prefill."""
     request: Request
     slot: int
     generated: List[int] = field(default_factory=list)
     admitted_at: float = 0.0
     finished_at: Optional[float] = None
+    submitted_at: float = 0.0
+    dequeued_at: float = 0.0
+    prefill_started_at: float = 0.0
+    prefill_enqueued_at: float = 0.0
+    prefill_done_at: float = 0.0
 
     @property
     def done(self) -> bool:
@@ -224,8 +247,11 @@ class ContinuousBatcher:
                                    device=self.device)
         self._slots: List[Optional[RequestState]] = [None] * num_slots
         self.queue: List[Request] = []
+        # the submit reading of each queued request, in the queue's order
+        self._submitted_at: List[float] = []
         self.completed: List[RequestState] = []
-        # chunked prefill in flight: [request, tokens_done, slot, pages]
+        # chunked prefill in flight: [request, tokens_done, slot, pages,
+        # submitted_at, dequeued_at]
         self._prefilling: Optional[List[Any]] = None
         self.rejected_too_long = 0
         self.prefill_chunks = 0
@@ -237,7 +263,6 @@ class ContinuousBatcher:
         # lifetime wall time inside prefill vs decode steps
         self.prefill_s = 0.0
         self.decode_s = 0.0
-        self._submit_ts: Dict[int, float] = {}
 
     # -- admission ----------------------------------------------------------
 
@@ -266,51 +291,81 @@ class ContinuousBatcher:
                 tr.instant("reject_too_long", cat="request",
                            uid=request.uid, needed=needed, limit=limit)
             return
+        # repro: ignore[wall-clock] -- request lifecycle record (submitted_at), allow-listed in the reference's scheduler.py
+        now = time.perf_counter()
         tr = obs_trace.active()
         if tr is not None:
-            self._submit_ts[request.uid] = tr.now_us()
-            tr.async_begin("request", request.uid,
+            tr.async_begin("request", request.uid, ts_us=tr.us_at(now),
                            prompt_len=len(request.prompt),
                            max_new=request.max_new_tokens)
         self.queue.append(request)
+        self._submitted_at.append(now)
+
+    def _dequeue(self) -> Tuple[Request, float]:
+        """Pop the queue's head and its submit reading."""
+        return self.queue.pop(0), self._submitted_at.pop(0)
 
     def _free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self._slots) if s is None]
 
     def _prefill_and_seat(self, req: Request, slot: int,
-                          pages: Optional[List[int]]) -> None:
+                          pages: Optional[List[int]], submitted_at: float,
+                          dequeued_at: Optional[float] = None) -> None:
         """Run the (dense, batch-1) prefill and seat the request in
-        ``slot`` — scattered into its reserved ``pages`` when paged."""
+        ``slot`` — scattered into its reserved ``pages`` when paged.
+        ``dequeued_at`` is given where the request left the queue before
+        its prefill (chunked prefill); otherwise it is popped for this
+        prefill, and the prefill's start is its dequeue."""
+        # repro: ignore[wall-clock] -- request lifecycle record (prefill_started_at), allow-listed in the reference's scheduler.py
+        started = time.perf_counter()
+        chunked = dequeued_at is not None
+        if not chunked:
+            dequeued_at = started
         tr = obs_trace.active()
         if tr is not None:
-            sub_ts = self._submit_ts.pop(req.uid, None)
-            if sub_ts is not None:
-                tr.complete("queue", sub_ts, tr.now_us() - sub_ts,
-                            cat="request", uid=req.uid)
-            tr.instant("admit", cat="request", uid=req.uid, slot=slot,
+            tr.between("queue", submitted_at, dequeued_at, cat="request",
+                       uid=req.uid)
+            if chunked:
+                tr.between("chunking", dequeued_at, started, cat="request",
+                           uid=req.uid)
+            tr.instant("admit", cat="request", ts_us=tr.us_at(started),
+                       uid=req.uid, slot=slot,
                        pages=len(pages) if pages is not None else 0)
-        prompt = torch.as_tensor(np.asarray(req.prompt, np.int32),
-                                 device=self.device)[None, :]
-        batch = {"tokens": prompt}
-        # repro: ignore[wall-clock] -- serving wall accounting (prefill_s), allow-listed in the reference's scheduler.py
-        t0 = time.perf_counter()
-        with obs_trace.span("prefill", cat="request", uid=req.uid,
-                            prompt_len=len(req.prompt)):
-            one_state, logits = self._prefill(self.params, batch)
-            synchronize(self.device)
-        # repro: ignore[wall-clock] -- serving wall accounting (prefill_s), allow-listed in the reference's scheduler.py
-        self.prefill_s += time.perf_counter() - t0
-        if pages is not None:
-            _scatter_paged_rows(
-                self.state.caches, one_state.caches, slot, pages,
-                self.paged.page_size, self.paged.pages_per_slot_max,
-                scratch_page=self.paged.pool_pages)
-        else:
-            _scatter_rows(self.state.caches, one_state.caches, slot)
-        self.state.lengths[slot] = one_state.lengths[0]
-        tok = int(sample_token(logits, self._gen, req.temperature)[0])
-        # repro: ignore[wall-clock] -- request admission timestamp, allow-listed in the reference's scheduler.py
-        rs = RequestState(req, slot, admitted_at=time.perf_counter())
+        with obs_trace.span("prefill", cat="request", t0=started,
+                            uid=req.uid, prompt_len=len(req.prompt)) as whole:
+            with obs_trace.span("prefill.enqueue", cat="request",
+                                t0=started, uid=req.uid) as sp:
+                prompt = torch.as_tensor(np.asarray(req.prompt, np.int32),
+                                         device=self.device)[None, :]
+                one_state, logits = self._prefill(self.params,
+                                                  {"tokens": prompt})
+                # repro: ignore[wall-clock] -- request lifecycle record (prefill_enqueued_at), allow-listed in the reference's scheduler.py
+                enqueued = sp.end(time.perf_counter())
+            with obs_trace.span("prefill.sync", cat="request", t0=enqueued,
+                                uid=req.uid) as sp:
+                synchronize(self.device)
+                # repro: ignore[wall-clock] -- request lifecycle record (prefill_done_at), allow-listed in the reference's scheduler.py
+                done = sp.end(time.perf_counter())
+            whole.end(done)
+        self.prefill_s += done - started
+        with obs_trace.span("seat", cat="request", t0=done, uid=req.uid,
+                            slot=slot) as sp:
+            if pages is not None:
+                _scatter_paged_rows(
+                    self.state.caches, one_state.caches, slot, pages,
+                    self.paged.page_size, self.paged.pages_per_slot_max,
+                    scratch_page=self.paged.pool_pages)
+            else:
+                _scatter_rows(self.state.caches, one_state.caches, slot)
+            self.state.lengths[slot] = one_state.lengths[0]
+            tok = int(sample_token(logits, self._gen, req.temperature)[0])
+            # repro: ignore[wall-clock] -- request admission timestamp, allow-listed in the reference's scheduler.py
+            admitted = sp.end(time.perf_counter())
+        rs = RequestState(req, slot, admitted_at=admitted,
+                          submitted_at=submitted_at, dequeued_at=dequeued_at,
+                          prefill_started_at=started,
+                          prefill_enqueued_at=enqueued,
+                          prefill_done_at=done)
         rs.generated.append(tok)
         self._tokens[slot] = tok
         self._slots[slot] = rs
@@ -344,8 +399,8 @@ class ContinuousBatcher:
                                   free=len(self._free_pages))
             else:
                 pages = None
-            req = self.queue.pop(0)
-            self._prefill_and_seat(req, slot, pages)
+            req, submitted_at = self._dequeue()
+            self._prefill_and_seat(req, slot, pages, submitted_at)
 
     def _admit_chunked(self) -> None:
         """Chunked-prefill admission: one prompt chunk per tick, decode
@@ -353,14 +408,16 @@ class ContinuousBatcher:
         prompt, when the last chunk lands (a scheduling decision — tokens
         are unchanged)."""
         if self._prefilling is not None:
-            req, done, slot, pages = self._prefilling
+            req, done, slot, pages, submitted_at, dequeued_at = \
+                self._prefilling
             done += min(self.paged.prefill_chunk, len(req.prompt) - done)
             self.prefill_chunks += 1
             obs_trace.instant("prefill_chunk", cat="request", uid=req.uid,
                               done=done, prompt_len=len(req.prompt))
             if done >= len(req.prompt):
                 self._prefilling = None
-                self._prefill_and_seat(req, slot, pages)
+                self._prefill_and_seat(req, slot, pages, submitted_at,
+                                       dequeued_at)
             else:
                 self._prefilling[1] = done
             return
@@ -378,7 +435,10 @@ class ContinuousBatcher:
         obs_trace.instant("page_reserve", cat="request",
                           uid=self.queue[0].uid, pages=need,
                           free=len(self._free_pages))
-        self._prefilling = [self.queue.pop(0), 0, slot, pages]
+        req, submitted_at = self._dequeue()
+        # repro: ignore[wall-clock] -- request lifecycle record (dequeued_at), allow-listed in the reference's scheduler.py
+        dequeued_at = time.perf_counter()
+        self._prefilling = [req, 0, slot, pages, submitted_at, dequeued_at]
 
     # -- stepping -----------------------------------------------------------
 
@@ -442,22 +502,24 @@ class ContinuousBatcher:
         # repro: ignore[wall-clock] -- serving wall accounting (decode_s), allow-listed in the reference's scheduler.py
         self.decode_s += time.perf_counter() - t0
         self.state = new_state
-        # per-slot temperatures: each resident row decodes at its own
-        # temperature (empty slots greedily, into ignored outputs); the
-        # all-greedy batch keeps the argmax-only path
-        if any(rs.request.temperature > 0.0 for rs in live):
-            temps = torch.zeros((self.num_slots,), dtype=torch.float32)
-            for rs in live:
-                temps[rs.slot] = rs.request.temperature
-            toks = sample_token(logits, self._gen, temps.to(self.device))
-        else:
-            toks = sample_token(logits, self._gen, 0.0)
-        # live rows take their new token; empty slots keep their pad token
-        live_rows = torch.zeros((self.num_slots,), dtype=torch.bool)
-        live_rows[[rs.slot for rs in live]] = True
-        self._tokens = torch.where(live_rows.to(self.device), toks,
-                                   self._tokens)
-        host = toks.tolist()
+        with obs_trace.span("sample", cat="serve", tick=self.ticks):
+            # per-slot temperatures: each resident row decodes at its own
+            # temperature (empty slots greedily, into ignored outputs); the
+            # all-greedy batch keeps the argmax-only path
+            if any(rs.request.temperature > 0.0 for rs in live):
+                temps = torch.zeros((self.num_slots,), dtype=torch.float32)
+                for rs in live:
+                    temps[rs.slot] = rs.request.temperature
+                toks = sample_token(logits, self._gen, temps.to(self.device))
+            else:
+                toks = sample_token(logits, self._gen, 0.0)
+            # live rows take their new token; empty slots keep their pad
+            # token
+            live_rows = torch.zeros((self.num_slots,), dtype=torch.bool)
+            live_rows[[rs.slot for rs in live]] = True
+            self._tokens = torch.where(live_rows.to(self.device), toks,
+                                       self._tokens)
+            host = toks.tolist()
         for rs in list(live):
             tok = int(host[rs.slot])
             rs.generated.append(tok)

@@ -67,7 +67,6 @@ import torch
 from repro_torch.kernels import cuda_lib, dispatch
 from repro_torch.models import encdec
 from repro_torch.models.model import Model, build_model
-from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.sharding.layout import Layout
 from repro_torch.utils.config import RunConfig
@@ -144,24 +143,27 @@ def make_prefill_step(model: Model, run: RunConfig,
                 gathered(params, layout) as params:
             tokens = batch["tokens"]
             b, s = tokens.shape
-            caches = model.init_decode_state(b, max_len, layout=layout)
+            with obs_trace.span("prefill.state", cat="serve"):
+                caches = model.init_decode_state(b, max_len, layout=layout)
             extras: Dict[str, torch.Tensor] = {}
-            if cfg.family == "audio":
-                par = run.parallel
-                enc_out = encdec.encode(params, cfg, par, batch["frames"],
-                                        layout)
-                extras["enc_out"] = enc_out
-                logits, new_caches = encdec.decode_forward(
-                    params, cfg, par, tokens, enc_out, decode_state=caches,
-                    decode=False, layout=layout, last=True)
-            else:
-                fkw = {}
-                if cfg.family == "vlm":
-                    extras["vision_embeds"] = batch["vision_embeds"]
-                    fkw["vision_embeds"] = batch["vision_embeds"]
-                logits, new_caches, _ = model.forward(
-                    params, tokens, decode_state=caches, decode=False,
-                    layout=layout, last=True, **fkw)
+            with obs_trace.span("prefill.forward", cat="serve"):
+                if cfg.family == "audio":
+                    par = run.parallel
+                    enc_out = encdec.encode(params, cfg, par,
+                                            batch["frames"], layout)
+                    extras["enc_out"] = enc_out
+                    logits, new_caches = encdec.decode_forward(
+                        params, cfg, par, tokens, enc_out,
+                        decode_state=caches, decode=False, layout=layout,
+                        last=True)
+                else:
+                    fkw = {}
+                    if cfg.family == "vlm":
+                        extras["vision_embeds"] = batch["vision_embeds"]
+                        fkw["vision_embeds"] = batch["vision_embeds"]
+                    logits, new_caches, _ = model.forward(
+                        params, tokens, decode_state=caches, decode=False,
+                        layout=layout, last=True, **fkw)
             lengths = torch.full((b,), s, dtype=torch.int32,
                                  device=tokens.device)
             return ServeState(new_caches, lengths, extras), logits
@@ -345,7 +347,7 @@ class CapturedDecode:
         graph = torch.cuda.CUDAGraph()
         # repro: ignore[wall-clock] -- capture time, reported beside the step times
         t0 = time.perf_counter()
-        with obs_trace.span("decode_graph_capture", cat="jit_cache",
+        with obs_trace.span("decode_graph_capture", cat="graph",
                             track=obs_trace.TRACK_KERNEL,
                             graphs=len(self.graphs)), \
                 cuda_lib.capture_scope() as rec:
@@ -388,21 +390,8 @@ def jitted_steps(model: Model, run: RunConfig,
     """Cached ``(prefill, decode)`` step pair for this serving setup, keyed
     as in the reference on (model, run, cache_len, canonical launch
     config); LRU-bounded.  The decode is a :class:`CapturedDecode`."""
-    if not obs_trace.enabled():
-        return _jitted_steps_cached(model, run, cache_len,
-                                    freeze_launch_config(launch_config))
-    before = _jitted_steps_cached.cache_info()
-    steps = _jitted_steps_cached(model, run, cache_len,
-                                 freeze_launch_config(launch_config))
-    after = _jitted_steps_cached.cache_info()
-    hit = after.hits > before.hits
-    obs_metrics.REGISTRY.inc(
-        "jit_cache_hits" if hit else "jit_cache_misses")
-    obs_trace.instant("jit_cache_hit" if hit else "jit_cache_miss",
-                      cat="jit_cache", track=obs_trace.TRACK_KERNEL,
-                      cache_len=cache_len if cache_len is not None else -1,
-                      currsize=after.currsize)
-    return steps
+    return _jitted_steps_cached(model, run, cache_len,
+                                freeze_launch_config(launch_config))
 
 
 # --------------------------------------------------------------------------
